@@ -1,0 +1,6 @@
+from simxns_tpu_torch.models.bert import BertConfig, BertEncoder
+from simxns_tpu_torch.models.convert import params_from_jax
+from simxns_tpu_torch.models.dual_encoder import BiEncoder, BiEncoderConfig
+
+__all__ = ["BertConfig", "BertEncoder", "BiEncoder", "BiEncoderConfig",
+           "params_from_jax"]

@@ -1,0 +1,25 @@
+"""Ops of the port: plain PyTorch compositions and the hand-written kernels.
+
+Every kernel wrapper counts its launches in ``<wrapper>.launches``;
+:data:`KERNELS` lists them by name.
+"""
+
+from simxns_tpu_torch.ops.fused_layer import (int8_linear, row_quant,
+                                              small_s_attention)
+from simxns_tpu_torch.ops.mips_kernel import mips_bucket_candidates
+
+KERNELS = {
+    "int8_linear": int8_linear,
+    "row_quant": row_quant,
+    "small_s_attention": small_s_attention,
+    "mips_bucket_candidates": mips_bucket_candidates,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

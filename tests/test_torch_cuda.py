@@ -1,0 +1,110 @@
+"""Checks of the port that need a CUDA card (marker ``cuda``).
+
+They skip on a machine without one. On the card, from the repo root (the
+JAX conftest is not needed and JAX need not be installed):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Each kernel wrapper launches its kernel for CUDA tensors (its launch count
+rises) and agrees with its plain version at small shapes; the knobs whose
+TPU kernels are not ported raise for CUDA tensors instead of running a
+plain version on the card.
+"""
+
+import pytest
+import torch
+
+from simxns_tpu_torch.ops import fused_ffn
+from simxns_tpu_torch.ops import fused_layer as fl
+from simxns_tpu_torch.ops import mips_kernel as mk
+from simxns_tpu_torch.ops.attention import multi_head_attention
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, scale=1.0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, device=dev, generator=gen) * scale
+
+
+def test_int8_linear_and_row_quant_match_plain(dev):
+    """Integer sums are exact and the epilogue is the same f32 operations:
+    K1 equals its plain version; K2's codes and scales equal the plain
+    ones on these rows (a code may flip only across a rounding tie)."""
+    x = _randn(dev, 100, 256)
+    before = fl.int8_linear.launches, fl.row_quant.launches
+    a8, xs, _, _ = fl.row_quant(x)
+    p8, ps, _, _ = fl._row_quant_plain(x, None, None, 1e-12, True, False,
+                                       False)
+    assert torch.equal(a8, p8) and torch.equal(xs, ps)
+    w8, ws = fl.quant_rows(_randn(dev, 96, 256, scale=0.02, seed=1))
+    b = _randn(dev, 96, scale=0.02, seed=2)
+    for gelu, od in ((False, torch.float32), (True, torch.bfloat16)):
+        got = fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu, out_dtype=od)
+        want = fl._int8_linear_plain(a8, xs, w8, ws, b, gelu, od)
+        assert torch.equal(got, want)
+    assert (fl.int8_linear.launches, fl.row_quant.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+def test_small_s_attention_matches_plain(dev):
+    """p is rounded to bf16 on both sides; the context may move by one
+    bf16 step of p times |v| (<= 2^-7 max|v|)."""
+    b, s, heads, h = 3, 40, 4, 256
+    qkv = _randn(dev, b * s, 3 * h).to(torch.bfloat16)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, 25:] = 0
+    before = fl.small_s_attention.launches
+    got = fl.small_s_attention(qkv, mask, heads)
+    want = fl._small_s_attention_plain(qkv, mask, heads)
+    tol = 2.0 ** -7 * float(qkv[:, 2 * h:].float().abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert fl.small_s_attention.launches == before + 1
+    with pytest.raises(ValueError, match="S <= 512"):
+        fl.small_s_attention(qkv.new_zeros(600, 3 * h),
+                             mask.new_ones(1, 600), heads)
+
+
+def test_mips_candidates_match_plain(dev):
+    """int8: the same integer sums and the same two f32 products, so scores
+    and ids are equal; bf16 scores agree to f32 summation order."""
+    q = _randn(dev, 5, 128)
+    c = _randn(dev, 3000, 128, seed=3)
+    q8, qs = mk.quantize_rows(q)
+    c8, cs = mk.quantize_rows(c)
+    before = mk.mips_bucket_candidates.launches
+    kw = dict(bucket=64, block_n=2048)
+    got = mk.mips_bucket_candidates(q8, c8, 2900, query_scales=qs,
+                                    row_scales=cs, **kw)
+    want = mk._candidates_plain(q8, c8, 2900, 64, 4096, qs, cs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    q16, c16 = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    got = mk.mips_bucket_candidates(q16, c16, 2900, **kw)
+    want = mk._candidates_plain(q16, c16, 2900, 64, 4096, None, None)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    assert mk.mips_bucket_candidates.launches == before + 2
+
+
+def test_unported_knobs_raise_for_cuda_tensors(dev):
+    x = _randn(dev, 2, 8, 128)
+    w1, b1 = _randn(dev, 256, 128), _randn(dev, 256)
+    w2, b2 = _randn(dev, 128, 256), _randn(dev, 128)
+    for impl in ("fused", "fused_vjp", "int8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fused_ffn.ffn(x, w1, b1, w2, b2, impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_ffn.dense(x, w1, b1)
+    q = _randn(dev, 1, 2, 256, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        multi_head_attention(q, q, q, impl="flash")
+    short = q[:, :, :32]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        multi_head_attention(short, short, short, impl="flash",
+                             small_s_impl="group")

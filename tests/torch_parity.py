@@ -1,0 +1,75 @@
+"""Shared helpers of the tests that hold ``simxns_tpu_torch`` to ``simxns_tpu``.
+
+The same inputs, made with numpy from a seed, go through the JAX function
+(on the CPU, Pallas kernels in interpret mode) and its port (on the CPU,
+where every kernel wrapper runs its plain PyTorch version).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from simxns_tpu.models import BertConfig as JaxBertConfig
+from simxns_tpu.models import BiEncoder as JaxBiEncoder
+from simxns_tpu.models import BiEncoderConfig as JaxBiEncoderConfig
+from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
+                                     params_from_jax)
+
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+TINY = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=4,
+            intermediate_size=256, max_position_embeddings=128)
+
+
+def jax_bert(**kw) -> JaxBertConfig:
+    base = dict(TINY, hidden_dropout=0.0, attention_dropout=0.0)
+    base.update(kw)
+    return JaxBertConfig(**base)
+
+
+def port_bert(cfg: JaxBertConfig) -> BertConfig:
+    """The port's config for a JAX ``BertConfig`` (same fields)."""
+    fields = {f: getattr(cfg, f) for f in BertConfig.__dataclass_fields__}
+    fields["dtype"] = _DTYPES[cfg.dtype]
+    fields["param_dtype"] = _DTYPES[cfg.param_dtype]
+    return BertConfig(**fields)
+
+
+def biencoder_pair(bert: JaxBertConfig, seed: int = 0, **bi_kw):
+    """(jax model, jax params, port model) with identical weights."""
+    jcfg = JaxBiEncoderConfig(bert=bert, **bi_kw)
+    jmodel = JaxBiEncoder(jcfg)
+    dummy = np.ones((2, 8), np.int32)
+    params = jmodel.init(jax.random.PRNGKey(seed), dummy, dummy, dummy, dummy)
+    # non-trivial LayerNorm/bias values, so a misplaced one shows
+    rng = np.random.default_rng(seed + 100)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: _jitter(path, x, rng), params)
+    port = BiEncoder(BiEncoderConfig(bert=port_bert(bert), **bi_kw))
+    port.load_state_dict(params_from_jax(jax.device_get(params)))
+    return jmodel, params, port.eval()
+
+
+def _jitter(path, x, rng):
+    name = str(path[-1].key)
+    if name in ("scale", "bias"):
+        noise = rng.normal(0, 0.05, x.shape).astype(np.float32)
+        return x + jnp.asarray(noise)
+    return x
+
+
+def token_batch(rng, b: int, s: int, vocab: int = 1024, min_len: int = 4):
+    """Token ids with a random-length tail of padding, and their mask."""
+    ids = rng.integers(4, vocab, (b, s)).astype(np.int32)
+    lens = rng.integers(min_len, s + 1, b)
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    ids[:, 0] = 1
+    return ids * mask, mask
+
+
+def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
