@@ -1,0 +1,497 @@
+// K5 group_attention_fwd and K6 group_attention_bwd: softmax attention of
+// every (batch, head) at S < 256, forward and backward, in f32.
+//
+// Replace the grouped small-S Pallas pair of the JAX package:
+// simxns_tpu/ops/flash_attention.py:_fwd_call_group (kernel
+// _fwd_kernel_group, :113) and _fused_group_bwd (kernel _bwd_kernel_group,
+// :125). The contract, all in f32:
+//   s  = (q k^T) * scale, scale = 1/sqrt(d)
+//   s  = where(mask[key] > 0, s, -1e9)
+//   p  = exp(s - rowmax) / rowsum(exp(s - rowmax))
+//   o  = p v                                     (K5; o cast to q's dtype)
+//   dV = p^T dO, dP = dO v^T, dS = p (dP - rowsum(dP p)),
+//   dQ = dS k * scale, dK = dS^T q * scale       (K6; p recomputed)
+// The TPU kernel's grouping of _GROUP_BB batch elements per program is a
+// VMEM detail: the result does not depend on it, and here one block takes
+// one (batch, head).
+//
+// Bound on the card: bytes. At the CE-large path's shape (128 x 16 heads,
+// S=160, d=64) K5 moves 168 MB and does 20 GFLOP, K6 moves 294 MB and does
+// 54 GFLOP -- both far under the bf16 tensor-core ridge. The design reads
+// each head's q, k, v (and dO) once, keeps the S x S scores in registers,
+// never writes them to device memory, and runs every product on the
+// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate):
+// - q k^T and dO v^T have bf16 operands: exact products.
+// - p v, p^T dO, dS k and dS^T q have an f32 operand (p or dS). It is split
+//   into hi = bf16(x) and lo = bf16(x - hi), two products into one f32
+//   accumulator: about 16 bits of the f32 value, where TF32 (10 bits) would
+//   be too coarse for dS, whose dP - rowsum(dP p) cancels.
+// Each warp owns 16 rows and walks the other side in chunks of 32:
+// - K5 (rows = queries): pass 1 finds each row's max and sum of
+//   exp(s - max), pass 2 recomputes s and accumulates p v.
+// - K6 phase A (rows = queries; k, v in shared memory): the max and sum,
+//   then rowsum(dP p), then dQ; the three row statistics go to shared
+//   memory. Phase B (rows = keys; q, dO in shared memory): recompute p^T
+//   and dS^T from those statistics and accumulate dV and dK over all
+//   queries, so no block writes a partial sum and no atomics are needed.
+// Operands whose pairs run along the shared-memory rows (v, k, q, dO as
+// the B of a product over keys or queries) are packed from two 16-bit
+// loads. Keys past S (the pad to a chunk) get -inf, so they add exactly 0.
+// Tensors are [B, heads, S, d] views with d contiguous and any strides that
+// keep 16-byte rows: the port passes q, k, v as head views of the [B, S, H]
+// projections and writes outputs in the same layout, so no transposes.
+#include "tile_gemm.cuh"
+
+SX_DEFINE_ERROR_STRING
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxS = 255;
+constexpr int kChunk = 32;           // keys (or queries) per inner step
+constexpr int kTiles = kChunk / 8;   // n8 accumulator tiles per step
+
+__host__ __device__ constexpr int padded_s(int S) {
+  return (S + kChunk - 1) / kChunk * kChunk;
+}
+
+template <int D>
+constexpr int smem_bytes(int S) {
+  // two [Sp][D + 8] bf16 tiles, then per key a flag and per query the
+  // max, the sum and rowsum(dP p) (the last three used by K6 only)
+  return 2 * padded_s(S) * (D + 8) * 2 + 4 * padded_s(S) * 4;
+}
+
+struct In {               // a [B, heads, S, D] bf16 view, D contiguous
+  const __nv_bfloat16* p;
+  long long sb, sh, ss;   // element strides
+  __device__ const __nv_bfloat16* row(int b, int h, int i) const {
+    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
+  }
+};
+
+struct Out {
+  __nv_bfloat16* p;
+  long long sb, sh, ss;
+  __device__ __nv_bfloat16* row(int b, int h, int i) const {
+    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 values as one mma operand register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ float masked(float s, int flag) {
+  return flag > 0 ? s : (flag == 0 ? -1e9f : -INFINITY);
+}
+
+// rows [0, Sp) of a view into shared memory [Sp][D + 8]; zeros past S
+template <int D>
+__device__ void load_rows(__nv_bfloat16* dst, const In& x, int b, int h,
+                          int S, int Sp) {
+  for (int idx = threadIdx.x; idx < Sp * (D / 8); idx += kThreads) {
+    const int j = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (j < S) val = *reinterpret_cast<const uint4*>(x.row(b, h, j) + c);
+    *reinterpret_cast<uint4*>(dst + j * (D + 8) + c) = val;
+  }
+}
+
+// per key: 1 = real key, 0 = masked (-1e9), -1 = pad past S (-inf)
+__device__ void load_flags(int* flag, const int* mask, int b, int S, int Sp) {
+  for (int j = threadIdx.x; j < Sp; j += kThreads)
+    flag[j] = j >= S ? -1
+                     : (mask[static_cast<long long>(b) * S + j] > 0 ? 1 : 0);
+}
+
+// A fragments of rows r0 .. r0 + 15 of a view, straight from memory
+template <int D>
+__device__ void load_a(uint32_t (&a)[D / 16][4], const In& x, int b, int h,
+                       int r0, int S) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const __nv_bfloat16* pa = x.row(b, h, ra < S ? ra : 0);
+  const __nv_bfloat16* pb = x.row(b, h, rb < S ? rb : 0);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const int c = kd * 16 + 2 * t;
+    a[kd][0] = ra < S ? ld32(pa + c) : 0u;
+    a[kd][1] = rb < S ? ld32(pb + c) : 0u;
+    a[kd][2] = ra < S ? ld32(pa + c + 8) : 0u;
+    a[kd][3] = rb < S ? ld32(pb + c + 8) : 0u;
+  }
+}
+
+// acc[nt][e] = sum_c A[row][c] * rows[n0 + nt * 8 + col][c]: a 16 x 32 tile
+// of A times the transpose of shared-memory rows n0 .. n0 + 31. Element e
+// is row (e < 2 ? g : g + 8), column nt * 8 + 2t + (e & 1).
+template <int D>
+__device__ void mma_rows(float (&acc)[kTiles][4], const uint32_t (&a)[D / 16][4],
+                         const __nv_bfloat16* rows, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kTiles; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+    const __nv_bfloat16* r = rows + (n0 + nt * 8 + g) * (D + 8) + 2 * t;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint32_t bf[2] = {ld32(r + kd * 16), ld32(r + kd * 16 + 8)};
+      sx::MmaBf16::mma(acc[nt], a[kd], bf);
+    }
+  }
+}
+
+// out[nd][e] += sum_m x[row][m] * rows[m0 + m][nd * 8 + col]: an f32 16 x 32
+// tile (accumulator layout, as hi + lo bf16 A fragments) times shared-memory
+// rows m0 .. m0 + 31.
+template <int D>
+__device__ void mma_cols(float (&out)[D / 8][4], const float (&x)[kTiles][4],
+                         const __nv_bfloat16* rows, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  constexpr int kRow = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // A fragment register r: tile 2kk + (r >> 1), rows g / g + 8 by r & 1
+      const float* src = x[2 * kk + (r >> 1)] + 2 * (r & 1);
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(src[0], src[1]);
+      const float2 hf = __bfloat1622float2(h2);
+      const __nv_bfloat162 l2 =
+          __floats2bfloat162_rn(src[0] - hf.x, src[1] - hf.y);
+      hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[r] = *reinterpret_cast<const uint32_t*>(&l2);
+    }
+    const __nv_bfloat16* base = rows + (m0 + kk * 16 + 2 * t) * kRow + g;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const __nv_bfloat16* c = base + nd * 8;
+      const uint32_t bf[2] = {pack2(c[0], c[kRow]),
+                              pack2(c[8 * kRow], c[9 * kRow])};
+      sx::MmaBf16::mma(out[nd], hi, bf);
+      sx::MmaBf16::mma(out[nd], lo, bf);
+    }
+  }
+}
+
+// each row's max and sum of exp(s - max) over all Sp columns, the sum
+// rescaled when the max grows; then over the four threads of a row
+template <class Scores>
+__device__ void row_stats(Scores scores, int Sp, float (&mx)[2],
+                          float (&sum)[2]) {
+  mx[0] = mx[1] = -INFINITY;
+  sum[0] = sum[1] = 0.0f;
+  for (int c0 = 0; c0 < Sp; c0 += kChunk) {
+    float sc[kTiles][4];
+    scores(c0, sc);
+    float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], sc[nt][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
+      cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
+      const float m_new = fmaxf(mx[r], cm[r]);
+      sum[r] = mx[r] == -INFINITY ? 0.0f : sum[r] * expf(mx[r] - m_new);
+      mx[r] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(sc[nt][e] - mx[e >> 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+}
+
+// rows r0 + g and r0 + g + 8 of a [16][D] accumulator, as bf16
+template <int D>
+__device__ void store_rows(const Out& o, int b, int h, int r0, int S,
+                           const float (&acc)[D / 8][4], float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ra = r0 + g, rb = r0 + g + 8;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, ra) + c) =
+          __floats2bfloat162_rn(acc[nd][0] * mul, acc[nd][1] * mul);
+    if (rb < S)
+      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, rb) + c) =
+          __floats2bfloat162_rn(acc[nd][2] * mul, acc[nd][3] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    group_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
+                               Out o, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Sp = padded_s(S);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [Sp][D+8]
+  __nv_bfloat16* vs = ks + Sp * (D + 8);                        // [Sp][D+8]
+  int* flag = reinterpret_cast<int*>(vs + Sp * (D + 8));        // [Sp]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+
+  load_rows<D>(ks, k, b, h, S, Sp);
+  load_rows<D>(vs, v, b, h, S, Sp);
+  load_flags(flag, mask, b, S, Sp);
+  __syncthreads();
+
+  for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
+    uint32_t qa[D / 16][4];
+    load_a<D>(qa, q, b, h, r0, S);
+    auto scores = [&](int c0, float (&sc)[kTiles][4]) {
+      mma_rows<D>(sc, qa, ks, c0);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = masked(sc[nt][e] * scale,
+                             flag[c0 + nt * 8 + 2 * t + (e & 1)]);
+    };
+    float mx[2], sum[2];
+    row_stats(scores, Sp, mx, sum);
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
+      float sc[kTiles][4];
+      scores(c0, sc);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
+      mma_cols<D>(acc, sc, vs, c0);
+    }
+    store_rows<D>(o, b, h, r0, S, acc, 1.0f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    group_attention_bwd_kernel(In q, In k, In v, In dout,
+                               const int* __restrict__ mask, Out dq, Out dk,
+                               Out dv, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Sp = padded_s(S);
+  __nv_bfloat16* t0 = reinterpret_cast<__nv_bfloat16*>(smem);  // k, then q
+  __nv_bfloat16* t1 = t0 + Sp * (D + 8);                        // v, then dO
+  int* flag = reinterpret_cast<int*>(t1 + Sp * (D + 8));
+  float* rmax = reinterpret_cast<float*>(flag + Sp);
+  float* rsum = rmax + Sp;
+  float* rdot = rsum + Sp;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  load_rows<D>(t0, k, b, h, S, Sp);
+  load_rows<D>(t1, v, b, h, S, Sp);
+  load_flags(flag, mask, b, S, Sp);
+  // queries past S keep these: p = exp(s - inf) = 0 in phase B
+  for (int i = threadIdx.x; i < Sp; i += kThreads) {
+    rmax[i] = INFINITY;
+    rsum[i] = 1.0f;
+    rdot[i] = 0.0f;
+  }
+  __syncthreads();
+
+  // phase A: 16 query rows per warp -> row statistics and dQ
+  for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
+    uint32_t qa[D / 16][4], da[D / 16][4];
+    load_a<D>(qa, q, b, h, r0, S);
+    load_a<D>(da, dout, b, h, r0, S);
+    auto scores = [&](int c0, float (&sc)[kTiles][4]) {
+      mma_rows<D>(sc, qa, t0, c0);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = masked(sc[nt][e] * scale,
+                             flag[c0 + nt * 8 + 2 * t + (e & 1)]);
+    };
+    float mx[2], sum[2];
+    row_stats(scores, Sp, mx, sum);
+
+    // rowsum(dP * p)
+    float dot[2] = {0.0f, 0.0f};
+    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
+      float sc[kTiles][4], dp[kTiles][4];
+      scores(c0, sc);
+      mma_rows<D>(dp, da, t1, c0);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dot[e >> 1] +=
+              dp[nt][e] * (expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+    }
+
+    // dQ = dS k * scale
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
+      float sc[kTiles][4], dp[kTiles][4];
+      scores(c0, sc);
+      mma_rows<D>(dp, da, t1, c0);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
+          sc[nt][e] = p * (dp[nt][e] - dot[e >> 1]);
+        }
+      mma_cols<D>(acc, sc, t0, c0);
+    }
+    store_rows<D>(dq, b, h, r0, S, acc, scale);
+    if (t == 0) {
+      const int ra = r0 + g, rb = r0 + g + 8;
+      if (ra < S) rmax[ra] = mx[0], rsum[ra] = sum[0], rdot[ra] = dot[0];
+      if (rb < S) rmax[rb] = mx[1], rsum[rb] = sum[1], rdot[rb] = dot[1];
+    }
+  }
+  __syncthreads();
+  load_rows<D>(t0, q, b, h, S, Sp);
+  load_rows<D>(t1, dout, b, h, S, Sp);
+  __syncthreads();
+
+  // phase B: 16 key rows per warp -> dV = p^T dO, dK = dS^T q * scale
+  for (int j0 = warp * 16; j0 < S; j0 += kWarps * 16) {
+    uint32_t ka[D / 16][4], va[D / 16][4];
+    load_a<D>(ka, k, b, h, j0, S);
+    load_a<D>(va, v, b, h, j0, S);
+    const int fa = flag[j0 + g], fb = flag[j0 + g + 8];
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.0f;
+    for (int i0 = 0; i0 < Sp; i0 += kChunk) {
+      float pt[kTiles][4], dst[kTiles][4];
+      mma_rows<D>(pt, ka, t0, i0);    // k_j . q_i
+      mma_rows<D>(dst, va, t1, i0);   // v_j . dO_i = dP[i][j]
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + nt * 8 + 2 * t + (e & 1);
+          const float s = masked(pt[nt][e] * scale, e < 2 ? fa : fb);
+          const float p = expf(s - rmax[i]) / rsum[i];
+          pt[nt][e] = p;
+          dst[nt][e] = p * (dst[nt][e] - rdot[i]);
+        }
+      mma_cols<D>(dva, pt, t1, i0);
+      mma_cols<D>(dka, dst, t0, i0);
+    }
+    store_rows<D>(dk, b, h, j0, S, dka, scale);
+    store_rows<D>(dv, b, h, j0, S, dva, 1.0f);
+  }
+}
+
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace
+
+// every S and d the wrappers take fits one block's shared memory (227 KB)
+static_assert(smem_bytes<128>(kMaxS) <= 232448, "K5/K6 shared memory");
+
+// q, k, v: [B, heads, S, d] bf16 views sharing the element strides
+// (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
+// with strides (ob, oh, os). Every row start must be 16-byte aligned (the
+// wrapper checks). d in {32, 64, 128}, 1 <= S <= 255. Returns
+// cudaGetLastError() after the launch.
+extern "C" int sx_group_attention_fwd(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long ss, const int* mask, void* o, long long ob, long long oh,
+    long long os, int B, int heads, int S, int d, float scale, void* stream) {
+  if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const In qv{static_cast<const bf*>(q), sb, sh, ss};
+  const In kv{static_cast<const bf*>(k), sb, sh, ss};
+  const In vv{static_cast<const bf*>(v), sb, sh, ss};
+  const Out ov{static_cast<bf*>(o), ob, oh, os};
+  const dim3 grid(heads, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (d) {
+#define SX_CASE(DD)                                                           \
+  case DD:                                                                    \
+    err = prepare(group_attention_fwd_kernel<DD>, smem_bytes<DD>(S));         \
+    if (err != cudaSuccess) return static_cast<int>(err);                     \
+    group_attention_fwd_kernel<DD><<<grid, kThreads, smem_bytes<DD>(S), st>>>( \
+        qv, kv, vv, mask, ov, S, scale);                                      \
+    return static_cast<int>(cudaGetLastError());
+    SX_CASE(32)
+    SX_CASE(64)
+    SX_CASE(128)
+#undef SX_CASE
+  }
+  return static_cast<int>(err);
+}
+
+// The backward: q, k, v as above; dout a view with strides (db, dh, ds);
+// dq, dk, dv views sharing the strides (gb, gh, gs).
+extern "C" int sx_group_attention_bwd(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long ss, const void* dout, long long db, long long dh, long long ds,
+    const int* mask, void* dq, void* dk, void* dv, long long gb, long long gh,
+    long long gs, int B, int heads, int S, int d, float scale, void* stream) {
+  if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const In qv{static_cast<const bf*>(q), sb, sh, ss};
+  const In kv{static_cast<const bf*>(k), sb, sh, ss};
+  const In vv{static_cast<const bf*>(v), sb, sh, ss};
+  const In dov{static_cast<const bf*>(dout), db, dh, ds};
+  const Out dqv{static_cast<bf*>(dq), gb, gh, gs};
+  const Out dkv{static_cast<bf*>(dk), gb, gh, gs};
+  const Out dvv{static_cast<bf*>(dv), gb, gh, gs};
+  const dim3 grid(heads, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (d) {
+#define SX_CASE(DD)                                                           \
+  case DD:                                                                    \
+    err = prepare(group_attention_bwd_kernel<DD>, smem_bytes<DD>(S));         \
+    if (err != cudaSuccess) return static_cast<int>(err);                     \
+    group_attention_bwd_kernel<DD><<<grid, kThreads, smem_bytes<DD>(S), st>>>( \
+        qv, kv, vv, dov, mask, dqv, dkv, dvv, S, scale);                      \
+    return static_cast<int>(cudaGetLastError());
+    SX_CASE(32)
+    SX_CASE(64)
+    SX_CASE(128)
+#undef SX_CASE
+  }
+  return static_cast<int>(err);
+}

@@ -7,10 +7,20 @@ operands to bf16, accumulates in f32, rounds, then adds the bf16 bias;
 ``LayerNorm(dtype=bf16)`` takes its statistics in f32 as
 ``E[x^2] - E[x]^2``).
 
+On the card the bf16 products run as bf16 GEMMs with f32 accumulation
+(the flax contract; ``resolve_device`` turns off cuBLAS's reduced-precision
+split-K reduction); on the CPU the operands are upcast and the result
+rounded, which gives the same values.
+
+The default impls are plain autograd and train (the attention's grouped
+kernels K5/K6 have their own backward, ``ops/flash_attention.py``).
 ``layer_impl="fused_int8"`` runs each layer on the Hopper kernels of
-:mod:`simxns_tpu_torch.ops.fused_layer` (encode only). This slice ports
-the encode path: no dropout, no MLM head, no remat — training is a later
-slice. Parameter names follow the JAX tree (``layers.{i}`` for
+:mod:`simxns_tpu_torch.ops.fused_layer` (encode only, under
+``torch.no_grad()``); its int8 weights are cached per layer and quantized
+again whenever a parameter changes, so an encode-only view that shares a
+training model's ``Parameter`` objects (``cross_encoder.int8_view``)
+follows every optimizer update. Not ported yet: dropout, the MLM head,
+remat. Parameter names follow the JAX tree (``layers.{i}`` for
 ``layer_{i}``); :func:`simxns_tpu_torch.models.convert.params_from_jax`
 maps a flax tree onto them.
 """
@@ -118,7 +128,11 @@ def _guard_quantized_under_grad(module: nn.Module, x: torch.Tensor,
 def dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dt)``: operands cast to ``dt``, f32 accumulation,
     result rounded to ``dt``, then the ``dt`` bias added."""
-    y = torch.matmul(x.to(dt).float(), layer.weight.to(dt).float().T).to(dt)
+    if x.is_cuda:
+        y = torch.matmul(x.to(dt), layer.weight.to(dt).T)
+    else:
+        y = torch.matmul(x.to(dt).float(),
+                         layer.weight.to(dt).float().T).to(dt)
     return y + layer.bias.to(dt)
 
 

@@ -8,7 +8,9 @@ The port's modules keep the flax names, so the map is mechanical:
   ``weight``; ``bias`` stays.
 
 Works for a ``BiEncoder`` tree (``question_model``/``ctx_model``; with
-``share_weight`` only ``question_model``) as for a bare ``BertEncoder``.
+``share_weight`` only ``question_model``), a ``CrossEncoder`` tree
+(``encoder``, ``qa_classifier``, ``binary_classifier``) and a bare
+``BertEncoder``.
 The same state_dict serves every ``layer_impl``, as the flax trees do.
 """
 

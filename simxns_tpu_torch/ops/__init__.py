@@ -4,6 +4,8 @@ Every kernel wrapper counts its launches in ``<wrapper>.launches``;
 :data:`KERNELS` lists them by name.
 """
 
+from simxns_tpu_torch.ops.flash_attention import (group_attention_bwd,
+                                                  group_attention_fwd)
 from simxns_tpu_torch.ops.fused_layer import (int8_linear, row_quant,
                                               small_s_attention)
 from simxns_tpu_torch.ops.mips_kernel import mips_bucket_candidates
@@ -13,6 +15,8 @@ KERNELS = {
     "row_quant": row_quant,
     "small_s_attention": small_s_attention,
     "mips_bucket_candidates": mips_bucket_candidates,
+    "group_attention_fwd": group_attention_fwd,
+    "group_attention_bwd": group_attention_bwd,
 }
 
 

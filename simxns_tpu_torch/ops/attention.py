@@ -5,12 +5,12 @@
 softmax, probabilities cast to the value dtype, and ``p v`` accumulated in
 f32. On the card it is plain PyTorch, as it is plain XLA on the TPU.
 
-``impl="flash"`` selects the TPU package's Pallas kernels for S >= 256
-(and the grouped kernel below that when ``small_s_impl="group"``). Those
-kernels are not ported yet (ROADMAP Queue 2): for CPU tensors their plain
-version (this composition) runs; a CUDA tensor raises. At the serving
-lengths (S=128 passages, S=32 queries) the dispatch takes the XLA path,
-as it does on the TPU.
+``impl="flash"`` goes through :func:`simxns_tpu_torch.ops.flash_attention.
+flash_attention`, the JAX package's dispatch: the fused kernels for
+S >= 256 (not ported yet: a CUDA tensor raises) and, below that, the
+grouped kernels K5/K6 when ``small_s_impl="group"``. At the serving
+lengths (S=128 passages, S=32 queries) with no ``small_s_impl`` the
+dispatch takes the XLA path, as it does on the TPU.
 """
 
 from __future__ import annotations
@@ -18,9 +18,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-
-_MIN_FUSED_SEQ = 256          # simxns_tpu/ops/flash_attention.py:42
-_SMALL_S_IMPL = "xla"         # simxns_tpu/ops/flash_attention.py:49
 
 
 def _xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,17 +44,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_mask`` is the BERT [B, S] 1/0 key mask, turned into an
     additive bias (0 -> -1e9). Returns ``(context, probs or None)``.
     """
+    if impl == "flash" and not return_probs:
+        from simxns_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, attention_mask,
+                               small_s_impl=small_s_impl), None
     bias = None
     if attention_mask is not None:
         bias = torch.where(attention_mask[:, None, None, :] > 0,
                            torch.tensor(0.0, device=q.device),
                            torch.tensor(-1e9, device=q.device))
-    if impl == "flash" and not return_probs and q.is_cuda:
-        s = q.shape[2]
-        if s >= _MIN_FUSED_SEQ or (small_s_impl or _SMALL_S_IMPL) == "group":
-            raise NotImplementedError(
-                f"attention_impl='flash' at S={s} "
-                f"(small_s_attn={small_s_impl!r}) needs the Pallas attention "
-                "kernels, not ported yet: ROADMAP.md Queue 2 "
-                "(flash_attention.py)")
     return _xla_attention(q, k, v, bias, return_probs=return_probs)

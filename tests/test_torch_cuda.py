@@ -6,14 +6,16 @@ JAX conftest is not needed and JAX need not be installed):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel wrapper launches its kernel for CUDA tensors (its launch count
-rises) and agrees with its plain version at small shapes; the knobs whose
-TPU kernels are not ported raise for CUDA tensors instead of running a
-plain version on the card.
+rises) and agrees with its plain version at small shapes (K5/K6, the
+grouped attention pair, at every S class they take); the knobs whose TPU
+kernels are not ported raise for CUDA tensors instead of running a plain
+version on the card.
 """
 
 import pytest
 import torch
 
+from simxns_tpu_torch.ops import flash_attention as fa
 from simxns_tpu_torch.ops import fused_ffn
 from simxns_tpu_torch.ops import fused_layer as fl
 from simxns_tpu_torch.ops import mips_kernel as mk
@@ -104,7 +106,61 @@ def test_unported_knobs_raise_for_cuda_tensors(dev):
     q = _randn(dev, 1, 2, 256, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         multi_head_attention(q, q, q, impl="flash")
-    short = q[:, :, :32]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multi_head_attention(short, short, short, impl="flash",
-                             small_s_impl="group")
+
+
+def _attention_inputs(dev, b, heads, s, d, seed=0):
+    q, k, v, do = (_randn(dev, b, heads, s, d, seed=seed + i).to(
+        torch.bfloat16) for i in range(4))
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+    mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("b,heads,s,d", [(3, 2, 1, 64), (3, 2, 17, 32),
+                                         (2, 4, 160, 64), (1, 2, 255, 128),
+                                         (5, 3, 40, 128)])
+def test_group_attention_matches_plain(dev, b, heads, s, d):
+    """K5 against its plain version: the f32 results round to bf16 on both
+    sides (one bf16 step, <= 2^-8 max|v| at |o| <= max|v| / 2); K6's
+    gradients, where p and dS enter the products as hi + lo bf16 halves
+    (~16 bits), to 2^-7 of their largest value."""
+    q, k, v, do, mask = _attention_inputs(dev, b, heads, s, d)
+    before = fa.group_attention_fwd.launches, fa.group_attention_bwd.launches
+    got = fa.group_attention_fwd(q, k, v, mask)
+    want = fa._group_fwd_plain(q, k, v, mask)
+    tol = 2.0 ** -8 * float(v.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    grads = fa.group_attention_bwd(q, k, v, mask, do)
+    refs = fa._group_bwd_plain(q, k, v, mask, do)
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape == q.shape
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(r.float().abs().max()), err
+    torch.cuda.synchronize()
+    assert (fa.group_attention_fwd.launches,
+            fa.group_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_group_attention_autograd_on_head_views(dev):
+    """The dispatch (small_s_impl="group") runs K5/K6 under autograd on
+    head views of [B, S, H] projections, as the model calls it, and the
+    gradients land in the projections' layout."""
+    b, s, heads, d = 2, 48, 4, 64
+    x = [_randn(dev, b, s, heads * d, seed=i).to(torch.bfloat16)
+         .requires_grad_() for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, 30:] = 0
+    before = fa.group_attention_bwd.launches
+    out, _ = multi_head_attention(q, k, v, mask, impl="flash",
+                                  small_s_impl="group")
+    out.float().square().sum().backward()
+    assert fa.group_attention_bwd.launches == before + 1
+    refs = [t.detach().clone().requires_grad_() for t in x]
+    rq, rk, rv = (t.view(b, s, heads, d).transpose(1, 2) for t in refs)
+    fa._group_fwd_plain(rq, rk, rv, mask).float().square().sum().backward()
+    for got, ref in zip(x, refs):
+        err = float((got.grad.float() - ref.grad.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(ref.grad.float().abs().max()), err

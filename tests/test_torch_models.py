@@ -13,8 +13,8 @@ import simxns_tpu.ops.fused_ffn as jffn
 import simxns_tpu.ops.fused_layer as jfl
 from simxns_tpu.models.bert import BertEncoder as JaxBertEncoder
 from simxns_tpu_torch.models import BertConfig, BertEncoder, params_from_jax
-from torch_parity import (biencoder_pair, cosine_rows, jax_bert, port_bert,
-                          token_batch)
+from torch_parity import (biencoder_pair, cosine_rows, crossencoder_pair,
+                          jax_bert, port_bert, token_batch)
 
 
 @pytest.fixture(autouse=True)
@@ -112,6 +112,33 @@ def test_unported_knobs_run_plain_on_cpu(knob):
     got, want = _encode(jmodel, params, port, "encode_passage", ids, mask)
     assert np.abs(got - want).max() <= 0.1
     assert cosine_rows(got, want).min() >= 0.999
+
+
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 2e-5),
+                                         (jnp.bfloat16, 0.1)])
+def test_cross_encoder_matches_jax(dtype, atol):
+    """A CrossEncoder tree converts leaf for leaf (the [H, 1] and [H, 2]
+    head kernels to nn.Linear weights); the grouped rank logits and the
+    binary logits agree to the bounds of the bi-encoder cases above."""
+    jmodel, params, port = crossencoder_pair(jax_bert(dtype=dtype), seed=9,
+                                             binary_head=True)
+    state = params_from_jax(params)
+    assert set(state) == set(port.state_dict())
+    assert state["qa_classifier.weight"].shape == (1, 128)
+    assert state["binary_classifier.weight"].shape == (2, 128)
+    rng = np.random.default_rng(10)
+    ids, mask = token_batch(rng, 6, 20)
+    want = jmodel.apply(params, ids, mask, group_size=3)
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids), torch.from_numpy(mask),
+                   group_size=3)
+        flat = port(torch.from_numpy(ids), torch.from_numpy(mask))
+    for key, shape in (("logits", (2, 3)), ("binary_logits", (2, 3, 2))):
+        g = got[key].float().numpy()
+        assert g.shape == shape
+        assert np.abs(g - np.asarray(want[key], np.float32)).max() <= atol
+    assert torch.equal(flat["logits"], got["logits"].flatten())
+    assert flat["binary_logits"].shape == (6, 2)
 
 
 def test_config_guards():

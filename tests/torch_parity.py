@@ -13,7 +13,10 @@ import torch
 from simxns_tpu.models import BertConfig as JaxBertConfig
 from simxns_tpu.models import BiEncoder as JaxBiEncoder
 from simxns_tpu.models import BiEncoderConfig as JaxBiEncoderConfig
+from simxns_tpu.models import CrossEncoder as JaxCrossEncoder
+from simxns_tpu.models import CrossEncoderConfig as JaxCrossEncoderConfig
 from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
+                                     CrossEncoder, CrossEncoderConfig,
                                      params_from_jax)
 
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -47,6 +50,22 @@ def biencoder_pair(bert: JaxBertConfig, seed: int = 0, **bi_kw):
     params = jax.tree_util.tree_map_with_path(
         lambda path, x: _jitter(path, x, rng), params)
     port = BiEncoder(BiEncoderConfig(bert=port_bert(bert), **bi_kw))
+    port.load_state_dict(params_from_jax(jax.device_get(params)))
+    return jmodel, params, port.eval()
+
+
+def crossencoder_pair(bert: JaxBertConfig, seed: int = 0,
+                      binary_head: bool = False):
+    """(jax model, jax params, port model) with identical weights."""
+    jmodel = JaxCrossEncoder(JaxCrossEncoderConfig(bert=bert,
+                                                   binary_head=binary_head))
+    dummy = np.ones((2, 8), np.int32)
+    params = jmodel.init(jax.random.PRNGKey(seed), dummy, dummy)
+    rng = np.random.default_rng(seed + 100)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: _jitter(path, x, rng), params)
+    port = CrossEncoder(CrossEncoderConfig(bert=port_bert(bert),
+                                           binary_head=binary_head))
     port.load_state_dict(params_from_jax(jax.device_get(params)))
     return jmodel, params, port.eval()
 
