@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's kernels, check them, serve requests and train on one GPU.
+"""Build the port's kernels, check them, serve, train and co-train on one GPU.
 
     python3 chip_smoke.py
 
@@ -40,7 +40,25 @@ non-zero and prints no result):
    after, the step times, tokens/s, the CE step's share of the bf16 peak,
    the peak memory, and one traced step of each kind (device time by
    kernel and the device idle share);
-6. the ``kernels`` line (K1-K6, launches of both paths); then the last
+6. the msdoc kernels: K7/K8 (the per-(batch, head) attention pair, 128
+   joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512; and
+   S = 256, 288, 1024) against their plain versions, with SDPA's forward
+   and backward as the yardstick; K3 at S=512 (1024 x 512 tokens of
+   BERT-base); K4 at the mine's shape (64 queries, k=100, 24,576 int8
+   rows);
+7. co-training end to end: ``simxns_tpu_torch.run.run_ar2`` at full width
+   in ``nq_ar2_simans`` (BERT-base DE, ERNIE-large-shaped CE; 128 / 32 /
+   160 tokens) and ``msdoc_ar2_simans`` (BERT-base DE with the 768
+   projection, BERT-base CE; 512 / 32 / 512 tokens, adv_lambda 1), with
+   ``--synthetic --full-size --fast-encode --fast-teacher --int8-index``,
+   8 queries per step, 24,576 passages, 64 queries, windows of 4 steps
+   (8 steps: two boundaries with checkpoints and mines, then a final
+   mine), offload ``overlap``; then a relaunch of the nq run that resumes
+   from its step-8 checkpoints. Per recipe (one ``co_training`` line): the
+   phase times, the mine's passages/s, each step's ms (host clock to a
+   synchronise), the peak memory, the top-1 history, and the launches of
+   every kernel of its path, zeroed just before the run;
+8. the ``kernels`` line (K1-K8, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,6 +77,11 @@ H, F, HEADS = 768, 3072, 12
 # batch: 8 queries x 16 passages; queries 32 tokens, passages 128, joint 160
 CE_H, CE_F, CE_HEADS, CE_LAYERS = 1024, 4096, 16, 24
 N_Q, N_P, LQ, LC, LJ = 8, 16, 32, 128, 160
+# the msdoc recipe's joint rows and passages (S=512, BERT-base), and the
+# mine of the co-training phase: 24,576 synthetic passages (above 20,000
+# the synthetic corpus keeps the recipe's token lengths), 64 queries, k=100
+MS_S = 512
+MINE_ROWS, MINE_Q, MINE_K = 24_576, 64, 100
 
 
 def emit(phase, **fields):
@@ -952,8 +975,320 @@ def phase_training(torch, smi, records):
     for name, rec in records.items():
         serving = rec.get("launches", 0)
         rec["launches_by_path"] = {"serving": serving,
-                                   "training": launches[name]}
-        rec["launches"] = serving + launches[name]
+                                   "training": launches.get(name, 0)}
+        rec["launches"] = serving + launches.get(name, 0)
+
+
+def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
+    """K7/K8 on head views of [b, s, HEADS * d] projections with key
+    lengths min_len..s, against their plain versions; with ``timing`` also
+    their times, SDPA's (the yardstick: forward, backward, both) and the
+    bounds (the model's products: 2 in the forward, 5 in the backward)."""
+    from simxns_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    heads = HEADS
+
+    def head_view(x):
+        return x.view(b, s, heads, d).transpose(1, 2)
+
+    q, k, v, do = (head_view(randn(b, s, heads * d).to(torch.bfloat16))
+                   for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    lens = torch.randint(min_len, s + 1, (b,), device=dev, generator=gen)
+    mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
+    got = fa.bh_attention_fwd(q, k, v, mask)
+    want = fa._group_fwd_plain(q, k, v, mask)
+    err7 = float((got.float() - want.float()).abs().max())
+    # f32 results rounded to bf16 on both sides: one bf16 step of o
+    tol7 = 2.0 ** -8 * float(v.float().abs().max())
+    check(err7 <= tol7, f"bh_attention_fwd S={s}: err {err7} > {tol7}")
+    del got, want
+    grads = fa.bh_attention_bwd(q, k, v, mask, do)
+    refs = fa._group_bwd_plain(q, k, v, mask, do)
+    err8, cos8 = [], []
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        e = float((g.float() - r.float()).abs().max())
+        c = float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0))
+        # p and dS enter the products as hi + lo bf16 halves (~16 bits)
+        # and the results round to bf16
+        check(e <= 2.0 ** -7 * float(r.float().abs().max()) and c >= 0.9999,
+              f"bh_attention_bwd S={s} {name}: err {e}, cosine {c}")
+        err8.append(e)
+        cos8.append(c)
+    del grads, refs
+    rec = dict(shape=[b, heads, s, d], key_lengths=[min_len, s],
+               fwd_max_abs_err=err7, fwd_tolerance=tol7,
+               bwd_max_abs_err=max(err8), bwd_min_cosine=min(cos8))
+    if not timing:
+        return rec
+    ms7 = timed(torch, lambda: fa.bh_attention_fwd(q, k, v, mask), 10)
+    plain7 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2)
+    ms8 = timed(torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do), 10)
+    plain8 = timed(torch, lambda: fa._group_bwd_plain(q, k, v, mask, do), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    keep = (mask > 0)[:, None, None, :]
+    lib7 = timed(torch, lambda: sdpa(q, k, v, attn_mask=keep), 10)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg, attn_mask=keep)
+    lib8 = timed(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 5)
+
+    def library_fwd_bwd():
+        o = sdpa(qg, kg, vg, attn_mask=keep)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    lib78 = timed(torch, library_fwd_bwd, 5)
+    del out, qg, kg, vg
+    elems = b * heads * s * d
+    product = 2.0 * b * heads * s * s * d
+    bms7, by7 = bound(4 * elems * 2 + mask.numel() * 4, 2 * product,
+                      PEAK_BF16)
+    bms8, by8 = bound(7 * elems * 2 + mask.numel() * 4, 5 * product,
+                      PEAK_BF16)
+    rec.update(ms=ms7, plain_ms=plain7, library_ms=lib7, bound_ms=bms7,
+               bound_by=by7, bwd_ms=ms8, bwd_plain_ms=plain8,
+               bwd_library_ms=lib8, bwd_bound_ms=bms8, bwd_bound_by=by8,
+               fwd_bwd_ms=ms7 + ms8, library_fwd_bwd_ms=lib78)
+    return rec
+
+
+def phase_msdoc_kernels(torch, smi, records):
+    """Phase 6: K7/K8 at the msdoc reranker step's attention shape (128
+    joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512) and
+    at S = 256, 288 and 1024; K3 at the msdoc encode's S=512 (1024 x 512
+    tokens, BERT-base); K4 at the mine's shape (64 queries, k=100, over
+    24,576 int8 rows)."""
+    from simxns_tpu_torch.ops import mips_kernel as mk
+    from simxns_tpu_torch.ops.fused_ffn import quant_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.empty_cache()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    main = _check_bh_attention(torch, randn, gen, N_Q * N_P, MS_S,
+                               H // HEADS, 300, timing=True)
+    others = [_check_bh_attention(torch, randn, gen, 16, s, H // HEADS,
+                                  s // 2, timing=False)
+              for s in (256, 288, 1024)]
+    shapes = [main] + others
+    records["bh_attention_fwd"] = dict(
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        max_abs_err=max(r["fwd_max_abs_err"] for r in shapes),
+        shape=main["shape"], shapes=shapes,
+        library="scaled_dot_product_attention forward, boolean key mask",
+        tolerance="2^-8 x max|v| (one bf16 step of the f32 output)")
+    records["bh_attention_bwd"] = dict(
+        ms=main["bwd_ms"], plain_ms=main["bwd_plain_ms"],
+        library_ms=main["bwd_library_ms"], bound_ms=main["bwd_bound_ms"],
+        bound_by=main["bwd_bound_by"],
+        max_abs_err=max(r["bwd_max_abs_err"] for r in shapes),
+        min_cosine=min(r["bwd_min_cosine"] for r in shapes),
+        shape=main["shape"], fwd_bwd_ms=main["fwd_bwd_ms"],
+        library_fwd_bwd_ms=main["library_fwd_bwd_ms"],
+        library="scaled_dot_product_attention backward (autograd.grad)",
+        tolerance="2^-7 x max|ref| per gradient and cosine >= 0.9999")
+    for name in ("bh_attention_fwd", "bh_attention_bwd"):
+        emit("kernel", name=name, nvidia_smi=smi, **records[name])
+    torch.cuda.empty_cache()
+
+    rec3 = _check_small_s_attention(torch, randn, gen, ((1024, MS_S, 300),),
+                                    H, HEADS)
+    records["small_s_attention"]["msdoc"] = rec3
+    emit("kernel_msdoc_shapes", name="small_s_attention", nvidia_smi=smi,
+         tokens=1024 * MS_S, hidden=H, heads=HEADS, **rec3)
+    torch.cuda.empty_cache()
+
+    codes, scales = quant_rows(randn(MINE_ROWS, H))
+    q8, qs = quant_rows(randn(MINE_Q, H))
+    block_n = 2048
+    bucket = mk._fit_bucket(128, block_n, MINE_ROWS, MINE_K)
+    kw = dict(bucket=bucket, block_n=block_n, query_scales=qs,
+              row_scales=scales)
+    got_s, got_i = mk.mips_bucket_candidates(q8, codes, MINE_ROWS, **kw)
+    want_s, want_i = mk._candidates_plain(q8, codes, MINE_ROWS, bucket,
+                                          MINE_ROWS, qs, scales)
+    err = float((got_s - want_s).abs().max())
+    ids_off = int((got_i != want_i).sum())
+    check(err == 0.0 and ids_off == 0,
+          f"mips int8 at the mine's shape: err {err}, {ids_off} ids differ")
+    ms = timed(torch, lambda: mk.mips_bucket_candidates(q8, codes, MINE_ROWS,
+                                                        **kw), 20)
+    plain = timed(torch, lambda: mk._candidates_plain(
+        q8, codes, MINE_ROWS, bucket, MINE_ROWS, qs, scales), 3)
+    lib = timed(torch, lambda: _library_search(torch, q8, codes, "int8",
+                                               k=MINE_K), 5)
+    moved = (MINE_ROWS * H + MINE_Q * H + 4 * (MINE_ROWS + MINE_Q)
+             + MINE_Q * (MINE_ROWS // bucket) * 8)
+    bms, by = bound(moved, 2.0 * MINE_Q * MINE_ROWS * H, PEAK_INT8)
+    rec4 = dict(kind="int8", queries=MINE_Q, rows=MINE_ROWS, k=MINE_K,
+                bucket=bucket, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, max_abs_err=err,
+                ids_differing=ids_off)
+    records["mips_bucket_candidates"]["mine"] = rec4
+    emit("kernel_variant", name="mips_bucket_candidates", nvidia_smi=smi,
+         **rec4)
+    del codes, scales, got_s, got_i, want_s, want_i
+    torch.cuda.empty_cache()
+
+
+# the co-training phase's per-recipe kernel path
+CO_TRAINING = {
+    "nq_ar2_simans": ("int8_linear", "row_quant", "small_s_attention",
+                      "mips_bucket_candidates", "group_attention_fwd",
+                      "group_attention_bwd"),
+    "msdoc_ar2_simans": ("int8_linear", "row_quant", "small_s_attention",
+                         "mips_bucket_candidates", "bh_attention_fwd",
+                         "bh_attention_bwd"),
+}
+
+
+def _co_training_run(run, recipe, argv):
+    """One ``run.run_ar2`` of ``recipe`` with windows of 4 steps (1 + 1
+    reranker steps, then 2 retriever steps); -> its output."""
+    import dataclasses
+
+    from simxns_tpu_torch.config import RECIPES
+
+    args = run.build_parser().parse_args(["--recipe", recipe, *argv])
+    cfg = dataclasses.replace(RECIPES[recipe], iteration_step=4,
+                              iteration_reranker_step=1)
+    return run.run_ar2(recipe, cfg, args)
+
+
+def phase_co_training(torch, smi, records):
+    """Phase 7: the AR2 co-training loop end to end through
+    ``simxns_tpu_torch.run.run_ar2`` at full width, once per recipe: warm-up,
+    a mine, 2 reranker + 2 retriever steps, a boundary (checkpoint + mine),
+    again, a final mine; then one relaunch of the nq run that resumes from
+    its step-8 checkpoints. Each step is timed on the host clock to a
+    synchronise (wrappers around the launcher's step factories)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops, run
+
+    factories = {"make_biencoder_step": "biencoder",
+                 "make_reranker_step": "reranker",
+                 "make_ar2_retriever_step": "retriever"}
+    real = {name: getattr(run, name) for name in factories}
+    step_ms = {}
+
+    def timing(factory, kind):
+        def make(*a, **kw):
+            step = factory(*a, **kw)
+
+            def timed_step(*args):
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                step_ms.setdefault(kind, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+
+            return timed_step
+
+        return make
+
+    common = ["--synthetic", "--full-size", "--fast-encode", "--fast-teacher",
+              "--int8-index", "--batch", str(N_Q), "--steps", "8",
+              "--warm-epochs", "1", "--corpus-size", str(MINE_ROWS),
+              "--num-queries", str(MINE_Q)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_co_training_")
+    free_gb = shutil.disk_usage(root).free / 1e9
+    totals = {name: 0 for name in ops.KERNELS}
+    summary = {}
+    for name, kind in factories.items():
+        setattr(run, name, timing(real[name], kind))
+    try:
+        for recipe, path in CO_TRAINING.items():
+            out_dir = os.path.join(root, recipe)
+            step_ms.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path: launch counts zeroed just before, read after
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _co_training_run(run, recipe,
+                                   common + ["--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = ops.launches()
+            for name in path:
+                check(launches[name] > 0, f"{name} was not launched on the "
+                      f"{recipe} co-training path")
+            for name in totals:
+                totals[name] += launches[name]
+            losses = []
+            with open(os.path.join(out_dir, "metrics.jsonl"),
+                      encoding="utf-8") as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec["phase"] in ("reranker", "retriever"):
+                        losses.append((rec["step"], rec["phase"],
+                                       rec["loss"]))
+            check(len(losses) == 8 and all(math.isfinite(x[2])
+                                           for x in losses),
+                  f"{recipe}: co-training losses {losses}")
+            check(0.0 <= out["top1"] <= 1.0
+                  and all(0.0 <= x <= 1.0 for x in out["history_top1"]),
+                  f"{recipe}: top1 {out['top1']} {out['history_top1']}")
+            names = set(os.listdir(out_dir))
+            for step in (4, 8):
+                for state in ("retriever_state", "reranker_state"):
+                    check(f"{state}-{step}" in names,
+                          f"{recipe}: no {state}-{step} checkpoint")
+            phases = out["phase_times_s"]
+            mines = len(out["history_top1"]) + 1
+            rec = dict(recipe=recipe, wall_s=wall_s, top1=out["top1"],
+                       history_top1=out["history_top1"],
+                       mrr10=out["mrr10"], losses=losses,
+                       phase_times_s=phases, mines=mines,
+                       mine_encode_passages_per_s=(
+                           mines * MINE_ROWS / phases["encode_corpus"]),
+                       step_ms=dict(step_ms),
+                       mean_step_ms={k: float(np.mean(v))
+                                     for k, v in step_ms.items()},
+                       max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=launches, disk_free_gb_before=free_gb)
+            if recipe == "nq_ar2_simans":
+                t0 = time.perf_counter()
+                again = _co_training_run(
+                    run, recipe,
+                    common + ["--output-dir", out_dir, "--resume", "auto"])
+                check(math.isfinite(again["top1"])
+                      and len(again["history_top1"]) == 1,
+                      f"resume: {again}")
+                with open(os.path.join(out_dir, "metrics.jsonl"),
+                          encoding="utf-8") as f:
+                    resumed = [json.loads(line) for line in f
+                               if '"resume_eval"' in line]
+                check(len(resumed) == 1 and resumed[0]["step"] == 8,
+                      f"resume did not restore step 8: {resumed}")
+                rec["resume"] = dict(top1=again["top1"],
+                                     uninterrupted_top1=out["top1"],
+                                     wall_s=time.perf_counter() - t0)
+            summary[recipe] = rec
+            emit("co_training", nvidia_smi=smi, **rec)
+            shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        for name in factories:
+            setattr(run, name, real[name])
+        shutil.rmtree(root, ignore_errors=True)
+    for name, rec in records.items():
+        rec.setdefault("launches_by_path", {})["co_training"] = totals[name]
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    return summary
 
 
 SOURCES = {
@@ -970,6 +1305,10 @@ SOURCES = {
                             "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/group_attention.cu",
                             "simxns_tpu/ops/flash_attention.py:125"),
+    "bh_attention_fwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+                         "simxns_tpu/ops/flash_attention.py:67"),
+    "bh_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+                         "simxns_tpu/ops/flash_attention.py:80"),
 }
 
 
@@ -995,6 +1334,8 @@ def main():
     phase_end_to_end(torch, smi, records)
     phase_train_kernels(torch, smi, records)
     phase_training(torch, smi, records)
+    phase_msdoc_kernels(torch, smi, records)
+    phase_co_training(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

@@ -40,17 +40,15 @@
 // Tensors are [B, heads, S, d] views with d contiguous and any strides that
 // keep 16-byte rows: the port passes q, k, v as head views of the [B, S, H]
 // projections and writes outputs in the same layout, so no transposes.
-#include "tile_gemm.cuh"
+#include "attention_tile.cuh"
 
 SX_DEFINE_ERROR_STRING
 
+using namespace sx::attn;
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxS = 255;
-constexpr int kChunk = 32;           // keys (or queries) per inner step
-constexpr int kTiles = kChunk / 8;   // n8 accumulator tiles per step
 
 __host__ __device__ constexpr int padded_s(int S) {
   return (S + kChunk - 1) / kChunk * kChunk;
@@ -61,180 +59,6 @@ constexpr int smem_bytes(int S) {
   // two [Sp][D + 8] bf16 tiles, then per key a flag and per query the
   // max, the sum and rowsum(dP p) (the last three used by K6 only)
   return 2 * padded_s(S) * (D + 8) * 2 + 4 * padded_s(S) * 4;
-}
-
-struct In {               // a [B, heads, S, D] bf16 view, D contiguous
-  const __nv_bfloat16* p;
-  long long sb, sh, ss;   // element strides
-  __device__ const __nv_bfloat16* row(int b, int h, int i) const {
-    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
-  }
-};
-
-struct Out {
-  __nv_bfloat16* p;
-  long long sb, sh, ss;
-  __device__ __nv_bfloat16* row(int b, int h, int i) const {
-    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
-  }
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 values as one mma operand register, `lo` in the low half
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ float masked(float s, int flag) {
-  return flag > 0 ? s : (flag == 0 ? -1e9f : -INFINITY);
-}
-
-// rows [0, Sp) of a view into shared memory [Sp][D + 8]; zeros past S
-template <int D>
-__device__ void load_rows(__nv_bfloat16* dst, const In& x, int b, int h,
-                          int S, int Sp) {
-  for (int idx = threadIdx.x; idx < Sp * (D / 8); idx += kThreads) {
-    const int j = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (j < S) val = *reinterpret_cast<const uint4*>(x.row(b, h, j) + c);
-    *reinterpret_cast<uint4*>(dst + j * (D + 8) + c) = val;
-  }
-}
-
-// per key: 1 = real key, 0 = masked (-1e9), -1 = pad past S (-inf)
-__device__ void load_flags(int* flag, const int* mask, int b, int S, int Sp) {
-  for (int j = threadIdx.x; j < Sp; j += kThreads)
-    flag[j] = j >= S ? -1
-                     : (mask[static_cast<long long>(b) * S + j] > 0 ? 1 : 0);
-}
-
-// A fragments of rows r0 .. r0 + 15 of a view, straight from memory
-template <int D>
-__device__ void load_a(uint32_t (&a)[D / 16][4], const In& x, int b, int h,
-                       int r0, int S) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ra = r0 + g, rb = r0 + g + 8;
-  const __nv_bfloat16* pa = x.row(b, h, ra < S ? ra : 0);
-  const __nv_bfloat16* pb = x.row(b, h, rb < S ? rb : 0);
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    const int c = kd * 16 + 2 * t;
-    a[kd][0] = ra < S ? ld32(pa + c) : 0u;
-    a[kd][1] = rb < S ? ld32(pb + c) : 0u;
-    a[kd][2] = ra < S ? ld32(pa + c + 8) : 0u;
-    a[kd][3] = rb < S ? ld32(pb + c + 8) : 0u;
-  }
-}
-
-// acc[nt][e] = sum_c A[row][c] * rows[n0 + nt * 8 + col][c]: a 16 x 32 tile
-// of A times the transpose of shared-memory rows n0 .. n0 + 31. Element e
-// is row (e < 2 ? g : g + 8), column nt * 8 + 2t + (e & 1).
-template <int D>
-__device__ void mma_rows(float (&acc)[kTiles][4], const uint32_t (&a)[D / 16][4],
-                         const __nv_bfloat16* rows, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kTiles; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-    const __nv_bfloat16* r = rows + (n0 + nt * 8 + g) * (D + 8) + 2 * t;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const uint32_t bf[2] = {ld32(r + kd * 16), ld32(r + kd * 16 + 8)};
-      sx::MmaBf16::mma(acc[nt], a[kd], bf);
-    }
-  }
-}
-
-// out[nd][e] += sum_m x[row][m] * rows[m0 + m][nd * 8 + col]: an f32 16 x 32
-// tile (accumulator layout, as hi + lo bf16 A fragments) times shared-memory
-// rows m0 .. m0 + 31.
-template <int D>
-__device__ void mma_cols(float (&out)[D / 8][4], const float (&x)[kTiles][4],
-                         const __nv_bfloat16* rows, int m0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  constexpr int kRow = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kChunk / 16; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      // A fragment register r: tile 2kk + (r >> 1), rows g / g + 8 by r & 1
-      const float* src = x[2 * kk + (r >> 1)] + 2 * (r & 1);
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(src[0], src[1]);
-      const float2 hf = __bfloat1622float2(h2);
-      const __nv_bfloat162 l2 =
-          __floats2bfloat162_rn(src[0] - hf.x, src[1] - hf.y);
-      hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[r] = *reinterpret_cast<const uint32_t*>(&l2);
-    }
-    const __nv_bfloat16* base = rows + (m0 + kk * 16 + 2 * t) * kRow + g;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const __nv_bfloat16* c = base + nd * 8;
-      const uint32_t bf[2] = {pack2(c[0], c[kRow]),
-                              pack2(c[8 * kRow], c[9 * kRow])};
-      sx::MmaBf16::mma(out[nd], hi, bf);
-      sx::MmaBf16::mma(out[nd], lo, bf);
-    }
-  }
-}
-
-// each row's max and sum of exp(s - max) over all Sp columns, the sum
-// rescaled when the max grows; then over the four threads of a row
-template <class Scores>
-__device__ void row_stats(Scores scores, int Sp, float (&mx)[2],
-                          float (&sum)[2]) {
-  mx[0] = mx[1] = -INFINITY;
-  sum[0] = sum[1] = 0.0f;
-  for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-    float sc[kTiles][4];
-    scores(c0, sc);
-    float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], sc[nt][e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
-      cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
-      const float m_new = fmaxf(mx[r], cm[r]);
-      sum[r] = mx[r] == -INFINITY ? 0.0f : sum[r] * expf(mx[r] - m_new);
-      mx[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(sc[nt][e] - mx[e >> 1]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
-}
-
-// rows r0 + g and r0 + g + 8 of a [16][D] accumulator, as bf16
-template <int D>
-__device__ void store_rows(const Out& o, int b, int h, int r0, int S,
-                           const float (&acc)[D / 8][4], float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ra = r0 + g, rb = r0 + g + 8;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, ra) + c) =
-          __floats2bfloat162_rn(acc[nd][0] * mul, acc[nd][1] * mul);
-    if (rb < S)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, rb) + c) =
-          __floats2bfloat162_rn(acc[nd][2] * mul, acc[nd][3] * mul);
-  }
 }
 
 template <int D>
@@ -249,9 +73,9 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
 
-  load_rows<D>(ks, k, b, h, S, Sp);
-  load_rows<D>(vs, v, b, h, S, Sp);
-  load_flags(flag, mask, b, S, Sp);
+  load_rows<D>(ks, k, b, h, 0, Sp, S);
+  load_rows<D>(vs, v, b, h, 0, Sp, S);
+  load_flags(flag, mask, b, 0, Sp, S);
   __syncthreads();
 
   for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
@@ -267,7 +91,9 @@ __global__ void __launch_bounds__(kThreads)
                              flag[c0 + nt * 8 + 2 * t + (e & 1)]);
     };
     float mx[2], sum[2];
-    row_stats(scores, Sp, mx, sum);
+    stats_begin(mx, sum);
+    stats_add(scores, 0, Sp, mx, sum);
+    stats_end(sum);
 
     float acc[D / 8][4];
 #pragma unroll
@@ -305,9 +131,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  load_rows<D>(t0, k, b, h, S, Sp);
-  load_rows<D>(t1, v, b, h, S, Sp);
-  load_flags(flag, mask, b, S, Sp);
+  load_rows<D>(t0, k, b, h, 0, Sp, S);
+  load_rows<D>(t1, v, b, h, 0, Sp, S);
+  load_flags(flag, mask, b, 0, Sp, S);
   // queries past S keep these: p = exp(s - inf) = 0 in phase B
   for (int i = threadIdx.x; i < Sp; i += kThreads) {
     rmax[i] = INFINITY;
@@ -331,7 +157,9 @@ __global__ void __launch_bounds__(kThreads)
                              flag[c0 + nt * 8 + 2 * t + (e & 1)]);
     };
     float mx[2], sum[2];
-    row_stats(scores, Sp, mx, sum);
+    stats_begin(mx, sum);
+    stats_add(scores, 0, Sp, mx, sum);
+    stats_end(sum);
 
     // rowsum(dP * p)
     float dot[2] = {0.0f, 0.0f};
@@ -379,8 +207,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  load_rows<D>(t0, q, b, h, S, Sp);
-  load_rows<D>(t1, dout, b, h, S, Sp);
+  load_rows<D>(t0, q, b, h, 0, Sp, S);
+  load_rows<D>(t1, dout, b, h, 0, Sp, S);
   __syncthreads();
 
   // phase B: 16 key rows per warp -> dV = p^T dO, dK = dS^T q * scale
@@ -414,12 +242,6 @@ __global__ void __launch_bounds__(kThreads)
     store_rows<D>(dk, b, h, j0, S, dka, scale);
     store_rows<D>(dv, b, h, j0, S, dva, 1.0f);
   }
-}
-
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
 }
 
 }  // namespace

@@ -1,3 +1,6 @@
-from simxns_tpu_torch.index.engine import CorpusEncoder, MIPSIndex
+from simxns_tpu_torch.index.engine import (CorpusEncoder, MIPSIndex,
+                                           MiningResult, RetrievalEngine,
+                                           reform_out)
 
-__all__ = ["CorpusEncoder", "MIPSIndex"]
+__all__ = ["CorpusEncoder", "MIPSIndex", "MiningResult", "RetrievalEngine",
+           "reform_out"]

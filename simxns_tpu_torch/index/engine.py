@@ -5,25 +5,34 @@
   chunks; each result copy to the host is bounded by the stall watchdog).
 - :class:`MIPSIndex` — a device-resident embedding matrix (bf16/f32, or
   int8 codes with per-row f32 scales, the FAISS-SQ8 analog) and its top-k
-  search in ``exact``, ``approx`` or ``fused`` mode.
+  search in ``exact``, ``approx`` or ``fused`` mode; a corpus larger than
+  ``max_resident_rows`` is searched in build -> search -> free passes
+  with a host merge.
+- :class:`RetrievalEngine` — the mine: search, hit labeling
+  (``has_answer`` over passage text, or gold ``positive_ids``), metrics
+  and the SimANS train records (:func:`reform_out`).
 
-Single device: the sharded merge, the multi-pass search and
-``RetrievalEngine`` wait for later slices. Buffers are updated in place
-where the JAX package donates them (``update_rows``, ``build_streaming``).
+Single device: the sharded merge waits for the multi-GPU slice. Buffers
+are updated in place where the JAX package donates them (``update_rows``,
+``build_streaming``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 import sys
 import time
 from collections import deque
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from simxns_tpu_torch.device import resolve_device
+from simxns_tpu_torch.evals.metrics import get_metrics, top_k_hits_accuracy
+from simxns_tpu_torch.evals.qa_match import has_answer
 from simxns_tpu_torch.ops.fused_ffn import quant_rows
 from simxns_tpu_torch.ops.topk import blocked_mips_topk
 from simxns_tpu_torch.parallel.mesh import pad_to_multiple
@@ -87,12 +96,18 @@ class MIPSIndex:
     (half the bytes of bf16; the fused search then runs int8 x int8 on the
     tensor cores). Rows are padded to a ``block_size`` multiple; padding
     rows are masked in every search.
+
+    ``max_resident_rows``: the rows the device holds per search pass. A
+    streaming-built corpus larger than that is not built at once: the
+    token source is kept and :meth:`search` runs build -> search -> free
+    per pass, merging the per-pass top-k on the host.
     """
 
     def __init__(self, device=None, block_size: int = 4096,
                  store_dtype: torch.dtype = torch.bfloat16,
                  mode: str = "exact", stall_timeout_s: Optional[float] = None,
-                 stall_retries: int = 2, sync_rows: int = 262144):
+                 stall_retries: int = 2, sync_rows: int = 262144,
+                 max_resident_rows: Optional[int] = None):
         if mode not in ("exact", "approx", "fused"):
             raise ValueError(f"unknown search mode {mode!r}")
         self.device = resolve_device(device)
@@ -103,9 +118,11 @@ class MIPSIndex:
         self.stall_timeout_s = stall_timeout_s
         self.stall_retries = stall_retries
         self.sync_rows = sync_rows
+        self.max_resident_rows = max_resident_rows
         self.embeddings: Optional[torch.Tensor] = None
         self.row_scales: Optional[torch.Tensor] = None
         self.num_rows = 0
+        self._pass_src: Optional[dict] = None
 
     @staticmethod
     def _quantize(embeddings: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -120,6 +137,7 @@ class MIPSIndex:
         host first), padded to a ``block_size`` multiple."""
         n = embeddings.shape[0]
         self.num_rows = n
+        self._pass_src = None
         padded = pad_to_multiple(n, self.block_size)
         if padded != n:
             embeddings = np.pad(embeddings, ((0, padded - n), (0, 0)))
@@ -141,10 +159,20 @@ class MIPSIndex:
         Token ids go to the device in ``wire_dtype`` (uint16 fits BERT's
         30522 vocabulary), the mask is derived there (``ids != pad_id``),
         the embeddings are quantized there (the math of :meth:`update_rows`)
-        and written in place into the preallocated index.
+        and written in place into the preallocated index. A corpus larger
+        than ``max_resident_rows`` is only recorded here (see
+        :meth:`_search_passes`).
         """
         n, _ = token_ids.shape
         self.num_rows = n
+        if self.max_resident_rows is not None and n > self.max_resident_rows:
+            self._pass_src = dict(encode_fn=encode_fn, token_ids=token_ids,
+                                  chunk_size=chunk_size, pad_id=pad_id,
+                                  wire_dtype=wire_dtype)
+            self.embeddings = None
+            self.row_scales = None
+            return
+        self._pass_src = None
         if wire_dtype is None:
             wire_dtype = token_ids.dtype
         wire_max = (np.iinfo(wire_dtype).max
@@ -209,6 +237,10 @@ class MIPSIndex:
         """Overwrite rows ``[start, start + n)`` in place; int8 rows are
         quantized on the device (the math of :meth:`_quantize`)."""
         n = embeddings.shape[0]
+        if self._pass_src is not None:
+            raise RuntimeError(
+                "update_rows is not available on a multi-pass index (rows "
+                "are encoded from tokens each search pass)")
         if self.embeddings is None:
             raise RuntimeError("index not built")
         if start < 0 or start + n > self.num_rows:
@@ -242,6 +274,8 @@ class MIPSIndex:
     def search(self, queries: np.ndarray, k: int, query_batch: int = 1024
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k over the corpus: [Q, H] -> (scores [Q, k], ids [Q, k])."""
+        if self._pass_src is not None:
+            return self._search_passes(queries, k, query_batch)
         if self.embeddings is None:
             raise RuntimeError("index not built")
         q = np.asarray(queries, np.float32)
@@ -264,3 +298,148 @@ class MIPSIndex:
         if not pending:
             return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int32))
         return np.concatenate(scores), np.concatenate(ids)
+
+    def _search_passes(self, queries: np.ndarray, k: int, query_batch: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Search a corpus larger than ``max_resident_rows`` in passes.
+
+        Per pass: streaming-build the slice (encoded from its tokens),
+        search every query against it, free it, and merge the per-pass
+        top-k on the host with a stable sort. Exact by construction: each
+        pass's top-k is exact over its rows.
+        """
+        src = self._pass_src
+        n = src["token_ids"].shape[0]
+        per = max(self.max_resident_rows
+                  - self.max_resident_rows % src["chunk_size"],
+                  src["chunk_size"])
+        all_scores, all_ids = [], []
+        try:
+            for start in range(0, n, per):
+                stop = min(start + per, n)
+                self._pass_src = None
+                self.build_streaming(
+                    src["encode_fn"], src["token_ids"][start:stop],
+                    chunk_size=src["chunk_size"], pad_id=src["pad_id"],
+                    wire_dtype=src["wire_dtype"])
+                sc, ids = self.search(queries, k, query_batch=query_batch)
+                self.free()
+                all_scores.append(sc)
+                all_ids.append(ids.astype(np.int64) + start)
+        finally:
+            self._pass_src = src
+            self.num_rows = n
+            self.embeddings = None
+            self.row_scales = None
+        cat_s = np.concatenate(all_scores, axis=1)
+        cat_i = np.concatenate(all_ids, axis=1)
+        order = np.argsort(-cat_s, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(cat_s, order, axis=1),
+                np.take_along_axis(cat_i, order, axis=1))
+
+
+def reform_out(
+    questions: Sequence[str],
+    answers: Sequence[Sequence[str]],
+    q_ids: Sequence[str],
+    topk_ids: np.ndarray,
+    topk_scores: np.ndarray,
+    hits: Sequence[Sequence[bool]],
+    passages,                                   # pid -> (text, title)
+    gold_positives: Optional[Dict[str, dict]] = None,  # question -> ctx dict
+) -> List[dict]:
+    """The SimANS train records from search results
+    (``co_training_generate_new_train_wiki.py:182-223``): retrieved hits
+    become ``positive_ctxs`` (after the gold positive, whose score is
+    updated if it was itself retrieved), non-hits ``hard_negative_ctxs``;
+    every ctx carries the retriever score the SimANS sampler reads."""
+    out = []
+    gold_positives = gold_positives or {}
+    for qi, question in enumerate(questions):
+        positive_ctxs: List[dict] = []
+        negative_ctxs: List[dict] = []
+        real_true_id = None
+        if question in gold_positives:
+            gold = dict(gold_positives[question])
+            gold.setdefault("passage_id", gold.get("id", gold.get("psg_id")))
+            gold["score"] = str(0)
+            if gold["passage_id"] is not None:
+                real_true_id = int(gold["passage_id"])
+            positive_ctxs.append(gold)
+        for rank in range(topk_ids.shape[1]):
+            pid = int(topk_ids[qi, rank])
+            score = float(topk_scores[qi, rank])
+            text, title = passages.get(pid, ("", ""))
+            ctx = {"title": title, "text": text, "passage_id": pid,
+                   "score": str(score)}
+            if hits[qi][rank]:
+                if real_true_id is not None and pid == real_true_id:
+                    positive_ctxs[0]["score"] = str(score)
+                else:
+                    positive_ctxs.append(ctx)
+            else:
+                negative_ctxs.append(ctx)
+        out.append({
+            "q_id": str(q_ids[qi]), "question": question,
+            "answers": list(answers[qi]), "positive_ctxs": positive_ctxs,
+            "hard_negative_ctxs": negative_ctxs, "negative_ctxs": [],
+        })
+    return out
+
+
+@dataclasses.dataclass
+class MiningResult:
+    topk_ids: np.ndarray
+    topk_scores: np.ndarray
+    hits: List[List[bool]]
+    top_k_hits: List[float]
+    metrics: Dict[str, float]
+    train_examples: List[dict]
+
+
+class RetrievalEngine:
+    """The mine: search -> hit labels -> metrics -> train records (the
+    reference's ``RenewTools``, ``co_training_generate_new_train_wiki.py:
+    226-465``). ``passages`` maps pid -> (text, title); ``logger`` (a
+    ``MetricLogger``) times the ``search`` and ``hit_labeling`` phases."""
+
+    def __init__(self, index: MIPSIndex, passages, logger=None):
+        self.index = index
+        self.passages = passages
+        self.logger = logger
+
+    def mine(self, query_embeddings: np.ndarray, questions: Sequence[str],
+             answers: Sequence[Sequence[str]],
+             q_ids: Optional[Sequence[str]] = None, k: int = 100,
+             gold_positives: Optional[Dict[str, dict]] = None,
+             match_type: str = "string",
+             positive_ids: Optional[Sequence] = None) -> MiningResult:
+        """Search + label + metrics + train records.
+
+        Hits are labeled by ``has_answer`` over the passage text (the
+        wiki/NQ/TQ path) or, when ``positive_ids`` (per-query gold row ids)
+        is given, by membership (the MARCO qrels path).
+        """
+        timed = (self.logger.timed if self.logger is not None
+                 else (lambda name: contextlib.nullcontext()))
+        with timed("search"):
+            scores, ids = self.index.search(query_embeddings, k)
+        with timed("hit_labeling"):
+            if positive_ids is not None:
+                gold_sets = [set(int(p) for p in pids)
+                             for pids in positive_ids]
+                hits = [[int(pid) in gold_sets[qi] for pid in ids[qi]]
+                        for qi in range(len(questions))]
+            else:
+                hits = [[has_answer(answers[qi],
+                                    self.passages.get(int(pid), ("", ""))[0],
+                                    match_type)
+                         for pid in ids[qi]]
+                        for qi in range(len(questions))]
+        if q_ids is None:
+            q_ids = [str(i) for i in range(len(questions))]
+        train = reform_out(questions, answers, q_ids, ids, scores, hits,
+                           self.passages, gold_positives)
+        return MiningResult(topk_ids=ids, topk_scores=scores, hits=hits,
+                            top_k_hits=top_k_hits_accuracy(hits),
+                            metrics=get_metrics(hits), train_examples=train)

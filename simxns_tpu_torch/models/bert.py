@@ -12,17 +12,18 @@ On the card the bf16 products run as bf16 GEMMs with f32 accumulation
 split-K reduction); on the CPU the operands are upcast and the result
 rounded, which gives the same values.
 
-The default impls are plain autograd and train (the attention's grouped
-kernels K5/K6 have their own backward, ``ops/flash_attention.py``).
+The default impls are plain autograd and train (the attention kernels
+K5/K6 and K7/K8 have their own backward, ``ops/flash_attention.py``).
 ``layer_impl="fused_int8"`` runs each layer on the Hopper kernels of
 :mod:`simxns_tpu_torch.ops.fused_layer` (encode only, under
 ``torch.no_grad()``); its int8 weights are cached per layer and quantized
 again whenever a parameter changes, so an encode-only view that shares a
-training model's ``Parameter`` objects (``cross_encoder.int8_view``)
-follows every optimizer update. Not ported yet: dropout, the MLM head,
-remat. Parameter names follow the JAX tree (``layers.{i}`` for
-``layer_{i}``); :func:`simxns_tpu_torch.models.convert.params_from_jax`
-maps a flax tree onto them.
+training model's ``Parameter`` objects (:func:`share_parameters`, the
+``int8_view`` of either model) follows every optimizer update. Not ported
+yet: dropout, the MLM head, remat. Parameter names follow the JAX tree
+(``layers.{i}`` for ``layer_{i}``);
+:func:`simxns_tpu_torch.models.convert.params_from_jax` maps a flax tree
+onto them.
 """
 
 from __future__ import annotations
@@ -249,7 +250,9 @@ class BertLayer(nn.Module):
                                     cfg)
         self.output = _linear(cfg.intermediate_size, cfg.hidden_size, cfg)
         self.output_layer_norm = _ln(cfg.hidden_size, cfg)
-        self._qcache = None
+        # the int8 weights, {"key": ..., "layer": QuantizedLayer}; a view
+        # over the same Parameters shares this dict (share_parameters)
+        self._qbox = {}
 
     def kernel_params(self) -> dict:
         """This layer's weights under the TPU layer kernel's names."""
@@ -271,9 +274,16 @@ class BertLayer(nn.Module):
         """The int8 weights, quantized once and again only after a
         parameter changes (in place or by assignment)."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._qcache is None or self._qcache[0] != key:
-            self._qcache = (key, quantize_layer(self.kernel_params()))
-        return self._qcache[1]
+        if self._qbox.get("key") != key:
+            self._qbox.clear()
+            self._qbox.update(key=key,
+                              layer=quantize_layer(self.kernel_params()))
+        return self._qbox["layer"]
+
+    def drop_quantized(self) -> None:
+        """Free the cached int8 weights (for this layer and every view that
+        shares its Parameters); the next encode quantizes again."""
+        self._qbox.clear()
 
     def forward(self, hidden: torch.Tensor,
                 attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -327,6 +337,21 @@ class BertEncoder(nn.Module):
                 hidden.append(x)
         return EncoderOutput(last_hidden_state=x, pooled=x[:, 0],
                              hidden_states=hidden)
+
+
+def share_parameters(view: nn.Module, model: nn.Module) -> nn.Module:
+    """Point every parameter of ``view`` (a model of the same structure,
+    built on the meta device) at ``model``'s ``Parameter`` objects, and
+    give each of its layers the model layer's int8 cache. Nothing is
+    copied; ``view`` follows every in-place update of ``model``."""
+    for name, param in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        setattr(view.get_submodule(owner), leaf, param)
+    mine = [m for m in view.modules() if isinstance(m, BertLayer)]
+    theirs = [m for m in model.modules() if isinstance(m, BertLayer)]
+    for v_layer, m_layer in zip(mine, theirs):
+        v_layer._qbox = m_layer._qbox
+    return view
 
 
 def init_weights(module: nn.Module, std: float,

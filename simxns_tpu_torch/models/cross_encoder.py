@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
-                                          init_weights)
+                                          init_weights, share_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +81,4 @@ def int8_view(model: CrossEncoder) -> CrossEncoder:
                                   proj_impl="xla")
     with torch.device("meta"):
         view = CrossEncoder(dataclasses.replace(model.cfg, bert=bert))
-    for name, param in model.named_parameters():
-        owner, _, leaf = name.rpartition(".")
-        setattr(view.get_submodule(owner), leaf, param)
-    return view
+    return share_parameters(view, model)

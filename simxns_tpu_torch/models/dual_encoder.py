@@ -2,6 +2,8 @@
 
 Separate or shared question/context BERT towers, CLS or mean pooling, and
 the optional RobertaDot-style projection head (Dense + LayerNorm).
+:func:`int8_view` is the encode-only ``fused_int8`` view of a live dual
+encoder that the mine's ``--fast-encode`` encodes with.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
-                                          init_weights, layer_norm)
+                                          init_weights, layer_norm,
+                                          share_parameters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +101,14 @@ class BiEncoder(nn.Module):
                 ctx_type_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
         return (self.encode_query(q_ids, q_mask, q_type_ids),
                 self.encode_passage(ctx_ids, ctx_mask, ctx_type_ids))
+
+
+def int8_view(model: BiEncoder) -> BiEncoder:
+    """The ``layer_impl="fused_int8"`` encode-only view of ``model`` over the
+    same ``Parameter`` objects (the JAX ``run.py:_int8_view_cfg`` tower
+    config over the same param tree); see ``cross_encoder.int8_view``."""
+    bert = model.cfg.bert.replace(layer_impl="fused_int8", ffn_impl="xla",
+                                  proj_impl="xla")
+    with torch.device("meta"):
+        view = BiEncoder(dataclasses.replace(model.cfg, bert=bert))
+    return share_parameters(view, model)

@@ -4,7 +4,9 @@ Every kernel wrapper counts its launches in ``<wrapper>.launches``;
 :data:`KERNELS` lists them by name.
 """
 
-from simxns_tpu_torch.ops.flash_attention import (group_attention_bwd,
+from simxns_tpu_torch.ops.flash_attention import (bh_attention_bwd,
+                                                  bh_attention_fwd,
+                                                  group_attention_bwd,
                                                   group_attention_fwd)
 from simxns_tpu_torch.ops.fused_layer import (int8_linear, row_quant,
                                               small_s_attention)
@@ -17,6 +19,8 @@ KERNELS = {
     "mips_bucket_candidates": mips_bucket_candidates,
     "group_attention_fwd": group_attention_fwd,
     "group_attention_bwd": group_attention_bwd,
+    "bh_attention_fwd": bh_attention_fwd,
+    "bh_attention_bwd": bh_attention_bwd,
 }
 
 

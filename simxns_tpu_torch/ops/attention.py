@@ -6,9 +6,9 @@ softmax, probabilities cast to the value dtype, and ``p v`` accumulated in
 f32. On the card it is plain PyTorch, as it is plain XLA on the TPU.
 
 ``impl="flash"`` goes through :func:`simxns_tpu_torch.ops.flash_attention.
-flash_attention`, the JAX package's dispatch: the fused kernels for
-S >= 256 (not ported yet: a CUDA tensor raises) and, below that, the
-grouped kernels K5/K6 when ``small_s_impl="group"``. At the serving
+flash_attention`, the JAX package's dispatch: the per-(batch, head)
+kernels K7/K8 for 256 <= S <= 1024 and, below that, the grouped kernels
+K5/K6 when ``small_s_impl="group"``. At the serving
 lengths (S=128 passages, S=32 queries) with no ``small_s_impl`` the
 dispatch takes the XLA path, as it does on the TPU.
 """

@@ -22,9 +22,17 @@ joins them. Each wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version (``_group_fwd_plain`` / ``_group_bwd_plain``) only for
 a CPU tensor; it counts its launches in ``<wrapper>.launches``.
 
-The per-(batch, head) pair (S >= 256) is not ported yet (ROADMAP Queue 2):
-it computes the same function, so CPU tensors run the same plain versions,
-and CUDA tensors raise.
+The per-(batch, head) pair (256 <= S <= 1024) computes the same function
+and is ported as two more CUDA kernels (``csrc/bh_attention.cu``), which
+stream key and query tiles through shared memory instead of holding a
+whole head:
+
+- K7 :func:`bh_attention_fwd` replaces ``_fwd_call`` (kernel
+  ``_fwd_kernel``, ``flash_attention.py:67``);
+- K8 :func:`bh_attention_bwd` replaces ``_fused_bwd`` (kernel
+  ``_bwd_kernel``, ``:80``).
+
+Their plain versions are the grouped pair's (the same function).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ _MIN_FUSED_SEQ = 256          # :42
 _NEG = -1e9
 SMALL_S_IMPL = "xla"          # :49
 _MAX_GROUP_S = 255            # csrc/group_attention.cu kMaxS
+_MAX_BH_S = 1024              # csrc/bh_attention.cu kMaxS
 
 _VIEW = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong]
@@ -51,6 +60,8 @@ _FWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + [ctypes.c_void_p] + _VIEW
 _BWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + _VIEW + [ctypes.c_void_p] * 4
              + _VIEW[1:] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
+# K8 takes one more pointer, its f32 scratch of row statistics
+_BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
 
 
 # --- the plain versions ------------------------------------------------------
@@ -93,18 +104,19 @@ def _kernel_view(t: torch.Tensor, name: str) -> torch.Tensor:
     return t
 
 
-def _check_shapes(q, k, v, mask):
+def _check_shapes(q, k, v, mask, max_s=_MAX_GROUP_S, what="group_attention"):
     b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"group_attention: q, k, v shapes differ "
+        raise ValueError(f"{what}: q, k, v shapes differ "
                          f"({tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)})")
-    if d not in (32, 64, 128) or not 1 <= s <= _MAX_GROUP_S or b > 65535:
-        raise ValueError(f"group_attention takes d in (32, 64, 128), 1 <= S <= "
-                         f"{_MAX_GROUP_S} and B <= 65535 (got d={d}, S={s}, "
-                         f"B={b})")
+    if (d not in (32, 64, 128) or not 1 <= s <= max_s or b > 65535
+            or h > 65535):
+        raise ValueError(f"{what} takes d in (32, 64, 128), 1 <= S <= "
+                         f"{max_s} and B, heads <= 65535 (got d={d}, S={s}, "
+                         f"B={b}, heads={h})")
     if tuple(mask.shape) != (b, s):
-        raise ValueError(f"group_attention: mask {tuple(mask.shape)} is not "
+        raise ValueError(f"{what}: mask {tuple(mask.shape)} is not "
                          f"[{b}, {s}]")
 
 
@@ -186,20 +198,81 @@ def group_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 group_attention_bwd.launches = 0
 
 
+# --- K7 / K8 -----------------------------------------------------------------
+
+def bh_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """K7: softmax attention of each (batch, head), S <= 1024 (the dispatch
+    sends 256 <= S <= 1024), in f32; arguments and result as
+    :func:`group_attention_fwd`."""
+    if not q.is_cuda:
+        return _group_fwd_plain(q, k, v, mask)
+    _check_shapes(q, k, v, mask, _MAX_BH_S, "bh_attention")
+    q, k, v = _qkv(q, k, v)
+    b, h, s, d = q.shape
+    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    o = _out(q)
+    fn = _native.function("bh_attention", "sx_bh_attention_fwd", _FWD_ARGS)
+    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
+              *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s,
+              d, 1.0 / math.sqrt(d), _native.stream(q.device))
+    _native.check("bh_attention", code, "bh_attention_fwd")
+    bh_attention_fwd.launches += 1
+    return o
+
+
+bh_attention_fwd.launches = 0
+
+
+def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, do: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8: the backward of :func:`bh_attention_fwd` (two launches: a query
+    pass for the row statistics and dq, a key pass for dk and dv)."""
+    if not q.is_cuda:
+        return _group_bwd_plain(q, k, v, mask, do)
+    _check_shapes(q, k, v, mask, _MAX_BH_S, "bh_attention")
+    if do.shape != q.shape:
+        raise ValueError(f"bh_attention_bwd: do {tuple(do.shape)} is not "
+                         f"{tuple(q.shape)}")
+    q, k, v = _qkv(q, k, v)
+    do = _kernel_view(do, "do")
+    b, h, s, d = q.shape
+    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+    dq, dk, dv = _out(q), _out(q), _out(q)
+    stats = torch.empty(3, b, h, s, dtype=torch.float32, device=q.device)
+    fn = _native.function("bh_attention", "sx_bh_attention_bwd",
+                          _BH_BWD_ARGS)
+    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
+              *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
+              _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
+              *dq.stride()[:3], _native.ptr(stats), b, h, s, d,
+              1.0 / math.sqrt(d), _native.stream(q.device))
+    _native.check("bh_attention", code, "bh_attention_bwd")
+    bh_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+bh_attention_bwd.launches = 0
+
+
 class _FusedAttention(torch.autograd.Function):
-    """The fused pair under autograd: forward K5, backward K6 (their plain
-    versions for CPU tensors). The mask gets no gradient."""
+    """A fused pair under autograd: K5/K6, or K7/K8 when ``per_head`` (their
+    plain versions for CPU tensors). The mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask):
+    def forward(ctx, q, k, v, mask, per_head):
+        ctx.per_head = per_head
         ctx.save_for_backward(q, k, v, mask)
-        return group_attention_fwd(q, k, v, mask)
+        fwd = bh_attention_fwd if per_head else group_attention_fwd
+        return fwd(q, k, v, mask)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask = ctx.saved_tensors
-        dq, dk, dv = group_attention_bwd(q, k, v, mask, do)
-        return dq, dk, dv, None
+        bwd = bh_attention_bwd if ctx.per_head else group_attention_bwd
+        dq, dk, dv = bwd(q, k, v, mask, do)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,12 +286,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attention_mask = torch.ones(b, s, dtype=torch.int32, device=q.device)
     mask = attention_mask.to(torch.int32)
     if s >= _MIN_FUSED_SEQ:
-        if q.is_cuda:
-            raise NotImplementedError(
-                f"flash attention at S={s} needs the per-(batch, head) Pallas "
-                "kernels (_fwd_call / _fused_bwd), not ported yet: ROADMAP.md "
-                "Queue 2")
-        return _FusedAttention.apply(q, k, v, mask)
+        return _FusedAttention.apply(q, k, v, mask, True)
     if (small_s_impl or SMALL_S_IMPL) == "group":
-        return _FusedAttention.apply(q, k, v, mask)
+        return _FusedAttention.apply(q, k, v, mask, False)
     return multi_head_attention(q, k, v, attention_mask)[0]

@@ -1,11 +1,12 @@
 """Stall watchdog: bound device-sync waits, re-issue on a stall, then raise.
 
-Own copy of ``simxns_tpu.parallel.watchdog.run_with_deadline``. The
-waiting call runs on a disposable worker thread and the caller waits with a
-deadline; a stalled attempt is abandoned and the call re-issued, and when
-every attempt stalls :class:`StallError` is raised with the phase's
+Own copy of ``simxns_tpu.parallel.watchdog``. :func:`run_with_deadline`
+runs the waiting call on a disposable worker thread and the caller waits
+with a deadline; a stalled attempt is abandoned and the call re-issued, and
+when every attempt stalls :class:`StallError` is raised with the phase's
 description. Retried callables must be idempotent reads (a synchronize, a
-result copy to the host).
+result copy to the host). :func:`retry_on_stall` re-runs a whole phase
+(an index build, a search) when it raises :class:`StallError`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import threading
 import time
 from typing import Callable, Optional
 
-__all__ = ["StallError", "run_with_deadline"]
+__all__ = ["StallError", "retry_on_stall", "run_with_deadline"]
 
 
 class StallError(RuntimeError):
@@ -69,3 +70,23 @@ def run_with_deadline(
         if backoff_s and attempt < retries:
             time.sleep(backoff_s)
     raise StallError(desc, deadline_s, retries + 1)
+
+
+def retry_on_stall(fn: Callable, attempts: int = 2, desc: str = "phase",
+                   cleanup: Optional[Callable] = None):
+    """Re-run a whole phase when it raises :class:`StallError`.
+
+    ``fn`` rebuilds its own state from scratch, so it need not be a pure
+    read, only safe to run again after ``cleanup()``. The last attempt's
+    StallError propagates.
+    """
+    for attempt in range(attempts):
+        try:
+            return fn()
+        except StallError as e:
+            print(f"[watchdog] {desc}: attempt {attempt + 1}/{attempts} "
+                  f"aborted ({e})", file=sys.stderr, flush=True)
+            if cleanup is not None:
+                cleanup()
+            if attempt == attempts - 1:
+                raise

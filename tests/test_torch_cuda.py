@@ -7,9 +7,9 @@ JAX conftest is not needed and JAX need not be installed):
 
 Each kernel wrapper launches its kernel for CUDA tensors (its launch count
 rises) and agrees with its plain version at small shapes (K5/K6, the
-grouped attention pair, at every S class they take); the knobs whose TPU
-kernels are not ported raise for CUDA tensors instead of running a plain
-version on the card.
+grouped attention pair, and K7/K8, the per-(batch, head) pair, at every S
+class they take); the knobs whose TPU kernels are not ported raise for
+CUDA tensors instead of running a plain version on the card.
 """
 
 import pytest
@@ -103,9 +103,6 @@ def test_unported_knobs_raise_for_cuda_tensors(dev):
             fused_ffn.ffn(x, w1, b1, w2, b2, impl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_ffn.dense(x, w1, b1)
-    q = _randn(dev, 1, 2, 256, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multi_head_attention(q, q, q, impl="flash")
 
 
 def _attention_inputs(dev, b, heads, s, d, seed=0):
@@ -158,6 +155,54 @@ def test_group_attention_autograd_on_head_views(dev):
                                   small_s_impl="group")
     out.float().square().sum().backward()
     assert fa.group_attention_bwd.launches == before + 1
+    refs = [t.detach().clone().requires_grad_() for t in x]
+    rq, rk, rv = (t.view(b, s, heads, d).transpose(1, 2) for t in refs)
+    fa._group_fwd_plain(rq, rk, rv, mask).float().square().sum().backward()
+    for got, ref in zip(x, refs):
+        err = float((got.grad.float() - ref.grad.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(ref.grad.float().abs().max()), err
+
+
+@pytest.mark.parametrize("b,heads,s,d", [(3, 2, 256, 64), (2, 2, 288, 32),
+                                         (2, 3, 512, 128), (1, 2, 1024, 64),
+                                         (3, 2, 300, 128), (2, 2, 17, 32)])
+def test_bh_attention_matches_plain(dev, b, heads, s, d):
+    """K7/K8 against their plain versions, with the tolerances of K5/K6;
+    batch row 0 has every key masked (the uniform softmax over S keys)."""
+    q, k, v, do, mask = _attention_inputs(dev, b, heads, s, d, seed=s + d)
+    mask[0] = 0
+    before = fa.bh_attention_fwd.launches, fa.bh_attention_bwd.launches
+    got = fa.bh_attention_fwd(q, k, v, mask)
+    want = fa._group_fwd_plain(q, k, v, mask)
+    tol = 2.0 ** -8 * float(v.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    grads = fa.bh_attention_bwd(q, k, v, mask, do)
+    refs = fa._group_bwd_plain(q, k, v, mask, do)
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape == q.shape
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(r.float().abs().max()), err
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0))
+        assert cos >= 0.9999, cos
+    torch.cuda.synchronize()
+    assert (fa.bh_attention_fwd.launches,
+            fa.bh_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_bh_attention_autograd_on_head_views(dev):
+    """The dispatch runs K7/K8 at S >= 256 under autograd on head views of
+    [B, S, H] projections, and the gradients land in that layout."""
+    b, s, heads, d = 2, 320, 4, 64
+    x = [_randn(dev, b, s, heads * d, seed=i).to(torch.bfloat16)
+         .requires_grad_() for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, 200:] = 0
+    before = fa.bh_attention_bwd.launches
+    out, _ = multi_head_attention(q, k, v, mask, impl="flash")
+    out.float().square().sum().backward()
+    assert fa.bh_attention_bwd.launches == before + 1
     refs = [t.detach().clone().requires_grad_() for t in x]
     rq, rk, rv = (t.view(b, s, heads, d).transpose(1, 2) for t in refs)
     fa._group_fwd_plain(rq, rk, rv, mask).float().square().sum().backward()

@@ -14,6 +14,7 @@ from simxns_tpu.ops.fused_ffn import _quant_rows as jax_quant_rows
 from simxns_tpu.ops.fused_ffn import _gelu_exact as jax_gelu_exact
 from simxns_tpu_torch.ops import fused_layer as tfl
 from simxns_tpu_torch.ops.fused_ffn import gelu_exact, quant_rows
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -14,6 +14,7 @@ import simxns_tpu.ops.mips_kernel as jmk
 from simxns_tpu.index.engine import MIPSIndex as JaxIndex
 from simxns_tpu.parallel import create_mesh
 from simxns_tpu_torch.index import CorpusEncoder, MIPSIndex
+from torch_parity import one_torch_thread  # noqa: F401
 
 STORES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16),

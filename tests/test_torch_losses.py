@@ -12,6 +12,7 @@ from simxns_tpu.losses.contrastive import in_batch_nll as jin_batch
 from simxns_tpu.losses.distill import ar2_retriever_loss as jar2
 from simxns_tpu_torch.losses import (ar2_retriever_loss, grouped_nll,
                                      in_batch_nll)
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, rtol=1e-5, atol=1e-6):

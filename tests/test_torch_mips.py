@@ -15,6 +15,7 @@ from simxns_tpu.ops.topk import blocked_mips_topk as jax_blocked
 from simxns_tpu.ops.topk import merge_topk as jax_merge
 from simxns_tpu_torch.ops import mips_kernel as tmk
 from simxns_tpu_torch.ops.topk import blocked_mips_topk, exact_topk, merge_topk
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

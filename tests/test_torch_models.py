@@ -15,6 +15,7 @@ from simxns_tpu.models.bert import BertEncoder as JaxBertEncoder
 from simxns_tpu_torch.models import BertConfig, BertEncoder, params_from_jax
 from torch_parity import (biencoder_pair, cosine_rows, crossencoder_pair,
                           jax_bert, port_bert, token_batch)
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

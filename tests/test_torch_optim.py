@@ -16,6 +16,7 @@ from simxns_tpu_torch.models import params_from_jax
 from simxns_tpu_torch.train import linear_warmup_schedule, make_adamw
 from simxns_tpu_torch.train.optim import _decay_mask
 from torch_parity import biencoder_pair, crossencoder_pair, jax_bert
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_schedule_matches_jax():

@@ -16,6 +16,7 @@ from simxns_tpu_torch.serve import DenseRetriever
 from torch_parity import biencoder_pair, jax_bert
 
 import jax.numpy as jnp
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -42,6 +42,7 @@ from simxns_tpu_torch.train import (TrainState, make_adamw,
 from simxns_tpu_torch.train import steps
 from torch_parity import (biencoder_pair, crossencoder_pair, jax_bert,
                           token_batch)
+from torch_parity import one_torch_thread  # noqa: F401
 
 N, M = 2, 3             # queries, passages per query
 F32 = jnp.float32

@@ -5,9 +5,13 @@ The same inputs, made with numpy from a seed, go through the JAX function
 where every kernel wrapper runs its plain PyTorch version).
 """
 
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from simxns_tpu.models import BertConfig as JaxBertConfig
@@ -19,10 +23,37 @@ from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
                                      CrossEncoder, CrossEncoderConfig,
                                      params_from_jax)
 
+# tests/test_star_bpe.py puts stub boto3 modules (no __spec__) into
+# sys.modules while it runs; a first import of accelerate after that, which
+# transformers' generation code makes (tests/test_t5.py,
+# tests/test_hf_import.py), fails in the same process. Imported here, at
+# collection, in every test worker, it is loaded before any stub exists,
+# whatever order the test runner gives those files.
+try:
+    import accelerate  # noqa: F401
+except ImportError:
+    pass
+
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 TINY = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=4,
             intermediate_size=256, max_position_embeddings=128)
+
+# the tiny co-training launcher run (the shape of tests/test_run.py:21-23)
+RUN_TINY = ["--synthetic", "--steps", "12", "--batch", "8", "--corpus-size",
+            "64", "--num-queries", "24", "--warm-epochs", "2"]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test of a module that imports this fixture runs the port on one
+    intra-op thread. The test runner's workers share the machine's cores:
+    tiny ops split over every core then wait on threads that another
+    worker has descheduled (the launcher tests ran 10-50x slower so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def jax_bert(**kw) -> JaxBertConfig:
@@ -85,6 +116,18 @@ def token_batch(rng, b: int, s: int, vocab: int = 1024, min_len: int = 4):
     mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
     ids[:, 0] = 1
     return ids * mask, mask
+
+
+def run_losses(directory) -> list:
+    """(step, kind, loss) of every co-training step a launcher run logged
+    in ``directory/metrics.jsonl``."""
+    out = []
+    with open(os.path.join(directory, "metrics.jsonl"), encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["phase"] in ("reranker", "retriever"):
+                out.append((rec["step"], rec["phase"], rec["loss"]))
+    return out
 
 
 def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
