@@ -58,10 +58,31 @@ non-zero and prints no result):
    phase times, the mine's passages/s, each step's ms (host clock to a
    synchronise), the peak memory, the top-1 history, and the launches of
    every kernel of its path, zeroed just before the run;
-8. the ``kernels`` line (K1-K8, launches of every path); then the last
+8. the FFN kernels: K9 ``ffn_train_fwd``, K10 ``ffn_bwd_dx``, K11
+   ``ffn_bwd_dw`` and K12 ``ffn_fused_fwd`` (bf16) against their plain
+   versions at the CE-large step's shape (M=20,480, H=1024, F=4096), the
+   DE's passages (16,384 x 768 x 3072) and queries (M=256), an msdoc step
+   (M=65,536) and, for K12, an encode chunk (M=131,072), with ``F.linear``
+   -> ``F.gelu`` -> ``F.linear`` in bf16 and its autograd backward as the
+   yardstick;
+9. training under ``ffn_impl="fused_vjp"``: phase 5's models and batches
+   with the knob set on the DE and the CE. The first reranker step's
+   gradients on K9-K11 against the same step on their plain versions, and
+   beside it against ``ffn_impl="xla"``; 3 steps of each kind with the
+   launch counts zeroed before each kind (K9 = K10 = K11 = 24 per reranker
+   step), step ms and peak memory beside phase 5's, one traced step per
+   kind; then one reranker forward and backward with ``remat=True``: the
+   gradients of the step without it, K9 launched 48 times;
+10. encoding under ``ffn_impl="fused"``: a full-width BERT-base dual encoder
+   (bf16, ``layer_impl="xla"``) behind a DenseRetriever indexes 16,384
+   synthetic passages (16 chunks of 1024 x 128 tokens) and answers 8
+   requests; K12 launched 12 times per chunk; the embeddings against the
+   same model on K12's plain version;
+11. the ``kernels`` line (K1-K12, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -107,6 +128,18 @@ def timed(torch, fn, reps, warmup=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def fresh_peak(torch):
+    """Start a peak-memory reading: collect what Python still holds of the
+    phases before (an unreachable autograd graph keeps its activations on
+    the card until the collector runs, and would count towards the peak),
+    hand cached blocks back, reset the peak. -> GB allocated at that
+    moment (weights, optimizer state and whatever else is still alive)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
 
 
 def check(ok, what):
@@ -806,6 +839,45 @@ def _train_batch(np, seed):
             "joint_mask": jmask.reshape(n, m, LJ)}
 
 
+def _full_models(torch, ffn_impl):
+    """The nq recipe's models at full width on the card, random weights
+    from seed 0: a BERT-base DE and an ERNIE-large-shaped CE (24 layers,
+    H=1024, small_s_attn="group"), both with ``ffn_impl``. -> (de, ce,
+    seconds)."""
+    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
+                                         BiEncoderConfig, CrossEncoder,
+                                         CrossEncoderConfig)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    de = BiEncoder(BiEncoderConfig(bert=BertConfig(
+        vocab_size=30522, hidden_size=H, num_layers=12, num_heads=HEADS,
+        intermediate_size=F, dtype=torch.bfloat16, ffn_impl=ffn_impl)),
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    ce = CrossEncoder(CrossEncoderConfig(bert=BertConfig(
+        vocab_size=30522, hidden_size=CE_H, num_layers=CE_LAYERS,
+        num_heads=CE_HEADS, intermediate_size=CE_F, dtype=torch.bfloat16,
+        small_s_attn="group", ffn_impl=ffn_impl)),
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    return de, ce, time.perf_counter() - t0
+
+
+def _flat_gradients(torch, steps, model, batch):
+    """(loss, every gradient flattened into one f32 vector) of one reranker
+    forward and backward of ``model``; no update, the .grad fields cleared."""
+    loss, _ = steps.reranker_loss(model, batch)
+    grads = steps.gradients(model, loss)
+    flat = torch.cat([g.float().flatten() for g in grads.values()
+                      if g is not None])
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), flat
+
+
+def _cosine(torch, a, b):
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
 def phase_training(torch, smi, records):
     """Phase 6: the training path. A BERT-base DE and an ERNIE-large-shaped
     CE (random weights, seed 0) take 3 DE warm-up steps, 3 reranker steps
@@ -814,9 +886,7 @@ def phase_training(torch, smi, records):
     import numpy as np
 
     from simxns_tpu_torch import ops
-    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
-                                         BiEncoderConfig, CrossEncoder,
-                                         CrossEncoderConfig, int8_view)
+    from simxns_tpu_torch.models import int8_view
     from simxns_tpu_torch.ops import flash_attention as fa
     from simxns_tpu_torch.ops.fused_layer import layer_int8_plain
     from simxns_tpu_torch.train import (TrainState, make_adamw,
@@ -825,32 +895,15 @@ def phase_training(torch, smi, records):
                                         make_reranker_step, steps)
 
     dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    de = BiEncoder(BiEncoderConfig(bert=BertConfig(
-        vocab_size=30522, hidden_size=H, num_layers=12, num_heads=HEADS,
-        intermediate_size=F, dtype=torch.bfloat16)),
-        generator=torch.Generator().manual_seed(0)).to(dev)
-    ce = CrossEncoder(CrossEncoderConfig(bert=BertConfig(
-        vocab_size=30522, hidden_size=CE_H, num_layers=CE_LAYERS,
-        num_heads=CE_HEADS, intermediate_size=CE_F, dtype=torch.bfloat16,
-        small_s_attn="group")),
-        generator=torch.Generator().manual_seed(0)).to(dev)
-    init_s = time.perf_counter() - t0
+    fresh_peak(torch)
+    de, ce, init_s = _full_models(torch, "xla")
     batches = [_train_batch(np, seed) for seed in range(3)]
     b0 = steps.to_device(batches[0], dev)
 
     # the first reranker step's gradients, K5/K6 against their plain
     # versions, from the same weights (no update in between)
     def ce_gradients():
-        loss, _ = steps.reranker_loss(ce, b0)
-        grads = steps.gradients(ce, loss)
-        flat = torch.cat([g.float().flatten() for g in grads.values()
-                          if g is not None])
-        for p in ce.parameters():
-            p.grad = None
-        return float(loss.detach()), flat
+        return _flat_gradients(torch, steps, ce, b0)
 
     def softmax_probs(q, k, mask):
         # p through torch.softmax: the same f32 function as the plain
@@ -871,11 +924,8 @@ def phase_training(torch, smi, records):
     finally:
         fa.group_attention_fwd, fa.group_attention_bwd, fa._probs = kernels
 
-    def cosine(a, b):
-        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-
-    grad_cos = cosine(grad_k, grad_p)
-    floor_cos = cosine(grad_p, grad_f)
+    grad_cos = _cosine(torch, grad_k, grad_p)
+    floor_cos = _cosine(torch, grad_p, grad_f)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     del grad_k, grad_p, grad_f
     # bf16 activations through 24 random-weight layers: an f32 rounding
@@ -911,22 +961,12 @@ def phase_training(torch, smi, records):
              "reranker": make_reranker_step(tx_ce),
              "retriever": make_ar2_retriever_step(tx_de, temperature=1.0,
                                                   adv_lambda=0.0)}
-    step_ms = {kind: [] for kind in kinds}
-    losses = {kind: [] for kind in kinds}
     ops.reset_launches()
     torch.cuda.synchronize()
-    for kind, step in kinds.items():
-        for batch in batches:
-            t0 = time.perf_counter()
-            if kind == "biencoder":
-                de_state, metrics = step(de_state, batch)
-            elif kind == "reranker":
-                ce_state, metrics = step(ce_state, batch)
-            else:
-                de_state, metrics = step(de_state, view, batch)
-            losses[kind].append(float(metrics["loss"]))
-            torch.cuda.synchronize()
-            step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    phase_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms, losses, peak_gb, resident_gb, de_state, ce_state = _run_steps(
+        torch, kinds, batches, de_state, ce_state, view)
+    phase_peak_gb = max(phase_peak_gb, *peak_gb.values())
     launches = ops.launches()
     for name in ("int8_linear", "row_quant", "small_s_attention",
                  "group_attention_fwd", "group_attention_bwd"):
@@ -970,13 +1010,40 @@ def phase_training(torch, smi, records):
                                    "gradient_cosine": grad_cos,
                                    "gradient_cosine_two_plain": floor_cos},
          teacher_cls_min_cosine_kernel_vs_plain=teacher_cos,
-         launches=launches, max_memory_gb=torch.cuda.max_memory_allocated()
-         / 1e9, step_traces=traces)
+         launches=launches, max_memory_gb=phase_peak_gb,
+         max_memory_gb_by_kind=peak_gb, resident_gb_by_kind=resident_gb,
+         step_traces=traces)
     for name, rec in records.items():
         serving = rec.get("launches", 0)
         rec["launches_by_path"] = {"serving": serving,
                                    "training": launches.get(name, 0)}
         rec["launches"] = serving + launches.get(name, 0)
+    return {"steady_step_ms": steady, "max_memory_gb_by_kind": peak_gb}
+
+
+def _run_steps(torch, kinds, batches, de_state, ce_state, view):
+    """Every batch through each kind of step, each step timed on the host
+    clock to a synchronise; the peak memory is read per kind, beside what
+    was resident before its first step. -> (step_ms, losses, peak_gb,
+    resident_gb, de_state, ce_state)."""
+    step_ms = {kind: [] for kind in kinds}
+    losses = {kind: [] for kind in kinds}
+    peak_gb, resident_gb = {}, {}
+    for kind, step in kinds.items():
+        resident_gb[kind] = fresh_peak(torch)
+        for batch in batches:
+            t0 = time.perf_counter()
+            if kind == "biencoder":
+                de_state, metrics = step(de_state, batch)
+            elif kind == "reranker":
+                ce_state, metrics = step(ce_state, batch)
+            else:
+                de_state, metrics = step(de_state, view, batch)
+            losses[kind].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        peak_gb[kind] = torch.cuda.max_memory_allocated() / 1e9
+    return step_ms, losses, peak_gb, resident_gb, de_state, ce_state
 
 
 def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
@@ -1213,8 +1280,7 @@ def phase_co_training(torch, smi, records):
         for recipe, path in CO_TRAINING.items():
             out_dir = os.path.join(root, recipe)
             step_ms.clear()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            fresh_peak(torch)
             # the main path: launch counts zeroed just before, read after
             ops.reset_launches()
             torch.cuda.synchronize()
@@ -1291,6 +1357,423 @@ def phase_co_training(torch, smi, records):
     return summary
 
 
+# (M, H, F) of the FFN kernels on the main paths
+FFN_SHAPES = {"ce_large": (N_Q * N_P * LJ, CE_H, CE_F),
+              "de_passages": (N_Q * N_P * LC, H, F),
+              "de_queries": (N_Q * LQ, H, F),
+              "msdoc": (N_Q * N_P * MS_S, H, F),
+              "encode_chunk": (1024 * LC, H, F)}
+FFN_KERNELS = ("ffn_train_fwd", "ffn_bwd_dx", "ffn_bwd_dw", "ffn_fused_fwd")
+
+
+def _check_ffn_shape(torch, randn, label, m, h, f):
+    """K9-K12 at one (M, H, F) against their plain versions on the same
+    bf16 inputs, with their times, the bounds and the library yardstick
+    (``F.linear`` -> ``F.gelu`` -> ``F.linear`` in bf16 and its autograd
+    backward; timed only). ``encode_chunk`` is K12's shape alone.
+    -> {kernel name: record}."""
+    from simxns_tpu_torch.ops import fused_ffn as pf
+
+    bf = torch.bfloat16
+    x = randn(m, h).to(bf)
+    w1 = randn(f, h, scale=0.02).to(bf)
+    b1 = randn(f, scale=0.02).to(bf)
+    w2 = randn(h, f, scale=0.02).to(bf)
+    b2 = randn(h, scale=0.02).to(bf)
+    shape = dict(shape=label, m=m, h=h, f=f)
+    ops = 4.0 * m * h * f
+
+    def close_bf16(got, want, what):
+        # both sides round f32 sums taken in another order to bf16: a
+        # result may land one bf16 step away (2^-7 relative at most), and
+        # what is summed from a moved hb or dh element moves far less
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        check(err <= tol, f"{what} at {label}: err {err} > {tol}")
+        share = float((got != want).float().mean())
+        return err, share
+
+    def close_f32(got, want, what):
+        # f32 sums of M bf16 products in another order (and the tensor
+        # cores' f32 accumulation): 1e-3 of the largest value, and a cosine
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(
+            got.flatten().double(), want.flatten().double(), dim=0))
+        check(rel <= 1e-3 and cos >= 0.99999,
+              f"{what} at {label}: err {rel} of the largest, cosine {cos}")
+        return err, rel, cos
+
+    def library_fwd(xx=x, a=w1, b=b1, c=w2, d=b2):
+        lin = torch.nn.functional.linear
+        return lin(torch.nn.functional.gelu(lin(xx, a, b)), c, d)
+
+    out = {}
+    y_ref, hb_ref = pf._ffn_train_fwd_plain(x, w1, b1, w2, b2)
+    plain_fwd = timed(torch, lambda: pf._ffn_train_fwd_plain(
+        x, w1, b1, w2, b2), 1, warmup=0)
+    lib_fwd = timed(torch, library_fwd, 5)
+    w_bytes = 2 * (2 * h * f + h + f)
+
+    y12 = pf.ffn_fused_fwd(x, w1, b1, w2, b2)
+    err, share = close_bf16(y12, y_ref, "ffn_fused_fwd y")
+    bms, by = bound(2 * (2 * m * h) + w_bytes, ops, PEAK_BF16)
+    out["ffn_fused_fwd"] = dict(
+        shape, ms=timed(torch, lambda: pf.ffn_fused_fwd(x, w1, b1, w2, b2),
+                        5), plain_ms=plain_fwd, library_ms=lib_fwd,
+        bound_ms=bms, bound_by=by, max_abs_err=err, share_differing=share)
+    del y12
+    if label == "encode_chunk":
+        return out
+
+    y, hb = pf.ffn_train_fwd(x, w1, b1, w2, b2)
+    err_h, share_h = close_bf16(hb, hb_ref, "ffn_train_fwd hb")
+    err, share = close_bf16(y, y_ref, "ffn_train_fwd y")
+    bms, by = bound(2 * (2 * m * h + m * f) + w_bytes, ops, PEAK_BF16)
+    out["ffn_train_fwd"] = dict(
+        shape, ms=timed(torch, lambda: pf.ffn_train_fwd(x, w1, b1, w2, b2),
+                        5), plain_ms=plain_fwd, library_ms=lib_fwd,
+        bound_ms=bms, bound_by=by, max_abs_err=max(err, err_h),
+        share_differing=max(share, share_h))
+    del y, y_ref, hb_ref
+
+    # the backward kernels and their plain versions read K9's hb, and K11
+    # K10's dh: the same inputs on both sides
+    dy = randn(m, h).to(bf)
+    dx, dh = pf.ffn_bwd_dx(dy, w1, w2, hb)
+    dx_ref, dh_ref = pf._ffn_bwd_dx_plain(dy, w1, w2, hb)
+    err_h, share_h = close_bf16(dh, dh_ref, "ffn_bwd_dx dh")
+    err, share = close_bf16(dx, dx_ref, "ffn_bwd_dx dx")
+    del dx, dx_ref, dh_ref
+    ms10 = timed(torch, lambda: pf.ffn_bwd_dx(dy, w1, w2, hb), 5)
+    plain10 = timed(torch, lambda: pf._ffn_bwd_dx_plain(dy, w1, w2, hb), 1,
+                    warmup=0)
+    bms, by = bound(2 * (2 * m * h + 2 * m * f + 2 * h * f), ops, PEAK_BF16)
+    out["ffn_bwd_dx"] = dict(
+        shape, ms=ms10, plain_ms=plain10, library_ms=None, bound_ms=bms,
+        bound_by=by, max_abs_err=max(err, err_h),
+        share_differing=max(share, share_h))
+
+    got = pf.ffn_bwd_dw(x, dy, hb, dh)
+    want = pf._ffn_bwd_dw_plain(x, dy, hb, dh)
+    errs = [close_f32(g, w, f"ffn_bwd_dw {name}")
+            for name, g, w in zip(("dw1", "db1", "dw2"), got, want)]
+    del got, want
+    ms11 = timed(torch, lambda: pf.ffn_bwd_dw(x, dy, hb, dh), 5)
+    plain11 = timed(torch, lambda: pf._ffn_bwd_dw_plain(x, dy, hb, dh), 1,
+                    warmup=0)
+    bms, by = bound(2 * (2 * m * h + 2 * m * f) + 4 * (2 * h * f + f), ops,
+                    PEAK_BF16)
+    out["ffn_bwd_dw"] = dict(
+        shape, ms=ms11, plain_ms=plain11, library_ms=None, bound_ms=bms,
+        bound_by=by, max_abs_err=max(e[0] for e in errs),
+        max_err_of_largest=max(e[1] for e in errs),
+        min_cosine=min(e[2] for e in errs))
+
+    # the yardstick of K10 + K11 together: the library forward's backward
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y_lib = library_fwd(*leaves)
+    lib_bwd = timed(torch, lambda: torch.autograd.grad(
+        y_lib, leaves, dy, retain_graph=True), 5)
+    for name in ("ffn_bwd_dx", "ffn_bwd_dw"):
+        out[name].update(bwd_ms=ms10 + ms11, library_bwd_ms=lib_bwd)
+    return out
+
+
+def phase_ffn_kernels(torch, smi, records):
+    """Phase 8: K9-K12 at the shapes of FFN_SHAPES. The record of K9-K11 is
+    the CE-large step's shape, K12's the encode chunk's."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    torch.cuda.empty_cache()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    by_kernel = {name: [] for name in FFN_KERNELS}
+    for label, (m, h, f) in FFN_SHAPES.items():
+        for name, rec in _check_ffn_shape(torch, randn, label, m, h,
+                                          f).items():
+            by_kernel[name].append(rec)
+            emit("kernel_shape", name=name, nvidia_smi=smi, **rec)
+        torch.cuda.empty_cache()
+    tolerance = {
+        "ffn_bwd_dw": "1e-3 x max|ref| and cosine >= 0.99999 (f32 sums over "
+                      "M in another order)"}
+    for name, shapes in by_kernel.items():
+        main = next(r for r in shapes if r["shape"] == (
+            "encode_chunk" if name == "ffn_fused_fwd" else "ce_large"))
+        rec = {key: val for key, val in main.items()
+               if key not in ("m", "h", "f")}
+        rec["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
+        rec["shape"] = [main["m"], main["h"], main["f"]]
+        rec["shapes"] = shapes
+        rec["tolerance"] = tolerance.get(
+            name, "2^-7 x max|ref| (one bf16 step of the largest value)")
+        rec["library"] = ("F.linear -> F.gelu -> F.linear in bf16; "
+                          "library_bwd_ms its autograd backward, the "
+                          "yardstick of K10 + K11 together (bwd_ms)")
+        records[name] = rec
+        emit("kernel", name=name, nvidia_smi=smi,
+             **{k: v for k, v in rec.items() if k != "shapes"})
+
+
+def phase_ffn_training(torch, smi, records, xla):
+    """Phase 9: phase 5's training path with ``ffn_impl="fused_vjp"`` on the
+    DE and the CE (the teacher view stays fused_int8). ``xla`` is what
+    phase 5 measured with ``ffn_impl="xla"``."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import CrossEncoder, int8_view
+    from simxns_tpu_torch.models.bert import share_parameters
+    from simxns_tpu_torch.ops import fused_ffn as pf
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_ar2_retriever_step,
+                                        make_biencoder_step,
+                                        make_reranker_step, steps)
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    de, ce, init_s = _full_models(torch, "fused_vjp")
+    batches = [_train_batch(np, seed) for seed in range(3)]
+    b0 = steps.to_device(batches[0], dev)
+
+    def view_of(**knobs):
+        """``ce`` under another config, over the same Parameters."""
+        import dataclasses
+
+        with torch.device("meta"):
+            view = CrossEncoder(dataclasses.replace(
+                ce.cfg, bert=ce.cfg.bert.replace(**knobs)))
+        return share_parameters(view, ce)
+
+    # the first reranker step's gradients: K9-K11, their plain versions,
+    # and ffn_impl="xla", from the same weights (no update in between)
+    ops.reset_launches()
+    loss_k, grad_k = _flat_gradients(torch, steps, ce, b0)
+    first = ops.launches()
+    check(all(first[name] == CE_LAYERS for name in FFN_KERNELS[:3]),
+          f"one reranker forward and backward launched {first}")
+    kernels = pf.ffn_train_fwd, pf.ffn_bwd_dx, pf.ffn_bwd_dw
+    pf.ffn_train_fwd = pf._ffn_train_fwd_plain
+    pf.ffn_bwd_dx = pf._ffn_bwd_dx_plain
+    pf.ffn_bwd_dw = pf._ffn_bwd_dw_plain
+    try:
+        loss_p, grad_p = _flat_gradients(torch, steps, ce, b0)
+    finally:
+        pf.ffn_train_fwd, pf.ffn_bwd_dx, pf.ffn_bwd_dw = kernels
+    loss_x, grad_x = _flat_gradients(torch, steps, view_of(ffn_impl="xla"),
+                                     b0)
+    grad_cos = _cosine(torch, grad_k, grad_p)
+    cos_kx = _cosine(torch, grad_k, grad_x)
+    cos_px = _cosine(torch, grad_p, grad_x)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    del grad_k, grad_p, grad_x
+    # bf16 activations through 24 random-weight layers: one flipped bf16
+    # rounding moves the roundings downstream, and the gradients of two
+    # equally exact versions of this step part at a cosine of ~0.994
+    # (phase 5). Here the plain versions against ffn_impl="xla" are such a
+    # pair, measured in this run: the kernels must sit on that floor against
+    # their plain versions, and no further from "xla" than those do.
+    check(loss_rel <= 1e-2 and grad_cos >= cos_px - 0.002
+          and cos_kx >= cos_px - 0.002,
+          f"reranker step, K9-K11 vs plain: loss rel {loss_rel}, gradient "
+          f"cosine {grad_cos}; against xla {cos_kx} (plain: {cos_px})")
+
+    # the main path: launch counts zeroed just before each kind of step
+    view = int8_view(ce)
+    tx_de = make_adamw(1e-5, total_steps=0)
+    tx_ce = make_adamw(1e-6, total_steps=0)
+    de_state = TrainState.create(de, tx_de)
+    ce_state = TrainState.create(ce, tx_ce)
+    kinds = {"biencoder": make_biencoder_step(tx_de),
+             "reranker": make_reranker_step(tx_ce),
+             "retriever": make_ar2_retriever_step(tx_de, temperature=1.0,
+                                                  adv_lambda=0.0)}
+    step_ms, losses, peak_gb, resident_gb, launches = {}, {}, {}, {}, {}
+    for kind, step in kinds.items():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        ms, loss, peak, resident, de_state, ce_state = _run_steps(
+            torch, {kind: step}, batches, de_state, ce_state, view)
+        resident_gb.update(resident)
+        launches[kind] = {k: v for k, v in ops.launches().items() if v}
+        step_ms.update(ms)
+        losses.update(loss)
+        peak_gb.update(peak)
+    per_step = {"biencoder": 24, "reranker": CE_LAYERS, "retriever": 24}
+    for kind, n in per_step.items():
+        got = [launches[kind].get(name, 0) for name in FFN_KERNELS[:3]]
+        check(got == [3 * n] * 3, f"{kind}: 3 steps launched K9, K10, K11 "
+              f"{got} times, not {3 * n} each")
+    check(all(math.isfinite(x) for v in losses.values() for x in v),
+          f"non-finite loss: {losses}")
+    traces = {
+        "biencoder": _trace(torch, [lambda: kinds["biencoder"](
+            de_state, batches[0])], "step"),
+        "reranker": _trace(torch, [lambda: kinds["reranker"](
+            ce_state, batches[0])], "step"),
+        "retriever": _trace(torch, [lambda: kinds["retriever"](
+            de_state, view, batches[0])], "step")}
+
+    # remat: one reranker forward and backward that recomputes each layer,
+    # against the same one that does not (same weights, no update)
+    def measured(model):
+        torch.cuda.synchronize()
+        fresh_peak(torch)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, flat = _flat_gradients(torch, steps, model, b0)
+        torch.cuda.synchronize()
+        return dict(loss=loss, ms=(time.perf_counter() - t0) * 1e3,
+                    max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches={k: v for k, v in ops.launches().items()
+                              if v}), flat
+
+    remat_view = view_of(remat=True)
+    measured(remat_view)                       # warm
+    off, grad_off = measured(ce)
+    on, grad_on = measured(remat_view)
+    remat_cos = _cosine(torch, grad_off, grad_on)
+    remat_err = float((grad_off - grad_on).abs().max()
+                      / grad_off.abs().max())
+    del grad_off, grad_on
+    # the recomputed forward repeats the kernels on the same inputs, so the
+    # loss is equal; the embedding gradients add with atomics in an order
+    # that changes from run to run
+    check(on["loss"] == off["loss"] and remat_cos >= 0.999999
+          and remat_err <= 1e-3,
+          f"remat: loss {on['loss']} vs {off['loss']}, gradient cosine "
+          f"{remat_cos}, err {remat_err} of the largest")
+    check(on["launches"].get("ffn_train_fwd") == 2 * CE_LAYERS
+          and on["launches"].get("ffn_bwd_dx") == CE_LAYERS
+          and on["launches"].get("ffn_bwd_dw") == CE_LAYERS
+          and off["launches"].get("ffn_train_fwd") == CE_LAYERS,
+          f"remat launches: {on['launches']} (without: {off['launches']})")
+
+    steady = {kind: float(np.mean(ms[1:])) for kind, ms in step_ms.items()}
+    emit("ffn_training", nvidia_smi=smi, model_init_s=init_s,
+         ffn_impl="fused_vjp", step_ms=step_ms, steady_step_ms=steady,
+         steady_step_ms_xla=xla["steady_step_ms"], losses=losses,
+         max_memory_gb_by_kind=peak_gb, resident_gb_by_kind=resident_gb,
+         max_memory_gb_by_kind_xla=xla["max_memory_gb_by_kind"],
+         reranker_kernel_vs_plain={
+             "loss_kernel": loss_k, "loss_plain": loss_p, "loss_xla": loss_x,
+             "loss_rel": loss_rel, "gradient_cosine": grad_cos,
+             "gradient_cosine_kernel_vs_xla": cos_kx,
+             "gradient_cosine_plain_vs_xla": cos_px},
+         launches_first_forward_backward={k: v for k, v in first.items()
+                                          if v},
+         launches_by_kind=launches, step_traces=traces,
+         remat={"off": off, "on": on, "gradient_cosine": remat_cos,
+                "gradient_err_of_largest": remat_err})
+    total = {}
+    for by_name in launches.values():
+        for name, n in by_name.items():
+            total[name] = total.get(name, 0) + n
+    for name, rec in records.items():
+        rec.setdefault("launches_by_path", {})["ffn_training"] = total.get(
+            name, 0)
+
+
+def phase_ffn_encode(torch, smi, records):
+    """Phase 10: the serving path with ``ffn_impl="fused"``: a full-width
+    BERT-base dual encoder in bf16 on the library's projections, the plain
+    attention and K12."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.ops import fused_ffn as pf
+    from simxns_tpu_torch.serve import DenseRetriever
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    model = BiEncoder(BiEncoderConfig(bert=BertConfig(
+        vocab_size=30522, hidden_size=H, num_layers=12, num_heads=HEADS,
+        intermediate_size=F, dtype=torch.bfloat16, ffn_impl="fused")),
+        generator=torch.Generator().manual_seed(0))
+    tok = HashTokenizer(vocab_size=30522)
+    n_pass, chunk, n_req = 16384, 1024, 8
+    passages = _synthetic_passages(n_pass)
+    retriever = DenseRetriever(model, tok, max_q_length=LQ,
+                               max_ctx_length=LC, index_mode="fused",
+                               store_dtype=torch.int8, query_batch=8,
+                               encode_chunk=chunk)
+    ids, mask = retriever._tokenize([passages[i][1] for i in range(n_pass)],
+                                    [passages[i][0] for i in range(n_pass)],
+                                    LC)
+    rng = np.random.default_rng(2)
+    picks = rng.integers(0, n_pass, n_req * 8)
+    requests = [[" ".join(passages[int(i)][0].split()[:12])
+                 for i in picks[r * 8:(r + 1) * 8]] for r in range(n_req)]
+    # warm: the first call of a process pays cuBLAS's set-up
+    with torch.inference_mode():
+        model.encode_passage(torch.from_numpy(ids[:chunk]).to(dev),
+                             torch.from_numpy(mask[:chunk]).to(dev))
+
+    # the main path: launch counts zeroed just before, read just after
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    retriever.index_corpus(passages, precomputed_tokens=ids)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    indexed = ops.launches()
+    latencies, answers = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        answers.append(retriever.search(req, k=10))
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launches()
+    layers = model.cfg.bert.num_layers
+    check(indexed["ffn_fused_fwd"] == layers * (n_pass // chunk),
+          f"indexing {n_pass // chunk} chunks launched K12 "
+          f"{indexed['ffn_fused_fwd']} times, not {layers} per chunk")
+    check(launches["ffn_fused_fwd"] == layers * (n_pass // chunk + n_req),
+          f"K12 launches after {n_req} requests: {launches['ffn_fused_fwd']}")
+    for hits in answers:
+        for q_hits in hits:
+            scores = [h.score for h in q_hits]
+            check(len(q_hits) == 10 and all(math.isfinite(s) for s in scores)
+                  and all(0 <= h.passage_id < n_pass for h in q_hits)
+                  and scores == sorted(scores, reverse=True),
+                  "malformed search result")
+
+    # the same model on K12's plain version
+    enc_ids = torch.from_numpy(ids[:chunk]).to(dev)
+    enc_mask = torch.from_numpy(mask[:chunk]).to(dev)
+    kernel = pf.ffn_fused_fwd
+    with torch.inference_mode():
+        kern = model.encode_passage(enc_ids, enc_mask).float()
+        pf.ffn_fused_fwd = lambda *a: pf._ffn_train_fwd_plain(*a)[0]
+        try:
+            plain = model.encode_passage(enc_ids, enc_mask).float()
+        finally:
+            pf.ffn_fused_fwd = kernel
+    cos = torch.nn.functional.cosine_similarity(kern, plain, dim=1)
+    check(bool(torch.isfinite(kern).all()) and kern.shape == (chunk, H),
+          "passage embeddings: shape or non-finite values")
+    # bf16 through 12 layers: a rounding that lands on the other side moves
+    # the roundings downstream (the serving path's floor is 0.9997)
+    check(float(cos.min()) >= 0.995,
+          f"passage embeddings, K12 vs plain: min cosine {float(cos.min())}")
+    lat = np.array(latencies)
+    emit("ffn_encode", nvidia_smi=smi, ffn_impl="fused", passages=n_pass,
+         index_corpus_s=index_s, passages_per_s=n_pass / index_s,
+         requests=n_req, queries_per_request=8,
+         request_ms_p50=float(np.percentile(lat, 50)), request_ms=latencies,
+         launches={k: v for k, v in launches.items() if v},
+         min_cosine_kernel_vs_plain=float(cos.min()),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for name, rec in records.items():
+        rec.setdefault("launches_by_path", {})["ffn_encode"] = launches.get(
+            name, 0)
+        rec["launches"] = sum(rec["launches_by_path"].values())
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -1309,6 +1792,14 @@ SOURCES = {
                          "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
                          "simxns_tpu/ops/flash_attention.py:80"),
+    "ffn_train_fwd": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+                      "simxns_tpu/ops/fused_ffn.py:324"),
+    "ffn_bwd_dx": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+                   "simxns_tpu/ops/fused_ffn.py:348"),
+    "ffn_bwd_dw": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+                   "simxns_tpu/ops/fused_ffn.py:374"),
+    "ffn_fused_fwd": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+                      "simxns_tpu/ops/fused_ffn.py:77"),
 }
 
 
@@ -1333,9 +1824,12 @@ def main():
     records = phase_kernels(torch, smi)
     phase_end_to_end(torch, smi, records)
     phase_train_kernels(torch, smi, records)
-    phase_training(torch, smi, records)
+    xla = phase_training(torch, smi, records)
     phase_msdoc_kernels(torch, smi, records)
     phase_co_training(torch, smi, records)
+    phase_ffn_kernels(torch, smi, records)
+    phase_ffn_training(torch, smi, records, xla)
+    phase_ffn_encode(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

@@ -14,13 +14,18 @@ rounded, which gives the same values.
 
 The default impls are plain autograd and train (the attention kernels
 K5/K6 and K7/K8 have their own backward, ``ops/flash_attention.py``).
+``ffn_impl="fused_vjp"`` trains through the fused FFN kernels K9-K11 and
+``ffn_impl="fused"`` encodes through K12 (``ops/fused_ffn.py``); the
+parameters are the same under every knob. ``remat=True`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``, per layer, as the
+JAX ``run_layers``); ``remat_policy="dots"`` is not ported.
 ``layer_impl="fused_int8"`` runs each layer on the Hopper kernels of
 :mod:`simxns_tpu_torch.ops.fused_layer` (encode only, under
 ``torch.no_grad()``); its int8 weights are cached per layer and quantized
 again whenever a parameter changes, so an encode-only view that shares a
 training model's ``Parameter`` objects (:func:`share_parameters`, the
 ``int8_view`` of either model) follows every optimizer update. Not ported
-yet: dropout, the MLM head, remat. Parameter names follow the JAX tree
+yet: dropout, the MLM head. Parameter names follow the JAX tree
 (``layers.{i}`` for ``layer_{i}``);
 :func:`simxns_tpu_torch.models.convert.params_from_jax` maps a flax tree
 onto them.
@@ -33,6 +38,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from simxns_tpu_torch.ops import fused_ffn
 from simxns_tpu_torch.ops.attention import multi_head_attention
@@ -63,6 +69,8 @@ class BertConfig:
     proj_impl: str = "xla"
     layer_impl: str = "xla"
     gelu: str = "exact"
+    remat: bool = False                   # recompute each layer in backward
+    remat_policy: Optional[str] = None    # None = recompute everything
 
     @staticmethod
     def tiny(**kw) -> "BertConfig":
@@ -129,12 +137,7 @@ def _guard_quantized_under_grad(module: nn.Module, x: torch.Tensor,
 def dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dt)``: operands cast to ``dt``, f32 accumulation,
     result rounded to ``dt``, then the ``dt`` bias added."""
-    if x.is_cuda:
-        y = torch.matmul(x.to(dt), layer.weight.to(dt).T)
-    else:
-        y = torch.matmul(x.to(dt).float(),
-                         layer.weight.to(dt).float().T).to(dt)
-    return y + layer.bias.to(dt)
+    return fused_ffn.linear_dt(x, layer.weight, layer.bias, dt)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dt: torch.dtype,
@@ -321,6 +324,22 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg)
                                     for _ in range(cfg.num_layers))
 
+    def _remat(self) -> bool:
+        """Whether this call checkpoints its layers: ``cfg.remat`` while
+        autograd records (an encode under ``torch.no_grad()`` has nothing
+        to recompute)."""
+        cfg = self.cfg
+        if not cfg.remat:
+            return False
+        if cfg.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' (save the matmul outputs, recompute the "
+                "elementwise work) is not ported yet (ROADMAP.md Queue 1, "
+                "item 3)")
+        if cfg.remat_policy is not None:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        return torch.is_grad_enabled()
+
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None, *,
@@ -331,8 +350,14 @@ class BertEncoder(nn.Module):
                                         device=input_ids.device)
         x = self.embeddings(input_ids, token_type_ids)
         hidden = [x] if output_hidden_states else None
+        remat = self._remat()
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            if remat:
+                # nothing random runs in a layer: no RNG state to restore
+                x = checkpoint(layer, x, attention_mask, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, attention_mask)
             if output_hidden_states:
                 hidden.append(x)
         return EncoderOutput(last_hidden_state=x, pooled=x[:, 0],

@@ -78,7 +78,7 @@ def int8_view(model: CrossEncoder) -> CrossEncoder:
     compute exact GELU), as ``BertConfig`` does.
     """
     bert = model.cfg.bert.replace(layer_impl="fused_int8", ffn_impl="xla",
-                                  proj_impl="xla")
+                                  proj_impl="xla", remat=False)
     with torch.device("meta"):
         view = CrossEncoder(dataclasses.replace(model.cfg, bert=bert))
     return share_parameters(view, model)

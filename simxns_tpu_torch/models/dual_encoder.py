@@ -108,7 +108,7 @@ def int8_view(model: BiEncoder) -> BiEncoder:
     same ``Parameter`` objects (the JAX ``run.py:_int8_view_cfg`` tower
     config over the same param tree); see ``cross_encoder.int8_view``."""
     bert = model.cfg.bert.replace(layer_impl="fused_int8", ffn_impl="xla",
-                                  proj_impl="xla")
+                                  proj_impl="xla", remat=False)
     with torch.device("meta"):
         view = BiEncoder(dataclasses.replace(model.cfg, bert=bert))
     return share_parameters(view, model)

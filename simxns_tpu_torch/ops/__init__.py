@@ -8,6 +8,8 @@ from simxns_tpu_torch.ops.flash_attention import (bh_attention_bwd,
                                                   bh_attention_fwd,
                                                   group_attention_bwd,
                                                   group_attention_fwd)
+from simxns_tpu_torch.ops.fused_ffn import (ffn_bwd_dw, ffn_bwd_dx,
+                                            ffn_fused_fwd, ffn_train_fwd)
 from simxns_tpu_torch.ops.fused_layer import (int8_linear, row_quant,
                                               small_s_attention)
 from simxns_tpu_torch.ops.mips_kernel import mips_bucket_candidates
@@ -21,6 +23,10 @@ KERNELS = {
     "group_attention_bwd": group_attention_bwd,
     "bh_attention_fwd": bh_attention_fwd,
     "bh_attention_bwd": bh_attention_bwd,
+    "ffn_train_fwd": ffn_train_fwd,
+    "ffn_bwd_dx": ffn_bwd_dx,
+    "ffn_bwd_dw": ffn_bwd_dw,
+    "ffn_fused_fwd": ffn_fused_fwd,
 }
 
 

@@ -137,6 +137,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fast-teacher", action="store_true",
                     help="run the retriever step's frozen reranker forward "
                          "through the fused int8 view of its parameters")
+    ap.add_argument("--remat", choices=["recipe", "de", "ce", "both", "none"],
+                    default="recipe",
+                    help="activation checkpointing per model: 'ce' "
+                         "recomputes only the reranker's layers in the "
+                         "backward pass, 'de' only the retriever's, 'both' "
+                         "and 'none' likewise; 'recipe' keeps the config")
     ap.add_argument("--warm-epochs", type=int, default=None,
                     help="override the warm-up epoch count; 0 skips warm-up")
     ap.add_argument("--resume", choices=["auto", "never"], default="auto",
@@ -481,6 +487,9 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
 
     de_bert = _bert_cfg(cfg.retriever.bert, tiny, data.vocab_size)
     ce_bert = _bert_cfg(cfg.reranker.bert, tiny, data.vocab_size, joint=True)
+    if args.remat != "recipe":
+        de_bert = de_bert.replace(remat=args.remat in ("de", "both"))
+        ce_bert = ce_bert.replace(remat=args.remat in ("ce", "both"))
     if args.init_checkpoint:
         raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
                                   "ported yet (ROADMAP.md Queue 1, item 14)")

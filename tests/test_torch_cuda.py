@@ -8,8 +8,9 @@ JAX conftest is not needed and JAX need not be installed):
 Each kernel wrapper launches its kernel for CUDA tensors (its launch count
 rises) and agrees with its plain version at small shapes (K5/K6, the
 grouped attention pair, and K7/K8, the per-(batch, head) pair, at every S
-class they take); the knobs whose TPU kernels are not ported raise for
-CUDA tensors instead of running a plain version on the card.
+class they take; K9-K12, the fused FFN kernels, at tiling and ragged
+shapes and under autograd); the knobs whose TPU kernels are not ported
+raise for CUDA tensors instead of running a plain version on the card.
 """
 
 import pytest
@@ -98,11 +99,130 @@ def test_unported_knobs_raise_for_cuda_tensors(dev):
     x = _randn(dev, 2, 8, 128)
     w1, b1 = _randn(dev, 256, 128), _randn(dev, 256)
     w2, b2 = _randn(dev, 128, 256), _randn(dev, 128)
-    for impl in ("fused", "fused_vjp", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_ffn.ffn(x, w1, b1, w2, b2, impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_ffn.ffn(x, w1, b1, w2, b2, "int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_ffn.dense(x, w1, b1)
+
+
+def _ffn_inputs(dev, m, h, f, seed=0):
+    bf = torch.bfloat16
+    x = _randn(dev, m, h, seed=seed).to(bf)
+    w1 = _randn(dev, f, h, scale=0.05, seed=seed + 1).to(bf)
+    b1 = _randn(dev, f, scale=0.05, seed=seed + 2).to(bf)
+    w2 = _randn(dev, h, f, scale=0.05, seed=seed + 3).to(bf)
+    b2 = _randn(dev, h, scale=0.05, seed=seed + 4).to(bf)
+    dy = _randn(dev, m, h, seed=seed + 5).to(bf)
+    return x, w1, b1, w2, b2, dy
+
+
+def _close_bf16(got, want, what):
+    """Within one bf16 step of the largest value (2^-7 relative): the f32
+    sums run in another order, which moves a result across a rounding
+    boundary, and a moved ``hb`` or ``dh`` element moves what is summed
+    from it by far less than that."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max()), (what, err)
+
+
+def _close_f32(got, want, what):
+    """The f32 sums over M of bf16 products, taken in another order: 1e-3
+    of the largest value and a cosine of 0.99999."""
+    err = float((got - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), (what, err)
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.flatten(), want.flatten(), dim=0))
+    assert cos >= 0.99999, (what, cos)
+
+
+@pytest.mark.parametrize("m,h,f", [(64, 256, 256), (256, 256, 384),
+                                   (37, 256, 128), (1, 768, 256),
+                                   (200, 768, 512), (96, 1024, 256)])
+def test_ffn_kernels_match_plain(dev, m, h, f):
+    """K9-K12 against their plain versions at tiling and ragged M (the
+    kernels mask their edge), one launch each."""
+    x, w1, b1, w2, b2, dy = _ffn_inputs(dev, m, h, f, seed=m + h)
+    names = ("ffn_train_fwd", "ffn_fused_fwd", "ffn_bwd_dx", "ffn_bwd_dw")
+    before = [getattr(fused_ffn, n).launches for n in names]
+    y, hb = fused_ffn.ffn_train_fwd(x, w1, b1, w2, b2)
+    y_ref, hb_ref = fused_ffn._ffn_train_fwd_plain(x, w1, b1, w2, b2)
+    _close_bf16(hb, hb_ref, "hb")
+    _close_bf16(y, y_ref, "y")
+    _close_bf16(fused_ffn.ffn_fused_fwd(x, w1, b1, w2, b2), y_ref, "y fused")
+    # the backward kernels from the plain hb, so both sides read the same
+    dx, dh = fused_ffn.ffn_bwd_dx(dy, w1, w2, hb_ref)
+    dx_ref, dh_ref = fused_ffn._ffn_bwd_dx_plain(dy, w1, w2, hb_ref)
+    _close_bf16(dh, dh_ref, "dh")
+    _close_bf16(dx, dx_ref, "dx")
+    got = fused_ffn.ffn_bwd_dw(x, dy, hb_ref, dh_ref)
+    want = fused_ffn._ffn_bwd_dw_plain(x, dy, hb_ref, dh_ref)
+    for name, g, w in zip(("dw1", "db1", "dw2"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close_f32(g, w, name)
+    torch.cuda.synchronize()
+    assert [getattr(fused_ffn, n).launches for n in names] == [
+        b + 1 for b in before]
+
+
+@pytest.mark.parametrize("impl", ["fused_vjp", "fused"])
+def test_ffn_knobs_under_autograd(dev, impl):
+    """Both knobs on [B, S, H] activations over f32 parameters: the kernels
+    launch (K9, K10, K11 once for fused_vjp; K12 for fused), the result
+    and the five gradients, typed like their primals, agree with the same
+    knob on its plain versions (CPU tensors) within bf16 rounding."""
+    b, s, h, f = 4, 64, 256, 512
+    x = _randn(dev, b, s, h).to(torch.bfloat16).requires_grad_()
+    params = [_randn(dev, f, h, scale=0.05, seed=1), _randn(dev, f, seed=2),
+              _randn(dev, h, f, scale=0.05, seed=3), _randn(dev, h, seed=4)]
+    params = [p.requires_grad_() for p in params]
+    names = ("ffn_train_fwd", "ffn_bwd_dx", "ffn_bwd_dw", "ffn_fused_fwd")
+    before = [getattr(fused_ffn, n).launches for n in names]
+    y = fused_ffn.ffn(x, *params, impl)
+    grads = torch.autograd.grad(y.float().square().sum(), [x, *params])
+    after = [getattr(fused_ffn, n).launches for n in names]
+    want = [1, 1, 1, 0] if impl == "fused_vjp" else [0, 0, 0, 1]
+    assert [a - b for a, b in zip(after, before)] == want
+    cpu = [t.detach().cpu().requires_grad_() for t in [x, *params]]
+    y_ref = fused_ffn.ffn(*cpu, impl)
+    refs = torch.autograd.grad(y_ref.float().square().sum(), cpu)
+    _close_bf16(y.cpu(), y_ref, "y")
+    for g, r, t in zip(grads, refs, [x, *params]):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        err = float((g.cpu().float() - r.float()).abs().max())
+        assert err <= 2e-2 * float(r.float().abs().max()), err
+
+
+def test_ffn_kernels_refuse_what_they_do_not_take(dev):
+    """On the card a knob launches its kernel or raises: it never gives way
+    to the library composition, whatever the JAX tiling rule says."""
+    x, w1, b1, w2, b2, _ = _ffn_inputs(dev, 32, 256, 256)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_ffn.ffn_train_fwd(x.float(), w1.float(), b1.float(),
+                                w2.float(), b2.float())
+    big = torch.zeros(32, 1152, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="H in"):
+        fused_ffn.ffn_fused_fwd(big, big.new_zeros(256, 1152), b1,
+                                big.new_zeros(1152, 256), big.new_zeros(1152))
+    # M = 7 is off the JAX tiling rule: the kernels mask the edge and launch
+    names = ("ffn_fused_fwd", "ffn_train_fwd")
+    before = [getattr(fused_ffn, n).launches for n in names]
+    ragged = x[:7].reshape(1, 7, 256)
+    for impl in ("fused", "fused_vjp"):
+        out = fused_ffn.ffn(ragged, w1.float(), b1.float(), w2.float(),
+                            b2.float(), impl)
+        _close_bf16(out[0], fused_ffn._ffn_train_fwd_plain(
+            x[:7], w1, b1, w2, b2)[0], impl)
+    assert [getattr(fused_ffn, n).launches for n in names] == [
+        b + 1 for b in before]
+    # a width off the kernels' grid raises under both knobs
+    odd = _randn(dev, 7, 96).to(torch.bfloat16)
+    params = (_randn(dev, 200, 96), _randn(dev, 200), _randn(dev, 96, 200),
+              _randn(dev, 96))
+    for impl in ("fused", "fused_vjp"):
+        with pytest.raises(ValueError, match="H in"):
+            fused_ffn.ffn(odd, *params, impl)
+    assert [getattr(fused_ffn, n).launches for n in names] == [
+        b + 1 for b in before]
 
 
 def _attention_inputs(dev, b, heads, s, d, seed=0):

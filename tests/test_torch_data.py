@@ -21,8 +21,7 @@ from torch_parity import _DTYPES
 from torch_parity import one_torch_thread  # noqa: F401
 
 # BertConfig fields the port has not taken yet (dropout, remat)
-_UNPORTED_BERT = {"hidden_dropout", "attention_dropout", "remat",
-                  "remat_policy"}
+_UNPORTED_BERT = {"hidden_dropout", "attention_dropout"}
 
 
 def _cases():
@@ -138,6 +137,6 @@ def _same_config(got, want, path):
 @pytest.mark.parametrize("recipe", sorted(JRECIPES))
 def test_recipes_match_jax(recipe):
     """Every recipe of the port's config is the JAX package's, field by
-    field (the port's BertConfig lacks only dropout and remat)."""
+    field (the port's BertConfig lacks only dropout)."""
     assert sorted(RECIPES) == sorted(JRECIPES)
     _same_config(RECIPES[recipe], JRECIPES[recipe], recipe)

@@ -100,8 +100,22 @@ def test_encoder_hidden_states_match_jax():
     assert torch.equal(got.pooled, got.last_hidden_state[:, 0])
 
 
+@pytest.mark.parametrize("knob", ["fused", "fused_vjp"])
+def test_ported_ffn_knobs_encode_like_jax(knob):
+    """The FFN knobs whose kernels are ported (K9-K12; their plain versions
+    for CPU tensors) through a bi-encoder in bf16: 2 x 32 passage tokens
+    make 64 rows, which tile, so the JAX side runs its Pallas kernel in
+    interpret mode. To the bf16-path bounds above."""
+    jmodel, params, port = biencoder_pair(
+        jax_bert(dtype=jnp.bfloat16, ffn_impl=knob), seed=7)
+    rng = np.random.default_rng(8)
+    ids, mask = token_batch(rng, 2, 32)
+    got, want = _encode(jmodel, params, port, "encode_passage", ids, mask)
+    assert np.abs(got - want).max() <= 0.1
+    assert cosine_rows(got, want).min() >= 0.999
+
+
 @pytest.mark.parametrize("knob", [dict(ffn_impl="int8"),
-                                  dict(ffn_impl="fused"),
                                   dict(proj_impl="int8")])
 def test_unported_knobs_run_plain_on_cpu(knob):
     """Knobs whose TPU kernels are not ported run their plain version for
