@@ -78,7 +78,19 @@ non-zero and prints no result):
    synthetic passages (16 chunks of 1024 x 128 tokens) and answers 8
    requests; K12 launched 12 times per chunk; the embeddings against the
    same model on K12's plain version;
-11. the ``kernels`` line (K1-K12, launches of every path); then the last
+11. the int8 encode kernels: K14 ``int8_ffn`` at an encode chunk
+   (131,072 x 768 x 3072), a request (256 rows) and a ragged M (4,000),
+   K13 ``int8_dense`` at the chunk's q, k, v (O = 2304) and output
+   projection (O = 768) and a request's q, k, v, each against its plain
+   version (bitwise expected), with the library's ``torch._int_mm`` chains
+   and K14's bf16 ``F.linear`` chain as yardsticks and the port's K2 -> K1
+   composition of the same function timed beside; then the public
+   ``int8_ffn`` at 40 rows (no tile): ``ffn_reference``, no launch;
+12. encoding under the int8 knobs: phase 10's model and traffic with
+   ``ffn_impl="int8"``, then with ``proj_impl="int8"`` too; K14 launched 12
+   times per chunk and request, K13 24 times in the second; the embeddings
+   against the same model on the plain versions and under ``"xla"``;
+13. the ``kernels`` line (K1-K14, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -1774,6 +1786,330 @@ def phase_ffn_encode(torch, smi, records):
         rec["launches"] = sum(rec["launches_by_path"].values())
 
 
+def _int8_close(torch, got, want, what):
+    """K13/K14 against their plain versions: the same codes, integer sums
+    and f32 operations in the same order, so bitwise is expected. The rule
+    allows a code of g one step off (an ulp of GELU's exp across a
+    rounding), which moves its row's outputs by at most gs * 127 * s2 =
+    max|g| max|w2| / 127, below one bf16 step of the largest |y|: every
+    element within 2^-7 max|y|, at most 1e-3 of them different.
+    -> (max_abs_err, elements that differ)."""
+    d = (got.float() - want.float()).abs()
+    err, differ = float(d.max()), int((d > 0).sum())
+    tol = 2.0 ** -7 * float(want.float().abs().max())
+    check(err <= tol and differ <= 1e-3 * d.numel(),
+          f"{what}: max err {err} (tolerance {tol}), {differ} of "
+          f"{d.numel()} elements differ")
+    return err, differ
+
+
+def _check_int8_ffn_shape(torch, randn, label, m):
+    """K14 at (m, H, F) against its plain version, with its time, the plain
+    version's, the bound, the library's int8 chain (``_int_mm`` -> epilogue
+    + GELU -> ``quant_rows`` -> ``_int_mm`` -> epilogue, on codes of x made
+    beforehand) and bf16 chain (``F.linear`` -> ``F.gelu`` -> ``F.linear``),
+    and the port's K2 -> K1 composition of the same function (timed only;
+    compared as a note)."""
+    from simxns_tpu_torch.ops import fused_ffn as pf
+    from simxns_tpu_torch.ops import fused_layer as fl
+
+    bf = torch.bfloat16
+    x = randn(m, H).to(bf)
+    w1, b1 = randn(F, H, scale=0.02), randn(F, scale=0.02)
+    w2, b2 = randn(H, F, scale=0.02), randn(H, scale=0.02)
+    (w1_8, s1), (w2_8, s2) = pf.quantize_weight(w1), pf.quantize_weight(w2)
+    args = (x, w1_8, s1, b1, w2_8, s2, b2)
+    got = pf.int8_ffn_fwd(*args)
+    want = pf._int8_ffn_plain(*args)
+    err, differ = _int8_close(torch, got, want, f"int8_ffn at {label}")
+    ms = timed(torch, lambda: pf.int8_ffn_fwd(*args), 5)
+    plain = timed(torch, lambda: pf._int8_ffn_plain(*args), 1, warmup=0)
+    xq, xs = pf.quant_rows(x)
+    w1t, w2t = w1_8.t(), w2_8.t()
+
+    def library_int8():
+        h = torch._int_mm(xq, w1t).float() * xs[:, None] * s1 + b1
+        gq, gs = pf.quant_rows(torch.nn.functional.gelu(h))
+        return (torch._int_mm(gq, w2t).float() * gs[:, None] * s2
+                + b2).to(bf)
+
+    lin = torch.nn.functional.linear
+    w1b, b1b, w2b, b2b = (t.to(bf) for t in (w1, b1, w2, b2))
+    lib = timed(torch, library_int8, 5)
+    lib_bf16 = timed(torch, lambda: lin(torch.nn.functional.gelu(
+        lin(x, w1b, b1b)), w2b, b2b), 5)
+
+    def composition():
+        a8, a_s, _, _ = fl.row_quant(x)
+        mid = fl.int8_linear(a8, a_s, w1_8, s1, b1, gelu=True)
+        g8, g_s, _, _ = fl.row_quant(mid)
+        return fl.int8_linear(g8, g_s, w2_8, s2, b2, out_dtype=bf)
+
+    comp_diff = int((composition() != got).sum())
+    comp = timed(torch, composition, 3)
+    bms, by = bound(2 * 2 * m * H + 2 * H * F + 4 * 2 * (H + F),
+                    4.0 * m * H * F, PEAK_INT8)
+    return dict(shape=label, m=m, h=H, f=F, ms=ms, plain_ms=plain,
+                library_ms=lib, library_bf16_ms=lib_bf16, bound_ms=bms,
+                bound_by=by, k2_k1_composition_ms=comp,
+                k2_k1_composition_elements_differing=comp_diff,
+                max_abs_err=err, elements_differing=differ)
+
+
+def _check_int8_dense_shape(torch, randn, label, m, o):
+    """K13 at (m, H, o) against its plain version, with its time, the plain
+    version's, the bound, ``_int_mm`` on codes of x made beforehand plus
+    the dequantize epilogue in PyTorch (the library yardstick, as K1's),
+    and the port's K2 -> K1 composition of the same function."""
+    from simxns_tpu_torch.ops import fused_ffn as pf
+    from simxns_tpu_torch.ops import fused_layer as fl
+
+    bf = torch.bfloat16
+    x = randn(m, H).to(bf)
+    w, b = randn(o, H, scale=0.02), randn(o, scale=0.02)
+    w8, ws = pf.quantize_weight(w)
+    got = pf.int8_dense_fwd(x, w8, ws, b)
+    want = pf._int8_dense_plain(x, w8, ws, b)
+    err, differ = _int8_close(torch, got, want, f"int8_dense at {label}")
+    ms = timed(torch, lambda: pf.int8_dense_fwd(x, w8, ws, b), 10)
+    plain = timed(torch, lambda: pf._int8_dense_plain(x, w8, ws, b), 2)
+    xq, xs = pf.quant_rows(x)
+    wt = w8.t()
+    lib = timed(torch, lambda: (torch._int_mm(xq, wt).float() * xs[:, None]
+                                * ws + b).to(bf), 5)
+
+    def composition():
+        a8, a_s, _, _ = fl.row_quant(x)
+        return fl.int8_linear(a8, a_s, w8, ws, b, out_dtype=bf)
+
+    comp_diff = int((composition() != got).sum())
+    comp = timed(torch, composition, 5)
+    bms, by = bound(2 * m * H + H * o + 4 * 2 * o + 2 * m * o,
+                    2.0 * m * H * o, PEAK_INT8)
+    return dict(shape=label, m=m, i=H, o=o, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by,
+                k2_k1_composition_ms=comp,
+                k2_k1_composition_elements_differing=comp_diff,
+                max_abs_err=err, elements_differing=differ)
+
+
+def phase_int8_kernels(torch, smi, records):
+    """Phase 11: K14 ``int8_ffn`` at an encode chunk (131,072 rows), a
+    request (256) and a ragged M (4,000), K13 ``int8_dense`` at the chunk's
+    q, k, v (O = 2304) and output projection (O = 768) and a request's
+    q, k, v; then the public ``int8_ffn`` at a shape that does not tile,
+    which is ``ffn_reference`` and launches nothing. The records are the
+    chunk's (K13: its q, k, v)."""
+    from simxns_tpu_torch.ops import fused_ffn as pf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.empty_cache()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    shapes = {"int8_ffn": [], "int8_dense": []}
+    for label, m in (("encode_chunk", 131072), ("request", 256),
+                     ("ragged", 4000)):
+        shapes["int8_ffn"].append(_check_int8_ffn_shape(torch, randn, label,
+                                                        m))
+        emit("kernel_shape", name="int8_ffn", nvidia_smi=smi,
+             **shapes["int8_ffn"][-1])
+        torch.cuda.empty_cache()
+    for label, m, o in (("encode_chunk_qkv", 131072, 3 * H),
+                        ("encode_chunk_output", 131072, H),
+                        ("request_qkv", 256, 3 * H)):
+        shapes["int8_dense"].append(_check_int8_dense_shape(
+            torch, randn, label, m, o))
+        emit("kernel_shape", name="int8_dense", nvidia_smi=smi,
+             **shapes["int8_dense"][-1])
+        torch.cuda.empty_cache()
+
+    # the JAX rule on the card: 40 rows do not tile, so int8_ffn is the
+    # unquantized composition and K14 does not launch
+    x = randn(40, H).to(torch.bfloat16)
+    w = (randn(F, H, scale=0.02), randn(F, scale=0.02),
+         randn(H, F, scale=0.02), randn(H, scale=0.02))
+    before = pf.int8_ffn_fwd.launches
+    check(torch.equal(pf.int8_ffn(x, *w), pf.ffn_reference(x, *w))
+          and pf.int8_ffn_fwd.launches == before,
+          "int8_ffn at 40 rows: not ffn_reference, or K14 launched")
+    library = {
+        "int8_ffn": "torch._int_mm on codes of x made beforehand -> "
+                    "epilogue + F.gelu -> quant_rows -> _int_mm -> epilogue; "
+                    "library_bf16_ms: F.linear -> F.gelu -> F.linear in bf16",
+        "int8_dense": "torch._int_mm on codes of x made beforehand + the "
+                      "dequantize epilogue in PyTorch"}
+    for name, recs in shapes.items():
+        rec = {k: v for k, v in recs[0].items() if k not in ("m", "h", "f",
+                                                               "i", "o")}
+        rec.update(shape=[recs[0]["m"], H, recs[0].get("f", recs[0].get("o"))],
+                   max_abs_err=max(r["max_abs_err"] for r in recs),
+                   elements_differing=sum(r["elements_differing"]
+                                          for r in recs),
+                   shapes=recs, library=library[name],
+                   tolerance="bitwise expected; allowed: a code of g one "
+                             "step off, every element within 2^-7 max|y| "
+                             "and at most 1e-3 of them different")
+        records[name] = rec
+        emit("kernel", name=name, nvidia_smi=smi,
+             **{k: v for k, v in rec.items() if k != "shapes"})
+    emit("int8_dispatch", nvidia_smi=smi, rows=40,
+         int8_ffn_equals_ffn_reference=True, k14_launched=False)
+
+
+def phase_int8_encode(torch, smi, records):
+    """Phase 12: the serving path under the int8 knobs of
+    ``scripts/bench_r2.py:220-231``: a full-width BERT-base dual encoder in
+    bf16 (``layer_impl="xla"``) behind a DenseRetriever with
+    ``ffn_impl="int8"`` (K14), then with ``proj_impl="int8"`` too (K13 for
+    q, k, v as one call and for the output projection), over the same
+    weights. Each indexes 16,384 passages and answers 8 requests."""
+    import dataclasses
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.models.bert import BertLayer, share_parameters
+    from simxns_tpu_torch.ops import fused_ffn as pf
+    from simxns_tpu_torch.serve import DenseRetriever
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    model = BiEncoder(BiEncoderConfig(bert=BertConfig(
+        vocab_size=30522, hidden_size=H, num_layers=12, num_heads=HEADS,
+        intermediate_size=F, dtype=torch.bfloat16, ffn_impl="int8")),
+        generator=torch.Generator().manual_seed(0)).to(dev).eval()
+
+    def view_of(**knobs):
+        with torch.device("meta"):
+            view = BiEncoder(dataclasses.replace(
+                model.cfg, bert=model.cfg.bert.replace(**knobs)))
+        return share_parameters(view, model).eval()
+
+    tok = HashTokenizer(vocab_size=30522)
+    n_pass, chunk, n_req = 16384, 1024, 8
+    layers = model.cfg.bert.num_layers
+    passages = _synthetic_passages(n_pass)
+    rng = np.random.default_rng(2)
+    picks = rng.integers(0, n_pass, n_req * 8)
+    requests = [[" ".join(passages[int(i)][0].split()[:12])
+                 for i in picks[r * 8:(r + 1) * 8]] for r in range(n_req)]
+    xla = view_of(ffn_impl="xla")
+    ids = mask = None
+    for label, encoder, per_layer in (
+            ("ffn_int8", model, {"int8_ffn": 1}),
+            ("ffn_proj_int8", view_of(proj_impl="int8"),
+             {"int8_ffn": 1, "int8_dense": 2})):
+        fresh_peak(torch)
+        retriever = DenseRetriever(encoder, tok, max_q_length=LQ,
+                                   max_ctx_length=LC, index_mode="fused",
+                                   store_dtype=torch.int8, query_batch=8,
+                                   encode_chunk=chunk)
+        if ids is None:
+            ids, mask = retriever._tokenize(
+                [passages[i][1] for i in range(n_pass)],
+                [passages[i][0] for i in range(n_pass)], LC)
+        enc_ids = torch.from_numpy(ids[:chunk]).to(dev)
+        enc_mask = torch.from_numpy(mask[:chunk]).to(dev)
+        with torch.inference_mode():          # warm; quantizes the weights
+            encoder.encode_passage(enc_ids, enc_mask)
+
+        # the main path: launch counts zeroed just before, read just after
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        retriever.index_corpus(passages, precomputed_tokens=ids)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        indexed = ops.launches()
+        latencies, answers = [], []
+        for req in requests:
+            t0 = time.perf_counter()
+            answers.append(retriever.search(req, k=10))
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        launches = ops.launches()
+        # what the layers' cache of int8 weights saves a request: the same
+        # requests with the weights quantized again at every call, as the
+        # JAX package does (simxns_tpu/ops/fused_ffn.py:193-194, 252)
+        quantizing = []
+        for req in requests[:4]:
+            for layer in encoder.modules():
+                if isinstance(layer, BertLayer):
+                    layer.drop_quantized()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            retriever.search(req, k=10)
+            quantizing.append((time.perf_counter() - t0) * 1e3)
+        for name, n in per_layer.items():
+            check(indexed[name] == n * layers * (n_pass // chunk)
+                  and launches[name] == n * layers * (n_pass // chunk
+                                                      + n_req),
+                  f"{label}: {name} launched {indexed[name]} times over "
+                  f"{n_pass // chunk} chunks and {launches[name]} after "
+                  f"{n_req} requests, not {n * layers} per chunk and "
+                  f"request")
+        check(launches["int8_dense"] == 0 or "int8_dense" in per_layer,
+              f"{label}: K13 launched without proj_impl='int8'")
+        check(launches["mips_bucket_candidates"] > 0,
+              f"{label}: K4 never launched")
+        for hits in answers:
+            for q_hits in hits:
+                scores = [h.score for h in q_hits]
+                check(len(q_hits) == 10
+                      and all(math.isfinite(s) for s in scores)
+                      and all(0 <= h.passage_id < n_pass for h in q_hits)
+                      and scores == sorted(scores, reverse=True),
+                      f"{label}: malformed search result")
+
+        # one chunk on the plain versions, and under ffn_impl="xla"
+        kernels = pf.int8_ffn_fwd, pf.int8_dense_fwd
+        with torch.inference_mode():
+            kern = encoder.encode_passage(enc_ids, enc_mask).float()
+            pf.int8_ffn_fwd, pf.int8_dense_fwd = (pf._int8_ffn_plain,
+                                                  pf._int8_dense_plain)
+            try:
+                plain = encoder.encode_passage(enc_ids, enc_mask).float()
+            finally:
+                pf.int8_ffn_fwd, pf.int8_dense_fwd = kernels
+            ref = xla.encode_passage(enc_ids, enc_mask).float()
+        check(bool(torch.isfinite(kern).all()) and kern.shape == (chunk, H),
+              f"{label}: passage embeddings: shape or non-finite values")
+        cos = torch.nn.functional.cosine_similarity(kern, plain, dim=1)
+        cos_xla = torch.nn.functional.cosine_similarity(kern, ref, dim=1)
+        # expected bitwise; a code one step off moves the bf16 roundings
+        # downstream, and the serving path's floor is 0.995
+        check(float(cos.min()) >= 0.995,
+              f"{label}: embeddings, kernels vs plain: min cosine "
+              f"{float(cos.min())}")
+        lat = np.array(latencies)
+        emit("int8_encode", nvidia_smi=smi, config=label,
+             ffn_impl="int8", proj_impl=encoder.cfg.bert.proj_impl,
+             passages=n_pass, index_corpus_s=index_s,
+             passages_per_s=n_pass / index_s, requests=n_req,
+             queries_per_request=8,
+             request_ms_p50=float(np.percentile(lat, 50)),
+             request_ms=latencies,
+             request_ms_p50_quantizing_weights_per_call=float(
+                 np.median(quantizing)),
+             launches={k: v for k, v in launches.items() if v},
+             embeddings_equal_kernel_vs_plain=bool(torch.equal(kern, plain)),
+             embedding_elements_differing=int((kern != plain).sum()),
+             max_abs_err_kernel_vs_plain=float((kern - plain).abs().max()),
+             min_cosine_kernel_vs_plain=float(cos.min()),
+             min_cosine_vs_xla=float(cos_xla.min()),
+             mean_cosine_vs_xla=float(cos_xla.mean()),
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for name, rec in records.items():
+            rec.setdefault("launches_by_path", {})[
+                f"int8_encode_{label}"] = launches.get(name, 0)
+            rec["launches"] = sum(rec["launches_by_path"].values())
+        del retriever, kern, plain, ref
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -1800,6 +2136,10 @@ SOURCES = {
                    "simxns_tpu/ops/fused_ffn.py:374"),
     "ffn_fused_fwd": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
                       "simxns_tpu/ops/fused_ffn.py:77"),
+    "int8_dense": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
+                   "simxns_tpu/ops/fused_ffn.py:222"),
+    "int8_ffn": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
+                 "simxns_tpu/ops/fused_ffn.py:160"),
 }
 
 
@@ -1830,6 +2170,8 @@ def main():
     phase_ffn_kernels(torch, smi, records)
     phase_ffn_training(torch, smi, records, xla)
     phase_ffn_encode(torch, smi, records)
+    phase_int8_kernels(torch, smi, records)
+    phase_int8_encode(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

@@ -15,18 +15,20 @@ rounded, which gives the same values.
 The default impls are plain autograd and train (the attention kernels
 K5/K6 and K7/K8 have their own backward, ``ops/flash_attention.py``).
 ``ffn_impl="fused_vjp"`` trains through the fused FFN kernels K9-K11 and
-``ffn_impl="fused"`` encodes through K12 (``ops/fused_ffn.py``); the
+``ffn_impl="fused"`` encodes through K12 (``ops/fused_ffn.py``);
+``ffn_impl="int8"`` and ``proj_impl="int8"`` encode through K14 and K13
+(q, k and v as one call), over the layer's cached int8 weights; the
 parameters are the same under every knob. ``remat=True`` recomputes each
 layer in the backward pass (``torch.utils.checkpoint``, per layer, as the
 JAX ``run_layers``); ``remat_policy="dots"`` is not ported.
 ``layer_impl="fused_int8"`` runs each layer on the Hopper kernels of
 :mod:`simxns_tpu_torch.ops.fused_layer` (encode only, under
-``torch.no_grad()``); its int8 weights are cached per layer and quantized
-again whenever a parameter changes, so an encode-only view that shares a
-training model's ``Parameter`` objects (:func:`share_parameters`, the
-``int8_view`` of either model) follows every optimizer update. Not ported
-yet: dropout, the MLM head. Parameter names follow the JAX tree
-(``layers.{i}`` for ``layer_{i}``);
+``torch.no_grad()``); its int8 weights, and those of the two int8 knobs,
+are cached per layer and quantized again whenever a parameter changes, so
+an encode-only view that shares a training model's ``Parameter`` objects
+(:func:`share_parameters`, the ``int8_view`` of either model) follows
+every optimizer update. Not ported yet: dropout, the MLM head. Parameter
+names follow the JAX tree (``layers.{i}`` for ``layer_{i}``);
 :func:`simxns_tpu_torch.models.convert.params_from_jax` maps a flax tree
 onto them.
 """
@@ -215,7 +217,10 @@ class BertSelfAttention(nn.Module):
         self.output_layer_norm = _ln(h, cfg)
 
     def forward(self, hidden: torch.Tensor,
-                attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor],
+                quantized: Optional[QuantizedLayer] = None) -> torch.Tensor:
+        """``quantized``: the layer's int8 weights (:meth:`BertLayer.
+        quantized`), which ``proj_impl="int8"`` runs on."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, s, h = hidden.shape
         d = h // cfg.num_heads
@@ -225,21 +230,37 @@ class BertSelfAttention(nn.Module):
 
         if cfg.proj_impl == "int8":
             _guard_quantized_under_grad(self, hidden, "proj_impl='int8'")
-
-            def proj(layer, x):
-                return fused_ffn.dense(x.to(dt), layer.weight, layer.bias)
+            q, k, v = self._int8_qkv(hidden.to(dt), quantized)
         else:
-            def proj(layer, x):
-                return dense(layer, x, dt)
-        q, k, v = (split(proj(m, hidden))
-                   for m in (self.query, self.key, self.value))
-        ctx, _ = multi_head_attention(q, k, v, attention_mask,
+            q, k, v = (dense(m, hidden, dt)
+                       for m in (self.query, self.key, self.value))
+        ctx, _ = multi_head_attention(split(q), split(k), split(v),
+                                      attention_mask,
                                       impl=cfg.attention_impl,
                                       small_s_impl=cfg.small_s_attn)
         ctx = ctx.transpose(1, 2).reshape(b, s, h)
-        out = proj(self.output, ctx)
+        if cfg.proj_impl == "int8":
+            out = fused_ffn.int8_dense(
+                ctx.to(dt), self.output.weight, self.output.bias,
+                quantized=(quantized.wo, quantized.so, quantized.bo))
+        else:
+            out = dense(self.output, ctx, dt)
         return layer_norm(self.output_layer_norm, out + hidden, dt,
                           cfg.layer_norm_eps)
+
+    def _int8_qkv(self, x8: torch.Tensor, ql: QuantizedLayer):
+        """q, k, v under ``proj_impl="int8"``: where the shapes tile, ONE
+        K13 call over the concatenated [Wq; Wk; Wv] (the codes of x and
+        every channel's scale are those of the JAX package's three
+        ``int8_dense`` calls, ``simxns_tpu/models/bert.py:264-269``); else
+        the three unquantized projections ``int8_dense`` returns there."""
+        b, s, h = x8.shape
+        if fused_ffn.int8_dense_tile(b * s, h, 3 * h) is None:
+            return [fused_ffn.linear_dt(x8, m.weight, m.bias, x8.dtype)
+                    for m in (self.query, self.key, self.value)]
+        qkv = fused_ffn.int8_dense_fwd(x8.reshape(b * s, h).contiguous(),
+                                       ql.wqkv, ql.sqkv, ql.bqkv)
+        return qkv.view(b, s, 3 * h).split(h, dim=-1)
 
 
 class BertLayer(nn.Module):
@@ -297,10 +318,18 @@ class BertLayer(nn.Module):
             return fused_encoder_layer_int8(
                 hidden.to(dt), attention_mask, quantized=self.quantized(),
                 num_heads=cfg.num_heads, layer_norm_eps=cfg.layer_norm_eps)
-        attn_out = self.attention(hidden, attention_mask)
-        if cfg.ffn_impl != "xla":
-            if cfg.ffn_impl == "int8":
-                _guard_quantized_under_grad(self, attn_out, "ffn_impl='int8'")
+        ql = None
+        if "int8" in (cfg.proj_impl, cfg.ffn_impl):
+            knob = ("proj_impl" if cfg.proj_impl == "int8" else "ffn_impl")
+            _guard_quantized_under_grad(self, hidden, f"{knob}='int8'")
+            ql = self.quantized()
+        attn_out = self.attention(hidden, attention_mask, ql)
+        if cfg.ffn_impl == "int8":
+            out = fused_ffn.int8_ffn(
+                attn_out.to(dt), self.intermediate.weight,
+                self.intermediate.bias, self.output.weight, self.output.bias,
+                quantized=(ql.w1, ql.s1, ql.b1, ql.w2, ql.s2, ql.b2))
+        elif cfg.ffn_impl != "xla":
             out = fused_ffn.ffn(attn_out.to(dt), self.intermediate.weight,
                                 self.intermediate.bias, self.output.weight,
                                 self.output.bias, cfg.ffn_impl)

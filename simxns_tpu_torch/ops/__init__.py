@@ -9,7 +9,8 @@ from simxns_tpu_torch.ops.flash_attention import (bh_attention_bwd,
                                                   group_attention_bwd,
                                                   group_attention_fwd)
 from simxns_tpu_torch.ops.fused_ffn import (ffn_bwd_dw, ffn_bwd_dx,
-                                            ffn_fused_fwd, ffn_train_fwd)
+                                            ffn_fused_fwd, ffn_train_fwd,
+                                            int8_dense_fwd, int8_ffn_fwd)
 from simxns_tpu_torch.ops.fused_layer import (int8_linear, row_quant,
                                               small_s_attention)
 from simxns_tpu_torch.ops.mips_kernel import mips_bucket_candidates
@@ -27,6 +28,8 @@ KERNELS = {
     "ffn_bwd_dx": ffn_bwd_dx,
     "ffn_bwd_dw": ffn_bwd_dw,
     "ffn_fused_fwd": ffn_fused_fwd,
+    "int8_dense": int8_dense_fwd,
+    "int8_ffn": int8_ffn_fwd,
 }
 
 

@@ -30,10 +30,20 @@ shapes do not tile (:func:`_train_tiles`, :func:`_fused_tile`) they return
 tensors there is no such way out: the kernels mask their ragged edge, so
 every M launches them, and a width they do not take raises.
 
-``int8_ffn`` (:197) and ``int8_dense`` (:254) are not ported yet (ROADMAP
-Queue 2, items 9-10): ``ffn(..., "int8")`` and :func:`dense` run their
-plain versions for CPU tensors and raise ``NotImplementedError`` for CUDA
-tensors.
+The int8 encode kernels (``csrc/int8_ffn.cu``) replace the other two:
+
+- K13 :func:`int8_dense_fwd` replaces ``_dense_int8_kernel`` (:222);
+- K14 :func:`int8_ffn_fwd` replaces ``_ffn_int8_kernel`` (:160).
+
+Their arithmetic is the TPU kernels': per-row int8 of the activations and
+per-output-channel int8 of the weights (:func:`quant_rows`), exact int32
+products, the f32 dequantization ``(acc * xs) * ws + b``, GELU with the
+A&S erf on the unrounded f32 ``h``, one rounding to the activation dtype at
+the end. :func:`int8_ffn` (``ffn_impl="int8"``) and :func:`int8_dense`
+(``proj_impl="int8"``) keep the JAX names and the JAX dispatch on BOTH
+devices: where the shapes do not tile they return the unquantized
+expression (:func:`ffn_reference`, :func:`linear_dt`), as the JAX package
+does; where they tile, a CUDA tensor launches K14 / K13 or raises.
 """
 
 from __future__ import annotations
@@ -45,7 +55,6 @@ import torch
 
 from simxns_tpu_torch.ops import _native
 
-_ROADMAP_INT8 = "ROADMAP.md Queue 2, items 9-10 (int8_ffn, int8_dense)"
 _TILE_M = 256                 # simxns_tpu/ops/fused_ffn.py:41
 _TILE_TRAIN_M = 256           # :310
 _F_BLOCK = 768                # :311
@@ -55,6 +64,12 @@ _KERNEL_H = (256, 768, 1024)  # csrc/fused_ffn.cu: the widths the chained
 _TRAIN_FWD, _FWD, _BWD_DX = 0, 1, 2   # csrc/fused_ffn.cu Mode
 _CHAIN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_TILE_INT8_FFN_M = 256        # int8_ffn's tile_m (:177)
+_TILE_INT8_DENSE_M = 512      # int8_dense's tile_m (:231)
+_INT8_DENSE_K = (128, 1024)   # csrc/int8_ffn.cu: a block's rows of x are
+                              # quantized in registers, one warp a row
+_DENSE8_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FFN8_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def erf_as(z: torch.Tensor) -> torch.Tensor:
@@ -108,13 +123,6 @@ def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     while K * 127^2 < 2^24; longer rows go through f64."""
     dt = torch.float32 if a8.shape[-1] * 127 * 127 < 2 ** 24 else torch.float64
     return a8.to(dt) @ w8.to(dt).T
-
-
-def _require_cpu(x: torch.Tensor, what: str) -> None:
-    if x.is_cuda:
-        raise NotImplementedError(
-            f"{what} has no CUDA kernel yet ({_ROADMAP_INT8}); use "
-            "ffn_impl='fused' or layer_impl='fused_int8' on the card")
 
 
 def linear_dt(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -403,40 +411,152 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y.reshape(*lead, h)
 
 
-def _int8_ffn(x, w1, b1, w2, b2):
-    """The TPU ``int8_ffn`` (:175-219) plain, CPU tensors only."""
-    _require_cpu(x, "ffn_impl='int8'")
-    lead, m, hdim = _flat(x)
-    if _tile(m, (hdim, w1.shape[0]), 256, 32) is None:
-        return ffn_reference(x, w1, b1, w2, b2)
-    xq, xs = quant_rows(x.reshape(m, hdim))
-    w1q, s1 = quantize_weight(w1)
-    w2q, s2 = quantize_weight(w2)
-    h = int8_matmul(xq, w1q).float() * xs[:, None] * s1 + b1.float()
+
+
+# --- K13, K14: the int8 encode kernels --------------------------------------
+
+def int8_ffn_tile(m: int, h: int, f: int) -> Optional[int]:
+    """``int8_ffn``'s token tile, or None -> :func:`ffn_reference`
+    (:190-192; the int8 sublane tile is 32 rows)."""
+    return _tile(m, (h, f), _TILE_INT8_FFN_M, 32)
+
+
+def int8_dense_tile(m: int, i: int, o: int) -> Optional[int]:
+    """``int8_dense``'s token tile, or None -> the unquantized dense
+    (:247-251). ``o`` and ``3 o`` tile together (gcd(3, 128) = 1), so q, k
+    and v tile as one call exactly where they tile as three."""
+    return _tile(m, (i, o), _TILE_INT8_DENSE_M, 32)
+
+
+def _int8_dense_plain(x, w8, ws, b):
+    xq, xs = quant_rows(x)
+    return (int8_matmul(xq, w8).float() * xs[:, None] * ws + b).to(x.dtype)
+
+
+def _int8_ffn_plain(x, w1_8, s1, b1, w2_8, s2, b2):
+    xq, xs = quant_rows(x)
+    h = int8_matmul(xq, w1_8).float() * xs[:, None] * s1 + b1
     gq, gs = quant_rows(gelu_exact(h))
-    y = int8_matmul(gq, w2q).float() * gs[:, None] * s2 + b2.float()
-    return y.to(x.dtype).reshape(*lead, hdim)
+    y = int8_matmul(gq, w2_8).float() * gs[:, None] * s2 + b2
+    return y.to(x.dtype)
+
+
+def _check_scales(what, pairs):
+    for name, t, size in pairs:
+        _native.check_tensor(t, torch.float32, (size,), f"{what}: {name}")
+
+
+def int8_dense_fwd(x: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """K13: x [M, I], w8 [O, I] int8 with per-output-channel scales ws [O],
+    b [O] f32. -> ``y = (acc * xs) * ws + b`` [M, O] in x's dtype, with
+    ``(codes, xs) = quant_rows(x)`` and ``acc`` their exact int32 product
+    with w8; the codes never reach device memory. On the card: bf16 x,
+    I a multiple of 128 up to 1024, O a multiple of 128."""
+    if not x.is_cuda:
+        return _int8_dense_plain(x, w8, ws, b)
+    m, i = x.shape
+    o = w8.shape[0]
+    lo, hi = _INT8_DENSE_K
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"int8_dense_fwd: the CUDA kernel takes bfloat16 "
+                         f"activations, got {x.dtype}")
+    if m < 1 or i % 128 or not lo <= i <= hi or o < 128 or o % 128:
+        raise ValueError(
+            f"int8_dense_fwd: the CUDA kernel takes I a multiple of 128 in "
+            f"[{lo}, {hi}], O a multiple of 128 and at least one row, got "
+            f"M={m}, I={i}, O={o}")
+    _native.check_tensor(x, torch.bfloat16, (m, i), "int8_dense_fwd: x")
+    _native.check_tensor(w8, torch.int8, (o, i), "int8_dense_fwd: w8")
+    _check_scales("int8_dense_fwd", (("ws", ws, o), ("b", b, o)))
+    out = torch.empty(m, o, dtype=torch.bfloat16, device=x.device)
+    fn = _native.function("int8_ffn", "sx_int8_dense", _DENSE8_ARGS)
+    code = fn(_ptr(x), _ptr(w8), _ptr(ws), _ptr(b), _ptr(out), m, i, o,
+              _native.stream(x.device))
+    _native.check("int8_ffn", code, "int8_dense_fwd")
+    int8_dense_fwd.launches += 1
+    return out
+
+
+int8_dense_fwd.launches = 0
+
+
+def int8_ffn_fwd(x: torch.Tensor, w1_8: torch.Tensor, s1: torch.Tensor,
+                 b1: torch.Tensor, w2_8: torch.Tensor, s2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    """K14: x [M, H]; w1_8 [F, H], w2_8 [H, F] int8 with per-output-channel
+    scales s1 [F], s2 [H]; b1 [F], b2 [H] f32. -> y [M, H] in x's dtype:
+    ``h = (acc1 * xs) * s1 + b1``, ``g = gelu(h)`` (A&S erf, f32),
+    ``(gq, gs) = quant_rows(g)`` over all of F, ``y = (acc2 * gs) * s2 +
+    b2``; the [M, F] intermediate never reaches device memory. On the card:
+    bf16 x, H in 256, 768, 1024, F a multiple of 128."""
+    if not x.is_cuda:
+        return _int8_ffn_plain(x, w1_8, s1, b1, w2_8, s2, b2)
+    m, h, f = _kernel_dims("int8_ffn_fwd", x, w1_8.shape[0])
+    _native.check_tensor(x, torch.bfloat16, (m, h), "int8_ffn_fwd: x")
+    _native.check_tensor(w1_8, torch.int8, (f, h), "int8_ffn_fwd: w1_8")
+    _native.check_tensor(w2_8, torch.int8, (h, f), "int8_ffn_fwd: w2_8")
+    _check_scales("int8_ffn_fwd", (("s1", s1, f), ("b1", b1, f),
+                                   ("s2", s2, h), ("b2", b2, h)))
+    out = torch.empty(m, h, dtype=torch.bfloat16, device=x.device)
+    fn = _native.function("int8_ffn", "sx_int8_ffn", _FFN8_ARGS)
+    code = fn(_ptr(x), _ptr(w1_8), _ptr(s1), _ptr(b1), _ptr(w2_8), _ptr(s2),
+              _ptr(b2), _ptr(out), m, h, f, _native.stream(x.device))
+    _native.check("int8_ffn", code, "int8_ffn_fwd")
+    int8_ffn_fwd.launches += 1
+    return out
+
+
+int8_ffn_fwd.launches = 0
+
+
+def int8_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor, *,
+             quantized: Optional[tuple] = None) -> torch.Tensor:
+    """The int8 FFN over [..., H] (encode only; ``int8_ffn`` :175-219).
+
+    Where the shapes tile (:func:`int8_ffn_tile`) K14 over the weights'
+    per-channel codes, ``quantized = (w1_8, s1, b1, w2_8, s2, b2)`` (f32
+    biases) where the caller keeps them, else quantized here as the JAX
+    package does per call (:193-194). Where they do not tile,
+    :func:`ffn_reference`, the unquantized composition the JAX package
+    returns there (:191-192): on both devices, because it is another
+    function than K14's, not a way around a failure. A CUDA tensor at a
+    tiling shape launches K14 or raises."""
+    lead, m, h = _flat(x)
+    if int8_ffn_tile(m, h, w1.shape[0]) is None:
+        return ffn_reference(x, w1, b1, w2, b2)
+    if quantized is None:
+        quantized = (*quantize_weight(w1), b1.float(),
+                     *quantize_weight(w2), b2.float())
+    y = int8_ffn_fwd(x.reshape(m, h).contiguous(), *quantized)
+    return y.reshape(*lead, h)
+
+
+def int8_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+               quantized: Optional[tuple] = None) -> torch.Tensor:
+    """The int8 dense ``x w^T + b`` over [..., I] (encode only;
+    ``int8_dense`` :230-273), with ``w`` [O, I] in ``nn.Linear`` layout.
+
+    Where the shapes tile (:func:`int8_dense_tile`) K13 over ``quantized =
+    (w8, ws, b)`` (f32 bias) or the weight quantized here; where they do
+    not, the unquantized dense (:func:`linear_dt`), as the JAX package
+    returns there (:247-251), on both devices. A CUDA tensor at a tiling
+    shape launches K13 or raises."""
+    lead, m, i = _flat(x)
+    o = w.shape[0]
+    if int8_dense_tile(m, i, o) is None:
+        return linear_dt(x, w, b, x.dtype)
+    if quantized is None:
+        quantized = (*quantize_weight(w), b.float())
+    y = int8_dense_fwd(x.reshape(m, i).contiguous(), *quantized)
+    return y.reshape(*lead, o)
 
 
 _FFN_IMPLS = {"fused": fused_ffn, "fused_vjp": fused_ffn_vjp,
-              "int8": _int8_ffn}
+              "int8": int8_ffn}
 
 
 def ffn(x: torch.Tensor, w1, b1, w2, b2, impl: str) -> torch.Tensor:
     """``BertConfig.ffn_impl`` in {fused, fused_vjp, int8}."""
     return _FFN_IMPLS[impl](x, w1, b1, w2, b2)
-
-
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``BertConfig.proj_impl="int8"``: the TPU ``int8_dense`` plain, CPU
-    tensors only (bf16 dense where its shapes do not tile)."""
-    _require_cpu(x, "proj_impl='int8'")
-    lead, i = x.shape[:-1], x.shape[-1]
-    m = x.numel() // i
-    dt = x.dtype
-    if _tile(m, (i, w.shape[0]), 512, 32) is None:
-        return linear_dt(x, w, b, dt)
-    xq, xs = quant_rows(x.reshape(m, i))
-    wq, s = quantize_weight(w)
-    y = int8_matmul(xq, wq).float() * xs[:, None] * s + b.float()
-    return y.to(dt).reshape(*lead, w.shape[0])

@@ -9,8 +9,10 @@ Each kernel wrapper launches its kernel for CUDA tensors (its launch count
 rises) and agrees with its plain version at small shapes (K5/K6, the
 grouped attention pair, and K7/K8, the per-(batch, head) pair, at every S
 class they take; K9-K12, the fused FFN kernels, at tiling and ragged
-shapes and under autograd); the knobs whose TPU kernels are not ported
-raise for CUDA tensors instead of running a plain version on the card.
+shapes and under autograd; K13/K14, the int8 encode kernels, bitwise
+against their plain versions at tiling and ragged shapes, in a model,
+and the JAX dispatch where the shapes do not tile); what a kernel does
+not take raises instead of running a plain version on the card.
 """
 
 import pytest
@@ -95,14 +97,135 @@ def test_mips_candidates_match_plain(dev):
     assert mk.mips_bucket_candidates.launches == before + 2
 
 
-def test_unported_knobs_raise_for_cuda_tensors(dev):
-    x = _randn(dev, 2, 8, 128)
-    w1, b1 = _randn(dev, 256, 128), _randn(dev, 256)
-    w2, b2 = _randn(dev, 128, 256), _randn(dev, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_ffn.ffn(x, w1, b1, w2, b2, "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_ffn.dense(x, w1, b1)
+def _int8_weights(dev, o, i, seed):
+    """An nn.Linear weight [o, i] and bias at a BERT layer's scale, with
+    its per-channel codes and scales: (w, b, (w8, ws, b))."""
+    w = _randn(dev, o, i, scale=0.02, seed=seed)
+    b = _randn(dev, o, scale=0.02, seed=seed + 1)
+    return w, b, (*fused_ffn.quantize_weight(w), b)
+
+
+def _same_or_one_code(got, want, what):
+    """K13/K14 repeat their plain versions' f32 operations in order, so
+    the outputs are expected bitwise. Allowed: a code of g one step off
+    (an ulp of GELU's exp across a rounding) moves its row's outputs by
+    at most gs * 127 * s2 = max|g| max|w2| / 127, below one bf16 step of
+    the largest |y|, on at most 1e-3 of the elements."""
+    diff = (got.float() - want.float()).abs()
+    tol = 2.0 ** -7 * float(want.float().abs().max())
+    assert float(diff.max()) <= tol, (what, float(diff.max()), tol)
+    assert float((diff > 0).float().mean()) <= 1e-3, what
+
+
+@pytest.mark.parametrize("m,i,o", [(256, 768, 2304), (37, 256, 384),
+                                   (1, 1024, 128), (600, 768, 768),
+                                   (4000, 128, 256)])
+def test_int8_dense_matches_plain(dev, m, i, o):
+    """K13 against its plain version at tiling and ragged M (the kernel
+    masks its edge) and every row-block size it picks; one launch."""
+    x = _randn(dev, m, i, seed=m).to(torch.bfloat16)
+    _, _, q = _int8_weights(dev, o, i, seed=i)
+    before = fused_ffn.int8_dense_fwd.launches
+    got = fused_ffn.int8_dense_fwd(x, *q)
+    want = fused_ffn._int8_dense_plain(x, *q)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, o)
+    assert torch.equal(got, want)
+    assert fused_ffn.int8_dense_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("m,h,f", [(64, 256, 256), (37, 768, 512),
+                                   (256, 768, 3072), (33, 1024, 384),
+                                   (1, 256, 128)])
+def test_int8_ffn_matches_plain(dev, m, h, f):
+    """K14 against its plain version at tiling and ragged M; one launch."""
+    x = _randn(dev, m, h, seed=m + h).to(torch.bfloat16)
+    _, _, (w1_8, s1, b1) = _int8_weights(dev, f, h, seed=1)
+    _, _, (w2_8, s2, b2) = _int8_weights(dev, h, f, seed=3)
+    args = (x, w1_8, s1, b1, w2_8, s2, b2)
+    before = fused_ffn.int8_ffn_fwd.launches
+    got = fused_ffn.int8_ffn_fwd(*args)
+    want = fused_ffn._int8_ffn_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, h)
+    _same_or_one_code(got, want, (m, h, f))
+    assert fused_ffn.int8_ffn_fwd.launches == before + 1
+
+
+def test_int8_knobs_dispatch_and_refuse(dev):
+    """The public int8_ffn / int8_dense keep the JAX rule on the card:
+    where the shapes do not tile they ARE the unquantized expression and
+    launch nothing; where they tile, the kernel runs or raises (an f32
+    CUDA tensor; H = 1152 or I = 1152, on the JAX grid but not built)."""
+    names = ("int8_ffn_fwd", "int8_dense_fwd")
+    before = [getattr(fused_ffn, n).launches for n in names]
+    x = _randn(dev, 40, 256).to(torch.bfloat16)      # 40 rows: no tile
+    w1, b1, _ = _int8_weights(dev, 512, 256, seed=1)
+    w2, b2, _ = _int8_weights(dev, 256, 512, seed=3)
+    assert torch.equal(fused_ffn.ffn(x, w1, b1, w2, b2, "int8"),
+                       fused_ffn.ffn_reference(x, w1, b1, w2, b2))
+    w, b, _ = _int8_weights(dev, 100, 256, seed=5)    # O = 100: no tile
+    x64 = _randn(dev, 64, 256).to(torch.bfloat16)
+    assert torch.equal(fused_ffn.int8_dense(x64, w, b),
+                       fused_ffn.linear_dt(x64, w, b, torch.bfloat16))
+    assert [getattr(fused_ffn, n).launches for n in names] == before
+    # the same public calls at tiling shapes launch their kernels
+    y = fused_ffn.int8_ffn(x64.view(2, 32, 256), w1, b1, w2, b2)
+    _same_or_one_code(y.view(64, 256), fused_ffn._int8_ffn_plain(
+        x64, *fused_ffn.quantize_weight(w1), b1,
+        *fused_ffn.quantize_weight(w2), b2), "int8_ffn")
+    w, b, q = _int8_weights(dev, 384, 256, seed=7)
+    assert torch.equal(fused_ffn.int8_dense(x64, w, b),
+                       fused_ffn._int8_dense_plain(x64, *q))
+    assert [getattr(fused_ffn, n).launches for n in names] == [
+        n + 1 for n in before]
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_ffn.int8_ffn(x64.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_ffn.int8_dense(x64.float(), w, b)
+    wide = torch.zeros(64, 1152, dtype=torch.bfloat16, device=dev)
+    w3, b3, _ = _int8_weights(dev, 256, 1152, seed=9)
+    with pytest.raises(ValueError, match="H in"):
+        fused_ffn.int8_ffn(wide, w3, b3, w3.T.contiguous(),
+                           torch.zeros(1152, device=dev))
+    with pytest.raises(ValueError, match="I a multiple"):
+        fused_ffn.int8_dense(wide, w3, b3)
+    assert [getattr(fused_ffn, n).launches for n in names] == [
+        n + 1 for n in before]
+
+
+def test_int8_knobs_launch_in_a_model(dev):
+    """A BertEncoder (H = 256, 2 layers) under ffn_impl="int8" and
+    proj_impl="int8": K13 twice a layer (q, k, v as one call; the output
+    projection), K14 once; every layer's hiddens equal the same model's
+    on the plain versions (expected bitwise; a code one step off moves the
+    roundings downstream, so the floor is a row cosine of 0.9999)."""
+    from simxns_tpu_torch.models import BertConfig, BertEncoder
+
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                     num_heads=4, intermediate_size=512,
+                     max_position_embeddings=64, ffn_impl="int8",
+                     proj_impl="int8")
+    model = BertEncoder(cfg).to(dev)
+    ids = torch.randint(1, 512, (4, 32), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    names = ("int8_ffn_fwd", "int8_dense_fwd")
+    before = [getattr(fused_ffn, n).launches for n in names]
+    kernels = [getattr(fused_ffn, n) for n in names]
+    with torch.no_grad():
+        got = model(ids, output_hidden_states=True).hidden_states
+        after = [getattr(fused_ffn, n).launches for n in names]
+        fused_ffn.int8_ffn_fwd = fused_ffn._int8_ffn_plain
+        fused_ffn.int8_dense_fwd = fused_ffn._int8_dense_plain
+        try:
+            want = model(ids, output_hidden_states=True).hidden_states
+        finally:
+            fused_ffn.int8_ffn_fwd, fused_ffn.int8_dense_fwd = kernels
+    assert [a - b for a, b in zip(after, before)] == [2, 4]
+    for g, w in zip(got, want):
+        cos = torch.nn.functional.cosine_similarity(
+            g.float().flatten(0, 1), w.float().flatten(0, 1), dim=-1)
+        assert torch.equal(g, w) or float(cos.min()) >= 0.9999
 
 
 def _ffn_inputs(dev, m, h, f, seed=0):

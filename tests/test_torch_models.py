@@ -116,17 +116,22 @@ def test_ported_ffn_knobs_encode_like_jax(knob):
 
 
 @pytest.mark.parametrize("knob", [dict(ffn_impl="int8"),
-                                  dict(proj_impl="int8")])
-def test_unported_knobs_run_plain_on_cpu(knob):
-    """Knobs whose TPU kernels are not ported run their plain version for
-    CPU tensors (bf16, to the bf16-path bounds above)."""
+                                  dict(ffn_impl="int8", proj_impl="int8")])
+def test_int8_knobs_encode_like_jax(knob):
+    """The int8 encode knobs (K14, and K13 for q, k, v as one call and the
+    output projection; their plain versions for CPU tensors) through a
+    bi-encoder in bf16: 2 x 32 passage tokens make 64 rows, which tile, so
+    the JAX side runs its Pallas kernels in interpret mode. A code one step
+    off (a scale one f32 ulp off, tests/test_torch_int8_ffn.py) moves its
+    row by far less than the bf16 path's own roundings: within 0.05 and a
+    cosine of 0.9999 (measured 0.0234 and 0.99998 under both)."""
     jmodel, params, port = biencoder_pair(
         jax_bert(dtype=jnp.bfloat16, **knob), seed=7)
     rng = np.random.default_rng(8)
     ids, mask = token_batch(rng, 2, 32)
     got, want = _encode(jmodel, params, port, "encode_passage", ids, mask)
-    assert np.abs(got - want).max() <= 0.1
-    assert cosine_rows(got, want).min() >= 0.999
+    assert np.abs(got - want).max() <= 0.05
+    assert cosine_rows(got, want).min() >= 0.9999
 
 
 @pytest.mark.parametrize("dtype,atol", [(jnp.float32, 2e-5),
