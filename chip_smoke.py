@@ -17,7 +17,12 @@ non-zero and prints no result):
    library call's (timed only; the port never calls it) and the least time
    the card could take (bytes over 3.35 TB/s or operations over the dense
    tensor-core peak, whichever is larger); then one whole layer composed of
-   the kernels against the plain composition;
+   the kernels against the plain composition; K3 (here and in phases 4
+   and 6) and K7 (phase 6) also with their device time per call from the
+   profiler (at a request's shape the CUDA-event time is the host's
+   launch rate); beside K4, the search's
+   last step over its candidates: the stable ``_finalize`` (equal scores
+   in column order, as ``jax.lax.top_k``) and ``torch.topk`` alone;
 3. end to end: a full-width BERT-base dual encoder (12 layers, random
    weights from seed 0, layer_impl="fused_int8") behind a DenseRetriever
    with an int8 index in fused mode indexes 65,536 synthetic passages and
@@ -140,6 +145,26 @@ def timed(torch, fn, reps, warmup=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(torch, fn, kernel, reps=10):
+    """Mean device ms of one launch of the kernel whose name holds
+    ``kernel`` (``fn`` launches it once), from torch.profiler: a small
+    launch's CUDA-event time is the host's launch rate, not the kernel's.
+    The mean is over the launches the profiler recorded (a session after
+    earlier ones may drop some). -> (ms, launches recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in ev.name]
+    return (sum(us) / 1e3 / len(us) if us else None), len(us)
 
 
 def fresh_peak(torch):
@@ -335,6 +360,8 @@ def _check_small_s_attention(torch, randn, gen, cases, h, heads):
         tol = 2.0 ** -7 * float(qkv[:, 2 * h:].float().abs().max())
         check(err <= tol, f"small_s_attention {b}x{s}: err {err} > {tol}")
         ms = timed(torch, lambda: fl.small_s_attention(qkv, mask, heads), 10)
+        dev_ms, dev_n = device_ms(torch, lambda: fl.small_s_attention(
+            qkv, mask, heads), "small_s_attention_kernel")
         plain = timed(torch, lambda: fl._small_s_attention_plain(
             qkv, mask, heads), 3)
         q, k, v = (t.transpose(1, 2).contiguous() for t in
@@ -346,8 +373,10 @@ def _check_small_s_attention(torch, randn, gen, cases, h, heads):
         moved = qkv.numel() * 2 + mask.numel() * 4 + got.numel() * 4
         bms, by = bound(moved, 4.0 * b * heads * s * s * (h // heads),
                         PEAK_BF16)
-        rec["shapes"].append(dict(batch=b, seq=s, ms=ms, plain_ms=plain,
-                                  library_ms=lib, bound_ms=bms, bound_by=by,
+        rec["shapes"].append(dict(batch=b, seq=s, ms=ms, device_ms=dev_ms,
+                                  device_launches_recorded=dev_n,
+                                  plain_ms=plain, library_ms=lib,
+                                  bound_ms=bms, bound_by=by,
                                   max_abs_err=err, tolerance=tol))
         del qkv, q, k, v
     main = rec["shapes"][0]
@@ -478,6 +507,14 @@ def phase_kernels(torch, smi):
                           1, warmup=0)
             lib = timed(torch, lambda: _library_search(torch, args[0],
                                                        args[1], kind), 1)
+            # the search's last step over K4's candidates: the port's
+            # stable _finalize, and the same selection by torch.topk alone
+            # (equal scores in no set order; what the port used before)
+            cand = mk.mips_bucket_candidates(*args, **kw)
+            fin = timed(torch, lambda: mk._finalize(*cand, 10, 0), 5)
+            fin_topk = timed(torch, lambda: _topk_finalize(torch, *cand, 10),
+                             5)
+            del cand
             elt = 1 if kind == "int8" else 2
             moved = (INDEX_ROWS * H * elt + nq * H * elt
                      + (4 * (INDEX_ROWS + nq) if kind == "int8" else 0)
@@ -488,7 +525,12 @@ def phase_kernels(torch, smi):
                                  ms=ms, plain_ms=plain, library_ms=lib,
                                  bound_ms=bms, bound_by=by, max_abs_err=err,
                                  ids_differing=ids_off,
-                                 top10_overlap=overlap))
+                                 top10_overlap=overlap,
+                                 candidates_per_query=n_pad // bucket,
+                                 finalize_ms=fin, topk_finalize_ms=fin_topk,
+                                 search_ms=ms + fin,
+                                 stable_finalize_added_share=(
+                                     (fin - fin_topk) / (ms + fin_topk))))
             emit("kernel_variant", name="mips_bucket_candidates",
                  nvidia_smi=smi, **variants[-1])
     main = variants[0]                     # int8, 8 queries: a request
@@ -503,6 +545,17 @@ def phase_kernels(torch, smi):
     del codes, scales, corpus16
     torch.cuda.empty_cache()
     return records
+
+
+def _topk_finalize(torch, flat_s, flat_i, k):
+    """``mips_kernel._finalize`` with ``torch.topk`` as its selection (the
+    order of equal scores undefined): the yardstick of the stable one.
+    Timed only."""
+    from simxns_tpu_torch.ops.mips_kernel import NEG_INF
+
+    top_s, sel = torch.topk(flat_s, k, dim=1)
+    top_i = torch.gather(flat_i, 1, sel)
+    return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1)
 
 
 def _library_search(torch, queries, corpus, kind, k=10,
@@ -1103,6 +1156,8 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
     if not timing:
         return rec
     ms7 = timed(torch, lambda: fa.bh_attention_fwd(q, k, v, mask), 10)
+    dev7, dev7_n = device_ms(torch, lambda: fa.bh_attention_fwd(
+        q, k, v, mask), "bh_attention_fwd_kernel")
     plain7 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2)
     ms8 = timed(torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do), 10)
     plain8 = timed(torch, lambda: fa._group_bwd_plain(q, k, v, mask, do), 2)
@@ -1126,7 +1181,8 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
                       PEAK_BF16)
     bms8, by8 = bound(7 * elems * 2 + mask.numel() * 4, 5 * product,
                       PEAK_BF16)
-    rec.update(ms=ms7, plain_ms=plain7, library_ms=lib7, bound_ms=bms7,
+    rec.update(ms=ms7, device_ms=dev7, device_launches_recorded=dev7_n,
+               plain_ms=plain7, library_ms=lib7, bound_ms=bms7,
                bound_by=by7, bwd_ms=ms8, bwd_plain_ms=plain8,
                bwd_library_ms=lib8, bwd_bound_ms=bms8, bwd_bound_by=by8,
                fwd_bwd_ms=ms7 + ms8, library_fwd_bwd_ms=lib78)

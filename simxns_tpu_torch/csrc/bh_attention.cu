@@ -17,10 +17,16 @@
 // VMEM. A Hopper block has 227 KB of shared memory, and at S=1024, d=64, k
 // and v alone are 256 KB of bf16. So both kernels stream tiles of 64 rows
 // through shared memory, and each block takes 64 rows of one (b, h):
-// - K7, one block per (query tile, head, batch): pass 1 folds each query
-//   row's max and sum of exp(s - max) over the key tiles (running max and
-//   sum in f32); pass 2 recomputes s, forms p exactly as the plain version
-//   does and accumulates p v in f32 registers.
+// - K7, one block per (query tile, head, batch), in ONE pass over the keys
+//   (attention_ring.cuh): q lands in shared memory once; 64-key tiles of k
+//   and v stream through a two-stage cp.async ring (the next tile's copy
+//   overlaps the current tile's products); each row keeps a running max
+//   and sum in f32, the f32 accumulator is rescaled when the max grows,
+//   and the sum divides it once at the end (one reciprocal a row). Scores
+//   are scaled by log2(e) / sqrt(d) (the masks' -1e9 by log2(e) too), so
+//   each exponential is one ex2. p stays f32: p v takes it as hi + lo bf16
+//   halves, v read in its [key][d] layout through ldmatrix...trans. The
+//   result differs from the two-pass one by f32 rounding only.
 // - K8, two launches. The query pass (per query tile) folds the max and
 //   sum, then rowsum(dP p) from dP and p in f32 (not from a rounded o, as
 //   the TPU kernel does), then dQ; it writes the three row statistics to
@@ -32,16 +38,18 @@
 // Bound on the card: operations for K8, bytes for K7 at the msdoc
 // reranker's shape (128 joint rows x 12 heads x S=512 x d=64, bf16): K7
 // moves 403 MB and does 103 GFLOP of model products, K8 moves 705 MB and
-// does 258 GFLOP. This first cut does more than that: q k^T twice in K7
-// and three times in K8's query pass, and every product with an f32
-// operand twice (hi + lo bf16 halves, attention_tile.cuh) -- 4 and 13
-// products of 2 S^2 d per head against the model's 2 and 5. wgmma, TMA
-// and a pipelined tile ring are later work.
+// does 258 GFLOP. K7 does 3 products of 2 S^2 d per head (q k^T, and p v
+// twice for the hi and lo halves) against the model's 2. K8 is the first
+// cut (attention_tile.cuh, mma.sync fragments straight from memory): q k^T
+// three times in its query pass and every product with an f32 operand
+// twice, 13 products against the model's 5.
+#include "attention_ring.cuh"
 #include "attention_tile.cuh"
 
 SX_DEFINE_ERROR_STRING
 
 using namespace sx::attn;
+namespace ring = sx::ring;
 
 namespace {
 
@@ -50,8 +58,13 @@ constexpr int kRows = kWarps * 16;   // rows of a block (queries or keys)
 constexpr int kTile = 64;            // rows of a streamed shared tile
 
 template <int D>
-constexpr int fwd_smem() {           // k and v tiles, key flags
+constexpr int query_pass_smem() {    // K8: k and v tiles, key flags
   return 2 * kTile * (D + 8) * 2 + kTile * 4;
+}
+
+template <int D>
+constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
+  return (1 + 2 * ring::kStages) * ring::Layout<D>::kTile * 2 + kMaxS * 4;
 }
 
 template <int D>
@@ -103,46 +116,104 @@ __device__ void query_stats(const Scores<D>& scores, __nv_bfloat16* ks,
   stats_end(sum);
 }
 
+// K7: one block per (query tile, head, batch), one pass over the keys
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
     bh_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
-                            Out o, int S, float scale) {
+                            Out o, int S, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][D+8]
-  __nv_bfloat16* vs = ks + kTile * (D + 8);                     // [64][D+8]
-  int* flag = reinterpret_cast<int*>(vs + kTile * (D + 8));     // [64]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kRows + warp * 16;
-  const bool active = r0 < S;   // warp-uniform; idle warps still sync
+  constexpr int kT = ring::Layout<D>::kTile;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + kT;                  // [kStages] tiles
+  __nv_bfloat16* vs = ks + ring::kStages * kT;  // [kStages] tiles
+  float* fill = reinterpret_cast<float*>(vs + ring::kStages * kT);
+  const int q0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (S + ring::kKeys - 1) / ring::kKeys;
 
+  // a key's score: 0 = real (the scaled product), else the masked
+  // constant (-1e9, in the log2 domain) or -inf past S
+  for (int j = threadIdx.x; j < n_tiles * ring::kKeys; j += ring::kThreads)
+    fill[j] = j >= S ? -INFINITY
+                     : (mask[static_cast<long long>(b) * S + j] > 0
+                            ? 0.0f : -1e9f * ring::kLog2e);
+  auto q_row = [&](int i) { return q.row(b, h, i); };
+  auto k_row = [&](int i) { return k.row(b, h, i); };
+  auto v_row = [&](int i) { return v.row(b, h, i); };
+  auto issue = [&](int tile) {
+    const int st = tile % ring::kStages;
+    ring::copy_tile<D>(ks + st * kT, k_row, tile * ring::kKeys, S);
+    ring::copy_tile<D>(vs + st * kT, v_row, tile * ring::kKeys, S);
+  };
+  ring::copy_tile<D>(qs, q_row, q0, S);
+#pragma unroll
+  for (int i = 0; i < ring::kStages - 1; ++i) {   // q rides with the first
+    if (i < n_tiles) issue(i);
+    sx::cp_async_commit();
+  }
+
+  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
   uint32_t qa[D / 16][4];
-  load_a<D>(qa, q, b, h, r0, S);
-  const Scores<D> scores{qa, ks, flag, scale};
-  float mx[2], sum[2];
-  query_stats<D>(scores, ks, flag, k, mask, b, h, S, active, mx, sum);
-
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
   float acc[D / 8][4];
   zero<D>(acc);
-  for (int t0 = 0; t0 < S; t0 += kTile) {
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + ring::kStages - 1 < n_tiles) issue(tile + ring::kStages - 1);
+    sx::cp_async_commit();
+    sx::cp_async_wait<ring::kStages - 1>();
     __syncthreads();
-    load_rows<D>(ks, k, b, h, t0, kTile, S);
-    load_rows<D>(vs, v, b, h, t0, kTile, S);
-    load_flags(flag, mask, b, t0, kTile, S);
-    __syncthreads();
-    if (!active) continue;
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float sc[kTiles][4];
-      scores(c0, sc);
+    if (active) {
+      if (tile == 0) ring::load_q<D>(qa, qs);
+      const int st = tile % ring::kStages;
+      float sc[ring::kNt][4];
+      ring::q_k_tile<D>(sc, qa, ks + st * kT);
+      const float* f = fill + tile * ring::kKeys + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
+      for (int nt = 0; nt < ring::kNt; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
-      mma_cols<D>(acc, sc, vs, c0);
+        for (int e = 0; e < 4; ++e) {
+          const float c = f[nt * 8 + (e & 1)];
+          sc[nt][e] = c == 0.0f ? sc[nt][e] * scale2 : c;
+        }
+      float cm[2], alpha[2];
+      ring::tile_max(sc, cm);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(mx[r], cm[r]);
+        alpha[r] = mx[r] == -INFINITY ? 0.0f : ring::ex2(mx[r] - m_new);
+        sum[r] *= alpha[r];
+        mx[r] = m_new;
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int nt = 0; nt < ring::kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = ring::ex2(sc[nt][e] - mx[e >> 1]);
+          sum[e >> 1] += sc[nt][e];
+        }
+      ring::p_v_tile_split<D>(acc, sc, vs + st * kT);
     }
+    __syncthreads();
   }
-  if (active) store_rows<D>(o, b, h, r0, S, acc, 1.0f);
+  if (!active) return;
+  const float inv[2] = {1.0f / ring::quad<1>(sum[0]),
+                        1.0f / ring::quad<1>(sum[1])};
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, ra) + c) =
+          __floats2bfloat162_rn(acc[nd][0] * inv[0], acc[nd][1] * inv[0]);
+    if (rb < S)
+      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, rb) + c) =
+          __floats2bfloat162_rn(acc[nd][2] * inv[1], acc[nd][3] * inv[1]);
+  }
 }
 
 // K8, launch 1: per query tile, the row statistics and dQ
@@ -288,8 +359,9 @@ Out out_view(void* p, long long sb, long long sh, long long ss) {
 
 }  // namespace
 
-static_assert(key_pass_smem<128>() <= 48 * 1024 && fwd_smem<128>() <= 48 * 1024,
-              "K7/K8 tiles fit the default shared-memory window");
+static_assert(key_pass_smem<128>() <= 48 * 1024 &&
+                  query_pass_smem<128>() <= 48 * 1024,
+              "K8 tiles fit the default shared-memory window");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -304,13 +376,17 @@ extern "C" int sx_bh_attention_fwd(
   const In qv = view(q, sb, sh, ss), kv = view(k, sb, sh, ss),
            vv = view(v, sb, sh, ss);
   const Out ov = out_view(o, ob, oh, os);
-  const dim3 grid((S + kRows - 1) / kRows, heads, B);
+  const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    bh_attention_fwd_kernel<DD><<<grid, kThreads, fwd_smem<DD>(), st>>>(      \
-        qv, kv, vv, mask, ov, S, scale);                                      \
+    err = prepare(bh_attention_fwd_kernel<DD>, fwd_smem<DD>());               \
+    if (err != cudaSuccess) return static_cast<int>(err);                     \
+    bh_attention_fwd_kernel<DD><<<grid, ring::kThreads, fwd_smem<DD>(),       \
+                                  st>>>(qv, kv, vv, mask, ov, S,              \
+                                        scale * ring::kLog2e);                \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(32)
     SX_CASE(64)
@@ -343,7 +419,7 @@ extern "C" int sx_bh_attention_bwd(
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    bh_attention_bwd_query_kernel<DD><<<grid, kThreads, fwd_smem<DD>(),      \
+    bh_attention_bwd_query_kernel<DD><<<grid, kThreads, query_pass_smem<DD>(),\
                                         st>>>(qv, kv, vv, dov, mask, dqv, sv, \
                                               S, scale);                      \
     err = cudaGetLastError();                                                 \

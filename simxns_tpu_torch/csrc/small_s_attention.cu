@@ -1,233 +1,190 @@
-// K3 small_s_attention: softmax(q k^T / sqrt(d) + bias) v for one
-// (sequence, head) per block, S <= 512.
+// K3 small_s_attention: softmax(q k^T / sqrt(d) + bias) v for every
+// (sequence, head), S <= 512, one block per 64 query rows.
 //
 // Replaces the attention core of the TPU whole-layer kernel
 // (simxns_tpu/ops/fused_layer.py:_layer_kernel :115-138): q, k, v bf16;
 // scores in f32 (dot * (1/sqrt(d)), then + bias, bias = 0 or -1e9 from the
-// key mask); subtract the row max, exp, divide by the sum, all f32; p cast
-// to bf16; p v accumulated in f32. The context is written f32 into
-// [M, H] at column head * d, so the next kernel (row_quant) quantizes whole
-// rows across all heads, as the TPU kernel does.
+// key mask); subtract the row max, exp, normalise by the sum, all f32; p
+// cast to bf16 AFTER the normalisation (the TPU kernel's rounding of p);
+// p v accumulated in f32. The context is written f32 into [M, H] at column
+// head * d, so the next kernel (row_quant) quantizes whole rows across all
+// heads, as the TPU kernel does.
 //
-// Bound on the card: bytes. At S=128, d=64 a head does 4 S^2 d = 4.2 MFLOP
-// against 3 S d * 2 bytes of q, k, v read and S d * 4 bytes of context
-// written, well under the bf16 tensor-core ridge. The design reads each
-// head's k and v once into shared memory (k as [S][d], v transposed to
-// [d][S], rows padded by 16 bytes so the 32-bit fragment loads of a warp
-// hit distinct banks), never writes the S x S scores to device memory, and
-// runs both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate). Each warp owns 16 query rows and walks the keys in chunks
-// of 64 twice: the first pass finds each row's max and the sum of
-// exp(s - max) (the sum rescaled when the max grows), the second recomputes
-// the scores, forms p = bf16(exp(s - max) / sum) in registers -- the score
-// accumulators are the A fragments of p v -- and accumulates p v. Normalising
-// before the bf16 cast keeps the TPU kernel's rounding of p. Keys past S
-// (the pad to a chunk) get a -inf bias, so they add exactly 0.
-#include "tile_gemm.cuh"
+// Bound on the card: bytes at S=128 (4 S^2 d of products per head against
+// 3 S d * 2 bytes read and S d * 4 written), the tensor cores' rate past
+// S ~ 300. The design (attention_ring.cuh): the grid is (query tiles of 64,
+// heads, sequences), so a block's shared memory does not grow with S (47
+// KB at d=64: four blocks an SM at every S) and the S/64 blocks of one head
+// run side by side, reading its k and v from L2. A block lands its q tile
+// once and streams 64-key tiles of k, then of k and v, through a two-stage
+// cp.async ring: pass 1 folds each row's max and sum of exp(s - max) over
+// the k tiles (the sum rescaled when the max grows), pass 2 recomputes the
+// scores, forms p = bf16(exp(s - max) / sum) in registers -- the
+// score accumulators are the A fragments of p v -- and accumulates p v on
+// the tensor cores, v read through ldmatrix...trans. Scores are scaled by
+// log2(e) / sqrt(d) and the bias by log2(e), so each exponential is one
+// ex2; each row takes one reciprocal of its sum, and the quotient is
+// corrected to the true division's rounding by two FMAs (a product with the
+// reciprocal alone moved enough bf16 roundings of p to reorder near-ties
+// of a 12-layer encode's top-10). Keys past S (the pad to a tile) get a
+// -inf bias, so they add exactly 0.
+#include "attention_ring.cuh"
 
 SX_DEFINE_ERROR_STRING
 
+using namespace sx::ring;
+
 namespace {
 
-constexpr int kWarps = 4;
 constexpr int kMaxS = 512;
-constexpr int kChunk = 64;   // keys per pass step
 
-__host__ __device__ constexpr int padded_s(int S) {
-  return (S + kChunk - 1) / kChunk * kChunk;
+template <int D>
+constexpr int smem_bytes() {
+  // q tile, kStages k tiles, kStages v tiles (bf16), biases (f32)
+  return (1 + 2 * kStages) * Layout<D>::kTile * 2 + kMaxS * 4;
 }
 
 template <int D>
-constexpr int smem_bytes(int S) {
-  // k [Sp][D + 8] bf16, v^T [D][Sp + 8] bf16, bias [Sp] f32
-  return padded_s(S) * (D + 8) * 2 + D * (padded_s(S) + 8) * 2 +
-         padded_s(S) * 4;
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2)
     small_s_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
                              const int* __restrict__ mask,
                              float* __restrict__ ctx, int S, int H,
-                             float scale) {
+                             float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Sp = padded_s(S);
-  constexpr int kRowK = D + 8;
-  const int row_v = Sp + 8;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [Sp][D+8]
-  __nv_bfloat16* vt = ks + Sp * kRowK;                           // [D][Sp+8]
-  float* bias = reinterpret_cast<float*>(vt + D * row_v);        // [Sp]
+  constexpr int kTile = Layout<D>::kTile;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + kTile;                 // [kStages] tiles
+  __nv_bfloat16* vs = ks + kStages * kTile;       // [kStages] tiles
+  float* bias = reinterpret_cast<float*>(vs + kStages * kTile);  // [kMaxS]
 
-  const int head = blockIdx.x, seq = blockIdx.y;
+  const int q0 = blockIdx.x * kRows, head = blockIdx.y, seq = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long row0 = static_cast<long>(seq) * S;
   const long ld = 3L * H;
   const __nv_bfloat16* base = qkv + row0 * ld + head * D;
+  auto q_row = [&](int i) { return base + i * ld; };
+  auto k_row = [&](int i) { return base + i * ld + H; };
+  auto v_row = [&](int i) { return base + i * ld + 2 * H; };
+  const int n_tiles = (S + kKeys - 1) / kKeys;
 
-  // k rows and v^T columns, 8 bf16 (16 bytes) per load; zeros past S
-  for (int idx = threadIdx.x; idx < Sp * (D / 8); idx += blockDim.x) {
-    const int j = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (j < S) {
-      kv = *reinterpret_cast<const uint4*>(base + j * ld + H + c);
-      vv = *reinterpret_cast<const uint4*>(base + j * ld + 2 * H + c);
-    }
-    *reinterpret_cast<uint4*>(ks + j * kRowK + c) = kv;
-    const __nv_bfloat16* v8 = reinterpret_cast<const __nv_bfloat16*>(&vv);
+  for (int j = threadIdx.x; j < n_tiles * kKeys; j += kThreads)
+    bias[j] = j >= S ? -INFINITY
+                     : (mask[row0 + j] > 0 ? 0.0f : -1e9f * kLog2e);
+  // step s < n_tiles streams k tile s (pass 1), step n_tiles + j streams k
+  // and v tile j (pass 2); the copies of the next kStages - 1 steps
+  // overlap step s
+  auto issue = [&](int s) {
+    const int tile = s % n_tiles, st = s % kStages;
+    copy_tile<D>(ks + st * kTile, k_row, tile * kKeys, S);
+    if (s >= n_tiles) copy_tile<D>(vs + st * kTile, v_row, tile * kKeys, S);
+  };
+  copy_tile<D>(qs, q_row, q0, S);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) vt[(c + u) * row_v + j] = v8[u];
+  for (int s = 0; s < kStages - 1; ++s) {   // q rides with the first group
+    if (s < 2 * n_tiles) issue(s);
+    sx::cp_async_commit();
   }
-  for (int j = threadIdx.x; j < Sp; j += blockDim.x)
-    bias[j] = j >= S ? -INFINITY : (mask[row0 + j] > 0 ? 0.0f : -1e9f);
-  __syncthreads();
 
-  for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
-    // q rows r0 + g and r0 + g + 8 as A fragments, straight from memory
-    uint32_t qa[D / 16][4];
-    const int ra = r0 + g, rb = r0 + g + 8;
+  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
+  uint32_t qa[D / 16][4];
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, inv[2];
+  float o[D / 8][4];
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const int c = kd * 16 + 2 * t;
-      qa[kd][0] = ra < S ? ld32(base + ra * ld + c) : 0u;
-      qa[kd][1] = rb < S ? ld32(base + rb * ld + c) : 0u;
-      qa[kd][2] = ra < S ? ld32(base + ra * ld + c + 8) : 0u;
-      qa[kd][3] = rb < S ? ld32(base + rb * ld + c + 8) : 0u;
-    }
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.0f;
 
-    // scores of this warp's 16 rows against keys [c0, c0 + 64):
-    // sc[nt][e] is row (e < 2 ? g : g + 8), key c0 + nt * 8 + 2t + (e & 1)
-    auto scores = [&](int c0, float (&sc)[kChunk / 8][4]) {
+  for (int s = 0; s < 2 * n_tiles; ++s) {
+    if (s + kStages - 1 < 2 * n_tiles) issue(s + kStages - 1);
+    sx::cp_async_commit();
+    sx::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (active) {
+      if (s == 0) load_q<D>(qa, qs);
+      const int tile = s % n_tiles, st = s % kStages;
+      float sc[kNt][4];
+      q_k_tile<D>(sc, qa, ks + st * kTile);
+      const float* b = bias + tile * kKeys + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
+      for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
-        const __nv_bfloat16* kr = ks + (c0 + nt * 8 + g) * kRowK + 2 * t;
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = __fmaf_rn(sc[nt][e], scale2, b[nt * 8 + (e & 1)]);
+      if (s < n_tiles) {
+        float cm[2];
+        tile_max(sc, cm);
 #pragma unroll
-        for (int kd = 0; kd < D / 16; ++kd) {
-          const uint32_t kb[2] = {ld32(kr + kd * 16), ld32(kr + kd * 16 + 8)};
-          sx::MmaBf16::mma(sc[nt], qa[kd], kb);
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(mx[r], cm[r]);
+          sum[r] = mx[r] == -INFINITY ? 0.0f : sum[r] * ex2(mx[r] - m_new);
+          mx[r] = m_new;
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float s = sc[nt][e] * scale;
-          sc[nt][e] = s + bias[c0 + nt * 8 + 2 * t + (e & 1)];
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[e >> 1] += ex2(sc[nt][e] - mx[e >> 1]);
+      } else {
+        if (s == n_tiles) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            sum[r] = quad<1>(sum[r]);
+            inv[r] = 1.0f / sum[r];
+          }
         }
-      }
-    };
-
-    // pass 1: row max and sum of exp(s - max), per thread, then over the
-    // four threads that share a row
-    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
-    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-      float sc[kChunk / 8][4];
-      scores(c0, sc);
-      float cm[2] = {-INFINITY, -INFINITY};
+        // p = e / sum rounded as a true division: the product with the
+        // rounded reciprocal, corrected once by its residual (exact by
+        // FMA), is the correctly rounded quotient (Markstein)
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt)
+        for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], sc[nt][e]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        cm[h] = fmaxf(cm[h], __shfl_xor_sync(0xffffffffu, cm[h], 1));
-        cm[h] = fmaxf(cm[h], __shfl_xor_sync(0xffffffffu, cm[h], 2));
-        const float m_new = fmaxf(mx[h], cm[h]);
-        sum[h] = mx[h] == -INFINITY ? 0.0f : sum[h] * expf(mx[h] - m_new);
-        mx[h] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(sc[nt][e] - mx[e >> 1]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    }
-
-    // pass 2: p = bf16(exp(s - max) / sum), context += p v
-    float o[D / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] = 0.0f;
-    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-      float sc[kChunk / 8][4];
-      scores(c0, sc);
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        uint32_t pa[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float* s = sc[2 * kk + half];
-          pa[2 * half] = pack_bf16(expf(s[0] - mx[0]) / sum[0],
-                                   expf(s[1] - mx[0]) / sum[0]);
-          pa[2 * half + 1] = pack_bf16(expf(s[2] - mx[1]) / sum[1],
-                                       expf(s[3] - mx[1]) / sum[1]);
-        }
-        const __nv_bfloat16* vr = vt + g * row_v + c0 + kk * 16 + 2 * t;
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          const __nv_bfloat16* p = vr + nd * 8 * row_v;
-          const uint32_t vb[2] = {ld32(p), ld32(p + 8)};
-          sx::MmaBf16::mma(o[nd], pa, vb);
-        }
+          for (int e = 0; e < 4; ++e) {
+            const float x = ex2(sc[nt][e] - mx[e >> 1]);
+            const float q = x * inv[e >> 1];
+            const float res = __fmaf_rn(-q, sum[e >> 1], x);
+            sc[nt][e] = __fmaf_rn(res, inv[e >> 1], q);
+          }
+        p_v_tile<D>(o, sc, vs + st * kTile);
       }
     }
+    __syncthreads();
+  }
+  if (!active) return;
 
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int c = head * D + nd * 8 + 2 * t;
-      if (ra < S)
-        *reinterpret_cast<float2*>(ctx + (row0 + ra) * H + c) =
-            make_float2(o[nd][0], o[nd][1]);
-      if (rb < S)
-        *reinterpret_cast<float2*>(ctx + (row0 + rb) * H + c) =
-            make_float2(o[nd][2], o[nd][3]);
-    }
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = head * D + nd * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<float2*>(ctx + (row0 + ra) * H + c) =
+          make_float2(o[nd][0], o[nd][1]);
+    if (rb < S)
+      *reinterpret_cast<float2*>(ctx + (row0 + rb) * H + c) =
+          make_float2(o[nd][2], o[nd][3]);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* qkv, const int* mask, float* ctx, int B, int S,
                    int H, float scale, cudaStream_t stream) {
-  const int bytes = smem_bytes<D>(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      small_s_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      small_s_attention_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
   if (err != cudaSuccess) return err;
-  dim3 grid(H / D, B);
-  small_s_attention_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), mask, ctx, S, H, scale);
+  const dim3 grid((S + kRows - 1) / kRows, H / D, B);
+  small_s_attention_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask, ctx, S, H,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs (the wrapper refuses > 227 KB).
-extern "C" int sx_small_s_attention_smem(int d, int S) {
-  switch (d) {
-    case 32: return smem_bytes<32>(S);
-    case 64: return smem_bytes<64>(S);
-    case 128: return smem_bytes<128>(S);
-  }
-  return -1;
-}
-
 // qkv [B*S, 3H] bf16 (q | k | v), mask [B, S] int32 (1 = real key),
-// ctx [B*S, H] f32. d = H / heads in {32, 64, 128}; S <= 512. Rows of qkv
-// and the head offsets must be 16-byte aligned (H % 8 == 0, checked by the
-// wrapper). Returns cudaGetLastError() after the launch
+// ctx [B*S, H] f32. d = H / heads in {32, 64, 128}; S <= 512; B <= 65535.
+// Rows of qkv and the head offsets must be 16-byte aligned (H % 8 == 0,
+// checked by the wrapper). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported d or S).
 extern "C" int sx_small_s_attention(const void* qkv, const int* mask,
                                     float* ctx, int B, int S, int H, int d,

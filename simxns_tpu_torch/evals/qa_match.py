@@ -15,16 +15,35 @@ character outside the separators (Z*) and the controls, formats,
 surrogates and unassigned code points (C*) is a token of its own; Z* and
 C* characters are dropped. Python's ``re`` is no substitute (its ``\\w``
 takes ``_`` and leaves out some marks).
+
+``regex``'s Unicode tables are newer than ``unicodedata``'s: a code point
+that ``unicodedata`` calls unassigned ("Cn") takes its class from
+``_unicode_ranges.RANGES``, generated from ``regex`` by
+``scripts/torch_unicode_ranges.py``.
 """
 
 from __future__ import annotations
 
 import unicodedata
+from bisect import bisect_right
 from functools import lru_cache
 from typing import List, Sequence
 
+from simxns_tpu_torch.evals._unicode_ranges import RANGES
+
 _WORD = frozenset("LNM")       # major categories that join into one token
 _DROP = frozenset("ZC")        # major categories that are never a token
+_STARTS = tuple(r[0] for r in RANGES)
+
+
+def _major(ch: str) -> str:
+    """The major class the ``regex`` package gives ``ch``."""
+    cat = unicodedata.category(ch)
+    if cat == "Cn":
+        i = bisect_right(_STARTS, ord(ch)) - 1
+        if i >= 0 and ord(ch) <= RANGES[i][1]:
+            return RANGES[i][2]
+    return cat[0]
 
 
 def _normalize(text: str) -> str:
@@ -38,10 +57,10 @@ class SimpleTokenizer:
         tokens = []
         i, n = 0, len(text)
         while i < n:
-            major = unicodedata.category(text[i])[0]
+            major = _major(text[i])
             if major in _WORD:
                 j = i + 1
-                while j < n and unicodedata.category(text[j])[0] in _WORD:
+                while j < n and _major(text[j]) in _WORD:
                     j += 1
                 tokens.append(text[i:j])
                 i = j

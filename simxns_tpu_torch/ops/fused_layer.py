@@ -37,8 +37,6 @@ from simxns_tpu_torch.ops import _native
 from simxns_tpu_torch.ops.fused_ffn import (gelu_exact, int8_matmul,
                                             quant_rows, quantize_weight)
 
-_SMEM_LIMIT = 232448          # bytes of shared memory a block may use (H100)
-
 
 # --- K1: int8_linear ---------------------------------------------------------
 
@@ -259,11 +257,6 @@ def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
     if not 1 <= s <= 512 or b > 65535:
         raise ValueError(f"small_s_attention takes 1 <= S <= 512 and at most "
                          f"65535 sequences per call (got S={s}, B={b})")
-    smem = _native.function("small_s_attention", "sx_small_s_attention_smem",
-                            [ctypes.c_int] * 2)(d, s)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"small_s_attention: S={s}, d={d} needs {smem} B of "
-                         f"shared memory (> {_SMEM_LIMIT})")
     mask32 = mask.to(device=qkv.device, dtype=torch.int32).contiguous()
     ctx = torch.empty(m, h, dtype=torch.float32, device=qkv.device)
     if b == 0:

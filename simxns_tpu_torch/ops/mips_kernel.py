@@ -59,12 +59,52 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return quant_rows(x)
 
 
+def _order(scores: torch.Tensor, cols: torch.Tensor, n: int) -> torch.Tensor:
+    """``cols`` [Q, k] (columns of ``n``) reordered by (score descending,
+    column ascending): one int64 key each, the score's order-preserving
+    bits above and the reversed column below, so no two keys tie."""
+    bits = (scores.float() + 0.0).view(torch.int32)   # -0.0 -> +0.0
+    key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+    key = key * (1 << 32) + (n - 1 - cols)
+    return torch.gather(cols, 1, torch.sort(key, dim=1,
+                                            descending=True).indices)
+
+
+def stable_topk(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.topk(scores, k, dim=1)`` with ``jax.lax.top_k``'s order:
+    among equal scores the earlier column comes first (``torch.topk`` leaves
+    that order undefined, on both devices).
+
+    Exact, at the price of a second selection: the k-th score t of
+    ``torch.topk``; every column above t (all of them are in its result);
+    then the first columns equal to t, in column order (a ``topk`` over
+    distinct int32 keys, n - column where the score equals t, else minus
+    the column); the k columns ordered by (score descending, column
+    ascending). -> (scores [Q, k], columns [Q, k] int64).
+    """
+    n = scores.shape[1]
+    vals, cols = torch.topk(scores, k, dim=1)
+    t = vals[:, -1:]
+    above = (vals > t).sum(dim=1, keepdim=True)
+    col = torch.arange(n, dtype=torch.int32, device=scores.device)
+    key = torch.where(scores == t, n - col, -col)
+    first_eq = n - torch.topk(key, k, dim=1).values.long()
+    j = torch.arange(k, device=scores.device)
+    cols = torch.where(j < above, cols,
+                       torch.gather(first_eq, 1, (j - above).clamp_(min=0)))
+    cols = _order(torch.gather(scores, 1, cols), cols, n)
+    return torch.gather(scores, 1, cols), cols
+
+
 def _finalize(flat_s: torch.Tensor, flat_i: torch.Tensor, k: int,
               id_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over the [Q, C] candidates, the id offset, and -1 ids for
-    scores under ``NEG_INF / 2``."""
+    """Exact top-k over the [Q, C] candidates (columns in global bucket
+    order, the layout of the JAX ``_finalize``'s ``moveaxis(cand, 0, 1)``;
+    ties go to the earlier column), the id offset, and -1 ids for scores
+    under ``NEG_INF / 2``."""
     flat_s, flat_i = _pad_candidates(flat_s, flat_i, k)
-    top_s, sel = torch.topk(flat_s, k, dim=1)
+    top_s, sel = stable_topk(flat_s, k)
     top_i = torch.gather(flat_i, 1, sel)
     top_i = torch.where(top_s > NEG_INF / 2, top_i + id_offset,
                         torch.full_like(top_i, -1))

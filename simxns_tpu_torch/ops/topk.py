@@ -1,6 +1,6 @@
 """Maximum-inner-product top-k (port of ``simxns_tpu/ops/topk.py``).
 
-- :func:`exact_topk` — one product + ``torch.topk``.
+- :func:`exact_topk` — one product + one selection.
 - :func:`blocked_mips_topk` — over corpus blocks, so the score matrix is
   at most ``Q x block_size``: ``mode="exact"`` keeps a running top-k
   (merge and reselect per block), ``"approx"`` selects per block and merges
@@ -8,6 +8,10 @@
   it exactly, and so does this port), ``"fused"`` dispatches to the fused
   bucket kernel (:mod:`simxns_tpu_torch.ops.mips_kernel`).
 - :func:`merge_topk` — merge per-shard lists.
+
+Every selection is :func:`~simxns_tpu_torch.ops.mips_kernel.stable_topk`:
+equal scores come back in column order, as ``jax.lax.top_k`` returns them
+(duplicate passages tie exactly).
 
 Scores are f32; the products outside the fused kernel are plain PyTorch
 (f32 products of the stored values), as they are plain XLA on the TPU.
@@ -20,14 +24,15 @@ from typing import Optional, Tuple
 import torch
 
 from simxns_tpu_torch.ops.mips_kernel import (NEG_INF, fused_mips_topk,
-                                              fused_mips_topk_int8)
+                                              fused_mips_topk_int8,
+                                              stable_topk)
 
 
 def exact_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
                id_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k inner products of queries [Q, H] against corpus [N, H]."""
     scores = queries.float() @ corpus.float().T
-    top_s, top_i = torch.topk(scores, k, dim=1)
+    top_s, top_i = stable_topk(scores, k)
     return top_s, (top_i + id_offset).to(torch.int32)
 
 
@@ -73,18 +78,18 @@ def blocked_mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int, *,
         ids = torch.arange(start, start + block.shape[0], device=q.device)
         s = torch.where(ids[None, :] < valid_n, s, torch.full_like(s, NEG_INF))
         if mode == "approx":
-            bs, bi = torch.topk(s, min(k, s.shape[1]), dim=1)
+            bs, bi = stable_topk(s, min(k, s.shape[1]))
             all_s.append(bs)
             all_i.append(ids[bi])
             continue
         cand_s = torch.cat([best_s, s], dim=1)
         cand_i = torch.cat([best_i, ids[None, :].expand(nq, -1)], dim=1)
-        best_s, sel = torch.topk(cand_s, k, dim=1)
+        best_s, sel = stable_topk(cand_s, k)
         best_i = torch.gather(cand_i, 1, sel)
     if mode == "approx":
         cat_s = torch.cat([best_s] + all_s, dim=1)
         cat_i = torch.cat([best_i] + all_i, dim=1)
-        best_s, sel = torch.topk(cat_s, k, dim=1)
+        best_s, sel = stable_topk(cat_s, k)
         best_i = torch.gather(cat_i, 1, sel)
     best_i = torch.where(best_s > NEG_INF / 2, best_i + id_offset,
                          torch.full_like(best_i, -1))
@@ -96,5 +101,5 @@ def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int
     """Merge per-shard top-k lists: [S, Q, k'] -> global [Q, k]."""
     s = scores.transpose(0, 1).reshape(scores.shape[1], -1)
     i = ids.transpose(0, 1).reshape(ids.shape[1], -1)
-    top_s, sel = torch.topk(s, k, dim=1)
+    top_s, sel = stable_topk(s, k)
     return top_s, torch.gather(i, 1, sel)

@@ -59,13 +59,19 @@ def test_int8_linear_and_row_quant_match_plain(dev):
         before[0] + 2, before[1] + 1)
 
 
-def test_small_s_attention_matches_plain(dev):
-    """p is rounded to bf16 on both sides; the context may move by one
-    bf16 step of p times |v| (<= 2^-7 max|v|)."""
-    b, s, heads, h = 3, 40, 4, 256
-    qkv = _randn(dev, b * s, 3 * h).to(torch.bfloat16)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 32, 128, 160, 300, 512])
+def test_small_s_attention_matches_plain(dev, s, d):
+    """Every query-tile count K3 meets (S = 1 .. 512: one to eight tiles of
+    64 rows, ragged last tiles), every head width, one sequence fully
+    masked and one cut short. p is rounded to bf16 on both sides; the
+    context may move by one bf16 step of p times |v| (<= 2^-7 max|v|)."""
+    b, heads = 3, 2
+    h = heads * d
+    qkv = _randn(dev, b * s, 3 * h, seed=s + d).to(torch.bfloat16)
     mask = torch.ones(b, s, dtype=torch.int32, device=dev)
-    mask[1, 25:] = 0
+    mask[0] = 0
+    mask[1, (s + 1) // 2:] = 0
     before = fl.small_s_attention.launches
     got = fl.small_s_attention(qkv, mask, heads)
     want = fl._small_s_attention_plain(qkv, mask, heads)
@@ -75,6 +81,35 @@ def test_small_s_attention_matches_plain(dev):
     with pytest.raises(ValueError, match="S <= 512"):
         fl.small_s_attention(qkv.new_zeros(600, 3 * h),
                              mask.new_ones(1, 600), heads)
+
+
+def test_stable_finalize_on_duplicate_rows(dev):
+    """A corpus of 1,024 small-integer passages stored 4 times: on the
+    card the fused int8 search, the fused bf16 search and exact_topk return
+    the plain versions' scores and ids (the earlier of equal scores first)
+    at every position."""
+    from simxns_tpu_torch.ops.topk import exact_topk
+
+    gen = torch.Generator().manual_seed(9)
+    rows = torch.randint(-3, 4, (1024, 64), generator=gen).float()
+    c = rows.repeat(4, 1)
+    q = torch.randint(-3, 4, (8, 64), generator=gen).float()
+    codes, scales = mk.quantize_rows(c)
+    before = mk.mips_bucket_candidates.launches
+    cases = [
+        (lambda t: mk.fused_mips_topk_int8(t(q), t(codes), t(scales), 100,
+                                           valid_n=4000, id_offset=5)),
+        (lambda t: mk.fused_mips_topk(t(q).to(torch.bfloat16),
+                                      t(c).to(torch.bfloat16), 100,
+                                      valid_n=4000, id_offset=5)),
+        (lambda t: exact_topk(t(q), t(c), 100, id_offset=5))]
+    for case in cases:
+        got = case(lambda x: x.to(dev))
+        want = case(lambda x: x)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert all(len(set(r)) < 100 for r in want[0].tolist())   # ties
+    assert mk.mips_bucket_candidates.launches == before + 2
 
 
 def test_mips_candidates_match_plain(dev):

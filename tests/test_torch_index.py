@@ -2,7 +2,8 @@
 
 The JAX fused search runs its Pallas kernels under the interpreter. Index
 rows and queries are continuous random values, so no two scores of a query
-tie and the top-k order is unambiguous.
+tie and the top-k order is unambiguous, except in the duplicate-row test,
+whose ties must come back in ``jax.lax.top_k``'s order.
 """
 
 import jax.numpy as jnp
@@ -75,6 +76,23 @@ def test_build_update_search_match_jax(store, mode):
     assert list(got[1][:5, 0]) == [2990, 2991, 2992, 2993, 2994]
     with pytest.raises(ValueError, match="outside the live row range"):
         tidx.update_rows(2999, new[:2])
+
+
+@pytest.mark.parametrize("mode", ["exact", "fused"])
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_duplicate_rows_search_matches_jax(store, mode):
+    """An index of 1,024 small-integer passages stored 4 times (products
+    exact in f32, copies tie exactly): 8 queries at k=100 return JAX's ids
+    at every position."""
+    rng = np.random.default_rng(7)
+    emb = np.tile(rng.integers(-3, 4, (1024, 64)).astype(np.float32), (4, 1))
+    queries = rng.integers(-3, 4, (8, 64)).astype(np.float32)
+    jidx, tidx = _pair(store, mode)
+    jidx.build(emb)
+    tidx.build(emb)
+    got, want = tidx.search(queries, 100), jidx.search(queries, 100)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
 
 
 def _table(vocab=1024, h=64, seed=1):

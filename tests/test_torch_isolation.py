@@ -20,7 +20,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "simxns_tpu",
                                     "regex", "orbax", "safetensors"))
 print(len(names))
-for name in ("run", "config", "evals.qa_match", "evals.metrics", "io.logging",
+for name in ("run", "config", "evals.qa_match", "evals._unicode_ranges",
+             "evals.metrics", "io.logging",
              "io.checkpoint", "data.sampling", "data.mined", "data.datasets",
              "train.driver", "parallel.offload"):
     assert "simxns_tpu_torch." + name in names, name

@@ -2,7 +2,9 @@
 
 The JAX kernels run under the Pallas interpreter, as
 tests/test_mips_kernel.py runs them. Inputs are continuous random values,
-so no two scores of a query tie and the top-k order is unambiguous.
+so no two scores of a query tie and the top-k order is unambiguous, except
+in the duplicate-row test, where ties are the point: equal scores must come
+back in ``jax.lax.top_k``'s order (the earlier column first).
 """
 
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 
 import simxns_tpu.ops.mips_kernel as jmk
 from simxns_tpu.ops.topk import blocked_mips_topk as jax_blocked
+from simxns_tpu.ops.topk import exact_topk as jax_exact
 from simxns_tpu.ops.topk import merge_topk as jax_merge
 from simxns_tpu_torch.ops import mips_kernel as tmk
 from simxns_tpu_torch.ops.topk import blocked_mips_topk, exact_topk, merge_topk
@@ -140,3 +143,67 @@ def test_merge_topk_matches_jax():
     got = merge_topk(torch.from_numpy(s), torch.from_numpy(i), 5)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def _duplicate_rows(h=64, passages=1024, copies=4, nq=8, seed=6):
+    """A corpus of ``passages`` rows repeated ``copies`` times (1024 apart)
+    with small-integer values, so every product is exact in f32 and the
+    copies, and many distinct rows, tie exactly."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(-3, 4, (passages, h)).astype(np.float32)
+    return (rng.integers(-3, 4, (nq, h)).astype(np.float32),
+            np.tile(rows, (copies, 1)))
+
+
+def _scores_and_ids(out):
+    return np.asarray(out[0], np.float32), np.asarray(out[1])
+
+
+@pytest.mark.parametrize("what", ["fused_int8", "fused_bf16", "exact_topk",
+                                  "blocked_exact", "blocked_approx",
+                                  "blocked_fused", "merge_topk"])
+def test_tied_scores_come_back_in_jax_order(what):
+    """4,096 rows = 1,024 passages x 4, 8 queries, k=100: the ids equal
+    JAX's at every position (the scores are exact on both sides)."""
+    q, c = _duplicate_rows()
+    k, kw = 100, dict(block_size=1024, valid_n=4000, id_offset=5)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(c)
+    if what == "fused_int8":
+        codes, scales = jmk.quantize_rows(jnp.asarray(c))
+        want = jmk.fused_mips_topk_int8(jnp.asarray(q), codes, scales, k,
+                                        valid_n=4000, id_offset=5)
+        got = tmk.fused_mips_topk_int8(
+            tq, torch.from_numpy(np.asarray(codes)),
+            torch.from_numpy(np.asarray(scales)), k, valid_n=4000,
+            id_offset=5)
+    elif what == "fused_bf16":
+        want = jmk.fused_mips_topk(jnp.asarray(q, jnp.bfloat16),
+                                   jnp.asarray(c, jnp.bfloat16), k,
+                                   valid_n=4000, id_offset=5)
+        got = tmk.fused_mips_topk(tq.to(torch.bfloat16),
+                                  tc.to(torch.bfloat16), k, valid_n=4000,
+                                  id_offset=5)
+    elif what == "exact_topk":
+        want = jax_exact(jnp.asarray(q), jnp.asarray(c), k, id_offset=5)
+        got = exact_topk(tq, tc, k, id_offset=5)
+    elif what.startswith("blocked_"):
+        mode = what.split("_")[1]
+        want = jax_blocked(jnp.asarray(q), jnp.asarray(c), k, mode=mode, **kw)
+        got = blocked_mips_topk(tq, tc, k, mode=mode, **kw)
+    else:
+        # per-shard lists of the duplicate corpus's quarters, merged
+        want_l, got_l = [], []
+        for r0 in range(0, 4096, 1024):
+            want_l.append(jax_exact(jnp.asarray(q), jnp.asarray(c[r0:r0 + 1024]),
+                                    k, id_offset=r0))
+            got_l.append(exact_topk(tq, tc[r0:r0 + 1024], k, id_offset=r0))
+        want = jax_merge(jnp.stack([w[0] for w in want_l]),
+                         jnp.stack([w[1] for w in want_l]), k)
+        got = merge_topk(torch.stack([g[0] for g in got_l]),
+                         torch.stack([g[1] for g in got_l]), k)
+    want_s, want_i = _scores_and_ids(want)
+    got_s, got_i = _scores_and_ids(got)
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_i, want_i)
+    # the ties are real: each query's list holds equal scores
+    assert all(len(set(row)) < k for row in got_s.tolist())

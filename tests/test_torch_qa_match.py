@@ -11,6 +11,7 @@ from hypothesis import strategies as st
 
 from simxns_tpu.evals import qa_match as jqa
 from simxns_tpu_torch.evals import qa_match as pqa
+from simxns_tpu_torch.evals._unicode_ranges import RANGES
 
 # each class the tokenizer must split on exactly as the regex does
 _SPECIAL = list(
@@ -22,10 +23,12 @@ _SPECIAL = list(
     "\n\t\x00\x7f\u200b\ufeff"           # controls and formats (Cc, Cf)
     "\u01c5\u00df\u0130\U0001f600"        # Lt, sharp s, I-dot, emoji
 )
-# assigned code points only: one unassigned in this Python's Unicode
-# tables may be assigned in the regex package's newer ones
+# every code point but the surrogates: one unassigned in this Python's
+# Unicode tables ("Cn") may be assigned in the regex package's newer ones,
+# and the port takes its class from evals/_unicode_ranges.py
 _CHARS = st.one_of(st.sampled_from(_SPECIAL),
-                   st.characters(exclude_categories=("Cn", "Cs")))
+                   st.sampled_from([chr(r[0]) for r in RANGES]),
+                   st.characters(exclude_categories=("Cs",)))
 _TEXT = st.text(_CHARS, max_size=40)
 
 
@@ -57,3 +60,19 @@ def test_quirks_and_regex_mode():
         pqa.has_answer(["a.c"], "abc", match_type="regex")
     with pytest.raises(ValueError):
         pqa.has_answer(["a"], "a", match_type="fuzzy")
+
+
+@pytest.mark.parametrize("ch", ["\u1ad0", "\u0897", "\U0002ebf0", "\u1b4e",
+                                "\U0001fae9", "\u2fff"])
+def test_unicode_newer_than_unicodedata_matches_regex(ch):
+    """Characters that this Python's unicodedata calls unassigned and the
+    regex package assigns (a mark, a letter, CJK Extension I, punctuation,
+    symbols): tokens and hits equal the JAX package's."""
+    assert unicodedata.category(ch) == "Cn"
+    for text in (f"foo{ch}bar", f"the {ch} foo bar", ch):
+        assert pqa.SimpleTokenizer().tokenize(text) == \
+            jqa.SimpleTokenizer().tokenize(text)
+    for answers, text in (([f"foo{ch}bar"], "the foo bar"),
+                          ([ch], "the foo bar"), ([ch], f"a {ch} b"),
+                          (["foo bar"], f"the foo{ch}bar")):
+        assert pqa.has_answer(answers, text) == jqa.has_answer(answers, text)
