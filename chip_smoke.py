@@ -31,7 +31,9 @@ non-zero and prints no result):
    launch counts of every kernel, zeroed just before, must have risen;
 4. the training kernels: K5/K6 (the grouped attention pair of the CE-large
    reranker, 128 joint rows x 16 heads x S=160, bf16) against their plain
-   versions, with SDPA's forward and backward as the yardstick; K1-K3 again
+   versions, with SDPA's forward and backward as the yardstick, K6's
+   profiler device time, K8's two launches timed on K6's inputs beside it,
+   and two K6 calls held bitwise equal; K1-K3 again
    at the int8 teacher's shapes (20,480 tokens, H=1024, F=4096, 16 heads);
 5. training at full width: a BERT-base DE and an ERNIE-large-shaped CE
    (24 layers, H=1024, small_s_attn="group"; random weights from seed 0)
@@ -48,7 +50,9 @@ non-zero and prints no result):
 6. the msdoc kernels: K7/K8 (the per-(batch, head) attention pair, 128
    joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512; and
    S = 256, 288, 1024) against their plain versions, with SDPA's forward
-   and backward as the yardstick; K3 at S=512 (1024 x 512 tokens of
+   and backward as the yardstick, the profiler device time of each of
+   K8's two launches (query pass, key pass), and two K8 calls held bitwise
+   equal at every shape; K3 at S=512 (1024 x 512 tokens of
    BERT-base); K4 at the mine's shape (64 queries, k=100, 24,576 int8
    rows);
 7. co-training end to end: ``simxns_tpu_torch.run.run_ar2`` at full width
@@ -821,11 +825,18 @@ def phase_train_kernels(torch, smi, records):
               f"group_attention_bwd {name}: err {e}, cosine {c}")
         err6.append(e)
         cos6.append(c)
-    del got, want, grads, refs
+    again = fa.group_attention_bwd(q, k, v, mask, do)
+    check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+          "group_attention_bwd: two calls differ (no atomics: they must not)")
+    del got, want, grads, refs, again
 
     ms5 = timed(torch, lambda: fa.group_attention_fwd(q, k, v, mask), 20)
     plain5 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 3)
     ms6 = timed(torch, lambda: fa.group_attention_bwd(q, k, v, mask, do), 20)
+    dev6, dev6_n = device_ms(torch, lambda: fa.group_attention_bwd(
+        q, k, v, mask, do), "group_attention_bwd_kernel")
+    # the same function in K8's two ring launches, timed beside it
+    ms6_k8 = timed(torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do), 20)
     plain6 = timed(torch, lambda: fa._group_bwd_plain(q, k, v, mask, do), 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     keep = (mask > 0)[:, None, None, :]
@@ -842,10 +853,11 @@ def phase_train_kernels(torch, smi, records):
     lib56 = timed(torch, library_fwd_bwd, 10)
     del out
     elems = b * heads * s * d
-    bms5, by5 = bound(4 * elems * 2 + mask.numel() * 4,
-                      6.0 * b * heads * s * s * d, PEAK_BF16)
-    bms6, by6 = bound(7 * elems * 2 + mask.numel() * 4,
-                      16.0 * b * heads * s * s * d, PEAK_BF16)
+    product = 2.0 * b * heads * s * s * d      # the model's: 2 and 5
+    bms5, by5 = bound(4 * elems * 2 + mask.numel() * 4, 2 * product,
+                      PEAK_BF16)
+    bms6, by6 = bound(7 * elems * 2 + mask.numel() * 4, 5 * product,
+                      PEAK_BF16)
     shape = [b, heads, s, d]
     records["group_attention_fwd"] = dict(
         ms=ms5, plain_ms=plain5, library_ms=lib5, bound_ms=bms5,
@@ -853,8 +865,10 @@ def phase_train_kernels(torch, smi, records):
         library="scaled_dot_product_attention forward, boolean key mask",
         tolerance="2^-8 x max|v| (one bf16 step of the f32 output)")
     records["group_attention_bwd"] = dict(
-        ms=ms6, plain_ms=plain6, library_ms=lib6, bound_ms=bms6,
+        ms=ms6, device_ms=dev6, device_launches_recorded=dev6_n,
+        plain_ms=plain6, library_ms=lib6, bound_ms=bms6,
         bound_by=by6, max_abs_err=max(err6), min_cosine=min(cos6),
+        bh_attention_bwd_ms=ms6_k8, repeat_bitwise_equal=True,
         shape=shape, fwd_bwd_ms=ms5 + ms6, library_fwd_bwd_ms=lib56,
         library="scaled_dot_product_attention backward (autograd.grad)",
         tolerance="2^-7 x max|ref| per gradient and cosine >= 0.9999")
@@ -1149,7 +1163,11 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
               f"bh_attention_bwd S={s} {name}: err {e}, cosine {c}")
         err8.append(e)
         cos8.append(c)
-    del grads, refs
+    again = fa.bh_attention_bwd(q, k, v, mask, do)
+    check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+          f"bh_attention_bwd S={s}: two calls differ (no atomics: they must "
+          "not)")
+    del grads, refs, again
     rec = dict(shape=[b, heads, s, d], key_lengths=[min_len, s],
                fwd_max_abs_err=err7, fwd_tolerance=tol7,
                bwd_max_abs_err=max(err8), bwd_min_cosine=min(cos8))
@@ -1160,6 +1178,9 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
         q, k, v, mask), "bh_attention_fwd_kernel")
     plain7 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2)
     ms8 = timed(torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do), 10)
+    dev8 = {f"device_ms_{p}_pass": device_ms(
+        torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do),
+        f"bh_attention_bwd_{p}_kernel")[0] for p in ("query", "key")}
     plain8 = timed(torch, lambda: fa._group_bwd_plain(q, k, v, mask, do), 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     keep = (mask > 0)[:, None, None, :]
@@ -1184,6 +1205,7 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
     rec.update(ms=ms7, device_ms=dev7, device_launches_recorded=dev7_n,
                plain_ms=plain7, library_ms=lib7, bound_ms=bms7,
                bound_by=by7, bwd_ms=ms8, bwd_plain_ms=plain8,
+               **{f"bwd_{n}": x for n, x in dev8.items()},
                bwd_library_ms=lib8, bwd_bound_ms=bms8, bwd_bound_by=by8,
                fwd_bwd_ms=ms7 + ms8, library_fwd_bwd_ms=lib78)
     return rec
@@ -1223,6 +1245,9 @@ def phase_msdoc_kernels(torch, smi, records):
         ms=main["bwd_ms"], plain_ms=main["bwd_plain_ms"],
         library_ms=main["bwd_library_ms"], bound_ms=main["bwd_bound_ms"],
         bound_by=main["bwd_bound_by"],
+        device_ms_query_pass=main["bwd_device_ms_query_pass"],
+        device_ms_key_pass=main["bwd_device_ms_key_pass"],
+        repeat_bitwise_equal=True,
         max_abs_err=max(r["bwd_max_abs_err"] for r in shapes),
         min_cosine=min(r["bwd_min_cosine"] for r in shapes),
         shape=main["shape"], fwd_bwd_ms=main["fwd_bwd_ms"],

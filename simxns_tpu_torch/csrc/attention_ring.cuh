@@ -1,6 +1,7 @@
 // Device functions shared by the query-tiled attention kernels: K3
-// small_s_attention (small_s_attention.cu) and K7 bh_attention_fwd
-// (bh_attention.cu).
+// small_s_attention (small_s_attention.cu), K7 bh_attention_fwd
+// (bh_attention.cu), and through attention_bwd.cuh the backward kernels K6
+// group_attention_bwd (group_attention.cu) and K8 bh_attention_bwd.
 //
 // A block of 4 warps owns 64 query rows of one (sequence, head); each warp
 // owns 16 of them. The block lands its q tile in shared memory once
@@ -12,10 +13,12 @@
 // addresses of an ldmatrix hit eight distinct bank groups.
 //
 // Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate):
-// - q_k_tile: the warp's 16 x 64 scores, k fragments by ldmatrix;
-// - p_v_tile: a 16 x 64 bf16 A operand (p in registers, in the score
-//   accumulator layout) times the 64 x D value tile, read in its natural
+// accumulate), over NT n8 tiles of columns (8 * NT keys: 64 in the ring's
+// tiles, 32 or 16 in K6's resident chunks):
+// - q_k_tile: the warp's 16 x 8NT scores, k fragments by ldmatrix; any
+//   "A rows x B rows^T" product (q k^T, dO v^T, k q^T, v dO^T);
+// - p_v_tile: a 16 x 8NT bf16 A operand (p in registers, in the score
+//   accumulator layout) times the 8NT x D value tile, read in its natural
 //   [key][d] layout through ldmatrix...trans: no transposing stores.
 // Scores are kept in the log2 domain (log2(e) folded into the scale and
 // into the masks' constants), so each exponential is one ex2.
@@ -84,15 +87,15 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4],
   for (int kd = 0; kd < D / 16; ++kd) ldmatrix_x4(qa[kd], p + kd * 16);
 }
 
-// sc[nt][e] = q[row] . k[nt * 8 + col] over the 64 keys of the tile `ks`;
+// sc[nt][e] = q[row] . k[nt * 8 + col] over the 8NT keys of the tile `ks`;
 // element e is row (e < 2 ? g : g + 8), column nt * 8 + 2t + (e & 1).
-template <int D>
-__device__ __forceinline__ void q_k_tile(float (&sc)[kNt][4],
+template <int D, int NT>
+__device__ __forceinline__ void q_k_tile(float (&sc)[NT][4],
                                          const uint32_t (&qa)[D / 16][4],
                                          const __nv_bfloat16* ks) {
   const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
-  for (int nt = 0; nt < kNt; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
   // matrix mi: keys + (mi >> 1) * 8, d + (mi & 1) * 8 -> b0, b1 of two
@@ -100,7 +103,7 @@ __device__ __forceinline__ void q_k_tile(float (&sc)[kNt][4],
   const __nv_bfloat16* p =
       ks + ((mi >> 1) * 8 + (lane & 7)) * Layout<D>::kLd + (mi & 1) * 8;
 #pragma unroll
-  for (int np = 0; np < kNt / 2; ++np)
+  for (int np = 0; np < NT / 2; ++np)
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
       uint32_t r[4];
@@ -118,8 +121,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <int NT>
 __device__ __forceinline__ void a_fragment(uint32_t (&a)[4],
-                                           const float (&p)[kNt][4], int kk) {
+                                           const float (&p)[NT][4], int kk) {
   a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
   a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
   a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
@@ -139,13 +143,13 @@ __device__ __forceinline__ void v_fragments(uint32_t (&r)[4],
                             ndp * 16 + (mi >> 1) * 8);
 }
 
-// o[nd] += p v over the 64 keys of the tile `vs`, p rounded to bf16.
-template <int D>
+// o[nd] += p v over the 8NT keys of the tile `vs`, p rounded to bf16.
+template <int D, int NT>
 __device__ __forceinline__ void p_v_tile(float (&o)[D / 8][4],
-                                         const float (&p)[kNt][4],
+                                         const float (&p)[NT][4],
                                          const __nv_bfloat16* vs) {
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t a[4];
     a_fragment(a, p, kk);
 #pragma unroll
@@ -161,12 +165,12 @@ __device__ __forceinline__ void p_v_tile(float (&o)[D / 8][4],
 
 // o[nd] += p v with an f32 p: p = hi + lo, two bf16 products into one f32
 // sum (about 16 bits of each p).
-template <int D>
+template <int D, int NT>
 __device__ __forceinline__ void p_v_tile_split(float (&o)[D / 8][4],
-                                               const float (&p)[kNt][4],
+                                               const float (&p)[NT][4],
                                                const __nv_bfloat16* vs) {
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -203,11 +207,12 @@ __device__ __forceinline__ float quad(float x) {
 }
 
 // the two rows' maxima of a score tile, over the whole row (quad-reduced)
-__device__ __forceinline__ void tile_max(const float (&sc)[kNt][4],
+template <int NT>
+__device__ __forceinline__ void tile_max(const float (&sc)[NT][4],
                                          float (&cm)[2]) {
   cm[0] = cm[1] = -INFINITY;
 #pragma unroll
-  for (int nt = 0; nt < kNt; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], sc[nt][e]);
   cm[0] = quad<0>(cm[0]);

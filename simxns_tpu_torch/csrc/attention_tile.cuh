@@ -1,5 +1,7 @@
-// Device functions shared by the attention kernels (K5/K6 in
-// group_attention.cu, K7/K8 in bh_attention.cu).
+// Device functions of the attention kernels: the views, row loads and
+// stores (In, Out, load_rows, load_a, store_rows, zero, prepare) serve K5-K8
+// (group_attention.cu, bh_attention.cu); the products below serve K5, the
+// first cut (K3, K7, K6 and K8 run attention_ring.cuh's).
 //
 // A warp owns 16 rows of one side (queries, or keys in a backward key
 // pass) and walks the other side in chunks of 32 through shared memory.

@@ -27,40 +27,38 @@
 //   each exponential is one ex2. p stays f32: p v takes it as hi + lo bf16
 //   halves, v read in its [key][d] layout through ldmatrix...trans. The
 //   result differs from the two-pass one by f32 rounding only.
-// - K8, two launches. The query pass (per query tile) folds the max and
-//   sum, then rowsum(dP p) from dP and p in f32 (not from a rounded o, as
-//   the TPU kernel does), then dQ; it writes the three row statistics to
-//   an f32 scratch [3, B, heads, S]. The key pass (per key tile) streams
-//   the query tiles with their statistics, recomputes p^T and dS^T and
-//   accumulates dK and dV over all queries. No atomics and no partial
-//   sums: the result does not depend on the launch order.
+// - K8, two launches on the same ring (attention_bwd.cuh). The query
+//   pass, one block per (query tile, head, batch), lands q and dO once and
+//   streams the k and v tiles twice: walk 1 folds each row's max, sum and
+//   unnormalised rowsum(dP p) in one pass (q k^T and dO v^T), walk 2
+//   computes dS = p (dP - rowsum(dP p)) with p = 2^(s - lse) and
+//   accumulates dQ = dS k (q k^T, dO v^T, dS k as hi + lo: 4 products). It
+//   writes lse and rowsum(dP p) to an f32 scratch [2, B, heads, S]. The
+//   key pass, one block per (key tile, head, batch), holds its k and v
+//   fragments and streams the q and dO tiles with their two statistics:
+//   k q^T and v dO^T are p^T and dP^T in the A layout of dV += p^T dO and
+//   dK += dS^T q (6 products). No atomics and no partial sums: the result
+//   does not depend on the launch order, and two calls agree bit for bit.
 //
 // Bound on the card: operations for K8, bytes for K7 at the msdoc
 // reranker's shape (128 joint rows x 12 heads x S=512 x d=64, bf16): K7
 // moves 403 MB and does 103 GFLOP of model products, K8 moves 705 MB and
 // does 258 GFLOP. K7 does 3 products of 2 S^2 d per head (q k^T, and p v
-// twice for the hi and lo halves) against the model's 2. K8 is the first
-// cut (attention_tile.cuh, mma.sync fragments straight from memory): q k^T
-// three times in its query pass and every product with an f32 operand
-// twice, 13 products against the model's 5.
-#include "attention_ring.cuh"
+// twice for the hi and lo halves) against the model's 2; K8 does 12 (q k^T
+// and dO v^T twice, and each product with an f32 operand twice) against
+// the model's 5, and 3 ex2 a score.
+#include "attention_bwd.cuh"
 #include "attention_tile.cuh"
 
 SX_DEFINE_ERROR_STRING
 
 using namespace sx::attn;
 namespace ring = sx::ring;
+namespace bwd = sx::bwd;
 
 namespace {
 
 constexpr int kMaxS = 1024;
-constexpr int kRows = kWarps * 16;   // rows of a block (queries or keys)
-constexpr int kTile = 64;            // rows of a streamed shared tile
-
-template <int D>
-constexpr int query_pass_smem() {    // K8: k and v tiles, key flags
-  return 2 * kTile * (D + 8) * 2 + kTile * 4;
-}
 
 template <int D>
 constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
@@ -68,53 +66,20 @@ constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
 }
 
 template <int D>
-constexpr int key_pass_smem() {      // q and dO tiles, three row statistics
-  return 2 * kTile * (D + 8) * 2 + 3 * kTile * 4;
+constexpr int query_pass_smem() {    // K8: q, dO, the k and v ring, fills
+  return (2 + 2 * ring::kStages) * ring::Layout<D>::kTile * 2 + kMaxS * 4;
 }
 
-struct Stats {            // per query row of each (b, h): [B, heads, S] f32
-  float* mx;
-  float* sum;
-  float* dot;
-};
-
-// the scores of a warp's 16 query rows against 32 keys of the shared tile
-// (local columns c0 .. c0 + 31), scaled and masked
 template <int D>
-struct Scores {
-  const uint32_t (&qa)[D / 16][4];
-  const __nv_bfloat16* ks;
-  const int* flag;
-  float scale;
-  __device__ void operator()(int c0, float (&sc)[kTiles][4]) const {
-    const int t = threadIdx.x & 3;
-    mma_rows<D>(sc, qa, ks, c0);
-#pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[nt][e] = masked(sc[nt][e] * scale,
-                           flag[c0 + nt * 8 + 2 * t + (e & 1)]);
-  }
-};
-
-// the query rows' max and sum of exp(s - max) over every key tile; k and
-// the flags pass through the shared tiles `ks` and `flag`
-template <int D>
-__device__ void query_stats(const Scores<D>& scores, __nv_bfloat16* ks,
-                            int* flag, const In& k, const int* mask, int b,
-                            int h, int S, bool active, float (&mx)[2],
-                            float (&sum)[2]) {
-  stats_begin(mx, sum);
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    __syncthreads();
-    load_rows<D>(ks, k, b, h, t0, kTile, S);
-    load_flags(flag, mask, b, t0, kTile, S);
-    __syncthreads();
-    if (active) stats_add(scores, 0, kTile, mx, sum);
-  }
-  stats_end(sum);
+constexpr int key_pass_smem() {      // k, v, the q and dO ring, statistics
+  return (2 + 2 * ring::kStages) * ring::Layout<D>::kTile * 2 +
+         2 * ring::kStages * ring::kRows * 4;
 }
+
+// A warp holds its A fragments of q and dO (query pass) or of k and v (key
+// pass) across the walk when they fit beside the accumulators; at d = 128
+// it takes them from shared memory again for every tile.
+__host__ __device__ constexpr bool hold_fragments(int D) { return D <= 64; }
 
 // K7: one block per (query tile, head, batch), one pass over the keys
 template <int D>
@@ -216,137 +181,170 @@ __global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
   }
 }
 
-// K8, launch 1: per query tile, the row statistics and dQ
+// K8, launch 1: per query tile, the row statistics (lse, rowsum(dP p)) and
+// dQ; ring step s < n_tiles is walk 1 over key tile s, step n_tiles + j
+// walk 2 over key tile j
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 3 : 2)
     bh_attention_bwd_query_kernel(In q, In k, In v, In dout,
                                   const int* __restrict__ mask, Out dq,
-                                  Stats st, int S, float scale) {
+                                  float* stats, int S, float scale,
+                                  float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kTile * (D + 8);
-  int* flag = reinterpret_cast<int*>(vs + kTile * (D + 8));
-  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int kT = ring::Layout<D>::kTile;
+  constexpr bool kHold = hold_fragments(D);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dos = qs + kT;
+  __nv_bfloat16* ks = dos + kT;                 // [kStages] tiles
+  __nv_bfloat16* vs = ks + ring::kStages * kT;  // [kStages] tiles
+  float* fill = reinterpret_cast<float*>(vs + ring::kStages * kT);
+  const int q0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kRows + warp * 16;
-  const bool active = r0 < S;
+  const int n_tiles = (S + ring::kKeys - 1) / ring::kKeys;
 
+  const bool none_real = bwd::all_masked(mask, b, S);
+  for (int j = threadIdx.x; j < n_tiles * ring::kKeys; j += ring::kThreads)
+    fill[j] = bwd::key_fill(mask, b, j, S, none_real);
+  auto k_row = [&](int i) { return k.row(b, h, i); };
+  auto v_row = [&](int i) { return v.row(b, h, i); };
+  auto issue = [&](int step) {
+    const int tile = step % n_tiles, st = step % ring::kStages;
+    ring::copy_tile<D>(ks + st * kT, k_row, tile * ring::kKeys, S);
+    ring::copy_tile<D>(vs + st * kT, v_row, tile * ring::kKeys, S);
+  };
+  ring::copy_tile<D>(qs, [&](int i) { return q.row(b, h, i); }, q0, S);
+  ring::copy_tile<D>(dos, [&](int i) { return dout.row(b, h, i); }, q0, S);
+  issue(0);                                   // q and dO ride with it
+  sx::cp_async_commit();
+  // -> the ring stage of `step`, landed and visible to the block
+  auto ring_step = [&](int step) {
+    if (step + 1 < 2 * n_tiles) issue(step + 1);
+    sx::cp_async_commit();
+    sx::cp_async_wait<ring::kStages - 1>();
+    __syncthreads();
+    return step % ring::kStages;
+  };
+
+  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
   uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(qa, q, b, h, r0, S);
-  load_a<D>(da, dout, b, h, r0, S);
-  const Scores<D> scores{qa, ks, flag, scale};
-  float mx[2], sum[2];
-  query_stats<D>(scores, ks, flag, k, mask, b, h, S, active, mx, sum);
-
-  // rowsum(dP * p), then dQ = dS k * scale: two more passes over the keys
-  float dot[2] = {0.0f, 0.0f};
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+  float dotu[2] = {0.0f, 0.0f};
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = ring_step(tile);
+    if (active) {
+      if (tile == 0 || !kHold) {
+        ring::load_q<D>(qa, qs);
+        ring::load_q<D>(da, dos);
+      }
+      bwd::stats_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
+                                    fill + tile * ring::kKeys, scale2, mx,
+                                    sum, dotu);
+    }
+    __syncthreads();
+  }
+  float lse[2], dot[2];
+  bwd::finish_stats(mx, sum, dotu, lse, dot);
   float acc[D / 8][4];
   zero<D>(acc);
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t0 = 0; t0 < S; t0 += kTile) {
-      __syncthreads();
-      load_rows<D>(ks, k, b, h, t0, kTile, S);
-      load_rows<D>(vs, v, b, h, t0, kTile, S);
-      load_flags(flag, mask, b, t0, kTile, S);
-      __syncthreads();
-      if (!active) continue;
-      for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-        float sc[kTiles][4], dp[kTiles][4];
-        scores(c0, sc);
-        mma_rows<D>(dp, da, vs, c0);
-#pragma unroll
-        for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
-            if (pass == 0)
-              dot[e >> 1] += dp[nt][e] * p;
-            else
-              sc[nt][e] = p * (dp[nt][e] - dot[e >> 1]);
-          }
-        if (pass == 1) mma_cols<D>(acc, sc, ks, c0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int st = ring_step(n_tiles + tile);
+    if (active) {
+      if (!kHold) {
+        ring::load_q<D>(qa, qs);
+        ring::load_q<D>(da, dos);
       }
+      bwd::dq_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
+                                 fill + tile * ring::kKeys, scale2, lse, dot,
+                                 acc);
     }
-    if (pass == 0) quad_sum(dot);
+    __syncthreads();
   }
   if (!active) return;
+  const int r0 = q0 + warp * 16;
   store_rows<D>(dq, b, h, r0, S, acc, scale);
   if (t == 0) {
-    const long long base =
-        (static_cast<long long>(b) * gridDim.y + h) * S;
+    const long long n = static_cast<long long>(gridDim.z) * gridDim.y * S;
+    const long long base = (static_cast<long long>(b) * gridDim.y + h) * S;
     const int ra = r0 + g, rb = r0 + g + 8;
-    if (ra < S)
-      st.mx[base + ra] = mx[0], st.sum[base + ra] = sum[0],
-      st.dot[base + ra] = dot[0];
-    if (rb < S)
-      st.mx[base + rb] = mx[1], st.sum[base + rb] = sum[1],
-      st.dot[base + rb] = dot[1];
+    if (ra < S) stats[base + ra] = lse[0], stats[n + base + ra] = dot[0];
+    if (rb < S) stats[base + rb] = lse[1], stats[n + base + rb] = dot[1];
   }
 }
 
 // K8, launch 2: per key tile, dV = p^T dO and dK = dS^T q * scale summed
-// over every query tile
+// over every query tile. Query rows past S are zero-filled, and so are
+// their statistics: their p is finite (1 or 0) and multiplies a zero dO
+// row, and their dS is 0, so they add exactly 0.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ring::kThreads, 2)
     bh_attention_bwd_key_kernel(In q, In k, In v, In dout,
                                 const int* __restrict__ mask, Out dk, Out dv,
-                                Stats st, int S, float scale) {
+                                const float* __restrict__ stats, int S,
+                                float scale, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][D+8]
-  __nv_bfloat16* dos = qs + kTile * (D + 8);                    // [64][D+8]
-  float* rmax = reinterpret_cast<float*>(dos + kTile * (D + 8));
-  float* rsum = rmax + kTile;
-  float* rdot = rsum + kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int kT = ring::Layout<D>::kTile;
+  constexpr bool kHold = hold_fragments(D);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + kT;
+  __nv_bfloat16* qs = vs + kT;                   // [kStages] tiles
+  __nv_bfloat16* dos = qs + ring::kStages * kT;  // [kStages] tiles
+  float* rl = reinterpret_cast<float*>(dos + ring::kStages * kT);
+  float* rd = rl + ring::kStages * ring::kRows;  // [kStages][64] each
+  const int j0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * kRows + warp * 16;
-  const bool active = j0 < S;
+  const int g = lane >> 2;
+  const int n_tiles = (S + ring::kRows - 1) / ring::kRows;
+  const long long n = static_cast<long long>(gridDim.z) * gridDim.y * S;
   const long long base = (static_cast<long long>(b) * gridDim.y + h) * S;
 
+  const bool none_real = bwd::all_masked(mask, b, S);
+  const int jw = j0 + warp * 16;
+  const float fill[2] = {bwd::key_fill(mask, b, jw + g, S, none_real),
+                         bwd::key_fill(mask, b, jw + g + 8, S, none_real)};
+  auto q_row = [&](int i) { return q.row(b, h, i); };
+  auto do_row = [&](int i) { return dout.row(b, h, i); };
+  // query tile `tile` into its stage: q, dO, and per row lse (threads
+  // 0-63) and rowsum(dP p) (threads 64-127)
+  auto issue = [&](int tile) {
+    const int st = tile % ring::kStages, i0 = tile * ring::kRows;
+    ring::copy_tile<D>(qs + st * kT, q_row, i0, S);
+    ring::copy_tile<D>(dos + st * kT, do_row, i0, S);
+    const int i = threadIdx.x & (ring::kRows - 1);
+    const bool second = threadIdx.x >= ring::kRows, ok = i0 + i < S;
+    bwd::cp_async4((second ? rd : rl) + st * ring::kRows + i,
+                   stats + (second ? n : 0) + base + (ok ? i0 + i : 0), ok);
+  };
+  ring::copy_tile<D>(ks, [&](int i) { return k.row(b, h, i); }, j0, S);
+  ring::copy_tile<D>(vs, [&](int i) { return v.row(b, h, i); }, j0, S);
+  issue(0);                                   // k and v ride with it
+  sx::cp_async_commit();
+
+  const bool active = jw < S;
   uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k, b, h, j0, S);
-  load_a<D>(va, v, b, h, j0, S);
-  const int fa = key_flag(mask, b, j0 + g, S);
-  const int fb = key_flag(mask, b, j0 + g + 8, S);
   float dka[D / 8][4], dva[D / 8][4];
   zero<D>(dka);
   zero<D>(dva);
-  for (int i0 = 0; i0 < S; i0 += kTile) {
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) issue(tile + 1);
+    sx::cp_async_commit();
+    sx::cp_async_wait<ring::kStages - 1>();
     __syncthreads();
-    load_rows<D>(qs, q, b, h, i0, kTile, S);
-    load_rows<D>(dos, dout, b, h, i0, kTile, S);
-    // queries past S: p = exp(s - inf) = 0
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool real = i0 + i < S;
-      rmax[i] = real ? st.mx[base + i0 + i] : INFINITY;
-      rsum[i] = real ? st.sum[base + i0 + i] : 1.0f;
-      rdot[i] = real ? st.dot[base + i0 + i] : 0.0f;
+    if (active) {
+      if (tile == 0 || !kHold) {
+        ring::load_q<D>(ka, ks);
+        ring::load_q<D>(va, vs);
+      }
+      const int st = tile % ring::kStages;
+      bwd::dkv_tile<D, ring::kNt>(ka, va, fill, qs + st * kT, dos + st * kT,
+                                  rl + st * ring::kRows,
+                                  rd + st * ring::kRows, scale2, dka, dva);
     }
     __syncthreads();
-    if (!active) continue;
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float pt[kTiles][4], dst[kTiles][4];
-      mma_rows<D>(pt, ka, qs, c0);    // k_j . q_i
-      mma_rows<D>(dst, va, dos, c0);  // v_j . dO_i = dP[i][j]
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = c0 + nt * 8 + 2 * t + (e & 1);
-          const float s = masked(pt[nt][e] * scale, e < 2 ? fa : fb);
-          const float p = expf(s - rmax[i]) / rsum[i];
-          pt[nt][e] = p;
-          dst[nt][e] = p * (dst[nt][e] - rdot[i]);
-        }
-      mma_cols<D>(dva, pt, dos, c0);
-      mma_cols<D>(dka, dst, qs, c0);
-    }
   }
   if (!active) return;
-  store_rows<D>(dk, b, h, j0, S, dka, scale);
-  store_rows<D>(dv, b, h, j0, S, dva, 1.0f);
+  store_rows<D>(dk, b, h, jw, S, dka, scale);
+  store_rows<D>(dv, b, h, jw, S, dva, 1.0f);
 }
 
 In view(const void* p, long long sb, long long sh, long long ss) {
@@ -359,9 +357,9 @@ Out out_view(void* p, long long sb, long long sh, long long ss) {
 
 }  // namespace
 
-static_assert(key_pass_smem<128>() <= 48 * 1024 &&
-                  query_pass_smem<128>() <= 48 * 1024,
-              "K8 tiles fit the default shared-memory window");
+static_assert(2 * key_pass_smem<128>() <= 232448 &&
+                  2 * query_pass_smem<128>() <= 232448,
+              "two K8 blocks fit an SM's shared memory at d = 128");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -398,8 +396,8 @@ extern "C" int sx_bh_attention_fwd(
 
 // The backward: q, k, v as above; dout a view with strides (db, dh, ds);
 // dq, dk, dv views sharing the strides (gb, gh, gs); stats an f32 scratch
-// of 3 * B * heads * S values (written by the first launch, read by the
-// second).
+// of 2 * B * heads * S values (lse, then rowsum(dP p): written by the
+// first launch, read by the second).
 extern "C" int sx_bh_attention_bwd(
     const void* q, const void* k, const void* v, long long sb, long long sh,
     long long ss, const void* dout, long long db, long long dh, long long ds,
@@ -411,22 +409,25 @@ extern "C" int sx_bh_attention_bwd(
            vv = view(v, sb, sh, ss), dov = view(dout, db, dh, ds);
   const Out dqv = out_view(dq, gb, gh, gs), dkv = out_view(dk, gb, gh, gs),
             dvv = out_view(dv, gb, gh, gs);
-  const long long n = static_cast<long long>(B) * heads * S;
-  const Stats sv{stats, stats + n, stats + 2 * n};
-  const dim3 grid((S + kRows - 1) / kRows, heads, B);
+  const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
+  const float scale2 = scale * ring::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    bh_attention_bwd_query_kernel<DD><<<grid, kThreads, query_pass_smem<DD>(),\
-                                        st>>>(qv, kv, vv, dov, mask, dqv, sv, \
-                                              S, scale);                      \
+    err = prepare(bh_attention_bwd_query_kernel<DD>, query_pass_smem<DD>());  \
+    if (err == cudaSuccess)                                                   \
+      err = prepare(bh_attention_bwd_key_kernel<DD>, key_pass_smem<DD>());    \
+    if (err != cudaSuccess) return static_cast<int>(err);                     \
+    bh_attention_bwd_query_kernel<DD>                                         \
+        <<<grid, ring::kThreads, query_pass_smem<DD>(), st>>>(                \
+            qv, kv, vv, dov, mask, dqv, stats, S, scale, scale2);             \
     err = cudaGetLastError();                                                 \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    bh_attention_bwd_key_kernel<DD><<<grid, kThreads, key_pass_smem<DD>(),   \
-                                      st>>>(qv, kv, vv, dov, mask, dkv, dvv,  \
-                                            sv, S, scale);                    \
+    bh_attention_bwd_key_kernel<DD>                                           \
+        <<<grid, ring::kThreads, key_pass_smem<DD>(), st>>>(                  \
+            qv, kv, vv, dov, mask, dkv, dvv, stats, S, scale, scale2);        \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(32)
     SX_CASE(64)

@@ -16,9 +16,9 @@
 // one (batch, head).
 //
 // Bound on the card: bytes. At the CE-large path's shape (128 x 16 heads,
-// S=160, d=64) K5 moves 168 MB and does 20 GFLOP, K6 moves 294 MB and does
-// 54 GFLOP -- both far under the bf16 tensor-core ridge. The design reads
-// each head's q, k, v (and dO) once, keeps the S x S scores in registers,
+// S=160, d=64) K5 moves 168 MB and does 13 GFLOP, K6 moves 294 MB and does
+// 34 GFLOP of model products -- both far under the bf16 tensor-core
+// ridge. The design reads each head's q, k, v (and dO) once, keeps the S x S scores in registers,
 // never writes them to device memory, and runs every product on the
 // tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate):
 // - q k^T and dO v^T have bf16 operands: exact products.
@@ -27,28 +27,38 @@
 //   accumulator: about 16 bits of the f32 value, where TF32 (10 bits) would
 //   be too coarse for dS, whose dP - rowsum(dP p) cancels.
 // Each warp owns 16 rows and walks the other side in chunks of 32:
-// - K5 (rows = queries): pass 1 finds each row's max and sum of
-//   exp(s - max), pass 2 recomputes s and accumulates p v.
-// - K6 phase A (rows = queries; k, v in shared memory): the max and sum,
-//   then rowsum(dP p), then dQ; the three row statistics go to shared
-//   memory. Phase B (rows = keys; q, dO in shared memory): recompute p^T
-//   and dS^T from those statistics and accumulate dV and dK over all
-//   queries, so no block writes a partial sum and no atomics are needed.
-// Operands whose pairs run along the shared-memory rows (v, k, q, dO as
-// the B of a product over keys or queries) are packed from two 16-bit
-// loads. Keys past S (the pad to a chunk) get -inf, so they add exactly 0.
+// - K5 (rows = queries; attention_tile.cuh): pass 1 finds each row's max
+//   and sum of exp(s - max), pass 2 recomputes s and accumulates p v. Its
+//   B operands along the shared-memory rows are packed from two 16-bit
+//   loads.
+// - K6 (attention_bwd.cuh, K8's device functions): phase A (rows =
+//   queries; k, v in shared memory) folds each row's max, sum and
+//   rowsum(dP p) in one walk and keeps lse = log2-domain log-sum-exp and
+//   rowsum(dP p) in shared memory, then a second walk accumulates dQ with
+//   p = 2^(s - lse); phase B (rows = keys; q, dO in shared memory)
+//   recomputes p^T and dS^T from those statistics and accumulates dV and
+//   dK over all queries, so no block writes a partial sum and no atomics
+//   are needed. Fragments come by ldmatrix (transposed on the way for p^T
+//   dO, dS k and dS^T q); 12 products of 2 S^2 d per head against the
+//   model's 5, and 3 ex2 a score.
+// Keys past S (the pad to a chunk) get -inf, so they add exactly 0.
 // Tensors are [B, heads, S, d] views with d contiguous and any strides that
 // keep 16-byte rows: the port passes q, k, v as head views of the [B, S, H]
 // projections and writes outputs in the same layout, so no transposes.
+#include "attention_bwd.cuh"
 #include "attention_tile.cuh"
 
 SX_DEFINE_ERROR_STRING
 
 using namespace sx::attn;
+namespace bwd = sx::bwd;
 
 namespace {
 
 constexpr int kMaxS = 255;
+// K6's phase B takes the queries 16 at a time: with dK, dV and the k, v
+// fragments held, 32-query score tiles would not fit three blocks an SM
+constexpr int kKeyStep = 16;
 
 __host__ __device__ constexpr int padded_s(int S) {
   return (S + kChunk - 1) / kChunk * kChunk;
@@ -56,9 +66,9 @@ __host__ __device__ constexpr int padded_s(int S) {
 
 template <int D>
 constexpr int smem_bytes(int S) {
-  // two [Sp][D + 8] bf16 tiles, then per key a flag and per query the
-  // max, the sum and rowsum(dP p) (the last three used by K6 only)
-  return 2 * padded_s(S) * (D + 8) * 2 + 4 * padded_s(S) * 4;
+  // two [Sp][D + 8] bf16 tiles, then per key a flag (K5) or a fill (K6),
+  // and per query K6's lse and rowsum(dP p)
+  return 2 * padded_s(S) * (D + 8) * 2 + 3 * padded_s(S) * 4;
 }
 
 template <int D>
@@ -114,31 +124,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K6: one block per (batch, head), the device functions of K8's two passes
+// (attention_bwd.cuh) over resident tiles in chunks of kChunk = 32 rows.
+// Phase A (16 query rows a warp; k and v resident): walk 1 folds each row's
+// lse and rowsum(dP p), walk 2 accumulates dQ; the statistics go to shared
+// memory. Phase B (16 key rows a warp; q and dO resident in k's and v's
+// place): dV and dK over every query. Query rows past S are zero-filled and
+// keep statistics of 0: they add exactly 0 (see K8's key pass).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2)
     group_attention_bwd_kernel(In q, In k, In v, In dout,
                                const int* __restrict__ mask, Out dq, Out dk,
-                               Out dv, int S, float scale) {
+                               Out dv, int S, float scale, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kLd = D + 8;
   const int Sp = padded_s(S);
   __nv_bfloat16* t0 = reinterpret_cast<__nv_bfloat16*>(smem);  // k, then q
-  __nv_bfloat16* t1 = t0 + Sp * (D + 8);                        // v, then dO
-  int* flag = reinterpret_cast<int*>(t1 + Sp * (D + 8));
-  float* rmax = reinterpret_cast<float*>(flag + Sp);
-  float* rsum = rmax + Sp;
-  float* rdot = rsum + Sp;
+  __nv_bfloat16* t1 = t0 + Sp * kLd;                            // v, then dO
+  float* fill = reinterpret_cast<float*>(t1 + Sp * kLd);
+  float* lse = fill + Sp;
+  float* dot = lse + Sp;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
   load_rows<D>(t0, k, b, h, 0, Sp, S);
   load_rows<D>(t1, v, b, h, 0, Sp, S);
-  load_flags(flag, mask, b, 0, Sp, S);
-  // queries past S keep these: p = exp(s - inf) = 0 in phase B
+  const bool none_real = bwd::all_masked(mask, b, S);
   for (int i = threadIdx.x; i < Sp; i += kThreads) {
-    rmax[i] = INFINITY;
-    rsum[i] = 1.0f;
-    rdot[i] = 0.0f;
+    fill[i] = bwd::key_fill(mask, b, i, S, none_real);
+    lse[i] = 0.0f;
+    dot[i] = 0.0f;
   }
   __syncthreads();
 
@@ -147,63 +163,23 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t qa[D / 16][4], da[D / 16][4];
     load_a<D>(qa, q, b, h, r0, S);
     load_a<D>(da, dout, b, h, r0, S);
-    auto scores = [&](int c0, float (&sc)[kTiles][4]) {
-      mma_rows<D>(sc, qa, t0, c0);
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[nt][e] = masked(sc[nt][e] * scale,
-                             flag[c0 + nt * 8 + 2 * t + (e & 1)]);
-    };
-    float mx[2], sum[2];
-    stats_begin(mx, sum);
-    stats_add(scores, 0, Sp, mx, sum);
-    stats_end(sum);
-
-    // rowsum(dP * p)
-    float dot[2] = {0.0f, 0.0f};
-    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-      float sc[kTiles][4], dp[kTiles][4];
-      scores(c0, sc);
-      mma_rows<D>(dp, da, t1, c0);
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dot[e >> 1] +=
-              dp[nt][e] * (expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
-      dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
-    }
-
-    // dQ = dS k * scale
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+    float dotu[2] = {0.0f, 0.0f};
+    for (int c0 = 0; c0 < Sp; c0 += kChunk)
+      bwd::stats_tile<D, kTiles>(qa, da, t0 + c0 * kLd, t1 + c0 * kLd,
+                                 fill + c0, scale2, mx, sum, dotu);
+    float rl[2], rd[2];
+    bwd::finish_stats(mx, sum, dotu, rl, rd);
     float acc[D / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-      float sc[kTiles][4], dp[kTiles][4];
-      scores(c0, sc);
-      mma_rows<D>(dp, da, t1, c0);
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
-          sc[nt][e] = p * (dp[nt][e] - dot[e >> 1]);
-        }
-      mma_cols<D>(acc, sc, t0, c0);
-    }
+    zero<D>(acc);
+    for (int c0 = 0; c0 < Sp; c0 += kChunk)
+      bwd::dq_tile<D, kTiles>(qa, da, t0 + c0 * kLd, t1 + c0 * kLd,
+                              fill + c0, scale2, rl, rd, acc);
     store_rows<D>(dq, b, h, r0, S, acc, scale);
     if (t == 0) {
       const int ra = r0 + g, rb = r0 + g + 8;
-      if (ra < S) rmax[ra] = mx[0], rsum[ra] = sum[0], rdot[ra] = dot[0];
-      if (rb < S) rmax[rb] = mx[1], rsum[rb] = sum[1], rdot[rb] = dot[1];
+      if (ra < S) lse[ra] = rl[0], dot[ra] = rd[0];
+      if (rb < S) lse[rb] = rl[1], dot[rb] = rd[1];
     }
   }
   __syncthreads();
@@ -216,29 +192,14 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t ka[D / 16][4], va[D / 16][4];
     load_a<D>(ka, k, b, h, j0, S);
     load_a<D>(va, v, b, h, j0, S);
-    const int fa = flag[j0 + g], fb = flag[j0 + g + 8];
+    const float kf[2] = {fill[j0 + g], fill[j0 + g + 8]};
     float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.0f;
-    for (int i0 = 0; i0 < Sp; i0 += kChunk) {
-      float pt[kTiles][4], dst[kTiles][4];
-      mma_rows<D>(pt, ka, t0, i0);    // k_j . q_i
-      mma_rows<D>(dst, va, t1, i0);   // v_j . dO_i = dP[i][j]
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = i0 + nt * 8 + 2 * t + (e & 1);
-          const float s = masked(pt[nt][e] * scale, e < 2 ? fa : fb);
-          const float p = expf(s - rmax[i]) / rsum[i];
-          pt[nt][e] = p;
-          dst[nt][e] = p * (dst[nt][e] - rdot[i]);
-        }
-      mma_cols<D>(dva, pt, t1, i0);
-      mma_cols<D>(dka, dst, t0, i0);
-    }
+    zero<D>(dka);
+    zero<D>(dva);
+    for (int i0 = 0; i0 < Sp; i0 += kKeyStep)
+      bwd::dkv_tile<D, kKeyStep / 8>(ka, va, kf, t0 + i0 * kLd,
+                                     t1 + i0 * kLd, lse + i0, dot + i0,
+                                     scale2, dka, dva);
     store_rows<D>(dk, b, h, j0, S, dka, scale);
     store_rows<D>(dv, b, h, j0, S, dva, 1.0f);
   }
@@ -308,7 +269,8 @@ extern "C" int sx_group_attention_bwd(
     err = prepare(group_attention_bwd_kernel<DD>, smem_bytes<DD>(S));         \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
     group_attention_bwd_kernel<DD><<<grid, kThreads, smem_bytes<DD>(S), st>>>( \
-        qv, kv, vv, dov, mask, dqv, dkv, dvv, S, scale);                      \
+        qv, kv, vv, dov, mask, dqv, dkv, dvv, S, scale,                       \
+        scale * sx::ring::kLog2e);                                            \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(32)
     SX_CASE(64)

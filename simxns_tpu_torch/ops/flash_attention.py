@@ -32,7 +32,10 @@ whole head:
 - K8 :func:`bh_attention_bwd` replaces ``_fused_bwd`` (kernel
   ``_bwd_kernel``, ``:80``).
 
-Their plain versions are the grouped pair's (the same function).
+Their plain versions are the grouped pair's (the same function). K6 and
+K8 share one backward design (``csrc/attention_bwd.cuh``): one walk over
+the keys folds each query row's log-sum-exp and rowsum(dP p), and every
+later walk gets p = 2^(s log2(e) - lse) with one ``ex2`` a score.
 """
 
 from __future__ import annotations
@@ -228,7 +231,9 @@ def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor, do: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8: the backward of :func:`bh_attention_fwd` (two launches: a query
-    pass for the row statistics and dq, a key pass for dk and dv)."""
+    pass for the row statistics and dq, a key pass for dk and dv; the
+    statistics, each row's log-sum-exp and rowsum(dP p), pass between them
+    in an f32 scratch [2, B, heads, S])."""
     if not q.is_cuda:
         return _group_bwd_plain(q, k, v, mask, do)
     _check_shapes(q, k, v, mask, _MAX_BH_S, "bh_attention")
@@ -240,7 +245,7 @@ def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, d = q.shape
     mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
     dq, dk, dv = _out(q), _out(q), _out(q)
-    stats = torch.empty(3, b, h, s, dtype=torch.float32, device=q.device)
+    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device)
     fn = _native.function("bh_attention", "sx_bh_attention_bwd",
                           _BH_BWD_ARGS)
     code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),

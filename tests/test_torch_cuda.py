@@ -8,8 +8,9 @@ JAX conftest is not needed and JAX need not be installed):
 Each kernel wrapper launches its kernel for CUDA tensors (its launch count
 rises) and agrees with its plain version at small shapes (K5/K6, the
 grouped attention pair, and K7/K8, the per-(batch, head) pair, at every S
-class they take; K9-K12, the fused FFN kernels, at tiling and ragged
-shapes and under autograd; K13/K14, the int8 encode kernels, bitwise
+class they take and at the backward kernels' tile edges, with a fully
+masked batch row; two backward calls bitwise equal; K9-K12, the fused FFN
+kernels, at tiling and ragged shapes and under autograd; K13/K14, the int8 encode kernels, bitwise
 against their plain versions at tiling and ragged shapes, in a model,
 and the JAX dispatch where the shapes do not tile); what a kernel does
 not take raises instead of running a plain version on the card.
@@ -393,15 +394,24 @@ def _attention_inputs(dev, b, heads, s, d, seed=0):
     return q, k, v, do, mask
 
 
+# K6's tile edges: its 32-row chunks and the 64 query rows of a warp round
+GROUP_EDGES = [(3, 2, s, d) for s in (63, 64, 65, 129, 255)
+               for d in (32, 64, 128)]
+
+
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 1, 64), (3, 2, 17, 32),
                                          (2, 4, 160, 64), (1, 2, 255, 128),
-                                         (5, 3, 40, 128)])
+                                         (5, 3, 40, 128)] + GROUP_EDGES)
 def test_group_attention_matches_plain(dev, b, heads, s, d):
     """K5 against its plain version: the f32 results round to bf16 on both
     sides (one bf16 step, <= 2^-8 max|v| at |o| <= max|v| / 2); K6's
     gradients, where p and dS enter the products as hi + lo bf16 halves
-    (~16 bits), to 2^-7 of their largest value."""
+    (~16 bits), to 2^-7 of their largest value, cosine >= 0.9999. With
+    more than one batch row, the last has every key masked (the uniform
+    softmax over S keys)."""
     q, k, v, do, mask = _attention_inputs(dev, b, heads, s, d)
+    if b > 1:
+        mask[-1] = 0
     before = fa.group_attention_fwd.launches, fa.group_attention_bwd.launches
     got = fa.group_attention_fwd(q, k, v, mask)
     want = fa._group_fwd_plain(q, k, v, mask)
@@ -413,6 +423,10 @@ def test_group_attention_matches_plain(dev, b, heads, s, d):
         assert g.shape == r.shape == q.shape
         err = float((g.float() - r.float()).abs().max())
         assert err <= 2.0 ** -7 * float(r.float().abs().max()), err
+        if s > 1:   # at S=1, p = 1: dS, dq and dk are exactly 0 (err above)
+            cos = float(torch.nn.functional.cosine_similarity(
+                g.float().flatten(), r.float().flatten(), dim=0))
+            assert cos >= 0.9999, cos
     torch.cuda.synchronize()
     assert (fa.group_attention_fwd.launches,
             fa.group_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
@@ -441,9 +455,14 @@ def test_group_attention_autograd_on_head_views(dev):
         assert err <= 2.0 ** -7 * float(ref.grad.float().abs().max()), err
 
 
+# K8's tile edges: one query or key row past a 64-row tile, and one short
+BH_EDGES = [(2, 2, s, d) for s in (257, 320, 1023) for d in (32, 64, 128)]
+
+
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 256, 64), (2, 2, 288, 32),
                                          (2, 3, 512, 128), (1, 2, 1024, 64),
-                                         (3, 2, 300, 128), (2, 2, 17, 32)])
+                                         (3, 2, 300, 128), (2, 2, 17, 32)]
+                         + BH_EDGES)
 def test_bh_attention_matches_plain(dev, b, heads, s, d):
     """K7/K8 against their plain versions, with the tolerances of K5/K6;
     batch row 0 has every key masked (the uniform softmax over S keys)."""
@@ -466,6 +485,19 @@ def test_bh_attention_matches_plain(dev, b, heads, s, d):
     torch.cuda.synchronize()
     assert (fa.bh_attention_fwd.launches,
             fa.bh_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("per_head,s", [(False, 160), (True, 512)])
+def test_attention_backward_is_deterministic(dev, per_head, s):
+    """K6 and K8 write every gradient row from one block, with no atomics:
+    two calls give bitwise equal dq, dk and dv."""
+    q, k, v, do, mask = _attention_inputs(dev, 4, 3, s, 64, seed=7)
+    mask[-1] = 0
+    bwd = fa.bh_attention_bwd if per_head else fa.group_attention_bwd
+    first = bwd(q, k, v, mask, do)
+    second = bwd(q, k, v, mask, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bh_attention_autograd_on_head_views(dev):

@@ -161,3 +161,105 @@ def test_dispatch(monkeypatch):
     assert torch.equal(fa.flash_attention(qt, kt, vt, small_s_impl="group"),
                        fa._group_fwd_plain(qt, kt, vt,
                                            torch.ones(2, 24, dtype=torch.int32)))
+
+
+# --- the algorithm of the backward kernels (K6, K8) --------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _tiled_bwd_model(q, k, v, do, mask, tile):
+    """The walks of K6 (``tile`` = 32, its resident chunks) and K8 (64,
+    its ring tiles) in f32 PyTorch: log2-domain scores with the mask's
+    -1e9 log2(e), -inf past S in the last tile, and 0 for every key of a
+    batch element whose keys are all masked; one walk over the key tiles
+    folds each row's max, sum and unnormalised rowsum(dP p); lse = m +
+    log2(sum), dot = dot_u / sum; then dQ per query tile and dK, dV per key
+    tile with p = 2^(s - lse). -> (dq, dk, dv) as numpy arrays."""
+    q, k, v, do = (torch.from_numpy(x).float() for x in (q, k, v, do))
+    b, h, s, d = q.shape
+    n = -(-s // tile)
+    sp = n * tile
+    scale = 1.0 / np.sqrt(d)
+    scale2 = torch.tensor(scale * _LOG2E, dtype=torch.float32)
+
+    def pad(x):                      # rows past S zero-filled
+        return torch.nn.functional.pad(x, (0, 0, 0, sp - s))
+
+    q, k, v, do = (pad(x) for x in (q, k, v, do))
+    real = torch.from_numpy(mask > 0)
+    fill = torch.where(real, torch.tensor(np.inf),
+                       torch.tensor(-1e9 * _LOG2E, dtype=torch.float32))
+    fill[~real.any(dim=1)] = 0.0     # every key masked: all scores equal
+    fill = torch.nn.functional.pad(fill, (0, sp - s), value=-np.inf)
+    fill = fill[:, None, None, :]    # [B, 1, 1, Sp]
+
+    def scores(qt, kt, cols):        # [B, H, rows, 64] in the log2 domain
+        f = fill[..., cols]
+        return torch.where(f == np.inf, (qt @ kt.transpose(-1, -2)) * scale2,
+                           f.expand(-1, h, qt.shape[2], -1))
+
+    def cols(j):
+        return slice(j * tile, (j + 1) * tile)
+
+    mx = torch.full((b, h, sp), -np.inf)
+    tot = torch.zeros(b, h, sp)
+    dotu = torch.zeros(b, h, sp)
+    for j in range(n):
+        sc = scores(q, k[:, :, cols(j)], cols(j))
+        dp = do @ v[:, :, cols(j)].transpose(-1, -2)
+        m_new = torch.maximum(mx, sc.amax(dim=-1))
+        alpha = torch.where(mx == -np.inf, torch.zeros(()),
+                            torch.exp2(mx - m_new))
+        e = torch.exp2(sc - m_new[..., None])
+        tot = tot * alpha + e.sum(dim=-1)
+        dotu = dotu * alpha + (e * dp).sum(dim=-1)
+        mx = m_new
+    lse = mx + torch.log2(tot)
+    dot = dotu / tot
+    lse[..., s:] = 0.0               # the key pass reads zero-filled rows
+    dot[..., s:] = 0.0
+
+    dq = torch.zeros_like(q)
+    for i in range(n):               # query tiles: dQ over every key tile
+        rows = cols(i)
+        for j in range(n):
+            sc = scores(q[:, :, rows], k[:, :, cols(j)], cols(j))
+            p = torch.exp2(sc - lse[:, :, rows, None])
+            dp = do[:, :, rows] @ v[:, :, cols(j)].transpose(-1, -2)
+            ds = p * (dp - dot[:, :, rows, None])
+            dq[:, :, rows] += ds @ k[:, :, cols(j)]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for j in range(n):               # key tiles: dK, dV over every query
+        keys = cols(j)
+        for i in range(n):
+            rows = cols(i)
+            st = scores(q[:, :, rows], k[:, :, keys], keys).transpose(-1, -2)
+            pt = torch.exp2(st - lse[:, :, None, rows])
+            dpt = v[:, :, keys] @ do[:, :, rows].transpose(-1, -2)
+            dst = pt * (dpt - dot[:, :, None, rows])
+            dv[:, :, keys] += pt @ do[:, :, rows]
+            dk[:, :, keys] += dst @ q[:, :, rows]
+    return [(x[:, :, :s] * m).numpy()
+            for x, m in ((dq, scale), (dk, scale), (dv, 1.0))]
+
+
+@pytest.mark.parametrize("s", [17, 160, 300])
+@pytest.mark.parametrize("kernel", ["bwd_kernel", "bwd_kernel_group"])
+def test_backward_algorithm_matches_interpreted_kernel(kernel, s):
+    """The kernels' walks (log-sum-exp from one fold, p = 2^(s - lse)), as
+    K8 tiles them (64 rows) against ``_fused_bwd`` (``_bwd_kernel``) and as
+    K6 does (32) against ``_fused_group_bwd`` (``_bwd_kernel_group``), in
+    f32, to 1e-5 of the largest gradient; batch row 2 has every key masked
+    (the uniform softmax over S keys)."""
+    q, k, v, do, mask = _inputs(3, 2, s, 16, seed=s + 1)
+    mask[2] = 0
+    if kernel == "bwd_kernel":
+        want = _jax_bh(q, k, v, do, mask, jnp.float32)[1:]
+        got = _tiled_bwd_model(q, k, v, do, mask, tile=64)
+    else:
+        want = _jax_group(q, k, v, do, mask, jnp.float32)[1:]
+        got = _tiled_bwd_model(q, k, v, do, mask, tile=32)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
