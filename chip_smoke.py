@@ -16,11 +16,14 @@ non-zero and prints no result):
    at 8 and 1024 queries), with its time, the plain version's, a PyTorch
    library call's (timed only; the port never calls it) and the least time
    the card could take (bytes over 3.35 TB/s or operations over the dense
-   tensor-core peak, whichever is larger); then one whole layer composed of
-   the kernels against the plain composition; K3 (here and in phases 4
-   and 6) and K7 (phase 6) also with their device time per call from the
-   profiler (at a request's shape the CUDA-event time is the host's
-   launch rate); beside K4, the search's
+   tensor-core peak, whichever is larger); K1 bitwise on each of a layer's
+   four GEMMs at an encode chunk, at a request (256 tokens) and at the
+   mine's queries (2,048 tokens; at both with the wrapper's host
+   microseconds a call); then one whole layer composed
+   of the kernels against the plain composition; K1, K3 (here and in
+   phases 4 and 6), K5 (phase 4) and K7 (phase 6) also with their device
+   time per call from the profiler (at a request's shape the CUDA-event
+   time is the host's launch rate); beside K4, the search's
    last step over its candidates: the stable ``_finalize`` (equal scores
    in column order, as ``jax.lax.top_k``) and ``torch.topk`` alone;
 3. end to end: a full-width BERT-base dual encoder (12 layers, random
@@ -31,8 +34,8 @@ non-zero and prints no result):
    launch counts of every kernel, zeroed just before, must have risen;
 4. the training kernels: K5/K6 (the grouped attention pair of the CE-large
    reranker, 128 joint rows x 16 heads x S=160, bf16) against their plain
-   versions, with SDPA's forward and backward as the yardstick, K6's
-   profiler device time, K8's two launches timed on K6's inputs beside it,
+   versions, with SDPA's forward and backward as the yardstick, K5's and
+   K6's profiler device time, K8's two launches timed on K6's inputs beside it,
    and two K6 calls held bitwise equal; K1-K3 again
    at the int8 teacher's shapes (20,480 tokens, H=1024, F=4096, 16 heads);
 5. training at full width: a BERT-base DE and an ERNIE-large-shaped CE
@@ -188,13 +191,18 @@ def check(ok, what):
         raise AssertionError(what)
 
 
-def phase_device(torch):
-    from simxns_tpu_torch.ops import _native
-
-    smi = subprocess.run(
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def phase_device(torch):
+    from simxns_tpu_torch.ops import _native
+
+    smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
     nvcc = _native.build()
@@ -217,8 +225,26 @@ def phase_device(torch):
     return smi
 
 
+def _host_us(torch, fn, calls=200):
+    """Host microseconds a call of ``fn``: the enqueue time of ``calls``
+    calls (the card keeps up with a request-sized launch, so the host's
+    rate is what a request sees)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def _check_int8_linear(torch, randn, m, h, f):
-    """K1 on the four GEMMs of a layer at m tokens, width h, FFN f."""
+    """K1 on the four GEMMs of a layer at m tokens, width h, FFN f: each
+    bitwise against its plain version, with its event time, its profiler
+    device time a launch (one launch a call), the plain version's and
+    ``torch._int_mm`` + the epilogue's times, its bound and, at m <= 4096,
+    the wrapper's host microseconds a call."""
     from simxns_tpu_torch.ops import fused_layer as fl
     from simxns_tpu_torch.ops.fused_ffn import quant_rows
 
@@ -226,8 +252,8 @@ def _check_int8_linear(torch, randn, m, h, f):
               ("out", h, h, False, torch.float32),
               ("ffn_in", f, h, True, torch.float32),
               ("ffn_out", h, f, False, torch.float32)]
-    rec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               max_abs_err=0.0, shapes=[])
+    rec = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, max_abs_err=0.0, shapes=[])
     ops_total = bytes_total = 0.0
     for name, n, k, gelu, od in shapes:
         a8, xs = quant_rows(randn(m, k))
@@ -236,10 +262,16 @@ def _check_int8_linear(torch, randn, m, h, f):
         got = fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu, out_dtype=od)
         want = fl._int8_linear_plain(a8, xs, w8, ws, b, gelu, od)
         err = float((got.float() - want.float()).abs().max())
-        ref = float(want.float().abs().max())
-        check(err <= 1e-6 * ref, f"int8_linear {name}: err {err} > 1e-6*{ref}")
-        ms = timed(torch, lambda: fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu,
-                                                 out_dtype=od), 10)
+        check(torch.equal(got, want),
+              f"int8_linear {name} at M={m}: not bitwise equal to the plain "
+              f"version (max abs err {err})")
+
+        def call():
+            return fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu, out_dtype=od)
+
+        ms = timed(torch, call, 10)
+        dev_ms, dev_n = device_ms(torch, call, "int8_linear_kernel")
+        host = _host_us(torch, call) if m <= 4096 else None
         plain = timed(torch, lambda: fl._int8_linear_plain(
             a8, xs, w8, ws, b, gelu, od), 2)
         wt = w8.t()
@@ -258,15 +290,20 @@ def _check_int8_linear(torch, randn, m, h, f):
         ops_total += ops
         bytes_total += moved
         rec["shapes"].append(dict(gemm=name, m=m, n=n, k=k, ms=ms,
-                                  plain_ms=plain, library_ms=lib,
-                                  bound_ms=bms, bound_by=by, max_abs_err=err))
+                                  device_ms=dev_ms,
+                                  device_launches_recorded=dev_n,
+                                  host_us_per_call=host, plain_ms=plain,
+                                  library_ms=lib, bound_ms=bms, bound_by=by,
+                                  max_abs_err=err))
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bms)):
             rec[key] += val
+        rec["device_ms"] = (None if dev_ms is None or rec["device_ms"] is None
+                            else rec["device_ms"] + dev_ms)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         del a8, w8, got, want
     rec["bound_by"] = bound(bytes_total, ops_total, PEAK_INT8)[1]
-    rec["tolerance"] = "1e-6 x max|y| (identical integer sums and f32 ops)"
+    rec["tolerance"] = "bitwise equal (identical integer sums and f32 ops)"
     return rec
 
 
@@ -411,6 +448,19 @@ def phase_kernels(torch, smi):
     records["int8_linear"] = _check_int8_linear(torch, randn, m, H, F)
     emit("kernel", name="int8_linear", nvidia_smi=smi,
          **records["int8_linear"])
+    # a request's four GEMMs: 8 queries x 32 tokens
+    records["int8_linear"]["request"] = _check_int8_linear(torch, randn,
+                                                           8 * 32, H, F)
+    emit("kernel_request_shapes", name="int8_linear", nvidia_smi=smi,
+         tokens=8 * 32, **records["int8_linear"]["request"])
+    # the mine's queries: 64 x 32 tokens (from their own generator, so the
+    # checks after this one keep their inputs)
+    qgen = torch.Generator(device=dev).manual_seed(3)
+    records["int8_linear"]["mine_query"] = _check_int8_linear(
+        torch, lambda *shape, scale=1.0: torch.randn(
+            *shape, device=dev, generator=qgen) * scale, MINE_Q * LQ, H, F)
+    emit("kernel_mine_query_shapes", name="int8_linear", nvidia_smi=smi,
+         tokens=MINE_Q * LQ, **records["int8_linear"]["mine_query"])
     records["row_quant"] = _check_row_quant(torch, randn, m, H, F)
     emit("kernel", name="row_quant", nvidia_smi=smi, **records["row_quant"])
     # passages 1024 x 128, queries 8 x 32
@@ -783,18 +833,16 @@ def _plain_encode(encoder, ids, mask, layer_plain):
     return x[:, 0]
 
 
-def phase_train_kernels(torch, smi, records):
-    """Phase 5: K5/K6 at the reranker step's attention shape (128 joint rows
-    x 16 heads x S=160 x d=64, bf16, key lengths 100..160), and K1-K3 at
-    the int8 teacher's shapes (20,480 tokens of CE-large)."""
+def _check_group_attention(torch, randn, gen):
+    """K5/K6 at the reranker step's attention shape (128 joint rows x 16
+    heads x S=160 x d=64, bf16 head views of [B, S, H] projections, key
+    lengths 100..160) against their plain versions, two K6 calls held
+    bitwise equal; their times, device times a launch, SDPA's forward and
+    backward (the yardstick), K8's two launches on K6's inputs, and the
+    bounds. -> (K5's record, K6's record)."""
     from simxns_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, device=dev, generator=gen) * scale
-
     b, s, heads, d = N_Q * N_P, LJ, CE_HEADS, CE_H // CE_HEADS
 
     def head_view(x):          # the model's layout: heads of [B, S, H]
@@ -831,6 +879,8 @@ def phase_train_kernels(torch, smi, records):
     del got, want, grads, refs, again
 
     ms5 = timed(torch, lambda: fa.group_attention_fwd(q, k, v, mask), 20)
+    dev5, dev5_n = device_ms(torch, lambda: fa.group_attention_fwd(
+        q, k, v, mask), "group_attention_fwd_kernel")
     plain5 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 3)
     ms6 = timed(torch, lambda: fa.group_attention_bwd(q, k, v, mask, do), 20)
     dev6, dev6_n = device_ms(torch, lambda: fa.group_attention_bwd(
@@ -859,12 +909,13 @@ def phase_train_kernels(torch, smi, records):
     bms6, by6 = bound(7 * elems * 2 + mask.numel() * 4, 5 * product,
                       PEAK_BF16)
     shape = [b, heads, s, d]
-    records["group_attention_fwd"] = dict(
-        ms=ms5, plain_ms=plain5, library_ms=lib5, bound_ms=bms5,
+    rec5 = dict(
+        ms=ms5, device_ms=dev5, device_launches_recorded=dev5_n,
+        plain_ms=plain5, library_ms=lib5, bound_ms=bms5,
         bound_by=by5, max_abs_err=err5, shape=shape,
         library="scaled_dot_product_attention forward, boolean key mask",
         tolerance="2^-8 x max|v| (one bf16 step of the f32 output)")
-    records["group_attention_bwd"] = dict(
+    rec6 = dict(
         ms=ms6, device_ms=dev6, device_launches_recorded=dev6_n,
         plain_ms=plain6, library_ms=lib6, bound_ms=bms6,
         bound_by=by6, max_abs_err=max(err6), min_cosine=min(cos6),
@@ -872,10 +923,25 @@ def phase_train_kernels(torch, smi, records):
         shape=shape, fwd_bwd_ms=ms5 + ms6, library_fwd_bwd_ms=lib56,
         library="scaled_dot_product_attention backward (autograd.grad)",
         tolerance="2^-7 x max|ref| per gradient and cosine >= 0.9999")
+    del q, k, v, do, qg, kg, vg
+    return rec5, rec6
+
+
+def phase_train_kernels(torch, smi, records):
+    """Phase 4: K5/K6 at the reranker step's attention shape, and K1-K3 at
+    the int8 teacher's shapes (20,480 tokens of CE-large)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    (records["group_attention_fwd"],
+     records["group_attention_bwd"]) = _check_group_attention(
+        torch, randn, gen)
     for name in ("group_attention_fwd", "group_attention_bwd"):
         emit("kernel", name=name, nvidia_smi=smi, **records[name])
-    del q, k, v, do, qg, kg, vg
-
+    b, s = N_Q * N_P, LJ
     m = b * s
     teacher = {
         "int8_linear": _check_int8_linear(torch, randn, m, CE_H, CE_F),
@@ -958,7 +1024,7 @@ def _cosine(torch, a, b):
 
 
 def phase_training(torch, smi, records):
-    """Phase 6: the training path. A BERT-base DE and an ERNIE-large-shaped
+    """Phase 5: the training path. A BERT-base DE and an ERNIE-large-shaped
     CE (random weights, seed 0) take 3 DE warm-up steps, 3 reranker steps
     and 3 AR2 retriever steps with the fused-int8 teacher view, on the
     warm-up AdamW at the recipe's learning rates."""

@@ -1,20 +1,21 @@
 // Device functions shared by the query-tiled attention kernels: K3
-// small_s_attention (small_s_attention.cu), K7 bh_attention_fwd
-// (bh_attention.cu), and through attention_bwd.cuh the backward kernels K6
-// group_attention_bwd (group_attention.cu) and K8 bh_attention_bwd.
+// small_s_attention (small_s_attention.cu), K5 group_attention_fwd
+// (group_attention.cu) and K7 bh_attention_fwd (bh_attention.cu), and
+// through attention_bwd.cuh the backward kernels K6 group_attention_bwd
+// (group_attention.cu) and K8 bh_attention_bwd.
 //
 // A block of 4 warps owns 64 query rows of one (sequence, head); each warp
 // owns 16 of them. The block lands its q tile in shared memory once
 // (cp.async, 16 bytes a thread) and each warp takes its A fragments from
 // there with ldmatrix. Keys and values stream through a ring of kStages
-// 64-row tiles filled by cp.async: the copy of the next tile is in flight
-// while the tensor cores work on the current one. Shared rows are padded to
-// D + 8 elements (an odd number of 16-byte chunks), so the eight row
-// addresses of an ldmatrix hit eight distinct bank groups.
+// tiles of 64 (or 32) rows filled by cp.async: the copy of the next tile is
+// in flight while the tensor cores work on the current one. Shared rows are
+// padded to D + 8 elements (an odd number of 16-byte chunks), so the eight
+// row addresses of an ldmatrix hit eight distinct bank groups.
 //
 // Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate), over NT n8 tiles of columns (8 * NT keys: 64 in the ring's
-// tiles, 32 or 16 in K6's resident chunks):
+// accumulate), over NT n8 tiles of columns (8 * NT keys: 64 or 32 in the
+// ring's tiles, 32 or 16 in K6's resident chunks):
 // - q_k_tile: the warp's 16 x 8NT scores, k fragments by ldmatrix; any
 //   "A rows x B rows^T" product (q k^T, dO v^T, k q^T, v dO^T);
 // - p_v_tile: a 16 x 8NT bf16 A operand (p in registers, in the score
@@ -22,6 +23,7 @@
 //   [key][d] layout through ldmatrix...trans: no transposing stores.
 // Scores are kept in the log2 domain (log2(e) folded into the scale and
 // into the masks' constants), so each exponential is one ex2.
+// attend_one_pass is the whole one-pass forward of K5 and K7.
 #pragma once
 
 #include "tile_gemm.cuh"
@@ -62,14 +64,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "memory");
 }
 
-// Rows r0 .. r0 + 63 of a [rows][D] bf16 operand into a padded shared tile,
-// 16 bytes a copy; rows at or past S are zero-filled (no read). `row(i)`
-// is the device address of row i (16-byte aligned).
-template <int D, class Row>
+// Rows r0 .. r0 + ROWS - 1 of a [rows][D] bf16 operand into a padded
+// shared tile, 16 bytes a copy; rows at or past S are zero-filled (no
+// read). `row(i)` is the device address of row i (16-byte aligned).
+template <int D, int ROWS = kRows, class Row>
 __device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, Row row, int r0,
                                           int S) {
   constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
     const int r = idx / kChunks, c = (idx % kChunks) * 8;
     const bool ok = r0 + r < S;
     cp_async16(dst + r * Layout<D>::kLd + c, row(ok ? r0 + r : 0) + c, ok);
@@ -217,6 +219,122 @@ __device__ __forceinline__ void tile_max(const float (&sc)[NT][4],
     for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], sc[nt][e]);
   cm[0] = quad<0>(cm[0]);
   cm[1] = quad<0>(cm[1]);
+}
+
+// Shared memory of attend_one_pass: the q tile, the k and v ring of
+// KEYS-row tiles, and a fill per key up to max_s rounded to KEYS.
+template <int D, int KEYS>
+__host__ __device__ constexpr int one_pass_smem(int max_s) {
+  return (kRows + 2 * kStages * KEYS) * Layout<D>::kLd * 2 +
+         (max_s + KEYS - 1) / KEYS * KEYS * 4;
+}
+
+// The one-pass softmax attention of query rows q0 .. q0 + 63 of one
+// (sequence, head): o = softmax(where(mask, q k^T * scale, -1e9)) v in f32,
+// stored as bf16. `q_row(i)`, `k_row(i)`, `v_row(i)` and `o_row(i)` are
+// the device addresses of row i of the head (16-byte aligned, d
+// contiguous), `mask` the sequence's [S] int32 key mask, scale2 = scale *
+// log2(e). q lands once; k and v tiles of KEYS rows stream through the
+// ring. Each row keeps a running max and sum of 2^(s - max) in f32; the
+// f32 accumulator is rescaled when the max grows, and one reciprocal of
+// the sum a row normalises it at the end. p stays f32 and enters p v as hi
+// + lo bf16 halves. A key's fill makes its score: 0 = real (the scaled
+// product), else -1e9 log2(e) (masked) or -inf past S (padding weighs
+// exactly 0). A sequence with every key masked has all its scores equal,
+// so p = 1 for each before normalising: the uniform softmax over S keys.
+// Query rows past S are computed on zeros and not stored.
+template <int D, int KEYS, class QRow, class KRow, class VRow, class ORow>
+__device__ __forceinline__ void attend_one_pass(
+    unsigned char* smem, QRow q_row, KRow k_row, VRow v_row, ORow o_row,
+    const int* __restrict__ mask, int S, int q0, float scale2) {
+  constexpr int kLd = Layout<D>::kLd;
+  constexpr int kKv = KEYS * kLd;   // elements of one k or v tile
+  constexpr int kNtk = KEYS / 8;    // n8 score tiles of a warp per tile
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + kRows * kLd;       // [kStages] tiles
+  __nv_bfloat16* vs = ks + kStages * kKv;     // [kStages] tiles
+  float* fill = reinterpret_cast<float*>(vs + kStages * kKv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (S + KEYS - 1) / KEYS;
+
+  for (int j = threadIdx.x; j < n_tiles * KEYS; j += kThreads)
+    fill[j] = j >= S ? -INFINITY : (mask[j] > 0 ? 0.0f : -1e9f * kLog2e);
+  auto issue = [&](int tile) {
+    const int st = tile % kStages;
+    copy_tile<D, KEYS>(ks + st * kKv, k_row, tile * KEYS, S);
+    copy_tile<D, KEYS>(vs + st * kKv, v_row, tile * KEYS, S);
+  };
+  copy_tile<D>(qs, q_row, q0, S);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {   // q rides with the first
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
+  }
+
+  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
+  uint32_t qa[D / 16][4];
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + kStages - 1 < n_tiles) issue(tile + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (active) {
+      if (tile == 0) load_q<D>(qa, qs);
+      const int st = tile % kStages;
+      float sc[kNtk][4];
+      q_k_tile<D>(sc, qa, ks + st * kKv);
+      const float* f = fill + tile * KEYS + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kNtk; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float c = f[nt * 8 + (e & 1)];
+          sc[nt][e] = c == 0.0f ? sc[nt][e] * scale2 : c;
+        }
+      float cm[2], alpha[2];
+      tile_max(sc, cm);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(mx[r], cm[r]);
+        alpha[r] = mx[r] == -INFINITY ? 0.0f : ex2(mx[r] - m_new);
+        sum[r] *= alpha[r];
+        mx[r] = m_new;
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int nt = 0; nt < kNtk; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = ex2(sc[nt][e] - mx[e >> 1]);
+          sum[e >> 1] += sc[nt][e];
+        }
+      p_v_tile_split<D>(acc, sc, vs + st * kKv);
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+  const float inv[2] = {1.0f / quad<1>(sum[0]), 1.0f / quad<1>(sum[1])};
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(o_row(ra) + c) =
+          __floats2bfloat162_rn(acc[nd][0] * inv[0], acc[nd][1] * inv[0]);
+    if (rb < S)
+      *reinterpret_cast<__nv_bfloat162*>(o_row(rb) + c) =
+          __floats2bfloat162_rn(acc[nd][2] * inv[1], acc[nd][3] * inv[1]);
+  }
 }
 
 }  // namespace ring

@@ -62,7 +62,7 @@ constexpr int kMaxS = 1024;
 
 template <int D>
 constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
-  return (1 + 2 * ring::kStages) * ring::Layout<D>::kTile * 2 + kMaxS * 4;
+  return ring::one_pass_smem<D, ring::kKeys>(kMaxS);
 }
 
 template <int D>
@@ -82,103 +82,20 @@ constexpr int key_pass_smem() {      // k, v, the q and dO ring, statistics
 __host__ __device__ constexpr bool hold_fragments(int D) { return D <= 64; }
 
 // K7: one block per (query tile, head, batch), one pass over the keys
+// (attention_ring.cuh's attend_one_pass, 64-key tiles)
 template <int D>
 __global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
     bh_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
                             Out o, int S, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kT = ring::Layout<D>::kTile;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kT;                  // [kStages] tiles
-  __nv_bfloat16* vs = ks + ring::kStages * kT;  // [kStages] tiles
-  float* fill = reinterpret_cast<float*>(vs + ring::kStages * kT);
-  const int q0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (S + ring::kKeys - 1) / ring::kKeys;
-
-  // a key's score: 0 = real (the scaled product), else the masked
-  // constant (-1e9, in the log2 domain) or -inf past S
-  for (int j = threadIdx.x; j < n_tiles * ring::kKeys; j += ring::kThreads)
-    fill[j] = j >= S ? -INFINITY
-                     : (mask[static_cast<long long>(b) * S + j] > 0
-                            ? 0.0f : -1e9f * ring::kLog2e);
-  auto q_row = [&](int i) { return q.row(b, h, i); };
-  auto k_row = [&](int i) { return k.row(b, h, i); };
-  auto v_row = [&](int i) { return v.row(b, h, i); };
-  auto issue = [&](int tile) {
-    const int st = tile % ring::kStages;
-    ring::copy_tile<D>(ks + st * kT, k_row, tile * ring::kKeys, S);
-    ring::copy_tile<D>(vs + st * kT, v_row, tile * ring::kKeys, S);
-  };
-  ring::copy_tile<D>(qs, q_row, q0, S);
-#pragma unroll
-  for (int i = 0; i < ring::kStages - 1; ++i) {   // q rides with the first
-    if (i < n_tiles) issue(i);
-    sx::cp_async_commit();
-  }
-
-  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
-  uint32_t qa[D / 16][4];
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
-  float acc[D / 8][4];
-  zero<D>(acc);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + ring::kStages - 1 < n_tiles) issue(tile + ring::kStages - 1);
-    sx::cp_async_commit();
-    sx::cp_async_wait<ring::kStages - 1>();
-    __syncthreads();
-    if (active) {
-      if (tile == 0) ring::load_q<D>(qa, qs);
-      const int st = tile % ring::kStages;
-      float sc[ring::kNt][4];
-      ring::q_k_tile<D>(sc, qa, ks + st * kT);
-      const float* f = fill + tile * ring::kKeys + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < ring::kNt; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float c = f[nt * 8 + (e & 1)];
-          sc[nt][e] = c == 0.0f ? sc[nt][e] * scale2 : c;
-        }
-      float cm[2], alpha[2];
-      ring::tile_max(sc, cm);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(mx[r], cm[r]);
-        alpha[r] = mx[r] == -INFINITY ? 0.0f : ring::ex2(mx[r] - m_new);
-        sum[r] *= alpha[r];
-        mx[r] = m_new;
-      }
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
-#pragma unroll
-      for (int nt = 0; nt < ring::kNt; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[nt][e] = ring::ex2(sc[nt][e] - mx[e >> 1]);
-          sum[e >> 1] += sc[nt][e];
-        }
-      ring::p_v_tile_split<D>(acc, sc, vs + st * kT);
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-  const float inv[2] = {1.0f / ring::quad<1>(sum[0]),
-                        1.0f / ring::quad<1>(sum[1])};
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, ra) + c) =
-          __floats2bfloat162_rn(acc[nd][0] * inv[0], acc[nd][1] * inv[0]);
-    if (rb < S)
-      *reinterpret_cast<__nv_bfloat162*>(o.row(b, h, rb) + c) =
-          __floats2bfloat162_rn(acc[nd][2] * inv[1], acc[nd][3] * inv[1]);
-  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  ring::attend_one_pass<D, ring::kKeys>(
+      smem, [&](int i) { return q.row(b, h, i); },
+      [&](int i) { return k.row(b, h, i); },
+      [&](int i) { return v.row(b, h, i); },
+      [&](int i) { return o.row(b, h, i); },
+      mask + static_cast<long long>(b) * S, S, blockIdx.x * ring::kRows,
+      scale2);
 }
 
 // K8, launch 1: per query tile, the row statistics (lse, rowsum(dP p)) and

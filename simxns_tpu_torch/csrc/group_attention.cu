@@ -11,37 +11,38 @@
 //   o  = p v                                     (K5; o cast to q's dtype)
 //   dV = p^T dO, dP = dO v^T, dS = p (dP - rowsum(dP p)),
 //   dQ = dS k * scale, dK = dS^T q * scale       (K6; p recomputed)
-// The TPU kernel's grouping of _GROUP_BB batch elements per program is a
-// VMEM detail: the result does not depend on it, and here one block takes
-// one (batch, head).
+// A batch element whose keys are all masked gets the uniform softmax over
+// its S keys. The TPU kernel's grouping of _GROUP_BB batch elements per
+// program is a VMEM detail: the result does not depend on it.
 //
 // Bound on the card: bytes. At the CE-large path's shape (128 x 16 heads,
 // S=160, d=64) K5 moves 168 MB and does 13 GFLOP, K6 moves 294 MB and does
 // 34 GFLOP of model products -- both far under the bf16 tensor-core
-// ridge. The design reads each head's q, k, v (and dO) once, keeps the S x S scores in registers,
-// never writes them to device memory, and runs every product on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate):
-// - q k^T and dO v^T have bf16 operands: exact products.
-// - p v, p^T dO, dS k and dS^T q have an f32 operand (p or dS). It is split
-//   into hi = bf16(x) and lo = bf16(x - hi), two products into one f32
-//   accumulator: about 16 bits of the f32 value, where TF32 (10 bits) would
-//   be too coarse for dS, whose dP - rowsum(dP p) cancels.
-// Each warp owns 16 rows and walks the other side in chunks of 32:
-// - K5 (rows = queries; attention_tile.cuh): pass 1 finds each row's max
-//   and sum of exp(s - max), pass 2 recomputes s and accumulates p v. Its
-//   B operands along the shared-memory rows are packed from two 16-bit
-//   loads.
-// - K6 (attention_bwd.cuh, K8's device functions): phase A (rows =
-//   queries; k, v in shared memory) folds each row's max, sum and
-//   rowsum(dP p) in one walk and keeps lse = log2-domain log-sum-exp and
-//   rowsum(dP p) in shared memory, then a second walk accumulates dQ with
-//   p = 2^(s - lse); phase B (rows = keys; q, dO in shared memory)
-//   recomputes p^T and dS^T from those statistics and accumulates dV and
-//   dK over all queries, so no block writes a partial sum and no atomics
-//   are needed. Fragments come by ldmatrix (transposed on the way for p^T
-//   dO, dS k and dS^T q); 12 products of 2 S^2 d per head against the
-//   model's 5, and 3 ex2 a score.
-// Keys past S (the pad to a chunk) get -inf, so they add exactly 0.
+// ridge. Neither writes the S x S scores to device memory, and every
+// product runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate); a product with an f32 operand (p or dS) takes it as hi =
+// bf16(x) and lo = bf16(x - hi), two products into one f32 accumulator:
+// about 16 bits of the f32 value, where TF32 (10 bits) would be too coarse
+// for dS, whose dP - rowsum(dP p) cancels.
+// - K5 is K7's forward (attention_ring.cuh's attend_one_pass): one block
+//   per (query tile of 64 rows, head, batch) lands its q tile once and
+//   streams kGroupKeys-key tiles of k and v through a two-stage cp.async
+//   ring, in ONE pass: log2-domain scores and ex2, a running max and sum a
+//   row with rescaling, one reciprocal a row at the end; v read by
+//   ldmatrix...trans. 3 products of 2 S^2 d per head (q k^T, p v as hi and
+//   lo) over the keys padded to the tile.
+// - K6 (attention_bwd.cuh, K8's device functions), one block per (batch,
+//   head) with the head's tiles resident, each warp owning 16 rows and
+//   walking the other side in chunks of 32: phase A (rows = queries; k, v
+//   in shared memory) folds each row's max, sum and rowsum(dP p) in one
+//   walk and keeps lse = log2-domain log-sum-exp and rowsum(dP p) in shared
+//   memory, then a second walk accumulates dQ with p = 2^(s - lse); phase
+//   B (rows = keys; q, dO in shared memory) recomputes p^T and dS^T from
+//   those statistics and accumulates dV and dK over all queries, so no
+//   block writes a partial sum and no atomics are needed. Fragments come
+//   by ldmatrix (transposed on the way for p^T dO, dS k and dS^T q); 12
+//   products of 2 S^2 d per head against the model's 5, and 3 ex2 a score.
+// Keys past S (the pad to a tile or chunk) get -inf, so they add exactly 0.
 // Tensors are [B, heads, S, d] views with d contiguous and any strides that
 // keep 16-byte rows: the port passes q, k, v as head views of the [B, S, H]
 // projections and writes outputs in the same layout, so no transposes.
@@ -52,10 +53,14 @@ SX_DEFINE_ERROR_STRING
 
 using namespace sx::attn;
 namespace bwd = sx::bwd;
+namespace ring = sx::ring;
 
 namespace {
 
 constexpr int kMaxS = 255;
+// K5's key tiles: 32 keys take S = 160 whole (64 pad it to 192); at the
+// reranker's shape they run 8% faster than 64-key tiles
+constexpr int kGroupKeys = 32;
 // K6's phase B takes the queries 16 at a time: with dK, dV and the k, v
 // fragments held, 32-query score tiles would not fit three blocks an SM
 constexpr int kKeyStep = 16;
@@ -65,63 +70,33 @@ __host__ __device__ constexpr int padded_s(int S) {
 }
 
 template <int D>
-constexpr int smem_bytes(int S) {
-  // two [Sp][D + 8] bf16 tiles, then per key a flag (K5) or a fill (K6),
-  // and per query K6's lse and rowsum(dP p)
-  return 2 * padded_s(S) * (D + 8) * 2 + 3 * padded_s(S) * 4;
+constexpr int fwd_smem() {   // K5: q tile, the k and v ring, keys
+  return ring::one_pass_smem<D, kGroupKeys>(kMaxS);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr int smem_bytes(int S) {
+  // K6: two [Sp][D + 8] bf16 tiles, then per key a fill, and per query
+  // lse and rowsum(dP p)
+  return 2 * padded_s(S) * (D + 8) * 2 + 3 * padded_s(S) * 4;
+}
+
+// K5: one block per (query tile, head, batch), one pass over the keys
+// (attention_ring.cuh's attend_one_pass, kGroupKeys-key tiles): K7's kernel
+// at S < 256
+template <int D>
+__global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
     group_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
-                               Out o, int S, float scale) {
+                               Out o, int S, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Sp = padded_s(S);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [Sp][D+8]
-  __nv_bfloat16* vs = ks + Sp * (D + 8);                        // [Sp][D+8]
-  int* flag = reinterpret_cast<int*>(vs + Sp * (D + 8));        // [Sp]
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-
-  load_rows<D>(ks, k, b, h, 0, Sp, S);
-  load_rows<D>(vs, v, b, h, 0, Sp, S);
-  load_flags(flag, mask, b, 0, Sp, S);
-  __syncthreads();
-
-  for (int r0 = warp * 16; r0 < S; r0 += kWarps * 16) {
-    uint32_t qa[D / 16][4];
-    load_a<D>(qa, q, b, h, r0, S);
-    auto scores = [&](int c0, float (&sc)[kTiles][4]) {
-      mma_rows<D>(sc, qa, ks, c0);
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[nt][e] = masked(sc[nt][e] * scale,
-                             flag[c0 + nt * 8 + 2 * t + (e & 1)]);
-    };
-    float mx[2], sum[2];
-    stats_begin(mx, sum);
-    stats_add(scores, 0, Sp, mx, sum);
-    stats_end(sum);
-
-    float acc[D / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-    for (int c0 = 0; c0 < Sp; c0 += kChunk) {
-      float sc[kTiles][4];
-      scores(c0, sc);
-#pragma unroll
-      for (int nt = 0; nt < kTiles; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
-      mma_cols<D>(acc, sc, vs, c0);
-    }
-    store_rows<D>(o, b, h, r0, S, acc, 1.0f);
-  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  ring::attend_one_pass<D, kGroupKeys>(
+      smem, [&](int i) { return q.row(b, h, i); },
+      [&](int i) { return k.row(b, h, i); },
+      [&](int i) { return v.row(b, h, i); },
+      [&](int i) { return o.row(b, h, i); },
+      mask + static_cast<long long>(b) * S, S, blockIdx.x * ring::kRows,
+      scale2);
 }
 
 // K6: one block per (batch, head), the device functions of K8's two passes
@@ -208,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2)
 }  // namespace
 
 // every S and d the wrappers take fits one block's shared memory (227 KB)
-static_assert(smem_bytes<128>(kMaxS) <= 232448, "K5/K6 shared memory");
+static_assert(smem_bytes<128>(kMaxS) <= 232448, "K6 shared memory");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -225,16 +200,17 @@ extern "C" int sx_group_attention_fwd(
   const In kv{static_cast<const bf*>(k), sb, sh, ss};
   const In vv{static_cast<const bf*>(v), sb, sh, ss};
   const Out ov{static_cast<bf*>(o), ob, oh, os};
-  const dim3 grid(heads, B);
+  const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    err = prepare(group_attention_fwd_kernel<DD>, smem_bytes<DD>(S));         \
+    err = prepare(group_attention_fwd_kernel<DD>, fwd_smem<DD>());            \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    group_attention_fwd_kernel<DD><<<grid, kThreads, smem_bytes<DD>(S), st>>>( \
-        qv, kv, vv, mask, ov, S, scale);                                      \
+    group_attention_fwd_kernel<DD><<<grid, ring::kThreads, fwd_smem<DD>(),    \
+                                     st>>>(qv, kv, vv, mask, ov, S,           \
+                                           scale * ring::kLog2e);             \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(32)
     SX_CASE(64)

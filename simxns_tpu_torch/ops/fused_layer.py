@@ -8,7 +8,12 @@ this module keeps the kernel's numerical contract and composes it from
 three hand-written kernels:
 
 - K1 :func:`int8_linear` (CUDA, ``csrc/int8_linear.cu``): int8 GEMM with a
-  fused dequantize / bias / optional GELU epilogue — the six projections;
+  fused dequantize / bias / optional GELU epilogue — the six projections.
+  A Hopper GEMM (``csrc/wgmma_ring.cuh``): TMA copies into a 4-stage ring
+  of shared-memory tiles, one producer thread, two consumer warpgroups on
+  the int8 warpgroup MMA (128 x 256 tiles, a persistent grid), and result
+  tiles staged through shared memory into 16-byte stores; 64-row tiles
+  below two waves of 128 x 256 ones (a request, the mine's queries);
 - K2 :func:`row_quant` (Triton, below): optional residual add and f32
   LayerNorm, then per-token int8 quantization of the row;
 - K3 :func:`small_s_attention` (CUDA, ``csrc/small_s_attention.cu``): the

@@ -6,9 +6,10 @@ JAX conftest is not needed and JAX need not be installed):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel wrapper launches its kernel for CUDA tensors (its launch count
-rises) and agrees with its plain version at small shapes (K5/K6, the
-grouped attention pair, and K7/K8, the per-(batch, head) pair, at every S
-class they take and at the backward kernels' tile edges, with a fully
+rises) and agrees with its plain version at small shapes (K1, the int8
+GEMM, bitwise at its tile edges in both epilogues; K5/K6, the grouped
+attention pair, and K7/K8, the per-(batch, head) pair, at every S class
+they take and at their tile edges, with a fully
 masked batch row; two backward calls bitwise equal; K9-K12, the fused FFN
 kernels, at tiling and ragged shapes and under autograd; K13/K14, the int8 encode kernels, bitwise
 against their plain versions at tiling and ragged shapes, in a model,
@@ -40,24 +41,45 @@ def _randn(dev, *shape, scale=1.0, seed=0):
     return torch.randn(*shape, device=dev, generator=gen) * scale
 
 
-def test_int8_linear_and_row_quant_match_plain(dev):
+# (M, N, K) across K1's tile edges: 64-row (one consumer warpgroup) and
+# 128-row tiles; 64-, 128- and 256-column tiles (the tile choice follows the
+# tile count against the SMs, on 132 of them: M=4097 x N=3072 and M=8500 x
+# N=1000 take 128 x 256, M=4097 x N=768 and M=8191 x N=1000 take 64 x 128,
+# the rest 64 x 64); K within one 128-byte stage (16, 48), across stages
+# (208, 768) and past the 4-stage ring (3072); N not a multiple of 8 (1000
+# past the last 256-column tile; 97: rows not 16-byte aligned, no vector
+# stores)
+K1_CASES = [(1, 96, 16), (63, 768, 48), (64, 2304, 768), (65, 3072, 3072),
+            (255, 96, 768), (256, 2304, 768), (300, 97, 16),
+            (4097, 3072, 768), (4097, 768, 3072), (4097, 96, 48),
+            (8191, 1000, 208), (8500, 1000, 208)]
+
+
+@pytest.mark.parametrize("m,n,k", K1_CASES)
+def test_int8_linear_and_row_quant_match_plain(dev, m, n, k):
     """Integer sums are exact and the epilogue is the same f32 operations:
-    K1 equals its plain version; K2's codes and scales equal the plain
-    ones on these rows (a code may flip only across a rounding tie)."""
-    x = _randn(dev, 100, 256)
+    K1 equals its plain version bit for bit, with and without GELU, to f32
+    and to bf16 (each staged at its own pitch and slice width); K2's codes
+    and scales equal the plain ones on these rows (a code may flip only
+    across a rounding tie)."""
+    x = _randn(dev, m, k, seed=m + n + k)
     before = fl.int8_linear.launches, fl.row_quant.launches
     a8, xs, _, _ = fl.row_quant(x)
     p8, ps, _, _ = fl._row_quant_plain(x, None, None, 1e-12, True, False,
                                        False)
     assert torch.equal(a8, p8) and torch.equal(xs, ps)
-    w8, ws = fl.quant_rows(_randn(dev, 96, 256, scale=0.02, seed=1))
-    b = _randn(dev, 96, scale=0.02, seed=2)
-    for gelu, od in ((False, torch.float32), (True, torch.bfloat16)):
+    w8, ws = fl.quant_rows(_randn(dev, n, k, scale=0.02, seed=1))
+    b = _randn(dev, n, scale=0.02, seed=2)
+    epilogues = [(gelu, od) for gelu in (False, True)
+                 for od in (torch.float32, torch.bfloat16)]
+    for gelu, od in epilogues:
         got = fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu, out_dtype=od)
         want = fl._int8_linear_plain(a8, xs, w8, ws, b, gelu, od)
-        assert torch.equal(got, want)
+        assert got.shape == (m, n) and got.dtype == od
+        assert torch.equal(got, want), (gelu, od, float(
+            (got.float() - want.float()).abs().max()))
     assert (fl.int8_linear.launches, fl.row_quant.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + len(epilogues), before[1] + 1)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -394,8 +416,11 @@ def _attention_inputs(dev, b, heads, s, d, seed=0):
     return q, k, v, do, mask
 
 
-# K6's tile edges: its 32-row chunks and the 64 query rows of a warp round
-GROUP_EDGES = [(3, 2, s, d) for s in (63, 64, 65, 129, 255)
+# K6's tile edges (its 32-row chunks and the 64 query rows of a warp
+# round) and K5's (its 64-row query tiles and 32-key tiles)
+GROUP_EDGES = [(3, 2, s, d)
+               for s in (31, 32, 33, 63, 64, 65, 127, 128, 129, 191, 192,
+                         193, 255)
                for d in (32, 64, 128)]
 
 

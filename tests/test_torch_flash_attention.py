@@ -263,3 +263,67 @@ def test_backward_algorithm_matches_interpreted_kernel(kernel, s):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+
+
+# --- the algorithm of the one-pass forward kernels (K5, K7) ------------------
+
+# K5's key tiles (csrc/group_attention.cu kGroupKeys); K7's are 64 keys
+GROUP_KEYS = 32
+
+
+def _tiled_fwd_model(q, k, v, mask, tile):
+    """The one-pass walk of K5 and K7 (attention_ring.cuh's
+    attend_one_pass) over key tiles of ``tile`` rows, in f32 PyTorch:
+    scores in the log2 domain (scale * log2(e)), -1e9 log2(e) for a masked
+    key and -inf past S in the last tile; each row keeps a running max and
+    a sum of 2^(s - max), both the sum and the output accumulator rescaled
+    by 2^(max_old - max_new) when the max grows; one reciprocal of the sum
+    a row at the end. -> o as a numpy array."""
+    q, k, v = (torch.from_numpy(x).float() for x in (q, k, v))
+    b, h, s, d = q.shape
+    n = -(-s // tile)
+    sp = n * tile
+    scale2 = torch.tensor(1.0 / np.sqrt(d) * _LOG2E, dtype=torch.float32)
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, sp - s)) for x in (k, v))
+    fill = torch.where(torch.from_numpy(mask > 0), torch.tensor(0.0),
+                       torch.tensor(-1e9 * _LOG2E, dtype=torch.float32))
+    fill = torch.nn.functional.pad(fill, (0, sp - s), value=-np.inf)
+    fill = fill[:, None, None, :]    # [B, 1, 1, Sp]
+    mx = torch.full((b, h, s), -np.inf)
+    tot = torch.zeros(b, h, s)
+    acc = torch.zeros(b, h, s, d)
+    for j in range(n):
+        cols = slice(j * tile, (j + 1) * tile)
+        f = fill[..., cols]
+        sc = torch.where(f == 0.0, (q @ k[:, :, cols].transpose(-1, -2))
+                         * scale2, f.expand(-1, h, s, -1))
+        m_new = torch.maximum(mx, sc.amax(dim=-1))
+        alpha = torch.where(mx == -np.inf, torch.zeros(()),
+                            torch.exp2(mx - m_new))
+        p = torch.exp2(sc - m_new[..., None])
+        tot = tot * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ v[:, :, cols]
+        mx = m_new
+    return (acc * (1.0 / tot)[..., None]).numpy()
+
+
+@pytest.mark.parametrize("kernel,s,tile",
+                         [("fwd_kernel_group", s, GROUP_KEYS)
+                          for s in (1, 17, 63, 64, 65, 160, 255)]
+                         + [("fwd_kernel", s, 64) for s in (256, 300)])
+def test_forward_algorithm_matches_interpreted_kernel(kernel, s, tile):
+    """The kernels' one-pass walk, as K5 tiles the keys against
+    ``_fwd_call_group`` (``_fwd_kernel_group``) and as K7 does against
+    ``_fwd_call`` (``_fwd_kernel``), in f32, to 1e-5 of max|o|; batch row 2
+    has every key masked (the uniform softmax over its S keys)."""
+    q, k, v, _, mask = _inputs(3, 2, s, 16, seed=s + 7)
+    mask[2] = 0
+    call = jfa._fwd_call_group if kernel == "fwd_kernel_group" else jfa._fwd_call
+    want = np.asarray(call(*(jnp.asarray(x) for x in (q, k, v)),
+                           jnp.asarray(mask)), np.float32)
+    got = _tiled_fwd_model(q, k, v, mask, tile)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    uniform = v[2].mean(axis=1)                      # [heads, d]
+    assert np.abs(got[2] - uniform[:, None, :]).max() <= 1e-5 * np.abs(
+        want).max()
