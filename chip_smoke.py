@@ -92,9 +92,12 @@ non-zero and prints no result):
    same model on K12's plain version;
 11. the int8 encode kernels: K14 ``int8_ffn`` at an encode chunk
    (131,072 x 768 x 3072), a request (256 rows) and a ragged M (4,000),
+   bitwise against its plain version and without a launch of K1 or K2,
    K13 ``int8_dense`` at the chunk's q, k, v (O = 2304) and output
-   projection (O = 768) and a request's q, k, v, each against its plain
-   version (bitwise expected), with the library's ``torch._int_mm`` chains
+   projection (O = 768) and a request's q, k, v against its plain
+   version (bitwise expected); K14 (and K12 in phase 8) with its device
+   time by launch (a call makes three; K12's two) and the memory a call
+   allocates; with the library's ``torch._int_mm`` chains
    and K14's bf16 ``F.linear`` chain as yardsticks and the port's K2 -> K1
    composition of the same function timed beside; then the public
    ``int8_ffn`` at 40 rows (no tile): ``ffn_reference``, no launch;
@@ -156,7 +159,8 @@ def timed(torch, fn, reps, warmup=1):
 
 def device_ms(torch, fn, kernel, reps=10):
     """Mean device ms of one launch of the kernel whose name holds
-    ``kernel`` (``fn`` launches it once), from torch.profiler: a small
+    ``kernel`` (a string, or a tuple of alternatives; ``fn`` launches it
+    once), from torch.profiler: a small
     launch's CUDA-event time is the host's launch rate, not the kernel's.
     The mean is over the launches the profiler recorded (a session after
     earlier ones may drop some). -> (ms, launches recorded)."""
@@ -168,10 +172,47 @@ def device_ms(torch, fn, kernel, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = [ev.time_range.elapsed_us() for ev in prof.events()
           if ev.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in ev.name]
+          and any(k in ev.name for k in names)]
     return (sum(us) / 1e3 / len(us) if us else None), len(us)
+
+
+def device_split(torch, fn, reps=5):
+    """Device ms by kernel of a wrapper whose one call launches several
+    kernels once each (K12: two GEMMs; K14: the codes of x, a GEMM, the
+    codes of g, a GEMM), from torch.profiler: {kernel name: mean ms a
+    launch over the launches recorded} (a profiler session late in a
+    process may drop some)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "")
+            split.setdefault(name.split("(")[0][:120], []).append(
+                ev.time_range.elapsed_us())
+    return {k: sum(v) / len(v) / 1e3 for k, v in split.items()}
+
+
+def call_peak_gb(torch, fn):
+    """GB that one call of ``fn`` allocates above what is live before it
+    (its outputs and workspaces)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return (peak - base) / 1e9
 
 
 def fresh_peak(torch):
@@ -270,7 +311,8 @@ def _check_int8_linear(torch, randn, m, h, f):
             return fl.int8_linear(a8, xs, w8, ws, b, gelu=gelu, out_dtype=od)
 
         ms = timed(torch, call, 10)
-        dev_ms, dev_n = device_ms(torch, call, "int8_linear_kernel")
+        dev_ms, dev_n = device_ms(torch, call, ("gemm_kernel",
+                                                "int8_linear_kernel"))
         host = _host_us(torch, call) if m <= 4096 else None
         plain = timed(torch, lambda: fl._int8_linear_plain(
             a8, xs, w8, ws, b, gelu, od), 2)
@@ -1525,12 +1567,12 @@ FFN_SHAPES = {"ce_large": (N_Q * N_P * LJ, CE_H, CE_F),
 FFN_KERNELS = ("ffn_train_fwd", "ffn_bwd_dx", "ffn_bwd_dw", "ffn_fused_fwd")
 
 
-def _check_ffn_shape(torch, randn, label, m, h, f):
+def _check_ffn_shape(torch, randn, label, m, h, f, k12_only=False):
     """K9-K12 at one (M, H, F) against their plain versions on the same
     bf16 inputs, with their times, the bounds and the library yardstick
     (``F.linear`` -> ``F.gelu`` -> ``F.linear`` in bf16 and its autograd
-    backward; timed only). ``encode_chunk`` is K12's shape alone.
-    -> {kernel name: record}."""
+    backward; timed only). ``encode_chunk`` is K12's shape alone, and
+    ``k12_only`` stops after K12 at any shape. -> {kernel name: record}."""
     from simxns_tpu_torch.ops import fused_ffn as pf
 
     bf = torch.bfloat16
@@ -1577,12 +1619,17 @@ def _check_ffn_shape(torch, randn, label, m, h, f):
     y12 = pf.ffn_fused_fwd(x, w1, b1, w2, b2)
     err, share = close_bf16(y12, y_ref, "ffn_fused_fwd y")
     bms, by = bound(2 * (2 * m * h) + w_bytes, ops, PEAK_BF16)
+
+    def k12():
+        return pf.ffn_fused_fwd(x, w1, b1, w2, b2)
+
     out["ffn_fused_fwd"] = dict(
-        shape, ms=timed(torch, lambda: pf.ffn_fused_fwd(x, w1, b1, w2, b2),
-                        5), plain_ms=plain_fwd, library_ms=lib_fwd,
-        bound_ms=bms, bound_by=by, max_abs_err=err, share_differing=share)
+        shape, ms=timed(torch, k12, 5), plain_ms=plain_fwd,
+        library_ms=lib_fwd, bound_ms=bms, bound_by=by, max_abs_err=err,
+        share_differing=share, device_ms_by_kernel=device_split(torch, k12),
+        call_peak_gb=call_peak_gb(torch, k12))
     del y12
-    if label == "encode_chunk":
+    if label == "encode_chunk" or k12_only:
         return out
 
     y, hb = pf.ffn_train_fwd(x, w1, b1, w2, b2)
@@ -1966,10 +2013,18 @@ def _check_int8_ffn_shape(torch, randn, label, m):
     w2, b2 = randn(H, F, scale=0.02), randn(H, scale=0.02)
     (w1_8, s1), (w2_8, s2) = pf.quantize_weight(w1), pf.quantize_weight(w2)
     args = (x, w1_8, s1, b1, w2_8, s2, b2)
+    # K14's path bypasses K1 and K2: their counts must not move
+    before = (fl.int8_linear.launches, fl.row_quant.launches)
     got = pf.int8_ffn_fwd(*args)
+    check((fl.int8_linear.launches, fl.row_quant.launches) == before,
+          f"int8_ffn at {label} launched K1 or K2")
     want = pf._int8_ffn_plain(*args)
     err, differ = _int8_close(torch, got, want, f"int8_ffn at {label}")
+    check(torch.equal(got, want), f"int8_ffn at {label}: not bitwise equal "
+          f"to its plain version ({differ} elements differ)")
     ms = timed(torch, lambda: pf.int8_ffn_fwd(*args), 5)
+    split = device_split(torch, lambda: pf.int8_ffn_fwd(*args))
+    peak = call_peak_gb(torch, lambda: pf.int8_ffn_fwd(*args))
     plain = timed(torch, lambda: pf._int8_ffn_plain(*args), 1, warmup=0)
     xq, xs = pf.quant_rows(x)
     w1t, w2t = w1_8.t(), w2_8.t()
@@ -2000,7 +2055,8 @@ def _check_int8_ffn_shape(torch, randn, label, m):
                 library_ms=lib, library_bf16_ms=lib_bf16, bound_ms=bms,
                 bound_by=by, k2_k1_composition_ms=comp,
                 k2_k1_composition_elements_differing=comp_diff,
-                max_abs_err=err, elements_differing=differ)
+                max_abs_err=err, elements_differing=differ, bitwise=True,
+                device_ms_by_kernel=split, call_peak_gb=peak)
 
 
 def _check_int8_dense_shape(torch, randn, label, m, o):
@@ -2096,9 +2152,10 @@ def phase_int8_kernels(torch, smi, records):
                    elements_differing=sum(r["elements_differing"]
                                           for r in recs),
                    shapes=recs, library=library[name],
-                   tolerance="bitwise expected; allowed: a code of g one "
-                             "step off, every element within 2^-7 max|y| "
-                             "and at most 1e-3 of them different")
+                   tolerance="bitwise (torch.equal)" if name == "int8_ffn"
+                   else "bitwise expected; allowed: a code one step off, "
+                        "every element within 2^-7 max|y| and at most 1e-3 "
+                        "of them different")
         records[name] = rec
         emit("kernel", name=name, nvidia_smi=smi,
              **{k: v for k, v in rec.items() if k != "shapes"})
@@ -2281,7 +2338,7 @@ SOURCES = {
                    "simxns_tpu/ops/fused_ffn.py:348"),
     "ffn_bwd_dw": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
                    "simxns_tpu/ops/fused_ffn.py:374"),
-    "ffn_fused_fwd": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+    "ffn_fused_fwd": ("cuda", "simxns_tpu_torch/csrc/ffn_fwd.cu",
                       "simxns_tpu/ops/fused_ffn.py:77"),
     "int8_dense": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
                    "simxns_tpu/ops/fused_ffn.py:222"),

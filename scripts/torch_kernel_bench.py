@@ -16,7 +16,14 @@ one JSON line, with the card's name and power limit:
   rows x 16 heads x S=160 x d=64), SDPA's forward and backward, and K8's
   two launches on K6's inputs;
 - ``bh_attention``: K7 and K8 at the msdoc reranker step's shape (128 x 12
-  heads x S=512 x d=64).
+  heads x S=512 x d=64);
+- ``int8_ffn:chunk|request|ragged``: K14 at the encode chunk (131,072 x 768
+  x 3072), a request (256 rows) and 4,000 rows, bitwise against its plain
+  version, with the K2 -> K1 composition and the library chains beside;
+- ``ffn_fused:chunk|ce_large|queries``: K12 at the encode chunk, the
+  CE-large step's shape (20,480 x 1024 x 4096) and the DE's queries (256 x
+  768 x 3072), within one bf16 step of its plain version, with ``F.linear``
+  -> ``F.gelu`` -> ``F.linear`` beside.
 
 ``--repo`` imports ``simxns_tpu_torch`` from another checkout (the parent
 commit unpacked with ``git archive``, say) while the checks and timers stay
@@ -49,6 +56,17 @@ CASES = {
         lambda torch, cs, randn, gen: {
             "bh_attention": cs._check_bh_attention(
                 torch, randn, gen, 128, cs.MS_S, 64, 300, True)})),
+    **{f"int8_ffn:{label}": (["int8_ffn", "int8_linear"], (
+        lambda torch, cs, randn, gen, label=label, m=m: {
+            "int8_ffn": cs._check_int8_ffn_shape(torch, randn, label, m)}))
+       for label, m in (("chunk", 131072), ("request", 256),
+                        ("ragged", 4000))},
+    **{f"ffn_fused:{label}": (["fused_ffn", "ffn_fwd"], (
+        lambda torch, cs, randn, gen, shape=shape: cs._check_ffn_shape(
+            torch, randn, shape, *cs.FFN_SHAPES[shape], k12_only=True)))
+       for label, shape in (("chunk", "encode_chunk"),
+                            ("ce_large", "ce_large"),
+                            ("queries", "de_queries"))},
 }
 
 
@@ -74,7 +92,8 @@ def main():
 
     smi = cs.nvidia_smi()
     build_s = _native.build(sorted({lib for c in cases
-                                    for lib in CASES[c][0]}))
+                                    for lib in CASES[c][0]}
+                                   & set(_native.SOURCES)))
     dev = torch.device("cuda")
     for case in cases:
         gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,28 +1,27 @@
-// K9-K12: the BERT feed-forward block gelu(x W1^T + b1) W2^T + b2 and its
-// backward, in bf16 with f32 accumulation.
+// K9-K11: the training forward of the BERT feed-forward block
+// gelu(x W1^T + b1) W2^T + b2 and its backward, in bf16 with f32
+// accumulation.
 //
-// They replace the four Pallas kernels of simxns_tpu/ops/fused_ffn.py:
+// They replace three Pallas kernels of simxns_tpu/ops/fused_ffn.py:
 //   K9  ffn_train_fwd  _ffn_train_fwd_kernel (:324)  -> (y, hb)
 //   K10 ffn_bwd_dx     _ffn_bwd_dx_kernel    (:348)  -> (dx, dh)
 //   K11 ffn_bwd_dw     _ffn_bwd_dw_kernel    (:374)  -> (dW1, db1, dW2)
-//   K12 ffn_fused_fwd  _ffn_kernel           (:77)   -> y
+// (K12, the encode forward, is a pair of wgmma GEMMs in ffn_fwd.cu.)
 // with their arithmetic: each product accumulated in f32 and rounded to bf16
 // BEFORE the bf16 bias is added; GELU and its derivative in f32 from the
 // rounded pre-activation hb, with the Abramowitz-Stegun erf; g = gelu(hb)
 // and dh rounded to bf16 before their second product; dW1, db1, dW2 in f32.
 //
-// K9, K10 and K12 are one "chained" kernel: a first product over H into a
+// K9 and K10 are one "chained" kernel: a first product over H into a
 // [32, 128] tile, an elementwise pass, and a second product that adds the
 // tile's contribution to the block's [32, H] result:
-//   K9/K12: A = x,  first W1 [F, H], then W2 [H, F]     mid = gelu(. + b1)
-//   K10:    A = dY, first W2 [H, F], then W1 [F, H]     mid = . * gelu'(hb)
+//   K9:  A = x,  first W1 [F, H], then W2 [H, F]     mid = gelu(. + b1)
+//   K10: A = dY, first W2 [H, F], then W1 [F, H]     mid = . * gelu'(hb)
 // The forward contracts over the weights' columns and K10 over their rows:
 // K10's tiles land in shared memory as they lie in device memory and
 // ldmatrix...trans transposes the fragments, so no weight is transposed in
-// device memory either.
-// so the [M, F] intermediate of K12 never reaches device memory, K9 writes
-// it once (hb, the one residual of the backward) and K10 reads hb once and
-// writes dh once. The TPU kernels carry their [256, H] f32 sum in VMEM
+// device memory either. K9 writes the [M, F] intermediate once (hb, the
+// one residual of the backward), and K10 reads hb once and writes dh once. The TPU kernels carry their [256, H] f32 sum in VMEM
 // across sequential grid steps; here nothing carries between blocks, so one
 // block owns 32 rows, keeps them in shared memory, and holds their whole
 // [32, H] sum in registers (2 x H/64 x 4 floats a thread, 128 at H = 1024)
@@ -44,8 +43,9 @@
 // step's M = 20,480, H = 1024, F = 4096). This cut runs mma.sync m16n8k16
 // fed by cp.async, and at 32 rows a block it is limited by the weight
 // traffic from L2 (about 32 flop per byte) and by the shared-memory reads
-// of its fragments; wgmma, TMA and a 64-row block shared by a cluster are
-// later work.
+// of its fragments. K12's pair of wgmma GEMMs (ffn_fwd.cu) is the way out
+// for K9 too: its first GEMM's epilogue computes hb before the GELU, and a
+// second store of it would give K9's residual.
 #include "tile_gemm.cuh"
 
 SX_DEFINE_ERROR_STRING
@@ -54,7 +54,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-enum Mode { kTrainFwd = 0, kFwd = 1, kBwdDx = 2 };
+enum Mode { kTrainFwd = 0, kBwdDx = 2 };
 
 __device__ __forceinline__ float2 ld_bf162(const void* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
       }
     __syncthreads();
 
-    if (MODE != kFwd) {   // hb (K9) or dh (K10) to device memory, coalesced
+    {   // hb (K9) or dh (K10) to device memory, coalesced
       const uint8_t* src = MODE == kTrainFwd ? sRes : sMid;
       for (int c = threadIdx.x; c < C::BM * (C::BF / 8); c += sx::kThreads) {
         int r = c / (C::BF / 8), ch = c % (C::BF / 8);
@@ -363,9 +363,6 @@ cudaError_t dispatch_chain(int mode, const bf16* A, const bf16* B1,
     case kTrainFwd:
       return launch_chain<NT, kTrainFwd>(A, B1, bias1, B2, bias2, res_in, out,
                                          res_out, M, F, s);
-    case kFwd:
-      return launch_chain<NT, kFwd>(A, B1, bias1, B2, bias2, res_in, out,
-                                    res_out, M, F, s);
     case kBwdDx:
       return launch_chain<NT, kBwdDx>(A, B1, bias1, B2, bias2, res_in, out,
                                       res_out, M, F, s);
@@ -452,8 +449,8 @@ __global__ void __launch_bounds__(sx::kThreads, 2)
 
 }  // namespace
 
-// The chained kernel in `mode` 0 (K9: out = y, res_out = hb), 1 (K12: out =
-// y) or 2 (K10: out = dx, res_in = hb, res_out = dh, B1 = W2, B2 = W1); see
+// The chained kernel in `mode` 0 (K9: out = y, res_out = hb) or 2 (K10:
+// out = dx, res_in = hb, res_out = dh, B1 = W2, B2 = W1); see
 // ffn_chain_kernel. H in 256 (the small width of the card tests), 768 and
 // 1024 (the models' widths) and F % 128 == 0 (checked by the Python
 // wrapper; cudaErrorInvalidValue otherwise). Returns cudaGetLastError()

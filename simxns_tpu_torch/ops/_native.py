@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("int8_linear", "small_s_attention", "mips_candidates",
-           "group_attention", "bh_attention", "fused_ffn", "int8_ffn")
+           "group_attention", "bh_attention", "fused_ffn", "int8_ffn",
+           "ffn_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -143,3 +144,35 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# --- the tile of the persistent wgmma GEMM (csrc/wgmma_gemm.cuh) ------------
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def wgmma_tile(m: int, n: int, sms: int) -> Tuple[int, int]:
+    """(BM, BN) of an [m, n] output on ``sms`` SMs: 128 x 256 from two
+    waves of its tiles, else 64 x 128 where its tiles fill the SMs, else
+    64 x 64 (measured on K1, H100, ``scripts/torch_kernel_bench.py`` with
+    each tile forced: 128 x 256 beat 64 x 128 by 8-42% from 4.8 waves and
+    lost by 7-25% at 1.1-1.5; 64 x 128 beat 64 x 64 by 16-23% at 2,048
+    rows; 64 x 64 won at 256)."""
+    def tiles(bm, bn):
+        return -(-m // bm) * -(-n // bn)
+
+    if tiles(128, 256) >= 2 * sms:
+        return 128, 256
+    if tiles(64, 128) >= sms:
+        return 64, 128
+    return 64, 64

@@ -3,14 +3,19 @@
 Port of ``simxns_tpu/ops/fused_ffn.py``. Weights here are in ``nn.Linear``
 layout (``w1`` [F, H], ``w2`` [H, F]), so "per output channel" is per row.
 
-Four of its Pallas kernels are hand-written CUDA kernels
-(``csrc/fused_ffn.cu``), each with its plain PyTorch version beside its
-wrapper and a launch count in ``<wrapper>.launches``:
+Four of its Pallas kernels are hand-written CUDA kernels, each with its
+plain PyTorch version beside its wrapper and a launch count in
+``<wrapper>.launches`` (one a wrapper call, however many launches the call
+makes on the card):
 
 - K9 :func:`ffn_train_fwd` replaces ``_ffn_train_fwd_kernel`` (:324);
 - K10 :func:`ffn_bwd_dx` replaces ``_ffn_bwd_dx_kernel`` (:348);
 - K11 :func:`ffn_bwd_dw` replaces ``_ffn_bwd_dw_kernel`` (:374);
 - K12 :func:`ffn_fused_fwd` replaces ``_ffn_kernel`` (:77).
+
+K9-K11 are in ``csrc/fused_ffn.cu``; K12 is two launches of the
+persistent wgmma GEMM (``csrc/ffn_fwd.cu`` on ``csrc/wgmma_gemm.cuh``) with
+its [M, F] intermediate ``g`` in device memory.
 
 Their arithmetic is the TPU kernels': f32 accumulation, each product
 rounded to the activation dtype before the bias is added in that dtype,
@@ -33,7 +38,10 @@ every M launches them, and a width they do not take raises.
 The int8 encode kernels (``csrc/int8_ffn.cu``) replace the other two:
 
 - K13 :func:`int8_dense_fwd` replaces ``_dense_int8_kernel`` (:222);
-- K14 :func:`int8_ffn_fwd` replaces ``_ffn_int8_kernel`` (:160).
+- K14 :func:`int8_ffn_fwd` replaces ``_ffn_int8_kernel`` (:160): four
+  launches (the codes of x, a wgmma GEMM to ``g`` in f32 with its per-tile
+  row maxima, the codes of g, a second wgmma GEMM;
+  :func:`int8_ffn_workspace`).
 
 Their arithmetic is the TPU kernels': per-row int8 of the activations and
 per-output-channel int8 of the weights (:func:`quant_rows`), exact int32
@@ -61,7 +69,7 @@ _F_BLOCK = 768                # :311
 _KERNEL_H = (256, 768, 1024)  # csrc/fused_ffn.cu: the widths the chained
                               # kernel is built for (the [32, H] f32 sum of
                               # a block lives in its registers)
-_TRAIN_FWD, _FWD, _BWD_DX = 0, 1, 2   # csrc/fused_ffn.cu Mode
+_TRAIN_FWD, _BWD_DX = 0, 2   # csrc/fused_ffn.cu Mode
 _CHAIN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _TILE_INT8_FFN_M = 256        # int8_ffn's tile_m (:177)
@@ -69,7 +77,8 @@ _TILE_INT8_DENSE_M = 512      # int8_dense's tile_m (:231)
 _INT8_DENSE_K = (128, 1024)   # csrc/int8_ffn.cu: a block's rows of x are
                               # quantized in registers, one warp a row
 _DENSE8_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_FFN8_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FFN8_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FFN_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def erf_as(z: torch.Tensor) -> torch.Tensor:
@@ -102,12 +111,22 @@ def quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     even, a true division) clipped to +-127.
     """
     xf = x.float()
-    amax = xf.abs().amax(dim=-1)
-    # a tensor divisor: PyTorch's CUDA division by a Python scalar
-    # multiplies by its reciprocal, which is not the rounded quotient
-    s = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
-    q = torch.clamp(torch.round(xf / s.unsqueeze(-1)), -127, 127)
-    return q.to(torch.int8), s
+    s = _row_scale(xf.abs().amax(dim=-1))
+    return _codes(xf, s), s
+
+
+def _row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax / 127, 1e-12)``, the quotient correctly rounded: a tensor
+    divisor, because PyTorch's CUDA division by a Python scalar multiplies
+    by its reciprocal, which is not the rounded quotient."""
+    return torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
+
+
+def _codes(xf: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 ``round(xf / s)`` (half to even, a true division) clipped to
+    +-127, with one scale a row."""
+    return torch.clamp(torch.round(xf / s.unsqueeze(-1)), -127,
+                       127).to(torch.int8)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,8 +259,7 @@ def _chain(what, mode, a, b1m, bias1, b2m, bias2, res_in, dims):
         _native.check_tensor(bias1, bf, (f,), f"{what}: b1")
         _native.check_tensor(bias2, bf, (h,), f"{what}: b2")
     out = torch.empty(m, h, dtype=bf, device=a.device)
-    res_out = (None if mode == _FWD
-               else torch.empty(m, f, dtype=bf, device=a.device))
+    res_out = torch.empty(m, f, dtype=bf, device=a.device)
     fn = _native.function("fused_ffn", "sx_ffn_chain", _CHAIN_ARGS)
     code = fn(_ptr(a), _ptr(b1m), _ptr(bias1), _ptr(b2m), _ptr(bias2),
               _ptr(res_in), _ptr(out), _ptr(res_out), m, h, f, mode,
@@ -270,12 +288,26 @@ ffn_train_fwd.launches = 0
 
 def ffn_fused_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """K12: the forward of :func:`ffn_train_fwd` without ``hb``: the [M, F]
-    intermediate never reaches device memory."""
+    """K12: the forward of :func:`ffn_train_fwd` without ``hb``. On the
+    card two wgmma GEMMs: ``g = dt(gelu(f32(hb)))`` [M, F] goes through
+    device memory between them (a workspace of this call)."""
     if not x.is_cuda:
         return _ffn_train_fwd_plain(x, w1, b1, w2, b2)[0]
-    dims = _kernel_dims("ffn_fused_fwd", x, w1.shape[0])
-    y, _ = _chain("ffn_fused_fwd", _FWD, x, w1, b1, w2, b2, None, dims)
+    m, h, f = _kernel_dims("ffn_fused_fwd", x, w1.shape[0])
+    bf = torch.bfloat16
+    _native.check_tensor(x, bf, (m, h), "ffn_fused_fwd: activations")
+    _native.check_tensor(w1, bf, (f, h), "ffn_fused_fwd: w1")
+    _native.check_tensor(b1, bf, (f,), "ffn_fused_fwd: b1")
+    _native.check_tensor(w2, bf, (h, f), "ffn_fused_fwd: w2")
+    _native.check_tensor(b2, bf, (h,), "ffn_fused_fwd: b2")
+    g = torch.empty(m, f, dtype=bf, device=x.device)
+    y = torch.empty(m, h, dtype=bf, device=x.device)
+    sms = _native.sm_count(x.device)
+    fn = _native.function("ffn_fwd", "sx_ffn_fwd", _FFN_FWD_ARGS)
+    code = fn(_ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(g),
+              _ptr(y), m, h, f, *_native.wgmma_tile(m, f, sms),
+              *_native.wgmma_tile(m, h, sms), _native.stream(x.device))
+    _native.check("ffn_fwd", code, "ffn_fused_fwd")
     ffn_fused_fwd.launches += 1
     return y
 
@@ -433,11 +465,45 @@ def _int8_dense_plain(x, w8, ws, b):
     return (int8_matmul(xq, w8).float() * xs[:, None] * ws + b).to(x.dtype)
 
 
+def int8_ffn_workspace(m: int, h: int, f: int, sms: int) -> dict:
+    """K14's tiles and device-memory workspaces for x [m, h] and F = f on
+    ``sms`` SMs: ``{"tiles": ((bm1, bn1), (bm2, bn2)), name: (shape,
+    dtype)}``. The codes of x and their scales ``xs`` feed the first GEMM
+    ([m, f]), which writes ``g`` and ``parts``, each row's max |g| over
+    each of its bn1-column tiles; a pass over g reduces ``parts`` to
+    ``gs`` (:func:`_scales_from_parts`) and writes ``gcodes``, which the
+    second GEMM ([m, h]) reads."""
+    tile1, tile2 = _native.wgmma_tile(m, f, sms), _native.wgmma_tile(m, h, sms)
+    return {"tiles": (tile1, tile2),
+            "codes": ((m, h), torch.int8), "xs": ((m,), torch.float32),
+            "g": ((m, f), torch.float32),
+            "parts": ((m, -(-f // tile1[1])), torch.float32),
+            "gcodes": ((m, f), torch.int8), "gs": ((m,), torch.float32)}
+
+
+def _row_max_parts(g: torch.Tensor, bn: int) -> torch.Tensor:
+    """[M, F] -> [M, ceil(F / bn)]: each row's max |g| over each bn-column
+    tile (K14's first GEMM writes these beside g)."""
+    a = g.abs()
+    return torch.stack([a[:, c:c + bn].amax(dim=1)
+                        for c in range(0, g.shape[1], bn)], dim=1)
+
+
+def _scales_from_parts(parts: torch.Tensor) -> torch.Tensor:
+    """Per-tile row maxima -> the rows' int8 scales, as :func:`quant_rows`
+    gives them from the whole row (a max is exact in any order)."""
+    return _row_scale(parts.amax(dim=1))
+
+
 def _int8_ffn_plain(x, w1_8, s1, b1, w2_8, s2, b2):
+    """K14's stages in PyTorch: the codes of x, h and g, the per-tile row
+    maxima of g (256 columns a tile; any width gives the same gs), gs from
+    them, the codes of g and the second product."""
     xq, xs = quant_rows(x)
     h = int8_matmul(xq, w1_8).float() * xs[:, None] * s1 + b1
-    gq, gs = quant_rows(gelu_exact(h))
-    y = int8_matmul(gq, w2_8).float() * gs[:, None] * s2 + b2
+    g = gelu_exact(h)
+    gs = _scales_from_parts(_row_max_parts(g, 256))
+    y = int8_matmul(_codes(g, gs), w2_8).float() * gs[:, None] * s2 + b2
     return y.to(x.dtype)
 
 
@@ -488,8 +554,9 @@ def int8_ffn_fwd(x: torch.Tensor, w1_8: torch.Tensor, s1: torch.Tensor,
     scales s1 [F], s2 [H]; b1 [F], b2 [H] f32. -> y [M, H] in x's dtype:
     ``h = (acc1 * xs) * s1 + b1``, ``g = gelu(h)`` (A&S erf, f32),
     ``(gq, gs) = quant_rows(g)`` over all of F, ``y = (acc2 * gs) * s2 +
-    b2``; the [M, F] intermediate never reaches device memory. On the card:
-    bf16 x, H in 256, 768, 1024, F a multiple of 128."""
+    b2``. On the card: bf16 x, H in 256, 768, 1024, F a multiple of 128;
+    four launches, with ``g`` in f32, its per-tile row maxima and its codes
+    in device memory between them (:func:`int8_ffn_workspace`)."""
     if not x.is_cuda:
         return _int8_ffn_plain(x, w1_8, s1, b1, w2_8, s2, b2)
     m, h, f = _kernel_dims("int8_ffn_fwd", x, w1_8.shape[0])
@@ -499,9 +566,16 @@ def int8_ffn_fwd(x: torch.Tensor, w1_8: torch.Tensor, s1: torch.Tensor,
     _check_scales("int8_ffn_fwd", (("s1", s1, f), ("b1", b1, f),
                                    ("s2", s2, h), ("b2", b2, h)))
     out = torch.empty(m, h, dtype=torch.bfloat16, device=x.device)
+    ws = int8_ffn_workspace(m, h, f, _native.sm_count(x.device))
+    (bm1, bn1), (bm2, bn2) = ws.pop("tiles")
+    buf = {name: torch.empty(shape, dtype=dt, device=x.device)
+           for name, (shape, dt) in ws.items()}
     fn = _native.function("int8_ffn", "sx_int8_ffn", _FFN8_ARGS)
     code = fn(_ptr(x), _ptr(w1_8), _ptr(s1), _ptr(b1), _ptr(w2_8), _ptr(s2),
-              _ptr(b2), _ptr(out), m, h, f, _native.stream(x.device))
+              _ptr(b2), _ptr(out), _ptr(buf["codes"]), _ptr(buf["xs"]),
+              _ptr(buf["g"]), _ptr(buf["parts"]), _ptr(buf["gcodes"]),
+              _ptr(buf["gs"]), m, h, f, bm1, bn1, bm2, bn2,
+              _native.stream(x.device))
     _native.check("int8_ffn", code, "int8_ffn_fwd")
     int8_ffn_fwd.launches += 1
     return out

@@ -9,7 +9,8 @@ three hand-written kernels:
 
 - K1 :func:`int8_linear` (CUDA, ``csrc/int8_linear.cu``): int8 GEMM with a
   fused dequantize / bias / optional GELU epilogue — the six projections.
-  A Hopper GEMM (``csrc/wgmma_ring.cuh``): TMA copies into a 4-stage ring
+  The Hopper GEMM of ``csrc/wgmma_gemm.cuh`` (on ``csrc/wgmma_ring.cuh``;
+  K12 and K14 run on it too): TMA copies into a 4-stage ring
   of shared-memory tiles, one producer thread, two consumer warpgroups on
   the int8 warpgroup MMA (128 x 256 tiles, a persistent grid), and result
   tiles staged through shared memory into 16-byte stores; 64-row tiles
@@ -45,7 +46,7 @@ from simxns_tpu_torch.ops.fused_ffn import (gelu_exact, int8_matmul,
 
 # --- K1: int8_linear ---------------------------------------------------------
 
-_LINEAR_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LINEAR_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _int8_linear_plain(a8, xs, w8, ws, b, gelu, out_dtype):
@@ -78,10 +79,11 @@ def int8_linear(a8: torch.Tensor, xs: torch.Tensor, w8: torch.Tensor,
     out = torch.empty(m, n, dtype=out_dtype, device=a8.device)
     if m == 0:
         return out
+    bm, bn = _native.wgmma_tile(m, n, _native.sm_count(a8.device))
     fn = _native.function("int8_linear", "sx_int8_linear", _LINEAR_ARGS)
     code = fn(_native.ptr(a8), _native.ptr(w8), _native.ptr(xs),
               _native.ptr(ws), _native.ptr(b), _native.ptr(out), m, n, k,
-              int(gelu), int(out_dtype == torch.bfloat16),
+              int(gelu), int(out_dtype == torch.bfloat16), bm, bn,
               _native.stream(a8.device))
     _native.check("int8_linear", code, "int8_linear")
     int8_linear.launches += 1

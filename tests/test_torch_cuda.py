@@ -11,8 +11,10 @@ GEMM, bitwise at its tile edges in both epilogues; K5/K6, the grouped
 attention pair, and K7/K8, the per-(batch, head) pair, at every S class
 they take and at their tile edges, with a fully
 masked batch row; two backward calls bitwise equal; K9-K12, the fused FFN
-kernels, at tiling and ragged shapes and under autograd; K13/K14, the int8 encode kernels, bitwise
-against their plain versions at tiling and ragged shapes, in a model,
+kernels, at tiling and ragged shapes and under autograd, K12 at every
+branch of its GEMMs' tile rule; K13/K14, the int8 encode kernels, bitwise
+against their plain versions at tiling and ragged shapes (K14 at every
+branch of its tile rule, without a launch of K1 or K2), in a model,
 and the JAX dispatch where the shapes do not tile); what a kernel does
 not take raises instead of running a plain version on the card.
 """
@@ -163,18 +165,6 @@ def _int8_weights(dev, o, i, seed):
     return w, b, (*fused_ffn.quantize_weight(w), b)
 
 
-def _same_or_one_code(got, want, what):
-    """K13/K14 repeat their plain versions' f32 operations in order, so
-    the outputs are expected bitwise. Allowed: a code of g one step off
-    (an ulp of GELU's exp across a rounding) moves its row's outputs by
-    at most gs * 127 * s2 = max|g| max|w2| / 127, below one bf16 step of
-    the largest |y|, on at most 1e-3 of the elements."""
-    diff = (got.float() - want.float()).abs()
-    tol = 2.0 ** -7 * float(want.float().abs().max())
-    assert float(diff.max()) <= tol, (what, float(diff.max()), tol)
-    assert float((diff > 0).float().mean()) <= 1e-3, what
-
-
 @pytest.mark.parametrize("m,i,o", [(256, 768, 2304), (37, 256, 384),
                                    (1, 1024, 128), (600, 768, 768),
                                    (4000, 128, 256)])
@@ -192,11 +182,24 @@ def test_int8_dense_matches_plain(dev, m, i, o):
     assert fused_ffn.int8_dense_fwd.launches == before + 1
 
 
-@pytest.mark.parametrize("m,h,f", [(64, 256, 256), (37, 768, 512),
-                                   (256, 768, 3072), (33, 1024, 384),
-                                   (1, 256, 128)])
+# (M, H, F) for K12 and K14, two GEMMs each ([M, F], then [M, H]); their
+# tiles on 132 SMs (ops/_native.py:wgmma_tile): 64 x 64 for both up to
+# M = 256; 4,000 x 3072 and 4,097 x 4096 take 128 x 256 for the first GEMM
+# and 64 x 128 for the second; 12,000 x 768 takes 128 x 256 for both. M = 1,
+# 37, 65 and 129 (one row past a 64- and a 128-row tile), 4,000 and 4,097
+# leave ragged row tiles; F = 384 is off the 256 grid (a ragged 256-column
+# tile of the first GEMM).
+FFN_TILE_CASES = [(1, 256, 128), (33, 1024, 384), (37, 768, 512),
+                  (64, 256, 256),
+                  (65, 1024, 384), (129, 256, 384), (256, 768, 3072),
+                  (4000, 768, 3072), (4097, 1024, 4096), (12000, 768, 3072)]
+
+
+@pytest.mark.parametrize("m,h,f", FFN_TILE_CASES)
 def test_int8_ffn_matches_plain(dev, m, h, f):
-    """K14 against its plain version at tiling and ragged M; one launch."""
+    """K14 bitwise against its plain version (the same codes, exact integer
+    sums, the same f32 operations in the same order) at every branch of
+    the tile rule and at ragged M; one launch count a call."""
     x = _randn(dev, m, h, seed=m + h).to(torch.bfloat16)
     _, _, (w1_8, s1, b1) = _int8_weights(dev, f, h, seed=1)
     _, _, (w2_8, s2, b2) = _int8_weights(dev, h, f, seed=3)
@@ -206,8 +209,37 @@ def test_int8_ffn_matches_plain(dev, m, h, f):
     want = fused_ffn._int8_ffn_plain(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (m, h)
-    _same_or_one_code(got, want, (m, h, f))
+    assert torch.equal(got, want), int((got != want).sum())
     assert fused_ffn.int8_ffn_fwd.launches == before + 1
+
+
+def test_int8_ffn_bypasses_k1_and_k2(dev):
+    """K14 runs its own launches: the int8 encode path moves neither K1's
+    nor K2's launch count."""
+    x = _randn(dev, 300, 768, seed=2).to(torch.bfloat16)
+    _, _, (w1_8, s1, b1) = _int8_weights(dev, 3072, 768, seed=1)
+    _, _, (w2_8, s2, b2) = _int8_weights(dev, 768, 3072, seed=3)
+    before = (fl.int8_linear.launches, fl.row_quant.launches,
+              fused_ffn.int8_ffn_fwd.launches)
+    fused_ffn.int8_ffn_fwd(x, w1_8, s1, b1, w2_8, s2, b2)
+    torch.cuda.synchronize()
+    assert (fl.int8_linear.launches, fl.row_quant.launches,
+            fused_ffn.int8_ffn_fwd.launches) == (*before[:2], before[2] + 1)
+
+
+@pytest.mark.parametrize("m,h,f", FFN_TILE_CASES)
+def test_ffn_fused_fwd_matches_plain(dev, m, h, f):
+    """K12's two GEMMs against its plain version at every branch of the
+    tile rule and at ragged M: within one bf16 step of the largest value
+    (the f32 sums run in another order); one launch count a call."""
+    x, w1, b1, w2, b2, _ = _ffn_inputs(dev, m, h, f, seed=m + h)
+    before = fused_ffn.ffn_fused_fwd.launches
+    got = fused_ffn.ffn_fused_fwd(x, w1, b1, w2, b2)
+    want = fused_ffn._ffn_train_fwd_plain(x, w1, b1, w2, b2)[0]
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, h)
+    _close_bf16(got, want, (m, h, f))
+    assert fused_ffn.ffn_fused_fwd.launches == before + 1
 
 
 def test_int8_knobs_dispatch_and_refuse(dev):
@@ -229,9 +261,9 @@ def test_int8_knobs_dispatch_and_refuse(dev):
     assert [getattr(fused_ffn, n).launches for n in names] == before
     # the same public calls at tiling shapes launch their kernels
     y = fused_ffn.int8_ffn(x64.view(2, 32, 256), w1, b1, w2, b2)
-    _same_or_one_code(y.view(64, 256), fused_ffn._int8_ffn_plain(
+    assert torch.equal(y.view(64, 256), fused_ffn._int8_ffn_plain(
         x64, *fused_ffn.quantize_weight(w1), b1,
-        *fused_ffn.quantize_weight(w2), b2), "int8_ffn")
+        *fused_ffn.quantize_weight(w2), b2))
     w, b, q = _int8_weights(dev, 384, 256, seed=7)
     assert torch.equal(fused_ffn.int8_dense(x64, w, b),
                        fused_ffn._int8_dense_plain(x64, *q))

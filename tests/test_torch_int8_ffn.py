@@ -212,3 +212,58 @@ def test_int8_knobs_refuse_autograd(knob):
         enc(ids)
     with torch.no_grad():
         assert enc(ids).pooled.shape == (2, 128)
+
+
+# (m, n, sms, tile): the wgmma GEMM's tile rule (K1, K12, K14) on 132 SMs
+# (an H100) at the shapes the card tests and the encode path give it, and
+# on 114 (an H100 PCIe): 128 x 256 from two waves of its tiles, 64 x 128
+# where its tiles fill the SMs, else 64 x 64
+TILE_CASES = [(4097, 3072, 132, (128, 256)), (8500, 1000, 132, (128, 256)),
+              (131072, 768, 132, (128, 256)), (12000, 768, 132, (128, 256)),
+              (4097, 768, 132, (64, 128)), (8191, 1000, 132, (64, 128)),
+              (4000, 768, 132, (64, 128)), (2048, 3072, 132, (64, 128)),
+              (256, 3072, 132, (64, 64)), (1, 96, 132, (64, 64)),
+              (8500, 1000, 114, (128, 256)), (2048, 768, 114, (64, 128)),
+              (1024, 768, 114, (64, 64))]
+
+
+@pytest.mark.parametrize("m,n,sms,tile", TILE_CASES)
+def test_wgmma_tile_rule(m, n, sms, tile):
+    from simxns_tpu_torch.ops import _native
+
+    assert _native.wgmma_tile(m, n, sms) == tile
+
+
+@pytest.mark.parametrize("m,h,f,tiles,parts", [
+    (131072, 768, 3072, ((128, 256), (128, 256)), 12),
+    (4000, 768, 3072, ((128, 256), (64, 128)), 12),
+    (256, 768, 3072, ((64, 64), (64, 64)), 48),
+    (65, 1024, 384, ((64, 64), (64, 64)), 6),
+    (9000, 1024, 384, ((64, 128), (128, 256)), 3),
+    (17000, 1024, 384, ((128, 256), (128, 256)), 2)])
+def test_int8_ffn_workspace(m, h, f, tiles, parts):
+    """K14's tiles and workspaces on 132 SMs: the codes of x, their
+    scales, g in f32, one max |g| per row and column tile of the first
+    GEMM (a ragged last tile counts: F = 384 over 256 columns is 2), and
+    the codes of g with their scales."""
+    ws = pf.int8_ffn_workspace(m, h, f, 132)
+    assert ws == {"tiles": tiles, "codes": ((m, h), torch.int8),
+                  "xs": ((m,), torch.float32), "g": ((m, f), torch.float32),
+                  "parts": ((m, parts), torch.float32),
+                  "gcodes": ((m, f), torch.int8),
+                  "gs": ((m,), torch.float32)}
+
+
+@pytest.mark.parametrize("f", [128, 384, 3072])
+@pytest.mark.parametrize("bn", [64, 128, 256])
+def test_partial_maxima_give_quant_rows_scales(f, bn):
+    """K14's quantizer of g reduces the first GEMM's per-tile row maxima of
+    |g| to gs: for every tile width of the first GEMM the same bits as
+    ``quant_rows`` over the whole row (with a zero row, whose scale is the
+    1e-12 floor)."""
+    rng = np.random.default_rng(f + bn)
+    g = torch.from_numpy(rng.standard_normal((9, f), dtype=np.float32))
+    g[3] = 0.0
+    parts = pf._row_max_parts(g, bn)
+    assert parts.shape == (9, -(-f // bn))
+    assert torch.equal(pf._scales_from_parts(parts), pf.quant_rows(g)[1])
