@@ -76,7 +76,8 @@ non-zero and prints no result):
    DE's passages (16,384 x 768 x 3072) and queries (M=256), an msdoc step
    (M=65,536) and, for K12, an encode chunk (M=131,072), with ``F.linear``
    -> ``F.gelu`` -> ``F.linear`` in bf16 and its autograd backward as the
-   yardstick;
+   yardstick; K9 and K12 with their device time by launch (two GEMMs a
+   call; K9's first also stores hb) and the memory a call allocates;
 9. training under ``ffn_impl="fused_vjp"``: phase 5's models and batches
    with the knob set on the DE and the CE. The first reranker step's
    gradients on K9-K11 against the same step on their plain versions, and
@@ -93,11 +94,11 @@ non-zero and prints no result):
 11. the int8 encode kernels: K14 ``int8_ffn`` at an encode chunk
    (131,072 x 768 x 3072), a request (256 rows) and a ragged M (4,000),
    bitwise against its plain version and without a launch of K1 or K2,
-   K13 ``int8_dense`` at the chunk's q, k, v (O = 2304) and output
-   projection (O = 768) and a request's q, k, v against its plain
-   version (bitwise expected); K14 (and K12 in phase 8) with its device
-   time by launch (a call makes three; K12's two) and the memory a call
-   allocates; with the library's ``torch._int_mm`` chains
+   K13 ``int8_dense`` at the chunk's and a request's q, k, v (O = 2304)
+   and output projection (O = 768), bitwise against its plain version;
+   K13 and K14 with their device time by launch (a call makes two and
+   four) and the memory a call allocates; with the library's
+   ``torch._int_mm`` chains
    and K14's bf16 ``F.linear`` chain as yardsticks and the port's K2 -> K1
    composition of the same function timed beside; then the public
    ``int8_ffn`` at 40 rows (no tile): ``ffn_reference``, no launch;
@@ -1636,11 +1637,16 @@ def _check_ffn_shape(torch, randn, label, m, h, f, k12_only=False):
     err_h, share_h = close_bf16(hb, hb_ref, "ffn_train_fwd hb")
     err, share = close_bf16(y, y_ref, "ffn_train_fwd y")
     bms, by = bound(2 * (2 * m * h + m * f) + w_bytes, ops, PEAK_BF16)
+
+    def k9():
+        return pf.ffn_train_fwd(x, w1, b1, w2, b2)
+
     out["ffn_train_fwd"] = dict(
-        shape, ms=timed(torch, lambda: pf.ffn_train_fwd(x, w1, b1, w2, b2),
-                        5), plain_ms=plain_fwd, library_ms=lib_fwd,
-        bound_ms=bms, bound_by=by, max_abs_err=max(err, err_h),
-        share_differing=max(share, share_h))
+        shape, ms=timed(torch, k9, 5), plain_ms=plain_fwd,
+        library_ms=lib_fwd, bound_ms=bms, bound_by=by,
+        max_abs_err=max(err, err_h), share_differing=max(share, share_h),
+        device_ms_by_kernel=device_split(torch, k9),
+        call_peak_gb=call_peak_gb(torch, k9))
     del y, y_ref, hb_ref
 
     # the backward kernels and their plain versions read K9's hb, and K11
@@ -1980,20 +1986,15 @@ def phase_ffn_encode(torch, smi, records):
         rec["launches"] = sum(rec["launches_by_path"].values())
 
 
-def _int8_close(torch, got, want, what):
+def _int8_exact(torch, got, want, what):
     """K13/K14 against their plain versions: the same codes, integer sums
-    and f32 operations in the same order, so bitwise is expected. The rule
-    allows a code of g one step off (an ulp of GELU's exp across a
-    rounding), which moves its row's outputs by at most gs * 127 * s2 =
-    max|g| max|w2| / 127, below one bf16 step of the largest |y|: every
-    element within 2^-7 max|y|, at most 1e-3 of them different.
+    and f32 operations in the same order, so bitwise (``torch.equal``).
     -> (max_abs_err, elements that differ)."""
     d = (got.float() - want.float()).abs()
     err, differ = float(d.max()), int((d > 0).sum())
-    tol = 2.0 ** -7 * float(want.float().abs().max())
-    check(err <= tol and differ <= 1e-3 * d.numel(),
-          f"{what}: max err {err} (tolerance {tol}), {differ} of "
-          f"{d.numel()} elements differ")
+    check(torch.equal(got, want), f"{what}: not bitwise equal to its plain "
+          f"version ({differ} of {d.numel()} elements differ, max err "
+          f"{err})")
     return err, differ
 
 
@@ -2019,9 +2020,7 @@ def _check_int8_ffn_shape(torch, randn, label, m):
     check((fl.int8_linear.launches, fl.row_quant.launches) == before,
           f"int8_ffn at {label} launched K1 or K2")
     want = pf._int8_ffn_plain(*args)
-    err, differ = _int8_close(torch, got, want, f"int8_ffn at {label}")
-    check(torch.equal(got, want), f"int8_ffn at {label}: not bitwise equal "
-          f"to its plain version ({differ} elements differ)")
+    err, differ = _int8_exact(torch, got, want, f"int8_ffn at {label}")
     ms = timed(torch, lambda: pf.int8_ffn_fwd(*args), 5)
     split = device_split(torch, lambda: pf.int8_ffn_fwd(*args))
     peak = call_peak_gb(torch, lambda: pf.int8_ffn_fwd(*args))
@@ -2060,10 +2059,12 @@ def _check_int8_ffn_shape(torch, randn, label, m):
 
 
 def _check_int8_dense_shape(torch, randn, label, m, o):
-    """K13 at (m, H, o) against its plain version, with its time, the plain
-    version's, the bound, ``_int_mm`` on codes of x made beforehand plus
-    the dequantize epilogue in PyTorch (the library yardstick, as K1's),
-    and the port's K2 -> K1 composition of the same function."""
+    """K13 at (m, H, o) bitwise against its plain version, with its time,
+    its device time by launch (the codes of x, the GEMM), the memory a
+    call allocates, the plain version's time, the bound, ``_int_mm`` on
+    codes of x made beforehand plus the dequantize epilogue in PyTorch
+    (the library yardstick, as K1's), and the port's K2 -> K1 composition
+    of the same function."""
     from simxns_tpu_torch.ops import fused_ffn as pf
     from simxns_tpu_torch.ops import fused_layer as fl
 
@@ -2073,8 +2074,14 @@ def _check_int8_dense_shape(torch, randn, label, m, o):
     w8, ws = pf.quantize_weight(w)
     got = pf.int8_dense_fwd(x, w8, ws, b)
     want = pf._int8_dense_plain(x, w8, ws, b)
-    err, differ = _int8_close(torch, got, want, f"int8_dense at {label}")
-    ms = timed(torch, lambda: pf.int8_dense_fwd(x, w8, ws, b), 10)
+    err, differ = _int8_exact(torch, got, want, f"int8_dense at {label}")
+
+    def k13():
+        return pf.int8_dense_fwd(x, w8, ws, b)
+
+    ms = timed(torch, k13, 10)
+    split = device_split(torch, k13)
+    peak = call_peak_gb(torch, k13)
     plain = timed(torch, lambda: pf._int8_dense_plain(x, w8, ws, b), 2)
     xq, xs = pf.quant_rows(x)
     wt = w8.t()
@@ -2093,14 +2100,15 @@ def _check_int8_dense_shape(torch, randn, label, m, o):
                 library_ms=lib, bound_ms=bms, bound_by=by,
                 k2_k1_composition_ms=comp,
                 k2_k1_composition_elements_differing=comp_diff,
-                max_abs_err=err, elements_differing=differ)
+                max_abs_err=err, elements_differing=differ, bitwise=True,
+                device_ms_by_kernel=split, call_peak_gb=peak)
 
 
 def phase_int8_kernels(torch, smi, records):
     """Phase 11: K14 ``int8_ffn`` at an encode chunk (131,072 rows), a
     request (256) and a ragged M (4,000), K13 ``int8_dense`` at the chunk's
-    q, k, v (O = 2304) and output projection (O = 768) and a request's
-    q, k, v; then the public ``int8_ffn`` at a shape that does not tile,
+    and a request's q, k, v (O = 2304) and output projection (O = 768);
+    then the public ``int8_ffn`` at a shape that does not tile,
     which is ``ffn_reference`` and launches nothing. The records are the
     chunk's (K13: its q, k, v)."""
     from simxns_tpu_torch.ops import fused_ffn as pf
@@ -2122,7 +2130,8 @@ def phase_int8_kernels(torch, smi, records):
         torch.cuda.empty_cache()
     for label, m, o in (("encode_chunk_qkv", 131072, 3 * H),
                         ("encode_chunk_output", 131072, H),
-                        ("request_qkv", 256, 3 * H)):
+                        ("request_qkv", 256, 3 * H),
+                        ("request_output", 256, H)):
         shapes["int8_dense"].append(_check_int8_dense_shape(
             torch, randn, label, m, o))
         emit("kernel_shape", name="int8_dense", nvidia_smi=smi,
@@ -2152,10 +2161,7 @@ def phase_int8_kernels(torch, smi, records):
                    elements_differing=sum(r["elements_differing"]
                                           for r in recs),
                    shapes=recs, library=library[name],
-                   tolerance="bitwise (torch.equal)" if name == "int8_ffn"
-                   else "bitwise expected; allowed: a code one step off, "
-                        "every element within 2^-7 max|y| and at most 1e-3 "
-                        "of them different")
+                   tolerance="bitwise (torch.equal)")
         records[name] = rec
         emit("kernel", name=name, nvidia_smi=smi,
              **{k: v for k, v in rec.items() if k != "shapes"})
@@ -2332,7 +2338,7 @@ SOURCES = {
                          "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
                          "simxns_tpu/ops/flash_attention.py:80"),
-    "ffn_train_fwd": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
+    "ffn_train_fwd": ("cuda", "simxns_tpu_torch/csrc/ffn_fwd.cu",
                       "simxns_tpu/ops/fused_ffn.py:324"),
     "ffn_bwd_dx": ("cuda", "simxns_tpu_torch/csrc/fused_ffn.cu",
                    "simxns_tpu/ops/fused_ffn.py:348"),

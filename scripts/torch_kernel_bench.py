@@ -23,7 +23,15 @@ one JSON line, with the card's name and power limit:
 - ``ffn_fused:chunk|ce_large|queries``: K12 at the encode chunk, the
   CE-large step's shape (20,480 x 1024 x 4096) and the DE's queries (256 x
   768 x 3072), within one bf16 step of its plain version, with ``F.linear``
-  -> ``F.gelu`` -> ``F.linear`` beside.
+  -> ``F.gelu`` -> ``F.linear`` beside;
+- ``int8_dense:chunk_qkv|chunk_output|request_qkv|request_output``: K13 at
+  the encode chunk's (131,072 tokens) and a request's (256) q, k, v (768 ->
+  2304) and output projection (768 -> 768), bitwise against its plain
+  version, with ``_int_mm`` + epilogue and the K2 -> K1 composition beside;
+- ``ffn_train:ce_large|de_passages|msdoc|queries``: K9-K12 at the CE-large
+  step, the DE's passages (16,384 x 768 x 3072), an msdoc step (65,536
+  rows) and the DE's queries, against their plain versions (K10 and K11 on
+  K9's hb), with the ``F.linear`` chain and its autograd backward beside.
 
 ``--repo`` imports ``simxns_tpu_torch`` from another checkout (the parent
 commit unpacked with ``git archive``, say) while the checks and timers stay
@@ -67,6 +75,20 @@ CASES = {
        for label, shape in (("chunk", "encode_chunk"),
                             ("ce_large", "ce_large"),
                             ("queries", "de_queries"))},
+    **{f"int8_dense:{label}": (["int8_ffn", "int8_linear"], (
+        lambda torch, cs, randn, gen, label=label, m=m, o=o: {
+            "int8_dense": cs._check_int8_dense_shape(torch, randn, label, m,
+                                                     o)}))
+       for label, m, o in (("chunk_qkv", 131072, 3 * 768),
+                           ("chunk_output", 131072, 768),
+                           ("request_qkv", 256, 3 * 768),
+                           ("request_output", 256, 768))},
+    **{f"ffn_train:{label}": (["fused_ffn", "ffn_fwd"], (
+        lambda torch, cs, randn, gen, shape=shape: cs._check_ffn_shape(
+            torch, randn, shape, *cs.FFN_SHAPES[shape])))
+       for label, shape in (("ce_large", "ce_large"),
+                            ("de_passages", "de_passages"),
+                            ("msdoc", "msdoc"), ("queries", "de_queries"))},
 }
 
 

@@ -1,34 +1,29 @@
-// K9-K11: the training forward of the BERT feed-forward block
-// gelu(x W1^T + b1) W2^T + b2 and its backward, in bf16 with f32
-// accumulation.
+// K10 and K11: the backward of the BERT feed-forward block
+// y = gelu(x W1^T + b1) W2^T + b2, in bf16 with f32 accumulation, from hb =
+// bf16(x W1^T) + b1, the one residual its forward (K9, ffn_fwd.cu) keeps.
 //
-// They replace three Pallas kernels of simxns_tpu/ops/fused_ffn.py:
-//   K9  ffn_train_fwd  _ffn_train_fwd_kernel (:324)  -> (y, hb)
+// They replace two Pallas kernels of simxns_tpu/ops/fused_ffn.py:
 //   K10 ffn_bwd_dx     _ffn_bwd_dx_kernel    (:348)  -> (dx, dh)
 //   K11 ffn_bwd_dw     _ffn_bwd_dw_kernel    (:374)  -> (dW1, db1, dW2)
-// (K12, the encode forward, is a pair of wgmma GEMMs in ffn_fwd.cu.)
-// with their arithmetic: each product accumulated in f32 and rounded to bf16
-// BEFORE the bf16 bias is added; GELU and its derivative in f32 from the
-// rounded pre-activation hb, with the Abramowitz-Stegun erf; g = gelu(hb)
-// and dh rounded to bf16 before their second product; dW1, db1, dW2 in f32.
+// with their arithmetic: each product accumulated in f32; GELU and its
+// derivative in f32 from the rounded pre-activation hb, with the
+// Abramowitz-Stegun erf; dh rounded to bf16 before its second product; dW1,
+// db1, dW2 in f32.
 //
-// K9 and K10 are one "chained" kernel: a first product over H into a
-// [32, 128] tile, an elementwise pass, and a second product that adds the
-// tile's contribution to the block's [32, H] result:
-//   K9:  A = x,  first W1 [F, H], then W2 [H, F]     mid = gelu(. + b1)
-//   K10: A = dY, first W2 [H, F], then W1 [F, H]     mid = . * gelu'(hb)
-// The forward contracts over the weights' columns and K10 over their rows:
-// K10's tiles land in shared memory as they lie in device memory and
-// ldmatrix...trans transposes the fragments, so no weight is transposed in
-// device memory either. K9 writes the [M, F] intermediate once (hb, the
-// one residual of the backward), and K10 reads hb once and writes dh once. The TPU kernels carry their [256, H] f32 sum in VMEM
-// across sequential grid steps; here nothing carries between blocks, so one
-// block owns 32 rows, keeps them in shared memory, and holds their whole
-// [32, H] sum in registers (2 x H/64 x 4 floats a thread, 128 at H = 1024)
-// while it loops over F in chunks of 128. Weights are read again by every
-// block and stay in the 50 MB L2; they come through one ring of equal
-// tiles that runs across both products and from chunk to chunk, up to
-// seven tiles ahead of the one being multiplied.
+// K10 is a "chained" kernel: a first product dY W2 over H into a [32, 128]
+// tile, dh = . * gelu'(hb) on it, and a second product dh W1 that adds the
+// tile's contribution to the block's [32, H] result dx. Both contract over
+// the weights' rows: the tiles land in shared memory as they lie in device
+// memory and ldmatrix...trans transposes the fragments, so no weight is
+// transposed in device memory. K10 reads hb once and writes dh once. The
+// TPU kernel carries its [256, H] f32 sum in VMEM across sequential grid
+// steps; here nothing carries between blocks, so one block owns 32 rows,
+// keeps them in shared memory, and holds their whole [32, H] sum in
+// registers (2 x H/64 x 4 floats a thread, 128 at H = 1024) while it loops
+// over F in chunks of 128. Weights are read again by every block and stay
+// in the 50 MB L2; they come through one ring of equal tiles that runs
+// across both products and from chunk to chunk, up to seven tiles ahead of
+// the one being multiplied.
 //
 // K11 contracts over M, the row index of all four activations: the tiles
 // land in shared memory as they lie in device memory and ldmatrix...trans
@@ -39,13 +34,11 @@
 // of tiles.
 //
 // Bound on the card: operations (4 M H F flop per kernel against
-// O(M (H + F)) bytes; 343.6 GFLOP against 268 MB for K9 at the CE-large
-// step's M = 20,480, H = 1024, F = 4096). This cut runs mma.sync m16n8k16
-// fed by cp.async, and at 32 rows a block it is limited by the weight
-// traffic from L2 (about 32 flop per byte) and by the shared-memory reads
-// of its fragments. K12's pair of wgmma GEMMs (ffn_fwd.cu) is the way out
-// for K9 too: its first GEMM's epilogue computes hb before the GELU, and a
-// second store of it would give K9's residual.
+// O(M (H + F)) bytes; 343.6 GFLOP at the CE-large step's M = 20,480, H =
+// 1024, F = 4096). This cut runs mma.sync m16n8k16 fed by cp.async, and at
+// 32 rows a block K10 is limited by the weight traffic from L2 (about 32
+// flop per byte) and by the shared-memory reads of its fragments. K9 and
+// K12 left this design for the pair of wgmma GEMMs of ffn_fwd.cu.
 #include "tile_gemm.cuh"
 
 SX_DEFINE_ERROR_STRING
@@ -53,8 +46,6 @@ SX_DEFINE_ERROR_STRING
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-enum Mode { kTrainFwd = 0, kBwdDx = 2 };
 
 __device__ __forceinline__ float2 ld_bf162(const void* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -64,19 +55,14 @@ __device__ __forceinline__ void st_bf162(void* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// f32 -> bf16 -> f32: the rounding of a product before its bias
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Shared memory of the chained kernel for H = 64 NT. Both products read
 // their weights as one sequence of equal tiles, [128 outputs] x [64
 // elements of K] (16 KB), through a ring of kSlots slots: per chunk of 128
 // columns of F first the NT tiles of the first product (outputs f0 .. f0 +
 // 127, K = H in slabs of 64), then the NT tiles of the second (128 of its H
-// outputs, one half of the chunk's 128 K elements). In the forward modes a
-// tile is 128 weight rows of 64 elements, in kBwdDx 64 weight rows of 128
-// (kTransPitch apart). The block's 32 rows of A stay resident.
+// outputs, one half of the chunk's 128 K elements). A tile is 64 weight
+// rows (of K) of 128 outputs, kTransPitch apart, in a slot of 128 rows of
+// kTilePitch. The block's 32 rows of A stay resident.
 template <int NT>
 struct Chain {
   static constexpr int BM = 32;
@@ -98,10 +84,9 @@ struct Chain {
   static constexpr int kSmem = kOffRing + kSlots * kTile;   // 230,912 at NT 16
 };
 
-// A [M, H], out [M, H], res_out [M, F] (hb of kTrainFwd, dh of kBwdDx).
-// Forward modes: B1 = W1 [F, H], B2 = W2 [H, F], bias1 [F], bias2 [H].
-// kBwdDx: B1 = W2 [H, F], B2 = W1 [F, H] (contracted over their rows),
-// res_in [M, F] (hb). F % 128 == 0; any M.
+// A = dY [M, H], B1 = W2 [H, F], B2 = W1 [F, H] (contracted over their
+// rows), res_in = hb [M, F]; out = dx [M, H], res_out = dh [M, F].
+// F % 128 == 0; any M.
 //
 // One barrier a tile: tile T is waited for, the block meets, the load of
 // tile T + kSlots - 1 goes into the slot tile T - 1 has just left, and
@@ -109,27 +94,24 @@ struct Chain {
 // product the warps lie 2 x 4 over the [32, 128] tile; in the second, warp
 // w owns rows 16 w .. 16 w + 15 of each 128-row tile of B2, that is the
 // columns 128 j + 16 w + (0 .. 15) of the block's [32, H] result.
-template <int NT, int MODE>
+template <int NT>
 __global__ void __launch_bounds__(sx::kThreads, 1)
     ffn_chain_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B1,
-                     const bf16* __restrict__ bias1,
                      const bf16* __restrict__ B2,
-                     const bf16* __restrict__ bias2,
                      const bf16* __restrict__ res_in, bf16* __restrict__ out,
                      bf16* __restrict__ res_out, int M, int F) {
   using C = Chain<NT>;
   using G = sx::TileGemm<sx::MmaBf16, 1>;   // the first product's layout
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* sA = smem;
-  uint8_t* sMid = smem + C::kOffMid;   // g or dh: the second product's A
-  uint8_t* sRes = smem + C::kOffRes;   // hb, on its way out (K9) or in (K10)
+  uint8_t* sMid = smem + C::kOffMid;   // dh: the second product's A
+  uint8_t* sRes = smem + C::kOffRes;   // hb, on its way in
   uint8_t* sRing = smem + C::kOffRing;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
-  constexpr bool kTrans = MODE == kBwdDx;
-  // kTrans: the ldmatrix row of this lane within a [16 k][16 outputs] patch
-  // (the B fragments of sx::TileGemmT)
+  // the ldmatrix row of this lane within a [16 k][16 outputs] patch (the B
+  // fragments of sx::TileGemmT)
   const int tb = ((lane & 7) + ((lane >> 3) & 1) * 8) * C::kTransPitch +
                  ((lane >> 4) & 1) * 16;
   const int m0 = blockIdx.x * C::BM;
@@ -152,31 +134,22 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
       const int chunk = T / C::kTilesPerChunk, r = T % C::kTilesPerChunk;
       const int f0 = chunk * C::BF;
       const int h0 = ((r - NT) >> 1) * 128, k0 = ((r - NT) & 1) * 64;
-      const bf16* src;
-      long ld;
-      if (kTrans) {   // 64 rows of K, 128 outputs along each
-        src = r < NT ? B1 + static_cast<long>(r * 64) * F + f0
-                     : B2 + static_cast<long>(f0 + k0) * C::H + h0;
-        ld = r < NT ? F : C::H;
-      } else {        // 128 outputs, 64 elements of K along each
-        src = r < NT ? B1 + static_cast<long>(f0) * C::H + r * 64
-                     : B2 + static_cast<long>(h0) * F + f0 + k0;
-        ld = r < NT ? C::H : F;
-      }
-      constexpr int kChunks = kTrans ? 16 : 8;   // 16-byte chunks a row
-      constexpr int kPitch = kTrans ? C::kTransPitch : C::kTilePitch;
+      // 64 rows of K, 128 outputs along each
+      const bf16* src = r < NT ? B1 + static_cast<long>(r * 64) * F + f0
+                               : B2 + static_cast<long>(f0 + k0) * C::H + h0;
+      const long ld = r < NT ? F : C::H;
       uint8_t* slot = sRing + (T % C::kSlots) * C::kTile;
       for (int c = threadIdx.x; c < 1024; c += sx::kThreads) {
-        int row = c / kChunks, ch = c % kChunks;
-        sx::cp_async16(slot + row * kPitch + ch * 16, src + row * ld + ch * 8,
-                       true);
+        int row = c / 16, ch = c % 16;   // 16-byte chunks a row
+        sx::cp_async16(slot + row * C::kTransPitch + ch * 16,
+                       src + row * ld + ch * 8, true);
       }
     }
     sx::cp_async_commit();
   };
-  // Tile T, landed and seen by the whole block. `res_chunk` >= 0 (K10, at
-  // the first tile of a second product, after the barrier behind which
-  // this chunk's hb was read) also loads hb of that chunk; it has landed
+  // Tile T, landed and seen by the whole block. `res_chunk` >= 0 (at the
+  // first tile of a second product, after the barrier behind which this
+  // chunk's hb was read) also loads hb of that chunk; it has landed
   // kSlots - 1 <= 2 NT - 1 tiles later, before it is read.
   auto next_tile = [&](int T, int res_chunk) -> const uint8_t* {
     sx::cp_async_wait<C::kSlots - 2>();
@@ -192,7 +165,7 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
     const bf16* src = ok ? A + static_cast<long>(m0 + r) * C::H + ch * 8 : A;
     sx::cp_async16(sA + r * C::kAPitch + ch * 16, src, ok);
   }
-  if (MODE == kBwdDx) load_res(0);
+  load_res(0);
   for (int T = 0; T < C::kSlots - 1; ++T) fetch(T);   // A and hb: group 0
 
   float acc2[2][NT][4];
@@ -221,26 +194,14 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
             *reinterpret_cast<const uint32_t*>(p + 8 * C::kAPitch),
             *reinterpret_cast<const uint32_t*>(p + 16),
             *reinterpret_cast<const uint32_t*>(p + 8 * C::kAPitch + 16)};
-        if (kTrans) {
 #pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            uint32_t r[4];
-            sx::ldmatrix_x4_trans(r, b + (kc / 2) * C::kTransPitch +
-                                         (wn * 32 + nj * 16) * 2 + tb);
-            const uint32_t lo[2] = {r[0], r[1]}, hi[2] = {r[2], r[3]};
-            sx::MmaBf16::mma(acc1[2 * nj], af, lo);
-            sx::MmaBf16::mma(acc1[2 * nj + 1], af, hi);
-          }
-        } else {
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const uint8_t* q =
-                b + (wn * 32 + ni * 8 + g) * C::kTilePitch + kc + t * 4;
-            const uint32_t bfr[2] = {
-                *reinterpret_cast<const uint32_t*>(q),
-                *reinterpret_cast<const uint32_t*>(q + 16)};
-            sx::MmaBf16::mma(acc1[ni], af, bfr);
-          }
+        for (int nj = 0; nj < 2; ++nj) {
+          uint32_t r[4];
+          sx::ldmatrix_x4_trans(r, b + (kc / 2) * C::kTransPitch +
+                                       (wn * 32 + nj * 16) * 2 + tb);
+          const uint32_t lo[2] = {r[0], r[1]}, hi[2] = {r[2], r[3]};
+          sx::MmaBf16::mma(acc1[2 * nj], af, lo);
+          sx::MmaBf16::mma(acc1[2 * nj + 1], af, hi);
         }
       }
     }
@@ -251,37 +212,25 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
       for (int half = 0; half < 2; ++half) {
         const int r = G::row(0, 2 * half), c = G::col(ni, 2 * half);
         const float v0 = acc1[ni][2 * half], v1 = acc1[ni][2 * half + 1];
-        uint8_t* mid = sMid + r * C::kMidPitch + c * 2;
-        uint8_t* res = sRes + r * C::kMidPitch + c * 2;
-        if (MODE == kBwdDx) {
-          const float2 h = ld_bf162(res);
-          st_bf162(mid, v0 * sx::gelu_grad(h.x), v1 * sx::gelu_grad(h.y));
-        } else {
-          const float2 b = ld_bf162(bias1 + f0 + c);
-          const float h0 = round_bf16(round_bf16(v0) + b.x);
-          const float h1 = round_bf16(round_bf16(v1) + b.y);
-          if (MODE == kTrainFwd) st_bf162(res, h0, h1);
-          st_bf162(mid, sx::gelu_exact(h0), sx::gelu_exact(h1));
-        }
+        const float2 h = ld_bf162(sRes + r * C::kMidPitch + c * 2);
+        st_bf162(sMid + r * C::kMidPitch + c * 2, v0 * sx::gelu_grad(h.x),
+                 v1 * sx::gelu_grad(h.y));
       }
     __syncthreads();
 
-    {   // hb (K9) or dh (K10) to device memory, coalesced
-      const uint8_t* src = MODE == kTrainFwd ? sRes : sMid;
-      for (int c = threadIdx.x; c < C::BM * (C::BF / 8); c += sx::kThreads) {
-        int r = c / (C::BF / 8), ch = c % (C::BF / 8);
-        if (m0 + r < M)
-          *reinterpret_cast<uint4*>(res_out + static_cast<long>(m0 + r) * F +
-                                    f0 + ch * 8) =
-              *reinterpret_cast<const uint4*>(src + r * C::kMidPitch + ch * 16);
-      }
+    // dh to device memory, coalesced
+    for (int c = threadIdx.x; c < C::BM * (C::BF / 8); c += sx::kThreads) {
+      int r = c / (C::BF / 8), ch = c % (C::BF / 8);
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(res_out + static_cast<long>(m0 + r) * F +
+                                  f0 + ch * 8) =
+            *reinterpret_cast<const uint4*>(sMid + r * C::kMidPitch + ch * 16);
     }
 
-    // second product: acc2 += mid[32, 128] * B2[:, f0 : f0 + 128]^T
+    // second product: acc2 += dh[32, 128] * B2[:, f0 : f0 + 128]^T
 #pragma unroll
     for (int r2 = 0; r2 < NT; ++r2, ++T) {
-      const uint8_t* b = next_tile(
-          T, MODE == kBwdDx && r2 == 0 ? f0 / C::BF + 1 : -1);
+      const uint8_t* b = next_tile(T, r2 == 0 ? f0 / C::BF + 1 : -1);
 #pragma unroll
       for (int kc = 0; kc < C::kTileK; kc += 32) {
         uint32_t af[2][4];
@@ -296,20 +245,12 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
               *reinterpret_cast<const uint32_t*>(p + 8 * C::kMidPitch + 16);
         }
         uint32_t bfr[2][2];
-        if (kTrans) {
+        {
           uint32_t r[4];
           sx::ldmatrix_x4_trans(
               r, b + (kc / 2) * C::kTransPitch + warp * 16 * 2 + tb);
           bfr[0][0] = r[0], bfr[0][1] = r[1];
           bfr[1][0] = r[2], bfr[1][1] = r[3];
-        } else {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const uint8_t* q =
-                b + (warp * 16 + n * 8 + g) * C::kTilePitch + kc + t * 4;
-            bfr[n][0] = *reinterpret_cast<const uint32_t*>(q);
-            bfr[n][1] = *reinterpret_cast<const uint32_t*>(q + 16);
-          }
         }
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
@@ -329,45 +270,23 @@ __global__ void __launch_bounds__(sx::kThreads, 1)
         const int r = m0 + mi * 16 + g + half * 8;
         const int c = (ni >> 1) * 128 + warp * 16 + (ni & 1) * 8 + 2 * t;
         if (r >= M) continue;
-        float y0 = acc2[mi][ni][2 * half], y1 = acc2[mi][ni][2 * half + 1];
-        if (MODE != kBwdDx) {
-          const float2 b = ld_bf162(bias2 + c);
-          y0 = round_bf16(y0) + b.x;
-          y1 = round_bf16(y1) + b.y;
-        }
-        st_bf162(out + static_cast<long>(r) * C::H + c, y0, y1);
+        st_bf162(out + static_cast<long>(r) * C::H + c,
+                 acc2[mi][ni][2 * half], acc2[mi][ni][2 * half + 1]);
       }
 }
 
-template <int NT, int MODE>
-cudaError_t launch_chain(const bf16* A, const bf16* B1, const bf16* bias1,
-                         const bf16* B2, const bf16* bias2, const bf16* res_in,
-                         bf16* out, bf16* res_out, int M, int F,
-                         cudaStream_t stream) {
+template <int NT>
+cudaError_t launch_chain(const bf16* A, const bf16* B1, const bf16* B2,
+                         const bf16* res_in, bf16* out, bf16* res_out, int M,
+                         int F, cudaStream_t stream) {
   using C = Chain<NT>;
-  auto kernel = ffn_chain_kernel<NT, MODE>;
+  auto kernel = ffn_chain_kernel<NT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<(M + C::BM - 1) / C::BM, sx::kThreads, C::kSmem, stream>>>(
-      A, B1, bias1, B2, bias2, res_in, out, res_out, M, F);
+      A, B1, B2, res_in, out, res_out, M, F);
   return cudaGetLastError();
-}
-
-template <int NT>
-cudaError_t dispatch_chain(int mode, const bf16* A, const bf16* B1,
-                           const bf16* bias1, const bf16* B2,
-                           const bf16* bias2, const bf16* res_in, bf16* out,
-                           bf16* res_out, int M, int F, cudaStream_t s) {
-  switch (mode) {
-    case kTrainFwd:
-      return launch_chain<NT, kTrainFwd>(A, B1, bias1, B2, bias2, res_in, out,
-                                         res_out, M, F, s);
-    case kBwdDx:
-      return launch_chain<NT, kBwdDx>(A, B1, bias1, B2, bias2, res_in, out,
-                                      res_out, M, F, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 // --- K11 ---------------------------------------------------------------------
@@ -449,24 +368,21 @@ __global__ void __launch_bounds__(sx::kThreads, 2)
 
 }  // namespace
 
-// The chained kernel in `mode` 0 (K9: out = y, res_out = hb) or 2 (K10:
-// out = dx, res_in = hb, res_out = dh, B1 = W2, B2 = W1); see
-// ffn_chain_kernel. H in 256 (the small width of the card tests), 768 and
-// 1024 (the models' widths) and F % 128 == 0 (checked by the Python
-// wrapper; cudaErrorInvalidValue otherwise). Returns cudaGetLastError()
-// after the launch.
-extern "C" int sx_ffn_chain(const void* A, const void* B1, const void* bias1,
-                            const void* B2, const void* bias2,
-                            const void* res_in, void* out, void* res_out,
-                            int M, int H, int F, int mode, void* stream) {
+// K10; see ffn_chain_kernel. dy [M, H], W1 [F, H], W2 [H, F], hb [M, F]
+// bf16 -> dx [M, H], dh [M, F] bf16. H in 256 (the small width of the card
+// tests), 768 and 1024 (the models' widths) and F % 128 == 0 (checked by
+// the Python wrapper; cudaErrorInvalidValue otherwise). Returns
+// cudaGetLastError() after the launch.
+extern "C" int sx_ffn_bwd_dx(const void* dy, const void* W1, const void* W2,
+                             const void* hb, void* dx, void* dh, int M, int H,
+                             int F, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || F % 128 || F < 128) return cudaErrorInvalidValue;
 #define SX_CHAIN(NT)                                                         \
-    return dispatch_chain<NT>(                                               \
-        mode, static_cast<const bf16*>(A), static_cast<const bf16*>(B1),     \
-        static_cast<const bf16*>(bias1), static_cast<const bf16*>(B2),       \
-        static_cast<const bf16*>(bias2), static_cast<const bf16*>(res_in),   \
-        static_cast<bf16*>(out), static_cast<bf16*>(res_out), M, F, s);
+    return launch_chain<NT>(                                                 \
+        static_cast<const bf16*>(dy), static_cast<const bf16*>(W2),          \
+        static_cast<const bf16*>(W1), static_cast<const bf16*>(hb),          \
+        static_cast<bf16*>(dx), static_cast<bf16*>(dh), M, F, s);
   switch (H) {
     case 256: SX_CHAIN(4)
     case 768: SX_CHAIN(12)

@@ -17,21 +17,23 @@
 // and y is rounded to bf16 once, at the end. Both equal their plain
 // versions bit for bit.
 //
-// K13 quantizes its block's rows of x itself (one warp a row, the row in
-// registers: max|x|, then the codes) into shared memory, where the codes
-// stay as the resident A operand while the int8 weight tiles, [128 rows][128
-// bytes of K], stream through one cp.async ring. A block owns BM = 32, 64
-// or 128 rows and walks a run of 128-column output tiles (all of O when the
-// row blocks alone fill the card, so x is read once; at small M the
-// columns are split over blocks, which then read their rows again from L2).
+// Both run on the persistent wgmma GEMM of wgmma_gemm.cuh, and share its
+// instances in this library. K13 is two launches of one call:
+// 1. quantize_x: the codes of x and their scales xs (one warp a row, the
+//    row in registers: max|x|, then the codes) into device memory;
+// 2. the GEMM codes x W8 (kDequant, bf16 out): (acc * xs) * ws + b, the
+//    instance that K14's GEMM 2 runs.
 // Bound on the card: bytes at the encode path's shapes (131,072 x 768 ->
 // 2304: 201 MB in, 604 MB out, 0.241 ms, against 0.234 ms of int8
-// operations).
+// operations). The codes of x make a round trip through device memory (100
+// MB each way at the chunk): a GEMM block of 128 rows at I = 768 cannot
+// keep its codes resident beside 4 TMA stages of 256 x 128 bytes, and
+// coding inside the GEMM's consumers lost 2x for K14's g (below). The first
+// cut quantized a block's rows into shared memory and fed mma.sync from a
+// cp.async ring of weight tiles (1.66 ms at the chunk's q, k, v on an H100).
 //
-// K14 is four launches of one call, two of them on the persistent wgmma
-// GEMM of wgmma_gemm.cuh:
-// 1. quantize_x: the codes and scales of x (one warp a row, K13's
-//    quantize_rows) into device memory;
+// K14 is four launches of one call:
+// 1. quantize_x, as K13's;
 // 2. GEMM 1, codes x W1 (kDequant with GELU, f32 out): g [M, F] in f32, and
 //    each row's max |g| over each column tile, [M, F / BN];
 // 3. quantize_g: a row's maxima -> gs, then the codes of g (the quotient by
@@ -62,11 +64,12 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTileK = 128;               // bytes of K in a weight tile
-constexpr int kPitch = kTileK + 16;       // 144 B: 8 rows -> 32 banks
-constexpr int kTile = 128 * kPitch;       // one [128 rows][128 B] tile
 constexpr int kMaxRow = 1024;             // widest row a warp quantizes
 constexpr int kWarps = sx::kThreads / 32;
+// rows of x a block codes, one a warp (H100: a request's 256 rows 0.0026
+// ms against 0.0072 at 32 a block, the encode chunk's 131,072 0.116 against
+// 0.121; scripts/torch_kernel_bench.py, in turns)
+constexpr int kQuantRows = 8;
 
 __device__ __forceinline__ int quantize(float v, float s) {
   float q = rintf(__fdiv_rn(v, s));
@@ -81,212 +84,6 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
   return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) |
          (static_cast<uint32_t>(d & 0xff) << 24);
 }
-
-// Rows m0 .. m0 + rows - 1 of x [M, K] bf16 (K % 128 == 0, K <= kMaxRow)
-// -> codes at sQ (rows `pitch` bytes apart) and scales at sS. One warp a
-// row; a lane holds at most four 16-byte chunks of it. Rows past M get
-// codes 0.
-__device__ void quantize_rows(const bf16* __restrict__ x, int M, int K,
-                              int m0, int rows, uint8_t* sQ, int pitch,
-                              float* sS) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = K / 8;
-  for (int r = warp; r < rows; r += kWarps) {
-    const bool live = m0 + r < M;
-    uint4 v[kMaxRow / 256];
-    float amax = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kMaxRow / 256; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = make_uint4(0, 0, 0, 0);
-      if (live && c < chunks)
-        v[j] = *reinterpret_cast<const uint4*>(
-            x + static_cast<long>(m0 + r) * K + c * 8);
-      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(e[i]);
-        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float s = row_scale(amax);
-#pragma unroll
-    for (int j = 0; j < kMaxRow / 256; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= chunks) continue;
-      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
-      int q[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(e[i]);
-        q[2 * i] = quantize(f.x, s);
-        q[2 * i + 1] = quantize(f.y, s);
-      }
-      *reinterpret_cast<uint2*>(sQ + r * pitch + c * 8) = make_uint2(
-          pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
-    }
-    if (lane == 0) sS[r] = s;
-  }
-}
-
-// The loads of one weight tile: rows n0 .. n0 + 127 of W (ld bytes apart),
-// bytes k0 .. k0 + 127 of each, into `slot`.
-__device__ __forceinline__ void load_tile(uint8_t* slot, const int8_t* W,
-                                          long ld, int n0, int k0) {
-  const int8_t* src = W + static_cast<long>(n0) * ld + k0;
-  for (int c = threadIdx.x; c < 128 * (kTileK / 16); c += sx::kThreads) {
-    const int r = c / (kTileK / 16), ch = c % (kTileK / 16);
-    sx::cp_async16(slot + r * kPitch + ch * 16, src + r * ld + ch * 16, true);
-  }
-}
-
-// The m16n8k32 fragments of the 2 (M) x 4 (N) warp layout of
-// sx::TileGemm<MmaS8, MF> over one [BM, 128] x [128, 128 B] step: A from
-// resident codes (rows `pitch` apart, from byte `k0`), B from a ring slot.
-template <int MF>
-__device__ __forceinline__ void mma_tile(int (&acc)[MF][4][4],
-                                         const uint8_t* sA, int pitch, int k0,
-                                         const uint8_t* b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int kc = 0; kc < kTileK; kc += 32) {
-    uint32_t af[MF][4], bfr[4][2];
-#pragma unroll
-    for (int mi = 0; mi < MF; ++mi) {
-      const uint8_t* p =
-          sA + (wm * MF * 16 + mi * 16 + g) * pitch + k0 + kc + t * 4;
-      af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * pitch);
-      af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * pitch + 16);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const uint8_t* q = b + (wn * 32 + ni * 8 + g) * kPitch + kc + t * 4;
-      bfr[ni][0] = *reinterpret_cast<const uint32_t*>(q);
-      bfr[ni][1] = *reinterpret_cast<const uint32_t*>(q + 16);
-    }
-#pragma unroll
-    for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        sx::MmaS8::mma(acc[mi][ni], af[mi], bfr[ni]);
-  }
-}
-
-template <int MF>
-__device__ __forceinline__ void zero(int (&acc)[MF][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-}
-
-// --- K13 -------------------------------------------------------------------
-
-constexpr int kDenseSlots = 4;
-
-template <int MF>
-constexpr int dense_smem(int K) {
-  return kDenseSlots * kTile + 2 * MF * 16 * (K + 16) + 2 * MF * 16 * 4;
-}
-
-// x [M, K] bf16, W [N, K] int8, ws [N], bias [N] f32 -> out [M, N] bf16.
-// Block (bx, by) owns rows bx * BM .. and the output tiles by * per ..
-// (128 columns each). The ring runs over (tile, slab of 128 bytes of K) in
-// order, kDenseSlots - 1 tiles ahead; one barrier a weight tile.
-template <int MF>
-__global__ void __launch_bounds__(sx::kThreads)
-    int8_dense_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ W,
-                      const float* __restrict__ ws,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      int M, int K, int N, int per) {
-  using G = sx::TileGemm<sx::MmaS8, MF>;
-  constexpr int BM = G::BM;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int pitch = K + 16;
-  uint8_t* sRing = smem;
-  uint8_t* sA = smem + kDenseSlots * kTile;
-  float* sXs = reinterpret_cast<float*>(sA + BM * pitch);
-  const int m0 = blockIdx.x * BM;
-  const int first = blockIdx.y * per;
-  const int tiles = min(per, N / 128 - first);
-  const int slabs = K / kTileK;
-  const int total = tiles * slabs;
-
-  auto fetch = [&](int T) {
-    if (T < total)
-      load_tile(sRing + (T % kDenseSlots) * kTile, W, K,
-                (first + T / slabs) * 128, (T % slabs) * kTileK);
-    sx::cp_async_commit();
-  };
-  for (int T = 0; T < kDenseSlots - 1; ++T) fetch(T);
-  quantize_rows(x, M, K, m0, BM, sA, pitch, sXs);   // seen after a barrier
-
-  int acc[MF][4][4];
-  for (int T = 0; T < total; ++T) {
-    const int slab = T % slabs;
-    if (slab == 0) zero(acc);
-    sx::cp_async_wait<kDenseSlots - 2>();
-    __syncthreads();
-    fetch(T + kDenseSlots - 1);
-    mma_tile(acc, sA, pitch, slab * kTileK,
-             sRing + (T % kDenseSlots) * kTile);
-    if (slab != slabs - 1) continue;
-    const int n0 = (first + T / slabs) * 128;
-#pragma unroll
-    for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = G::row(mi, 2 * half), n = n0 + G::col(ni, 2 * half);
-          if (m0 + r >= M) continue;
-          const float xs = sXs[r];
-          float y0 = static_cast<float>(acc[mi][ni][2 * half]) * xs;
-          float y1 = static_cast<float>(acc[mi][ni][2 * half + 1]) * xs;
-          y0 = y0 * ws[n] + bias[n];
-          y1 = y1 * ws[n + 1] + bias[n + 1];
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<long>(m0 + r) * N + n) =
-              __floats2bfloat162_rn(y0, y1);
-        }
-  }
-}
-
-template <int MF>
-cudaError_t launch_dense(const bf16* x, const int8_t* W, const float* ws,
-                         const float* b, bf16* out, int M, int K, int N,
-                         cudaStream_t stream) {
-  constexpr int BM = 2 * MF * 16;
-  const int row_blocks = (M + BM - 1) / BM;
-  const int col_tiles = N / 128;
-  // every column tile of its rows to one block, unless that leaves the
-  // card's SMs short of two blocks each: then the columns are split
-  int groups = (2 * sx::gemm::sm_count() + row_blocks - 1) / row_blocks;
-  groups = groups < 1 ? 1 : (groups > col_tiles ? col_tiles : groups);
-  const int per = (col_tiles + groups - 1) / groups;
-  groups = (col_tiles + per - 1) / per;
-  const int smem = dense_smem<MF>(K);
-  auto kernel = int8_dense_kernel<MF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(row_blocks, groups), sx::kThreads, smem, stream>>>(
-      x, W, ws, b, out, M, K, N, per);
-  return cudaGetLastError();
-}
-
-// --- K14 -------------------------------------------------------------------
-
-constexpr int kQuantRows = 32;   // rows of x a block codes
 
 // The int8 code of v with the row scale s and r = 1 / s rounded to nearest:
 // rint(v / s) clipped to +-127, the quotient correctly rounded without the
@@ -338,36 +135,88 @@ __global__ void __launch_bounds__(sx::kThreads)
 }
 
 // x [M, K] bf16 -> codes [M, K] int8 and xs [M] f32 (K % 128 == 0, K <=
-// kMaxRow)
+// kMaxRow); one warp a row, a lane holding at most four 16-byte chunks of
+// it
 __global__ void __launch_bounds__(sx::kThreads)
     quantize_x_kernel(const bf16* __restrict__ x, uint8_t* __restrict__ codes,
                       float* __restrict__ xs, int M, int K) {
-  const int m0 = blockIdx.x * kQuantRows;
-  quantize_rows(x, M, K, m0, min(kQuantRows, M - m0),
-                codes + static_cast<long>(m0) * K, K, xs + m0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = K / 8;
+  const int m0 = blockIdx.x * kQuantRows, rows = min(kQuantRows, M - m0);
+  for (int r = warp; r < rows; r += kWarps) {
+    const long m = m0 + r;
+    uint4 v[kMaxRow / 256];
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxRow / 256; ++j) {
+      const int c = lane + 32 * j;
+      v[j] = make_uint4(0, 0, 0, 0);
+      if (c < chunks)
+        v[j] = *reinterpret_cast<const uint4*>(x + m * K + c * 8);
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(e[i]);
+        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float s = row_scale(amax);
+#pragma unroll
+    for (int j = 0; j < kMaxRow / 256; ++j) {
+      const int c = lane + 32 * j;
+      if (c >= chunks) continue;
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+      int q[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(e[i]);
+        q[2 * i] = quantize(f.x, s);
+        q[2 * i + 1] = quantize(f.y, s);
+      }
+      *reinterpret_cast<uint2*>(codes + m * K + c * 8) = make_uint2(
+          pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
+    }
+    if (lane == 0) xs[m] = s;
+  }
+}
+
+// quantize_x_kernel's launch; -> cudaGetLastError()
+int quantize_x(const void* x, void* codes, float* xs, int M, int K,
+               cudaStream_t s) {
+  quantize_x_kernel<<<(M + kQuantRows - 1) / kQuantRows, sx::kThreads, 0,
+                      s>>>(static_cast<const bf16*>(x),
+                           static_cast<uint8_t*>(codes), xs, M, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K13; see int8_dense_kernel. K % 128 == 0 with 128 <= K <= 1024, N % 128
+// K13; see the note at the head of this file. x [M, K] bf16; W [N, K]
+// int8; ws, b [N] f32; out [M, N] bf16; the workspaces codes [M, K] int8
+// and xs [M] f32; the GEMM's tile (bm, bn) over [M, N]
+// (ops/_native.py:wgmma_tile). K % 128 == 0 with 128 <= K <= 1024, N % 128
 // == 0, any M >= 1 (checked by the Python wrapper; cudaErrorInvalidValue
-// otherwise). Row blocks of 128, or 64 and 32 where the larger ones leave
-// the card's SMs idle. Returns cudaGetLastError() after the launch.
+// otherwise). Returns 0, a CUDA error code, or one of wgmma_gemm.cuh's.
 extern "C" int sx_int8_dense(const void* x, const void* W, const float* ws,
-                             const float* b, void* out, int M, int K, int N,
+                             const float* b, void* out, void* codes,
+                             float* xs, int M, int K, int N, int bm, int bn,
                              void* stream) {
+  namespace gm = sx::gemm;
   if (M < 1 || K < 128 || K > kMaxRow || K % 128 || N < 128 || N % 128)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const int8_t* w = static_cast<const int8_t*>(W);
-  bf16* o = static_cast<bf16*>(out);
-  const int tiles = N / 128;
-  if (static_cast<long>((M + 127) / 128) * tiles >= sx::gemm::sm_count())
-    return launch_dense<4>(xb, w, ws, b, o, M, K, N, s);
-  if (static_cast<long>((M + 63) / 64) * tiles >= sx::gemm::sm_count())
-    return launch_dense<2>(xb, w, ws, b, o, M, K, N, s);
-  return launch_dense<1>(xb, w, ws, b, o, M, K, N, s);
+  int err = quantize_x(x, codes, xs, M, K, s);
+  if (err != 0) return err;
+  gm::Args args;
+  args.xs = xs;
+  args.ws = ws;
+  args.bias = b;
+  args.out = out;
+  return gm::run<gm::kDequant, false, true, false>(bm, bn, codes, W, args, M,
+                                                   N, K, s);
 }
 
 // K14; see the note at the head of this file. x [M, H] bf16; W1 [F, H],
@@ -389,10 +238,7 @@ extern "C" int sx_int8_ffn(const void* x, const void* W1, const float* s1,
   if (M < 1 || F < 128 || F % 128 || (H != 256 && H != 768 && H != 1024))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_x_kernel<<<(M + kQuantRows - 1) / kQuantRows, sx::kThreads, 0,
-                      s>>>(static_cast<const bf16*>(x),
-                           static_cast<uint8_t*>(codes), xs, M, H);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = quantize_x(x, codes, xs, M, H, s);
   if (err != 0) return err;
   gm::Args first;
   first.xs = xs;

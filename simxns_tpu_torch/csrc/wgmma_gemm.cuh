@@ -1,5 +1,5 @@
-// The persistent Hopper GEMM that K1 (int8_linear.cu), K12 (ffn_fwd.cu) and
-// K14 (int8_ffn.cu) run on:
+// The persistent Hopper GEMM that K1 (int8_linear.cu), K9 and K12
+// (ffn_fwd.cu), K13 and K14 (int8_ffn.cu) run on:
 //   out[M, N] = epilogue(A[M, K] W[N, K]^T)
 // with A and W K-major (the nn.Linear layout), int8 with exact s32 sums or
 // bf16 with f32 sums, on the pieces of wgmma_ring.cuh:
@@ -22,12 +22,15 @@
 //
 // The epilogues (Epilogue below):
 // - kDequant: (f32(acc) * xs[m]) * ws[n] + b[n], then GELU if asked, f32 or
-//   bf16 (K1; K14's two GEMMs, the first also writing each row's max |g|
-//   over its tile, ROWMAX);
-// - kBias: bf16(bf16(acc) + b[n]) with bf16 b (K12), then GELU if asked:
-//   K12's first GEMM stores g = bf16(gelu(hb)); hb is the value before the
-//   GELU, so a second store of it would give K9's residual from the same
-//   pass.
+//   bf16 (K1; K13; K14's two GEMMs, the first also writing each row's max
+//   |g| over its tile, ROWMAX);
+// - kBias: hb = bf16(bf16(acc) + b[n]) with bf16 b (K9, K12), then GELU if
+//   asked: the first GEMM of K9 and K12 stores g = bf16(gelu(hb)), and K9's
+//   (PRE) also stores hb, its residual for the backward (already a bf16
+//   value: no second rounding), straight from the accumulator fragments,
+//   4 bytes a lane (H100, K9 at the CE-large step: its GEMM 1 0.55 ms, 0.95
+//   with hb staged beside g in the same slices, 1.09-1.10 in a pass of its
+//   own before the GELU pass; scripts/torch_kernel_bench.py, in turns).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +101,8 @@ struct Args {
   const void* bias = nullptr;    // [N] f32 (bf16 for kBias)
   void* out = nullptr;           // [M, N] f32 or bf16
   float* row_max = nullptr;      // ROWMAX: [M, tiles_n] max |out| a tile
+  void* pre = nullptr;           // PRE: [M, N] bf16 (N even), kBias's value
+                                 // before GELU
 };
 
 template <int WGS, int BN>
@@ -141,7 +146,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX>
+template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX,
+          bool PRE>
 __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
     gemm_kernel(__grid_constant__ const CUtensorMap map_a,
                 __grid_constant__ const CUtensorMap map_w, const Args args,
@@ -199,6 +205,8 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
   constexpr int kCols = kSlice / kElt < BN ? kSlice / kElt : BN;
   constexpr int kPieces = kCols * kElt / 16;
   constexpr int kPitch = staged_pitch(kCols * kElt, OUT_BF16);
+  static_assert(!PRE || (EPI == kBias && GELU && OUT_BF16),
+                "PRE stores kBias's bf16 value before its GELU");
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   uint8_t* stg = staging + role * C::kStaging;
@@ -267,7 +275,7 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
 #pragma unroll
       for (int cc = 0; cc < kCols / 8; ++cc) {
         const int c = c0 / 8 + cc;   // n8 column block of the tile
-        float y[4];
+        float y[4], pre[4];
         if (EPI == kBias) {
           const float2 b2 = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(
@@ -276,6 +284,7 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
           for (int e = 0; e < 4; ++e) {
             y[e] = round_bf16(round_bf16(static_cast<float>(acc[4 * c + e])) +
                               (e & 1 ? b2.y : b2.x));
+            if (PRE) pre[e] = y[e];
             if (GELU) y[e] = gelu_exact(y[e]);
           }
         } else {
@@ -300,6 +309,18 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
         } else {
           *reinterpret_cast<float2*>(pa) = make_float2(y[0], y[1]);
           *reinterpret_cast<float2*>(pb) = make_float2(y[2], y[3]);
+        }
+        if (PRE) {   // hb from the fragment: rows ra, rb; N is even
+          const int n = n0 + c * 8 + 2 * t;
+          bf16* hb = static_cast<bf16*>(args.pre);
+          if (n < N && ra < M)
+            *reinterpret_cast<__nv_bfloat162*>(
+                hb + static_cast<long long>(ra) * N + n) =
+                __floats2bfloat162_rn(pre[0], pre[1]);
+          if (n < N && rb < M)
+            *reinterpret_cast<__nv_bfloat162*>(
+                hb + static_cast<long long>(rb) * N + n) =
+                __floats2bfloat162_rn(pre[2], pre[3]);
         }
       }
       wg::named_sync(1 + role, 128);
@@ -371,11 +392,12 @@ int prepare(Kernel kernel, int smem, int threads, bool moves_registers,
 
 // One launch; K in bytes of a row of A and W (2 x the elements for bf16;
 // % 16 == 0, 16-byte aligned A and W).
-template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX>
+template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX,
+          bool PRE>
 int launch(const void* A, const void* W, const Args& args, int M, int N,
            int K, cudaStream_t stream) {
   using C = Cfg<WGS, BN>;
-  auto kernel = gemm_kernel<WGS, BN, EPI, GELU, OUT_BF16, ROWMAX>;
+  auto kernel = gemm_kernel<WGS, BN, EPI, GELU, OUT_BF16, ROWMAX, PRE>;
   static int blocks_per_sm = 0;
   static const int prepared =
       prepare(kernel, C::kSmem, C::kThreads, WGS == 2, &blocks_per_sm);
@@ -399,15 +421,18 @@ int launch(const void* A, const void* W, const Args& args, int M, int N,
 }
 
 // The launch for tile (bm, bn): 128 x 256, 64 x 128 or 64 x 64.
-template <int EPI, bool GELU, bool OUT_BF16, bool ROWMAX>
+template <int EPI, bool GELU, bool OUT_BF16, bool ROWMAX, bool PRE = false>
 int run(int bm, int bn, const void* A, const void* W, const Args& args,
         int M, int N, int K, cudaStream_t s) {
   if (bm == 128 && bn == 256)
-    return launch<2, 256, EPI, GELU, OUT_BF16, ROWMAX>(A, W, args, M, N, K, s);
+    return launch<2, 256, EPI, GELU, OUT_BF16, ROWMAX, PRE>(A, W, args, M, N,
+                                                            K, s);
   if (bm == 64 && bn == 128)
-    return launch<1, 128, EPI, GELU, OUT_BF16, ROWMAX>(A, W, args, M, N, K, s);
+    return launch<1, 128, EPI, GELU, OUT_BF16, ROWMAX, PRE>(A, W, args, M, N,
+                                                            K, s);
   if (bm == 64 && bn == 64)
-    return launch<1, 64, EPI, GELU, OUT_BF16, ROWMAX>(A, W, args, M, N, K, s);
+    return launch<1, 64, EPI, GELU, OUT_BF16, ROWMAX, PRE>(A, W, args, M, N,
+                                                           K, s);
   return kBadTile;
 }
 

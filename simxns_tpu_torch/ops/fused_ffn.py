@@ -13,9 +13,10 @@ makes on the card):
 - K11 :func:`ffn_bwd_dw` replaces ``_ffn_bwd_dw_kernel`` (:374);
 - K12 :func:`ffn_fused_fwd` replaces ``_ffn_kernel`` (:77).
 
-K9-K11 are in ``csrc/fused_ffn.cu``; K12 is two launches of the
-persistent wgmma GEMM (``csrc/ffn_fwd.cu`` on ``csrc/wgmma_gemm.cuh``) with
-its [M, F] intermediate ``g`` in device memory.
+K9 and K12 are two launches each of the persistent wgmma GEMM
+(``csrc/ffn_fwd.cu`` on ``csrc/wgmma_gemm.cuh``) with their [M, F]
+intermediate ``g`` in device memory (:func:`ffn_fwd_workspace`); K9's first
+GEMM also stores ``hb``. K10 and K11 are in ``csrc/fused_ffn.cu``.
 
 Their arithmetic is the TPU kernels': f32 accumulation, each product
 rounded to the activation dtype before the bias is added in that dtype,
@@ -37,7 +38,8 @@ every M launches them, and a width they do not take raises.
 
 The int8 encode kernels (``csrc/int8_ffn.cu``) replace the other two:
 
-- K13 :func:`int8_dense_fwd` replaces ``_dense_int8_kernel`` (:222);
+- K13 :func:`int8_dense_fwd` replaces ``_dense_int8_kernel`` (:222): two
+  launches (the codes of x, a wgmma GEMM; :func:`int8_dense_workspace`);
 - K14 :func:`int8_ffn_fwd` replaces ``_ffn_int8_kernel`` (:160): four
   launches (the codes of x, a wgmma GEMM to ``g`` in f32 with its per-tile
   row maxima, the codes of g, a second wgmma GEMM;
@@ -66,19 +68,18 @@ from simxns_tpu_torch.ops import _native
 _TILE_M = 256                 # simxns_tpu/ops/fused_ffn.py:41
 _TILE_TRAIN_M = 256           # :310
 _F_BLOCK = 768                # :311
-_KERNEL_H = (256, 768, 1024)  # csrc/fused_ffn.cu: the widths the chained
+_KERNEL_H = (256, 768, 1024)  # csrc/fused_ffn.cu: the widths K10's chained
                               # kernel is built for (the [32, H] f32 sum of
                               # a block lives in its registers)
-_TRAIN_FWD, _BWD_DX = 0, 2   # csrc/fused_ffn.cu Mode
-_CHAIN_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DX_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _DW_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _TILE_INT8_FFN_M = 256        # int8_ffn's tile_m (:177)
 _TILE_INT8_DENSE_M = 512      # int8_dense's tile_m (:231)
-_INT8_DENSE_K = (128, 1024)   # csrc/int8_ffn.cu: a block's rows of x are
-                              # quantized in registers, one warp a row
-_DENSE8_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_INT8_DENSE_K = (128, 1024)   # csrc/int8_ffn.cu: a row of x is quantized in
+                              # one warp's registers
+_DENSE8_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FFN8_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_FFN_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FFN_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def erf_as(z: torch.Tensor) -> torch.Tensor:
@@ -245,27 +246,37 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else _native.ptr(t)
 
 
-def _chain(what, mode, a, b1m, bias1, b2m, bias2, res_in, dims):
-    """Launch the chained kernel of csrc/fused_ffn.cu; -> (out, res_out)."""
-    m, h, f = dims
+def ffn_fwd_workspace(m: int, h: int, f: int, sms: int) -> dict:
+    """K9's and K12's tiles and device-memory workspace for x [m, h] and
+    F = f on ``sms`` SMs: ``{"tiles": ((bm1, bn1), (bm2, bn2)), "g":
+    (shape, dtype)}``. The first GEMM ([m, f]) writes ``g``, which the
+    second ([m, h]) reads."""
+    return {"tiles": (_native.wgmma_tile(m, f, sms),
+                      _native.wgmma_tile(m, h, sms)),
+            "g": ((m, f), torch.bfloat16)}
+
+
+def _ffn_fwd(what, x, w1, b1, w2, b2, with_hb):
+    """Launch the GEMM pair of csrc/ffn_fwd.cu; -> (y, hb or None)."""
+    m, h, f = _kernel_dims(what, x, w1.shape[0])
     bf = torch.bfloat16
-    _native.check_tensor(a, bf, (m, h), f"{what}: activations")
-    first, second = ((h, f), (f, h)) if mode == _BWD_DX else ((f, h), (h, f))
-    _native.check_tensor(b1m, bf, first, f"{what}: first weight")
-    _native.check_tensor(b2m, bf, second, f"{what}: second weight")
-    if mode == _BWD_DX:
-        _native.check_tensor(res_in, bf, (m, f), f"{what}: hb")
-    else:
-        _native.check_tensor(bias1, bf, (f,), f"{what}: b1")
-        _native.check_tensor(bias2, bf, (h,), f"{what}: b2")
-    out = torch.empty(m, h, dtype=bf, device=a.device)
-    res_out = torch.empty(m, f, dtype=bf, device=a.device)
-    fn = _native.function("fused_ffn", "sx_ffn_chain", _CHAIN_ARGS)
-    code = fn(_ptr(a), _ptr(b1m), _ptr(bias1), _ptr(b2m), _ptr(bias2),
-              _ptr(res_in), _ptr(out), _ptr(res_out), m, h, f, mode,
-              _native.stream(a.device))
-    _native.check("fused_ffn", code, what)
-    return out, res_out
+    _native.check_tensor(x, bf, (m, h), f"{what}: activations")
+    _native.check_tensor(w1, bf, (f, h), f"{what}: w1")
+    _native.check_tensor(b1, bf, (f,), f"{what}: b1")
+    _native.check_tensor(w2, bf, (h, f), f"{what}: w2")
+    _native.check_tensor(b2, bf, (h,), f"{what}: b2")
+    ws = ffn_fwd_workspace(m, h, f, _native.sm_count(x.device))
+    shape, dt = ws["g"]
+    g = torch.empty(shape, dtype=dt, device=x.device)
+    hb = torch.empty(m, f, dtype=bf, device=x.device) if with_hb else None
+    y = torch.empty(m, h, dtype=bf, device=x.device)
+    (bm1, bn1), (bm2, bn2) = ws["tiles"]
+    fn = _native.function("ffn_fwd", "sx_ffn_fwd", _FFN_FWD_ARGS)
+    code = fn(_ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(g),
+              _ptr(hb), _ptr(y), m, h, f, bm1, bn1, bm2, bn2,
+              _native.stream(x.device))
+    _native.check("ffn_fwd", code, what)
+    return y, hb
 
 
 def ffn_train_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -274,11 +285,12 @@ def ffn_train_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """K9: the training forward. x [M, H], w1 [F, H], b1 [F], w2 [H, F],
     b2 [H], all in the activation dtype. -> (y [M, H], hb [M, F]):
     ``hb = dt(x w1^T) + b1`` is the one residual of the backward,
-    ``y = dt(dt(gelu(f32(hb))) w2^T) + b2``."""
+    ``y = dt(dt(gelu(f32(hb))) w2^T) + b2``. On the card two wgmma GEMMs,
+    K12's with ``hb`` stored by the first beside ``g`` (a workspace of this
+    call)."""
     if not x.is_cuda:
         return _ffn_train_fwd_plain(x, w1, b1, w2, b2)
-    dims = _kernel_dims("ffn_train_fwd", x, w1.shape[0])
-    out = _chain("ffn_train_fwd", _TRAIN_FWD, x, w1, b1, w2, b2, None, dims)
+    out = _ffn_fwd("ffn_train_fwd", x, w1, b1, w2, b2, with_hb=True)
     ffn_train_fwd.launches += 1
     return out
 
@@ -293,21 +305,7 @@ def ffn_fused_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     device memory between them (a workspace of this call)."""
     if not x.is_cuda:
         return _ffn_train_fwd_plain(x, w1, b1, w2, b2)[0]
-    m, h, f = _kernel_dims("ffn_fused_fwd", x, w1.shape[0])
-    bf = torch.bfloat16
-    _native.check_tensor(x, bf, (m, h), "ffn_fused_fwd: activations")
-    _native.check_tensor(w1, bf, (f, h), "ffn_fused_fwd: w1")
-    _native.check_tensor(b1, bf, (f,), "ffn_fused_fwd: b1")
-    _native.check_tensor(w2, bf, (h, f), "ffn_fused_fwd: w2")
-    _native.check_tensor(b2, bf, (h,), "ffn_fused_fwd: b2")
-    g = torch.empty(m, f, dtype=bf, device=x.device)
-    y = torch.empty(m, h, dtype=bf, device=x.device)
-    sms = _native.sm_count(x.device)
-    fn = _native.function("ffn_fwd", "sx_ffn_fwd", _FFN_FWD_ARGS)
-    code = fn(_ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(g),
-              _ptr(y), m, h, f, *_native.wgmma_tile(m, f, sms),
-              *_native.wgmma_tile(m, h, sms), _native.stream(x.device))
-    _native.check("ffn_fwd", code, "ffn_fused_fwd")
+    y, _ = _ffn_fwd("ffn_fused_fwd", x, w1, b1, w2, b2, with_hb=False)
     ffn_fused_fwd.launches += 1
     return y
 
@@ -325,10 +323,20 @@ def ffn_bwd_dx(dy: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     in device memory."""
     if not dy.is_cuda:
         return _ffn_bwd_dx_plain(dy, w1, w2, hb)
-    dims = _kernel_dims("ffn_bwd_dx", dy, w1.shape[0])
-    out = _chain("ffn_bwd_dx", _BWD_DX, dy, w2, None, w1, None, hb, dims)
+    m, h, f = _kernel_dims("ffn_bwd_dx", dy, w1.shape[0])
+    bf = torch.bfloat16
+    _native.check_tensor(dy, bf, (m, h), "ffn_bwd_dx: dy")
+    _native.check_tensor(w1, bf, (f, h), "ffn_bwd_dx: w1")
+    _native.check_tensor(w2, bf, (h, f), "ffn_bwd_dx: w2")
+    _native.check_tensor(hb, bf, (m, f), "ffn_bwd_dx: hb")
+    dx = torch.empty(m, h, dtype=bf, device=dy.device)
+    dh = torch.empty(m, f, dtype=bf, device=dy.device)
+    fn = _native.function("fused_ffn", "sx_ffn_bwd_dx", _DX_ARGS)
+    code = fn(_ptr(dy), _ptr(w1), _ptr(w2), _ptr(hb), _ptr(dx), _ptr(dh),
+              m, h, f, _native.stream(dy.device))
+    _native.check("fused_ffn", code, "ffn_bwd_dx")
     ffn_bwd_dx.launches += 1
-    return out
+    return dx, dh
 
 
 ffn_bwd_dx.launches = 0
@@ -465,6 +473,14 @@ def _int8_dense_plain(x, w8, ws, b):
     return (int8_matmul(xq, w8).float() * xs[:, None] * ws + b).to(x.dtype)
 
 
+def int8_dense_workspace(m: int, i: int, o: int, sms: int) -> dict:
+    """K13's tile and device-memory workspaces for x [m, i] and O = o on
+    ``sms`` SMs: ``{"tiles": (bm, bn), name: (shape, dtype)}``. The codes
+    of x and their scales ``xs`` feed the GEMM ([m, o])."""
+    return {"tiles": _native.wgmma_tile(m, o, sms),
+            "codes": ((m, i), torch.int8), "xs": ((m,), torch.float32)}
+
+
 def int8_ffn_workspace(m: int, h: int, f: int, sms: int) -> dict:
     """K14's tiles and device-memory workspaces for x [m, h] and F = f on
     ``sms`` SMs: ``{"tiles": ((bm1, bn1), (bm2, bn2)), name: (shape,
@@ -517,8 +533,10 @@ def int8_dense_fwd(x: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor,
     """K13: x [M, I], w8 [O, I] int8 with per-output-channel scales ws [O],
     b [O] f32. -> ``y = (acc * xs) * ws + b`` [M, O] in x's dtype, with
     ``(codes, xs) = quant_rows(x)`` and ``acc`` their exact int32 product
-    with w8; the codes never reach device memory. On the card: bf16 x,
-    I a multiple of 128 up to 1024, O a multiple of 128."""
+    with w8. On the card: bf16 x, I a multiple of 128 up to 1024, O a
+    multiple of 128; two launches, the codes of x and the wgmma GEMM, with
+    the codes and ``xs`` in device memory between them
+    (:func:`int8_dense_workspace`)."""
     if not x.is_cuda:
         return _int8_dense_plain(x, w8, ws, b)
     m, i = x.shape
@@ -536,8 +554,13 @@ def int8_dense_fwd(x: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor,
     _native.check_tensor(w8, torch.int8, (o, i), "int8_dense_fwd: w8")
     _check_scales("int8_dense_fwd", (("ws", ws, o), ("b", b, o)))
     out = torch.empty(m, o, dtype=torch.bfloat16, device=x.device)
+    work = int8_dense_workspace(m, i, o, _native.sm_count(x.device))
+    bm, bn = work.pop("tiles")
+    buf = {name: torch.empty(shape, dtype=dt, device=x.device)
+           for name, (shape, dt) in work.items()}
     fn = _native.function("int8_ffn", "sx_int8_dense", _DENSE8_ARGS)
-    code = fn(_ptr(x), _ptr(w8), _ptr(ws), _ptr(b), _ptr(out), m, i, o,
+    code = fn(_ptr(x), _ptr(w8), _ptr(ws), _ptr(b), _ptr(out),
+              _ptr(buf["codes"]), _ptr(buf["xs"]), m, i, o, bm, bn,
               _native.stream(x.device))
     _native.check("int8_ffn", code, "int8_dense_fwd")
     int8_dense_fwd.launches += 1

@@ -167,10 +167,15 @@ def _int8_weights(dev, o, i, seed):
 
 @pytest.mark.parametrize("m,i,o", [(256, 768, 2304), (37, 256, 384),
                                    (1, 1024, 128), (600, 768, 768),
-                                   (4000, 128, 256)])
+                                   (4000, 128, 256), (131, 768, 768),
+                                   (65, 1024, 2304), (2048, 768, 2304),
+                                   (4097, 768, 2304)])
 def test_int8_dense_matches_plain(dev, m, i, o):
-    """K13 against its plain version at tiling and ragged M (the kernel
-    masks its edge) and every row-block size it picks; one launch."""
+    """K13 (the codes of x, then the wgmma GEMM, through the workspaces of
+    ``int8_dense_workspace``) bitwise against its plain version at ragged
+    M, one K stage (I = 128), the quantizer's widest row (I = 1024) and
+    every GEMM tile on 132 SMs (64 x 64 up to 600 rows, 64 x 128 at 2,048,
+    128 x 256 at 4,097); one launch count a call."""
     x = _randn(dev, m, i, seed=m).to(torch.bfloat16)
     _, _, q = _int8_weights(dev, o, i, seed=i)
     before = fused_ffn.int8_dense_fwd.launches
@@ -225,6 +230,24 @@ def test_int8_ffn_bypasses_k1_and_k2(dev):
     torch.cuda.synchronize()
     assert (fl.int8_linear.launches, fl.row_quant.launches,
             fused_ffn.int8_ffn_fwd.launches) == (*before[:2], before[2] + 1)
+
+
+@pytest.mark.parametrize("m,h,f", FFN_TILE_CASES)
+def test_ffn_train_fwd_matches_plain(dev, m, h, f):
+    """K9, K12's GEMM pair with hb stored by the first GEMM's epilogue,
+    against its plain version at every branch of the tile rule and at
+    ragged M: y and hb within one bf16 step of the largest value; one
+    launch count a call."""
+    x, w1, b1, w2, b2, _ = _ffn_inputs(dev, m, h, f, seed=m + h)
+    before = fused_ffn.ffn_train_fwd.launches
+    y, hb = fused_ffn.ffn_train_fwd(x, w1, b1, w2, b2)
+    y_ref, hb_ref = fused_ffn._ffn_train_fwd_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert y.dtype == hb.dtype == torch.bfloat16
+    assert y.shape == (m, h) and hb.shape == (m, f)
+    _close_bf16(hb, hb_ref, ("hb", m, h, f))
+    _close_bf16(y, y_ref, ("y", m, h, f))
+    assert fused_ffn.ffn_train_fwd.launches == before + 1
 
 
 @pytest.mark.parametrize("m,h,f", FFN_TILE_CASES)

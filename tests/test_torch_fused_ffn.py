@@ -217,6 +217,24 @@ def test_unaligned_shapes_fall_back_to_the_reference(knob):
     assert torch.equal(got, pf.ffn_reference(*args))
 
 
+# (M, H, F) of K9 and K12 and the tiles of their two GEMMs ([M, F], then
+# [M, H]) on 132 SMs: chip_smoke.py's FFN_SHAPES (the CE-large step, the
+# DE's passages and queries, an msdoc step, an encode chunk) and ragged M
+@pytest.mark.parametrize("m,h,f,tiles", [
+    (20480, 1024, 4096, ((128, 256), (128, 256))),
+    (16384, 768, 3072, ((128, 256), (128, 256))),
+    (256, 768, 3072, ((64, 64), (64, 64))),
+    (65536, 768, 3072, ((128, 256), (128, 256))),
+    (131072, 768, 3072, ((128, 256), (128, 256))),
+    (4000, 768, 3072, ((128, 256), (64, 128))),
+    (7, 256, 256, ((64, 64), (64, 64)))])
+def test_ffn_fwd_workspace(m, h, f, tiles):
+    """K9's and K12's tiles and the bf16 g [M, F] their first GEMM writes
+    and their second reads (K9's hb is an output, not a workspace)."""
+    assert pf.ffn_fwd_workspace(m, h, f, 132) == {
+        "tiles": tiles, "g": ((m, f), torch.bfloat16)}
+
+
 def test_tiling_rules_agree_with_jax():
     """``_train_tiles`` and ``fused_ffn``'s rule over a grid of (M, H, F),
     including F=4096 -> f-block 512 and F=3072 -> 768."""

@@ -254,6 +254,24 @@ def test_int8_ffn_workspace(m, h, f, tiles, parts):
                   "gs": ((m,), torch.float32)}
 
 
+# (M, I, O) of K13 and the tile of its GEMM ([M, O]) on 132 SMs: the
+# encode chunk's q, k, v and output projection (131,072 tokens), a
+# request's (256), the mine's queries (2,048), one row, ragged M, I = 128
+# (one K stage) and I = 1024 (the quantizer's widest row)
+@pytest.mark.parametrize("m,i,o,tile", [
+    (131072, 768, 2304, (128, 256)), (131072, 768, 768, (128, 256)),
+    (256, 768, 2304, (64, 64)), (256, 768, 768, (64, 64)),
+    (2048, 768, 2304, (64, 128)), (1, 1024, 128, (64, 64)),
+    (4097, 768, 2304, (128, 256)), (4000, 128, 256, (64, 64)),
+    (65, 1024, 2304, (64, 64)), (131, 768, 768, (64, 64))])
+def test_int8_dense_workspace(m, i, o, tile):
+    """K13's tile and workspaces on 132 SMs: the codes of x and their
+    scales, which its GEMM reads."""
+    assert pf.int8_dense_workspace(m, i, o, 132) == {
+        "tiles": tile, "codes": ((m, i), torch.int8),
+        "xs": ((m,), torch.float32)}
+
+
 @pytest.mark.parametrize("f", [128, 384, 3072])
 @pytest.mark.parametrize("bn", [64, 128, 256])
 def test_partial_maxima_give_quant_rows_scales(f, bn):
