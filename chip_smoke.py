@@ -74,10 +74,13 @@ non-zero and prints no result):
    ``ffn_bwd_dw`` and K12 ``ffn_fused_fwd`` (bf16) against their plain
    versions at the CE-large step's shape (M=20,480, H=1024, F=4096), the
    DE's passages (16,384 x 768 x 3072) and queries (M=256), an msdoc step
-   (M=65,536) and, for K12, an encode chunk (M=131,072), with ``F.linear``
-   -> ``F.gelu`` -> ``F.linear`` in bf16 and its autograd backward as the
-   yardstick; K9 and K12 with their device time by launch (two GEMMs a
-   call; K9's first also stores hb) and the memory a call allocates;
+   (M=65,536), a width off the models' (3,001 x 512 x 2048) and, for K12,
+   an encode chunk (M=131,072), with ``F.linear`` -> ``F.gelu`` ->
+   ``F.linear`` in bf16 and its autograd backward as the yardstick; each
+   with its device time by launch (K9, K10, K12: two GEMMs a call; K11 a
+   GEMM over both weight gradients and the pass that adds db1's parts and
+   the splits of K) and the memory a call allocates; two K11 calls held
+   bitwise equal;
 9. training under ``ffn_impl="fused_vjp"``: phase 5's models and batches
    with the knob set on the DE and the CE. The first reranker step's
    gradients on K9-K11 against the same step on their plain versions, and
@@ -92,7 +95,8 @@ non-zero and prints no result):
    requests; K12 launched 12 times per chunk; the embeddings against the
    same model on K12's plain version;
 11. the int8 encode kernels: K14 ``int8_ffn`` at an encode chunk
-   (131,072 x 768 x 3072), a request (256 rows) and a ragged M (4,000),
+   (131,072 x 768 x 3072), a request (256 rows), a ragged M (4,000) and
+   phase 8's width off the models' (3,001 x 512 x 2048),
    bitwise against its plain version and without a launch of K1 or K2,
    K13 ``int8_dense`` at the chunk's and a request's q, k, v (O = 2304)
    and output projection (O = 768), bitwise against its plain version;
@@ -1564,6 +1568,7 @@ FFN_SHAPES = {"ce_large": (N_Q * N_P * LJ, CE_H, CE_F),
               "de_passages": (N_Q * N_P * LC, H, F),
               "de_queries": (N_Q * LQ, H, F),
               "msdoc": (N_Q * N_P * MS_S, H, F),
+              "off_model": (3001, 512, 2048),
               "encode_chunk": (1024 * LC, H, F)}
 FFN_KERNELS = ("ffn_train_fwd", "ffn_bwd_dx", "ffn_bwd_dw", "ffn_fused_fwd")
 
@@ -1650,37 +1655,61 @@ def _check_ffn_shape(torch, randn, label, m, h, f, k12_only=False):
     del y, y_ref, hb_ref
 
     # the backward kernels and their plain versions read K9's hb, and K11
-    # K10's dh: the same inputs on both sides
+    # K10's dh, g and db1 parts: the same inputs on both sides
     dy = randn(m, h).to(bf)
-    dx, dh = pf.ffn_bwd_dx(dy, w1, w2, hb)
-    dx_ref, dh_ref = pf._ffn_bwd_dx_plain(dy, w1, w2, hb)
+
+    def k10():
+        return pf.ffn_bwd_dx(dy, w1, w2, hb)
+
+    dx, dh, g, parts = k10()
+    dx_ref, dh_ref, g_ref, parts_ref = pf._ffn_bwd_dx_plain(dy, w1, w2, hb)
     err_h, share_h = close_bf16(dh, dh_ref, "ffn_bwd_dx dh")
     err, share = close_bf16(dx, dx_ref, "ffn_bwd_dx dx")
-    del dx, dx_ref, dh_ref
-    ms10 = timed(torch, lambda: pf.ffn_bwd_dx(dy, w1, w2, hb), 5)
+    err_g, share_g = close_bf16(g, g_ref, "ffn_bwd_dx g")
+    # the parts are column sums of the kernel's own dh (64 rows each)
+    close_f32(parts, pf._column_parts(dh), "ffn_bwd_dx db1 parts")
+    del dx, dx_ref, dh_ref, g_ref, parts_ref
+    ms10 = timed(torch, k10, 5)
     plain10 = timed(torch, lambda: pf._ffn_bwd_dx_plain(dy, w1, w2, hb), 1,
                     warmup=0)
-    bms, by = bound(2 * (2 * m * h + 2 * m * f + 2 * h * f), ops, PEAK_BF16)
+    rows64 = -(-m // 64)
+    bms, by = bound(2 * (2 * m * h + 3 * m * f + 2 * h * f) + 4 * rows64 * f,
+                    ops, PEAK_BF16)
     out["ffn_bwd_dx"] = dict(
         shape, ms=ms10, plain_ms=plain10, library_ms=None, bound_ms=bms,
-        bound_by=by, max_abs_err=max(err, err_h),
-        share_differing=max(share, share_h))
+        bound_by=by, max_abs_err=max(err, err_h, err_g),
+        share_differing=max(share, share_h, share_g),
+        device_ms_by_kernel=device_split(torch, k10),
+        call_peak_gb=call_peak_gb(torch, k10))
 
-    got = pf.ffn_bwd_dw(x, dy, hb, dh)
-    want = pf._ffn_bwd_dw_plain(x, dy, hb, dh)
-    errs = [close_f32(g, w, f"ffn_bwd_dw {name}")
-            for name, g, w in zip(("dw1", "db1", "dw2"), got, want)]
-    del got, want
-    ms11 = timed(torch, lambda: pf.ffn_bwd_dw(x, dy, hb, dh), 5)
-    plain11 = timed(torch, lambda: pf._ffn_bwd_dw_plain(x, dy, hb, dh), 1,
-                    warmup=0)
-    bms, by = bound(2 * (2 * m * h + 2 * m * f) + 4 * (2 * h * f + f), ops,
-                    PEAK_BF16)
+    def k11():
+        return pf.ffn_bwd_dw(x, dy, g, dh, parts)
+
+    got = k11()
+    want = pf._ffn_bwd_dw_plain(x, dy, g, dh, parts)
+    errs = [close_f32(gt, w, f"ffn_bwd_dw {name}")
+            for name, gt, w in zip(("dw1", "db1", "dw2"), got, want)]
+    again = k11()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ffn_bwd_dw at {label}: two calls differ")
+    del got, want, again
+    ms11 = timed(torch, k11, 5)
+    plain11 = timed(torch, lambda: pf._ffn_bwd_dw_plain(x, dy, g, dh, parts),
+                    1, warmup=0)
+    bms, by = bound(2 * (2 * m * h + 2 * m * f) + 4 * rows64 * f
+                    + 4 * (2 * h * f + f), ops, PEAK_BF16)
+    bm, bn, splits = pf.ffn_bwd_workspace(
+        m, h, f, torch.cuda.get_device_properties(0).multi_processor_count
+    )["dw"]
     out["ffn_bwd_dw"] = dict(
         shape, ms=ms11, plain_ms=plain11, library_ms=None, bound_ms=bms,
         bound_by=by, max_abs_err=max(e[0] for e in errs),
         max_err_of_largest=max(e[1] for e in errs),
-        min_cosine=min(e[2] for e in errs))
+        min_cosine=min(e[2] for e in errs), bitwise_run_to_run=True,
+        tile=[bm, bn], splits=splits,
+        device_ms_by_kernel=device_split(torch, k11),
+        call_peak_gb=call_peak_gb(torch, k11))
+    del g, parts
 
     # the yardstick of K10 + K11 together: the library forward's backward
     leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
@@ -1998,8 +2027,8 @@ def _int8_exact(torch, got, want, what):
     return err, differ
 
 
-def _check_int8_ffn_shape(torch, randn, label, m):
-    """K14 at (m, H, F) against its plain version, with its time, the plain
+def _check_int8_ffn_shape(torch, randn, label, m, h=H, f=F):
+    """K14 at (m, h, f) against its plain version, with its time, the plain
     version's, the bound, the library's int8 chain (``_int_mm`` -> epilogue
     + GELU -> ``quant_rows`` -> ``_int_mm`` -> epilogue, on codes of x made
     beforehand) and bf16 chain (``F.linear`` -> ``F.gelu`` -> ``F.linear``),
@@ -2009,9 +2038,9 @@ def _check_int8_ffn_shape(torch, randn, label, m):
     from simxns_tpu_torch.ops import fused_layer as fl
 
     bf = torch.bfloat16
-    x = randn(m, H).to(bf)
-    w1, b1 = randn(F, H, scale=0.02), randn(F, scale=0.02)
-    w2, b2 = randn(H, F, scale=0.02), randn(H, scale=0.02)
+    x = randn(m, h).to(bf)
+    w1, b1 = randn(f, h, scale=0.02), randn(f, scale=0.02)
+    w2, b2 = randn(h, f, scale=0.02), randn(h, scale=0.02)
     (w1_8, s1), (w2_8, s2) = pf.quantize_weight(w1), pf.quantize_weight(w2)
     args = (x, w1_8, s1, b1, w2_8, s2, b2)
     # K14's path bypasses K1 and K2: their counts must not move
@@ -2048,9 +2077,9 @@ def _check_int8_ffn_shape(torch, randn, label, m):
 
     comp_diff = int((composition() != got).sum())
     comp = timed(torch, composition, 3)
-    bms, by = bound(2 * 2 * m * H + 2 * H * F + 4 * 2 * (H + F),
-                    4.0 * m * H * F, PEAK_INT8)
-    return dict(shape=label, m=m, h=H, f=F, ms=ms, plain_ms=plain,
+    bms, by = bound(2 * 2 * m * h + 2 * h * f + 4 * 2 * (h + f),
+                    4.0 * m * h * f, PEAK_INT8)
+    return dict(shape=label, m=m, h=h, f=f, ms=ms, plain_ms=plain,
                 library_ms=lib, library_bf16_ms=lib_bf16, bound_ms=bms,
                 bound_by=by, k2_k1_composition_ms=comp,
                 k2_k1_composition_elements_differing=comp_diff,
@@ -2106,7 +2135,8 @@ def _check_int8_dense_shape(torch, randn, label, m, o):
 
 def phase_int8_kernels(torch, smi, records):
     """Phase 11: K14 ``int8_ffn`` at an encode chunk (131,072 rows), a
-    request (256) and a ragged M (4,000), K13 ``int8_dense`` at the chunk's
+    request (256), a ragged M (4,000) and phase 8's width off the models'
+    (3,001 x 512 x 2048), K13 ``int8_dense`` at the chunk's
     and a request's q, k, v (O = 2304) and output projection (O = 768);
     then the public ``int8_ffn`` at a shape that does not tile,
     which is ``ffn_reference`` and launches nothing. The records are the
@@ -2121,10 +2151,11 @@ def phase_int8_kernels(torch, smi, records):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
     shapes = {"int8_ffn": [], "int8_dense": []}
-    for label, m in (("encode_chunk", 131072), ("request", 256),
-                     ("ragged", 4000)):
+    for label, m, h, f in (("encode_chunk", 131072, H, F),
+                           ("request", 256, H, F), ("ragged", 4000, H, F),
+                           ("off_model", *FFN_SHAPES["off_model"])):
         shapes["int8_ffn"].append(_check_int8_ffn_shape(torch, randn, label,
-                                                        m))
+                                                        m, h, f))
         emit("kernel_shape", name="int8_ffn", nvidia_smi=smi,
              **shapes["int8_ffn"][-1])
         torch.cuda.empty_cache()

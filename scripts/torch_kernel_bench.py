@@ -28,10 +28,12 @@ one JSON line, with the card's name and power limit:
   the encode chunk's (131,072 tokens) and a request's (256) q, k, v (768 ->
   2304) and output projection (768 -> 768), bitwise against its plain
   version, with ``_int_mm`` + epilogue and the K2 -> K1 composition beside;
-- ``ffn_train:ce_large|de_passages|msdoc|queries``: K9-K12 at the CE-large
-  step, the DE's passages (16,384 x 768 x 3072), an msdoc step (65,536
-  rows) and the DE's queries, against their plain versions (K10 and K11 on
-  K9's hb), with the ``F.linear`` chain and its autograd backward beside.
+- ``ffn_train:ce_large|de_passages|msdoc|queries|off_model``: K9-K12 at
+  the CE-large step, the DE's passages (16,384 x 768 x 3072), an msdoc step
+  (65,536 rows), the DE's queries and a width off the models' (3,001 x 512
+  x 2048), against their plain versions (K10 on K9's hb, K11 on K10's dh, g
+  and db1 parts), with device times by launch and the ``F.linear`` chain
+  and its autograd backward beside.
 
 ``--repo`` imports ``simxns_tpu_torch`` from another checkout (the parent
 commit unpacked with ``git archive``, say) while the checks and timers stay
@@ -88,7 +90,8 @@ CASES = {
             torch, randn, shape, *cs.FFN_SHAPES[shape])))
        for label, shape in (("ce_large", "ce_large"),
                             ("de_passages", "de_passages"),
-                            ("msdoc", "msdoc"), ("queries", "de_queries"))},
+                            ("msdoc", "msdoc"), ("queries", "de_queries"),
+                            ("off_model", "off_model"))},
 }
 
 

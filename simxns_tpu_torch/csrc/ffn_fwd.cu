@@ -4,7 +4,7 @@
 //   g  = bf16(gelu(f32(hb)))      (the Abramowitz-Stegun erf),
 //   y  = bf16(g W2^T) + b2,
 // with bf16 operands and f32 sums; K9 also returns hb, the one residual of
-// the backward (K10 and K11 in fused_ffn.cu read it). They replace
+// the backward (K10 in fused_ffn.cu reads it). They replace
 // _ffn_train_fwd_kernel (simxns_tpu/ops/fused_ffn.py:324, pallas_call :424)
 // and _ffn_kernel (:77, pallas_call :94), which differ only by hb's store,
 // with their arithmetic: each product rounded to bf16 before its bf16 bias,
@@ -44,8 +44,8 @@ extern "C" const char* sx_error_string(int code) {
 // workspace) and out [M, H] bf16; hb [M, F] bf16 for K9, null for K12; the
 // GEMMs' tiles (bm1, bn1) over [M, F] and (bm2, bn2) over [M, H]
 // (ops/_native.py:wgmma_tile). H and F multiples of 64, any M >= 1 (the
-// Python wrapper takes H in 256, 768, 1024 and F % 128 == 0). Returns 0, a
-// CUDA error code, or one of wgmma_gemm.cuh's.
+// Python wrapper takes multiples of 128, the JAX kernels' grid). Returns 0,
+// a CUDA error code, or one of wgmma_gemm.cuh's.
 extern "C" int sx_ffn_fwd(const void* x, const void* W1, const void* b1,
                           const void* W2, const void* b2, void* g, void* hb,
                           void* out, int M, int H, int F, int bm1, int bn1,

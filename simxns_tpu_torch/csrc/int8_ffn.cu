@@ -19,8 +19,9 @@
 //
 // Both run on the persistent wgmma GEMM of wgmma_gemm.cuh, and share its
 // instances in this library. K13 is two launches of one call:
-// 1. quantize_x: the codes of x and their scales xs (one warp a row, the
-//    row in registers: max|x|, then the codes) into device memory;
+// 1. quantize_x: the codes of x and their scales xs (one warp a row: max|x|,
+//    then the codes; a row of up to 1024 values stays in registers between
+//    the two passes, a longer one is read again) into device memory;
 // 2. the GEMM codes x W8 (kDequant, bf16 out): (acc * xs) * ws + b, the
 //    instance that K14's GEMM 2 runs.
 // Bound on the card: bytes at the encode path's shapes (131,072 x 768 ->
@@ -64,7 +65,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxRow = 1024;             // widest row a warp quantizes
+constexpr int kRegRow = 1024;   // values of a row a warp holds at once
 constexpr int kWarps = sx::kThreads / 32;
 // rows of x a block codes, one a warp (H100: a request's 256 rows 0.0026
 // ms against 0.0072 at 32 a block, the encode chunk's 131,072 0.116 against
@@ -134,50 +135,61 @@ __global__ void __launch_bounds__(sx::kThreads)
   }
 }
 
-// x [M, K] bf16 -> codes [M, K] int8 and xs [M] f32 (K % 128 == 0, K <=
-// kMaxRow); one warp a row, a lane holding at most four 16-byte chunks of
-// it
+// x [M, K] bf16 -> codes [M, K] int8 and xs [M] f32 (K % 8 == 0); one warp
+// a row, which it walks in chunks of kRegRow values (a lane four 16-byte
+// pieces of each): max|x| over the chunks, then the codes. A row of one
+// chunk stays in the lanes' registers between the two passes; a longer
+// row is read again (from L1 / L2).
 __global__ void __launch_bounds__(sx::kThreads)
     quantize_x_kernel(const bf16* __restrict__ x, uint8_t* __restrict__ codes,
                       float* __restrict__ xs, int M, int K) {
+  constexpr int kPieces = kRegRow / 256;   // 16-byte pieces a lane a chunk
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = K / 8;
+  const int chunks = K / 8;                // 16-byte pieces of the row
   const int m0 = blockIdx.x * kQuantRows, rows = min(kQuantRows, M - m0);
   for (int r = warp; r < rows; r += kWarps) {
     const long m = m0 + r;
-    uint4 v[kMaxRow / 256];
+    uint4 v[kPieces];
     float amax = 0.0f;
+    for (int base = 0; base < chunks; base += 32 * kPieces) {
 #pragma unroll
-    for (int j = 0; j < kMaxRow / 256; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = make_uint4(0, 0, 0, 0);
-      if (c < chunks)
-        v[j] = *reinterpret_cast<const uint4*>(x + m * K + c * 8);
-      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+      for (int j = 0; j < kPieces; ++j) {
+        const int c = base + lane + 32 * j;
+        v[j] = make_uint4(0, 0, 0, 0);
+        if (c < chunks)
+          v[j] = *reinterpret_cast<const uint4*>(x + m * K + c * 8);
+        const __nv_bfloat162* e =
+            reinterpret_cast<const __nv_bfloat162*>(&v[j]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(e[i]);
-        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(e[i]);
+          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
       }
     }
 #pragma unroll
     for (int o = 16; o; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     const float s = row_scale(amax);
+    const bool held = chunks <= 32 * kPieces;   // v is the whole row
+    for (int base = 0; base < chunks; base += 32 * kPieces) {
 #pragma unroll
-    for (int j = 0; j < kMaxRow / 256; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= chunks) continue;
-      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v[j]);
-      int q[8];
+      for (int j = 0; j < kPieces; ++j) {
+        const int c = base + lane + 32 * j;
+        if (c >= chunks) continue;
+        if (!held) v[j] = *reinterpret_cast<const uint4*>(x + m * K + c * 8);
+        const __nv_bfloat162* e =
+            reinterpret_cast<const __nv_bfloat162*>(&v[j]);
+        int q[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(e[i]);
-        q[2 * i] = quantize(f.x, s);
-        q[2 * i + 1] = quantize(f.y, s);
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(e[i]);
+          q[2 * i] = quantize(f.x, s);
+          q[2 * i + 1] = quantize(f.y, s);
+        }
+        *reinterpret_cast<uint2*>(codes + m * K + c * 8) = make_uint2(
+            pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
       }
-      *reinterpret_cast<uint2*>(codes + m * K + c * 8) = make_uint2(
-          pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
     }
     if (lane == 0) xs[m] = s;
   }
@@ -197,15 +209,15 @@ int quantize_x(const void* x, void* codes, float* xs, int M, int K,
 // K13; see the note at the head of this file. x [M, K] bf16; W [N, K]
 // int8; ws, b [N] f32; out [M, N] bf16; the workspaces codes [M, K] int8
 // and xs [M] f32; the GEMM's tile (bm, bn) over [M, N]
-// (ops/_native.py:wgmma_tile). K % 128 == 0 with 128 <= K <= 1024, N % 128
-// == 0, any M >= 1 (checked by the Python wrapper; cudaErrorInvalidValue
-// otherwise). Returns 0, a CUDA error code, or one of wgmma_gemm.cuh's.
+// (ops/_native.py:wgmma_tile). K and N multiples of 128, any M >= 1
+// (checked by the Python wrapper; cudaErrorInvalidValue otherwise).
+// Returns 0, a CUDA error code, or one of wgmma_gemm.cuh's.
 extern "C" int sx_int8_dense(const void* x, const void* W, const float* ws,
                              const float* b, void* out, void* codes,
                              float* xs, int M, int K, int N, int bm, int bn,
                              void* stream) {
   namespace gm = sx::gemm;
-  if (M < 1 || K < 128 || K > kMaxRow || K % 128 || N < 128 || N % 128)
+  if (M < 1 || K < 128 || K % 128 || N < 128 || N % 128)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = quantize_x(x, codes, xs, M, K, s);
@@ -224,8 +236,7 @@ extern "C" int sx_int8_dense(const void* x, const void* W, const float* ws,
 // workspaces codes [M, H] int8, xs [M], g [M, F] f32, parts [M, ceil(F /
 // bn1)] f32, gcodes [M, F] int8 and gs [M] f32; the GEMMs' tiles (bm1,
 // bn1) over [M, F] and (bm2, bn2) over [M, H] (ops/_native.py:wgmma_tile).
-// H in 256, 768, 1024 (the models' widths and the small width of the card
-// tests), F % 128 == 0, any M >= 1 (checked by the Python wrapper;
+// H and F multiples of 128, any M >= 1 (checked by the Python wrapper;
 // cudaErrorInvalidValue otherwise). Returns 0, a CUDA error code, or one of
 // wgmma_gemm.cuh's.
 extern "C" int sx_int8_ffn(const void* x, const void* W1, const float* s1,
@@ -235,7 +246,7 @@ extern "C" int sx_int8_ffn(const void* x, const void* W1, const float* s1,
                            int M, int H, int F, int bm1, int bn1, int bm2,
                            int bn2, void* stream) {
   namespace gm = sx::gemm;
-  if (M < 1 || F < 128 || F % 128 || (H != 256 && H != 768 && H != 1024))
+  if (M < 1 || H < 128 || H % 128 || F < 128 || F % 128)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = quantize_x(x, codes, xs, M, H, s);

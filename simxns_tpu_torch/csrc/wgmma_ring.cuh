@@ -1,7 +1,7 @@
 // Hopper building blocks for a warp-specialised GEMM: TMA tiles landing in
 // a ring of shared-memory stages with full and empty mbarriers, and the
 // int8 and bf16 warpgroup MMA (wgmma) reading both operands from shared
-// memory. The persistent GEMM of wgmma_gemm.cuh (K1, K12, K14) is built on
+// memory. The persistent GEMM of wgmma_gemm.cuh (K1, K9-K14) is built on
 // them.
 //
 // The pieces, in the order a kernel uses them:
@@ -19,7 +19,11 @@
 // - wgmma: desc_k128() is the shared-memory descriptor of a K-major tile
 //   stored as the TMA lands it (rows of 128 bytes, 16-byte chunks XORed with
 //   row % 8; 8-row groups 1024 bytes apart), advanced by 32 bytes of K per
-//   instruction (m64nNk32 takes 32 int8 values of K, m64nNk16 16 bf16).
+//   instruction (m64nNk32 takes 32 int8 values of K, m64nNk16 16 bf16);
+//   desc_mn128() that of an MN-major bf16 tile (the operand's rows are K:
+//   boxes of 64 values along MN x 64 rows of K, one atom after another),
+//   advanced by 16 rows of K per instruction. Only bf16 has MN-major
+//   operands (wgmma's transpose immediates; int8 is K-major only).
 //   WgmmaS8<N>::mma is one m64nNk32 s32 += s8 x s8 product of a warpgroup,
 //   WgmmaBf16<N>::mma one m64nNk16 f32 += bf16 x bf16; the accumulator holds
 //   N / 2 registers a thread: register 4c + e is row 16 w + g (+ 8 for
@@ -197,6 +201,21 @@ __device__ __forceinline__ uint64_t desc_k128(const void* tile) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
+// descriptor of an MN-major bf16 tile at `tile` (1024-byte aligned), stored
+// as TMA lands boxes of 128 bytes along MN x rows along K with the 128-byte
+// swizzle: atoms of 64 MN values x `atom_bytes` / 128 rows of K, one after
+// another along MN. The canonical SW128 MN-major layout
+// ((8, 8, m), (8, k)) : ((1, 8, LBO), (64, SBO)) in elements (CUTLASS's
+// make_gmma_desc<Major::MN>): leading offset = the stride between atoms
+// along MN, stride offset = 1024 bytes between groups of 8 rows of K.
+// Adding 128 moves the start 16 rows (one k16 step) along K.
+__device__ __forceinline__ uint64_t desc_mn128(const void* tile,
+                                               uint32_t atom_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{atom_bytes >> 4} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
 template <int N>
 struct WgmmaS8;   // d (N / 2 s32 a thread) += a[64 x 32] * b[N x 32]^T
 
@@ -295,14 +314,15 @@ struct WgmmaS8<64> {
   }
 };
 
-template <int N>
-struct WgmmaBf16;   // d (N / 2 f32 a thread) += a[64 x 16] * b[N x 16]^T,
-                    // both K-major bf16: the k16 step covers the same 32
-                    // bytes of a 128-byte row as WgmmaS8's k32, and d has
-                    // WgmmaS8's register layout
+template <int N, bool TA = false, bool TB = false>
+struct WgmmaBf16;   // d (N / 2 f32 a thread) += a[64 x 16] * b[N x 16]^T in
+                    // bf16, d in WgmmaS8's register layout. TA / TB false:
+                    // the operand is K-major (desc_k128; the k16 step covers
+                    // the same 32 bytes of a 128-byte row as WgmmaS8's k32);
+                    // true: MN-major (desc_mn128; the k16 step is 16 rows)
 
-template <>
-struct WgmmaBf16<256> {
+template <bool TA, bool TB>
+struct WgmmaBf16<256, TA, TB> {
   __device__ __forceinline__ static void mma(float (&d)[128], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -320,7 +340,7 @@ struct WgmmaBf16<256> {
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
         "}, "
-        "%128, %129, p, 1, 1, 0, 0;\n}\n"
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -343,12 +363,12 @@ struct WgmmaBf16<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int{TA}), "n"(int{TB}));
   }
 };
 
-template <>
-struct WgmmaBf16<128> {
+template <bool TA, bool TB>
+struct WgmmaBf16<128, TA, TB> {
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -361,7 +381,7 @@ struct WgmmaBf16<128> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
         "}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -373,12 +393,12 @@ struct WgmmaBf16<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int{TA}), "n"(int{TB}));
   }
 };
 
-template <>
-struct WgmmaBf16<64> {
+template <bool TA, bool TB>
+struct WgmmaBf16<64, TA, TB> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -388,14 +408,14 @@ struct WgmmaBf16<64> {
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
         "}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int{TA}), "n"(int{TB}));
   }
 };
 

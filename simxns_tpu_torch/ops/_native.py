@@ -176,3 +176,53 @@ def wgmma_tile(m: int, n: int, sms: int) -> Tuple[int, int]:
     if tiles(64, 128) >= sms:
         return 64, 128
     return 64, 64
+
+
+_PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core flop/s
+_PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+_MAX_SPLITS = 8
+_MIN_SPLIT_ROWS = 1024
+
+
+def dw_tile(m: int, h: int, f: int, sms: int) -> Tuple[int, int, int]:
+    """(BM, BN, splits) of K11: dW1 [f, h] and dW2 [h, f], both over K = m
+    rows, as one launch of the wgmma GEMM on ``sms`` SMs.
+
+    K here is long and the outputs small (at the CE-large step 20,480 rows
+    against 128 + 128 tiles of 128 x 256), the opposite of
+    :func:`wgmma_tile`'s case: a tile's products, not its epilogue, are
+    what it costs. So:
+
+    - below 2,048 rows (32 k-tiles) K is short and the rule is
+      :func:`wgmma_tile`'s, counted over both products' tiles;
+    - else 128 x 256, the densest tile (each byte landed feeds 85 flop),
+      and K cut into ``splits`` parts where the tiles alone leave SMs idle
+      (DE passages: 72 + 72 tiles on 132 SMs, a second wave for 12 SMs).
+      Each split writes its own f32 partial output, which a second pass
+      adds in order (no atomics: the same bits every run). The split
+      minimises the least time of the launch: its waves of tiles, each at
+      the SM's share of the bf16 peak, plus the partials written and read
+      again at the memory rate; at most 8 parts, none below 1,024 rows
+      (the ring's fill and the f32 tile store stay small beside a part).
+    """
+    def tiles(bm, bn):
+        return (-(-f // bm) * -(-h // bn)) + (-(-h // bm) * -(-f // bn))
+
+    if m < 2 * _MIN_SPLIT_ROWS:
+        if tiles(128, 256) >= 2 * sms:
+            return 128, 256, 1
+        if tiles(64, 128) >= sms:
+            return 64, 128, 1
+        return 64, 64, 1
+    n = tiles(128, 256)
+    per_sm = _PEAK_BF16 / sms
+    partial_bytes = 2 * h * f * 4
+
+    def seconds(s):
+        waves = -(-n * s // sms)
+        t = waves * 2.0 * 2 * 128 * 256 * -(-m // s) / per_sm
+        return t + (2 * s * partial_bytes / _PEAK_BYTES if s > 1 else 0.0)
+
+    splits = min(range(1, min(_MAX_SPLITS, m // _MIN_SPLIT_ROWS) + 1),
+                 key=seconds)
+    return 128, 256, splits

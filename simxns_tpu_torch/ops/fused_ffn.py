@@ -13,28 +13,36 @@ makes on the card):
 - K11 :func:`ffn_bwd_dw` replaces ``_ffn_bwd_dw_kernel`` (:374);
 - K12 :func:`ffn_fused_fwd` replaces ``_ffn_kernel`` (:77).
 
-K9 and K12 are two launches each of the persistent wgmma GEMM
-(``csrc/ffn_fwd.cu`` on ``csrc/wgmma_gemm.cuh``) with their [M, F]
+All four run on the persistent wgmma GEMM (``csrc/wgmma_gemm.cuh``). K9 and
+K12 are two launches each (``csrc/ffn_fwd.cu``) with their [M, F]
 intermediate ``g`` in device memory (:func:`ffn_fwd_workspace`); K9's first
-GEMM also stores ``hb``. K10 and K11 are in ``csrc/fused_ffn.cu``.
+GEMM also stores ``hb``. K10 is two launches (``csrc/fused_ffn.cu``; both
+contract over the weights' rows, read MN-major): the first stores ``dh``,
+``g`` and the column sums of ``dh`` over each 64 rows, the second ``dx``.
+K11 is one launch over the tiles of both weight gradients (both operands
+MN-major, K = M cut into splits where the tiles leave SMs idle,
+:func:`~simxns_tpu_torch.ops._native.dw_tile`) and a pass that adds db1's
+parts and the splits in order. ``g`` and the parts are workspaces of the
+pair (:func:`ffn_bwd_workspace`), returned by K10 and read by K11.
 
 Their arithmetic is the TPU kernels': f32 accumulation, each product
 rounded to the activation dtype before the bias is added in that dtype,
 GELU and its derivative in f32 from the rounded pre-activation ``hb`` with
 the Abramowitz-Stegun erf (:func:`erf_as`), ``g`` and ``dh`` rounded before
 their second product, the weight gradients in f32. A wrapper launches its
-kernel for a CUDA tensor (bf16 only, H in 256, 768, 1024, F a multiple of
-128, any M; anything else raises ``ValueError``) and runs its plain version
-only for a CPU tensor.
+kernel for a CUDA tensor (bf16 only, H and F multiples of 128, the JAX
+kernels' lane grid, any M; anything else raises ``ValueError``) and runs
+its plain version only for a CPU tensor.
 
 :func:`fused_ffn_vjp` (``ffn_impl="fused_vjp"``, K9 forward, K10 + K11
 backward, one [M, F] residual) and :func:`fused_ffn` (``ffn_impl="fused"``,
-K12 forward, the backward of :func:`ffn_reference`) keep the JAX names and
-argument order. For CPU tensors they keep the JAX dispatch too: where the
-shapes do not tile (:func:`_train_tiles`, :func:`_fused_tile`) they return
-:func:`ffn_reference`, the composition ``ffn_impl="xla"`` runs. For CUDA
-tensors there is no such way out: the kernels mask their ragged edge, so
-every M launches them, and a width they do not take raises.
+K12 forward, the backward of :func:`ffn_reference`) keep the JAX names,
+argument order and dispatch (:func:`reaches_kernels`): where H or F is off
+the 128 grid they are :func:`ffn_reference`, the composition
+``ffn_impl="xla"`` runs, on both devices, as in JAX. For CPU tensors an M
+that does not tile (:func:`_train_tiles`, :func:`_fused_tile`) takes it
+too; on the card the kernels mask their ragged edge, so every M launches
+them.
 
 The int8 encode kernels (``csrc/int8_ffn.cu``) replace the other two:
 
@@ -68,15 +76,12 @@ from simxns_tpu_torch.ops import _native
 _TILE_M = 256                 # simxns_tpu/ops/fused_ffn.py:41
 _TILE_TRAIN_M = 256           # :310
 _F_BLOCK = 768                # :311
-_KERNEL_H = (256, 768, 1024)  # csrc/fused_ffn.cu: the widths K10's chained
-                              # kernel is built for (the [32, H] f32 sum of
-                              # a block lives in its registers)
-_DX_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_DW_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_LANE = 128                   # the JAX kernels' lane grid for H and F
+_PART_ROWS = 64               # K10: one row of db1's parts per 64 rows
+_DX_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_DW_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _TILE_INT8_FFN_M = 256        # int8_ffn's tile_m (:177)
 _TILE_INT8_DENSE_M = 512      # int8_dense's tile_m (:231)
-_INT8_DENSE_K = (128, 1024)   # csrc/int8_ffn.cu: a row of x is quantized in
-                              # one warp's registers
 _DENSE8_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FFN8_ARGS = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _FFN_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -189,14 +194,32 @@ def _fused_tile(m: int, h: int, f: int) -> Optional[int]:
 def _train_tiles(m: int, h: int, f: int) -> Optional[Tuple[int, int]]:
     """(tile_m, f_block) of the train kernels, or None ->
     :func:`ffn_reference` (:395-409): the f-block is the largest multiple
-    of 128 up to 768 that divides F (F=3072 -> 768, F=4096 -> 512). The
-    rule decides for CPU tensors only, where both packages then run the
-    same arithmetic; the CUDA kernels take any M and chunk F by 128."""
+    of 128 up to 768 that divides F (F=3072 -> 768, F=4096 -> 512). Its M
+    part decides for CPU tensors only, where both packages then run the
+    same arithmetic; the CUDA kernels take any M."""
     tile = _tile(m, (h, f), _TILE_TRAIN_M, 16)
     if tile is None:
         return None
     fb = next(c for c in range(min(_F_BLOCK, f), 127, -128) if f % c == 0)
     return tile, fb
+
+
+def reaches_kernels(m: int, h: int, f: int, cuda: bool, train: bool) -> bool:
+    """Whether :func:`fused_ffn_vjp` (``train``) or :func:`fused_ffn` run
+    their kernels for m rows of width h and F = f, on a CUDA tensor
+    (``cuda``) or a CPU one; where not, they return :func:`ffn_reference`.
+
+    The JAX package's dispatch, decided by shape alone before any launch:
+    H or F off the 128 grid is ``ffn_reference`` on both devices
+    (:579-581, :395-409). On the CPU an M off the token tile is too, since
+    there the plain versions stand in for the JAX kernels; the CUDA kernels
+    mask a ragged M, so on the card every M reaches them (and a kernel
+    that fails to build or launch raises)."""
+    if h % _LANE or f % _LANE:
+        return False
+    if cuda:
+        return True
+    return (_train_tiles if train else _fused_tile)(m, h, f) is not None
 
 
 # --- the plain versions ------------------------------------------------------
@@ -213,32 +236,42 @@ def _ffn_train_fwd_plain(x, w1, b1, w2, b2):
     return _mm(g, w2.T).to(dt) + b2, hb
 
 
+def _column_parts(dh: torch.Tensor) -> torch.Tensor:
+    """[M, F] -> [ceil(M / 64), F] f32: the column sums of dh over each 64
+    rows (K10's first GEMM writes these beside dh; K11 adds them up)."""
+    m, f = dh.shape
+    d = dh.float()
+    if m % _PART_ROWS:
+        d = torch.cat([d, d.new_zeros(-m % _PART_ROWS, f)])
+    return d.view(-1, _PART_ROWS, f).sum(dim=1)
+
+
 def _ffn_bwd_dx_plain(dy, w1, w2, hb):
     dt = dy.dtype
-    dh = (_mm(dy, w2) * gelu_grad(hb.float())).to(dt)
-    return _mm(dh, w1).to(dt), dh
+    h = hb.float()
+    dh = (_mm(dy, w2) * gelu_grad(h)).to(dt)
+    return _mm(dh, w1).to(dt), dh, gelu_exact(h).to(dt), _column_parts(dh)
 
 
-def _ffn_bwd_dw_plain(x, dy, hb, dh):
-    g = gelu_exact(hb.float()).to(hb.dtype)
-    return _mm(dh.T, x), dh.float().sum(dim=0), _mm(dy.T, g)
+def _ffn_bwd_dw_plain(x, dy, g, dh, parts):
+    return _mm(dh.T, x), parts.sum(dim=0), _mm(dy.T, g)
 
 
 # --- K9-K12 ------------------------------------------------------------------
 
-def _kernel_dims(what: str, x: torch.Tensor, f: int):
-    """(M, H, F) of a kernel call on x [M, H], or raise on what the kernels
-    do not take: another dtype than bf16, a width the chained kernel is not
-    built for, F off the 128 grid."""
-    m, h = x.shape
-    if x.dtype != torch.bfloat16:
+def _kernel_dims(what: str, m: int, h: int, f: int, dtype: torch.dtype):
+    """(M, H, F) of a call of K9-K14 on [M, H] activations with weights of
+    F rows (K13: I and O), or raise on what their GEMMs do not take:
+    another dtype than bf16, a width off the 128 grid (the JAX kernels'
+    lanes), no row."""
+    if dtype != torch.bfloat16:
         raise ValueError(
             f"{what}: the CUDA kernels take bfloat16 activations, got "
-            f"{x.dtype}; cast to bfloat16, or run float32 on the CPU")
-    if m < 1 or h not in _KERNEL_H or f < 128 or f % 128:
+            f"{dtype}; cast to bfloat16, or run float32 on the CPU")
+    if m < 1 or h < _LANE or h % _LANE or f < _LANE or f % _LANE:
         raise ValueError(
-            f"{what}: the CUDA kernels take H in {_KERNEL_H}, F a multiple "
-            f"of 128 and at least one row, got M={m}, H={h}, F={f}")
+            f"{what}: the CUDA kernels take widths that are multiples of "
+            f"{_LANE} and at least one row, got M={m}, widths {h} and {f}")
     return m, h, f
 
 
@@ -258,7 +291,7 @@ def ffn_fwd_workspace(m: int, h: int, f: int, sms: int) -> dict:
 
 def _ffn_fwd(what, x, w1, b1, w2, b2, with_hb):
     """Launch the GEMM pair of csrc/ffn_fwd.cu; -> (y, hb or None)."""
-    m, h, f = _kernel_dims(what, x, w1.shape[0])
+    m, h, f = _kernel_dims(what, *x.shape, w1.shape[0], x.dtype)
     bf = torch.bfloat16
     _native.check_tensor(x, bf, (m, h), f"{what}: activations")
     _native.check_tensor(w1, bf, (f, h), f"{what}: w1")
@@ -313,56 +346,91 @@ def ffn_fused_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 ffn_fused_fwd.launches = 0
 
 
+def ffn_bwd_workspace(m: int, h: int, f: int, sms: int) -> dict:
+    """K10's and K11's tiles and device-memory workspaces for dy [m, h] and
+    F = f on ``sms`` SMs: ``{"tiles": ((bm1, bn1), (bm2, bn2)), "dw": (bm,
+    bn, splits), name: (shape, dtype)}``. K10's GEMMs ([m, f], then [m, h])
+    write ``g`` = bf16(gelu(hb)) and ``parts``, the column sums of dh over
+    each 64 rows; K11 (``dw``: :func:`_native.dw_tile`) reads them and,
+    where it splits K, writes each split's dW1 and dW2 into ``partials``
+    (empty otherwise), which its second pass adds in order."""
+    bm, bn, splits = _native.dw_tile(m, h, f, sms)
+    return {"tiles": (_native.wgmma_tile(m, f, sms),
+                      _native.wgmma_tile(m, h, sms)),
+            "dw": (bm, bn, splits),
+            "g": ((m, f), torch.bfloat16),
+            "parts": ((-(-m // _PART_ROWS), f), torch.float32),
+            "partials": ((splits * 2 * h * f if splits > 1 else 0,),
+                         torch.float32)}
+
+
 def ffn_bwd_dx(dy: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-               hb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               hb: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
     """K10: dy [M, H], w1 [F, H], w2 [H, F], hb [M, F]. -> (dx [M, H],
-    dh [M, F]): ``dh = dt((dy w2) * gelu'(f32(hb)))``, ``dx = dt(dh w1)``;
-    ``dy w2`` stays on the chip. Both products contract over the weights'
-    rows; the kernel reads the weights as they lie and transposes the
-    fragments on their way out of shared memory, so nothing is transposed
-    in device memory."""
+    dh [M, F], g [M, F], parts [ceil(M / 64), F] f32):
+    ``dh = dt((dy w2) * gelu'(f32(hb)))``, ``dx = dt(dh w1)``, and for K11
+    ``g = dt(gelu(f32(hb)))`` and the column sums of dh over each 64 rows.
+    On the card two wgmma GEMMs that read the weights as they lie (MN-major
+    B); ``dy w2`` stays in registers, ``g`` and ``parts`` are workspaces of
+    the pair (:func:`ffn_bwd_workspace`)."""
     if not dy.is_cuda:
         return _ffn_bwd_dx_plain(dy, w1, w2, hb)
-    m, h, f = _kernel_dims("ffn_bwd_dx", dy, w1.shape[0])
+    m, h, f = _kernel_dims("ffn_bwd_dx", *dy.shape, w1.shape[0], dy.dtype)
     bf = torch.bfloat16
     _native.check_tensor(dy, bf, (m, h), "ffn_bwd_dx: dy")
     _native.check_tensor(w1, bf, (f, h), "ffn_bwd_dx: w1")
     _native.check_tensor(w2, bf, (h, f), "ffn_bwd_dx: w2")
     _native.check_tensor(hb, bf, (m, f), "ffn_bwd_dx: hb")
+    ws = ffn_bwd_workspace(m, h, f, _native.sm_count(dy.device))
+    (bm1, bn1), (bm2, bn2) = ws["tiles"]
+    g, parts = (torch.empty(ws[k][0], dtype=ws[k][1], device=dy.device)
+                for k in ("g", "parts"))
     dx = torch.empty(m, h, dtype=bf, device=dy.device)
     dh = torch.empty(m, f, dtype=bf, device=dy.device)
     fn = _native.function("fused_ffn", "sx_ffn_bwd_dx", _DX_ARGS)
     code = fn(_ptr(dy), _ptr(w1), _ptr(w2), _ptr(hb), _ptr(dx), _ptr(dh),
-              m, h, f, _native.stream(dy.device))
+              _ptr(g), _ptr(parts), m, h, f, bm1, bn1, bm2, bn2,
+              _native.stream(dy.device))
     _native.check("fused_ffn", code, "ffn_bwd_dx")
     ffn_bwd_dx.launches += 1
-    return dx, dh
+    return dx, dh, g, parts
 
 
 ffn_bwd_dx.launches = 0
 
 
-def ffn_bwd_dw(x: torch.Tensor, dy: torch.Tensor, hb: torch.Tensor,
-               dh: torch.Tensor
+def ffn_bwd_dw(x: torch.Tensor, dy: torch.Tensor, g: torch.Tensor,
+               dh: torch.Tensor, parts: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K11: x, dy [M, H]; hb, dh [M, F]. -> f32 (dw1 [F, H], db1 [F],
-    dw2 [H, F]): ``dw1 = dh^T x``, ``db1 = sum_m f32(dh)``,
-    ``dw2 = dy^T dt(gelu(f32(hb)))``, each sum over M in one block (the
-    same bits every run)."""
+    """K11: x, dy [M, H]; g, dh [M, F]; parts [ceil(M / 64), F] f32 (K10's).
+    -> f32 (dw1 [F, H], db1 [F], dw2 [H, F]): ``dw1 = dh^T x``, ``db1`` the
+    sum of ``parts``, ``dw2 = dy^T g``. On the card one wgmma GEMM over the
+    tiles of both products (A and B MN-major: both contract over M), then
+    one pass that adds db1's parts and, where K was split, the splits'
+    partial products, each in a fixed order (the same bits every run)."""
     if not x.is_cuda:
-        return _ffn_bwd_dw_plain(x, dy, hb, dh)
-    m, h, f = _kernel_dims("ffn_bwd_dw", x, dh.shape[1])
+        return _ffn_bwd_dw_plain(x, dy, g, dh, parts)
+    m, h, f = _kernel_dims("ffn_bwd_dw", *x.shape, dh.shape[1], x.dtype)
     bf = torch.bfloat16
     _native.check_tensor(x, bf, (m, h), "ffn_bwd_dw: x")
     _native.check_tensor(dy, bf, (m, h), "ffn_bwd_dw: dy")
-    _native.check_tensor(hb, bf, (m, f), "ffn_bwd_dw: hb")
+    _native.check_tensor(g, bf, (m, f), "ffn_bwd_dw: g")
     _native.check_tensor(dh, bf, (m, f), "ffn_bwd_dw: dh")
+    _native.check_tensor(parts, torch.float32, (-(-m // _PART_ROWS), f),
+                         "ffn_bwd_dw: parts")
+    ws = ffn_bwd_workspace(m, h, f, _native.sm_count(x.device))
+    bm, bn, splits = ws["dw"]
+    partials = torch.empty(ws["partials"][0], dtype=torch.float32,
+                           device=x.device)
     dw1 = torch.empty(f, h, dtype=torch.float32, device=x.device)
     db1 = torch.empty(f, dtype=torch.float32, device=x.device)
     dw2 = torch.empty(h, f, dtype=torch.float32, device=x.device)
     fn = _native.function("fused_ffn", "sx_ffn_bwd_dw", _DW_ARGS)
-    code = fn(_ptr(x), _ptr(dy), _ptr(hb), _ptr(dh), _ptr(dw1), _ptr(db1),
-              _ptr(dw2), m, h, f, _native.stream(x.device))
+    code = fn(_ptr(x), _ptr(dy), _ptr(g), _ptr(dh), _ptr(parts), _ptr(dw1),
+              _ptr(db1), _ptr(dw2), _ptr(partials), m, h, f, bm, bn, splits,
+              _native.stream(x.device))
     _native.check("fused_ffn", code, "ffn_bwd_dw")
     ffn_bwd_dw.launches += 1
     return dw1, db1, dw2
@@ -393,8 +461,8 @@ class _FusedFFNTrain(torch.autograd.Function):
     def backward(ctx, dy):
         x2d, w1d, w2d, hb = ctx.saved_tensors
         dy = dy.to(x2d.dtype).contiguous()
-        dx, dh = ffn_bwd_dx(dy, w1d, w2d, hb)
-        dw1, db1, dw2 = ffn_bwd_dw(x2d, dy, hb, dh)
+        dx, dh, g, parts = ffn_bwd_dx(dy, w1d, w2d, hb)
+        dw1, db1, dw2 = ffn_bwd_dw(x2d, dy, g, dh, parts)
         db2 = dy.float().sum(dim=0)
         t1, tb1, t2, tb2 = ctx.param_dtypes
         return dx, dw1.to(t1), db1.to(tb1), dw2.to(t2), db2.to(tb2)
@@ -428,11 +496,10 @@ def _flat(x: torch.Tensor):
 def fused_ffn_vjp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The fused FFN over [..., H] with its own backward (the TRAIN path,
-    ``fused_ffn_vjp`` :542-562). For CPU tensors :func:`ffn_reference`
-    where the shapes do not tile, as in JAX; CUDA tensors always reach the
-    kernels, which take them or raise."""
+    ``fused_ffn_vjp`` :542-562): K9, then K10 and K11, where
+    :func:`reaches_kernels`, else :func:`ffn_reference`, as in JAX."""
     lead, m, h = _flat(x)
-    if not x.is_cuda and _train_tiles(m, h, w1.shape[0]) is None:
+    if not reaches_kernels(m, h, w1.shape[0], x.is_cuda, train=True):
         return ffn_reference(x, w1, b1, w2, b2)
     y = _FusedFFNTrain.apply(x.reshape(m, h), w1, b1, w2, b2)
     return y.reshape(*lead, h)
@@ -441,11 +508,10 @@ def fused_ffn_vjp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The fused FFN over [..., H] (the encode path, ``fused_ffn``
-    :565-583). For CPU tensors :func:`ffn_reference` where the shapes do
-    not tile, as in JAX; CUDA tensors always reach the kernel, which takes
-    them or raises."""
+    :565-583): K12 where :func:`reaches_kernels`, else
+    :func:`ffn_reference`, as in JAX."""
     lead, m, h = _flat(x)
-    if not x.is_cuda and _fused_tile(m, h, w1.shape[0]) is None:
+    if not reaches_kernels(m, h, w1.shape[0], x.is_cuda, train=False):
         return ffn_reference(x, w1, b1, w2, b2)
     y = _FusedFFN.apply(x.reshape(m, h), w1, b1, w2, b2)
     return y.reshape(*lead, h)
@@ -533,23 +599,12 @@ def int8_dense_fwd(x: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor,
     """K13: x [M, I], w8 [O, I] int8 with per-output-channel scales ws [O],
     b [O] f32. -> ``y = (acc * xs) * ws + b`` [M, O] in x's dtype, with
     ``(codes, xs) = quant_rows(x)`` and ``acc`` their exact int32 product
-    with w8. On the card: bf16 x, I a multiple of 128 up to 1024, O a
-    multiple of 128; two launches, the codes of x and the wgmma GEMM, with
-    the codes and ``xs`` in device memory between them
-    (:func:`int8_dense_workspace`)."""
+    with w8. On the card: bf16 x, I and O multiples of 128; two launches,
+    the codes of x and the wgmma GEMM, with the codes and ``xs`` in device
+    memory between them (:func:`int8_dense_workspace`)."""
     if not x.is_cuda:
         return _int8_dense_plain(x, w8, ws, b)
-    m, i = x.shape
-    o = w8.shape[0]
-    lo, hi = _INT8_DENSE_K
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"int8_dense_fwd: the CUDA kernel takes bfloat16 "
-                         f"activations, got {x.dtype}")
-    if m < 1 or i % 128 or not lo <= i <= hi or o < 128 or o % 128:
-        raise ValueError(
-            f"int8_dense_fwd: the CUDA kernel takes I a multiple of 128 in "
-            f"[{lo}, {hi}], O a multiple of 128 and at least one row, got "
-            f"M={m}, I={i}, O={o}")
+    m, i, o = _kernel_dims("int8_dense_fwd", *x.shape, w8.shape[0], x.dtype)
     _native.check_tensor(x, torch.bfloat16, (m, i), "int8_dense_fwd: x")
     _native.check_tensor(w8, torch.int8, (o, i), "int8_dense_fwd: w8")
     _check_scales("int8_dense_fwd", (("ws", ws, o), ("b", b, o)))
@@ -577,12 +632,13 @@ def int8_ffn_fwd(x: torch.Tensor, w1_8: torch.Tensor, s1: torch.Tensor,
     scales s1 [F], s2 [H]; b1 [F], b2 [H] f32. -> y [M, H] in x's dtype:
     ``h = (acc1 * xs) * s1 + b1``, ``g = gelu(h)`` (A&S erf, f32),
     ``(gq, gs) = quant_rows(g)`` over all of F, ``y = (acc2 * gs) * s2 +
-    b2``. On the card: bf16 x, H in 256, 768, 1024, F a multiple of 128;
-    four launches, with ``g`` in f32, its per-tile row maxima and its codes
-    in device memory between them (:func:`int8_ffn_workspace`)."""
+    b2``. On the card: bf16 x, H and F multiples of 128; four launches,
+    with ``g`` in f32, its per-tile row maxima and its codes in device
+    memory between them (:func:`int8_ffn_workspace`)."""
     if not x.is_cuda:
         return _int8_ffn_plain(x, w1_8, s1, b1, w2_8, s2, b2)
-    m, h, f = _kernel_dims("int8_ffn_fwd", x, w1_8.shape[0])
+    m, h, f = _kernel_dims("int8_ffn_fwd", *x.shape, w1_8.shape[0],
+                           x.dtype)
     _native.check_tensor(x, torch.bfloat16, (m, h), "int8_ffn_fwd: x")
     _native.check_tensor(w1_8, torch.int8, (f, h), "int8_ffn_fwd: w1_8")
     _native.check_tensor(w2_8, torch.int8, (h, f), "int8_ffn_fwd: w2_8")

@@ -11,12 +11,16 @@ GEMM, bitwise at its tile edges in both epilogues; K5/K6, the grouped
 attention pair, and K7/K8, the per-(batch, head) pair, at every S class
 they take and at their tile edges, with a fully
 masked batch row; two backward calls bitwise equal; K9-K12, the fused FFN
-kernels, at tiling and ragged shapes and under autograd, K12 at every
-branch of its GEMMs' tile rule; K13/K14, the int8 encode kernels, bitwise
-against their plain versions at tiling and ragged shapes (K14 at every
-branch of its tile rule, without a launch of K1 or K2), in a model,
-and the JAX dispatch where the shapes do not tile); what a kernel does
-not take raises instead of running a plain version on the card.
+kernels, at tiling and ragged shapes, at H = 128 to 1152, and under
+autograd, K12 at every branch of its GEMMs' tile rule, K10 and K11's
+MN-major GEMM exact on small integers, K11 bitwise from run to run;
+K13/K14, the int8 encode kernels, bitwise against their plain versions at
+tiling and ragged shapes (K14 at every branch of its tile rule, without a
+launch of K1 or K2; both at I = H = 1152), in a model, and the JAX
+dispatch where the shapes do not tile); the knobs at every width on the
+128 grid through their kernels, and off it as the JAX package's
+expressions; what a kernel does not take raises instead of running a
+plain version on the card.
 """
 
 import pytest
@@ -169,13 +173,14 @@ def _int8_weights(dev, o, i, seed):
                                    (1, 1024, 128), (600, 768, 768),
                                    (4000, 128, 256), (131, 768, 768),
                                    (65, 1024, 2304), (2048, 768, 2304),
-                                   (4097, 768, 2304)])
+                                   (4097, 768, 2304), (300, 1152, 3456)])
 def test_int8_dense_matches_plain(dev, m, i, o):
     """K13 (the codes of x, then the wgmma GEMM, through the workspaces of
     ``int8_dense_workspace``) bitwise against its plain version at ragged
     M, one K stage (I = 128), the quantizer's widest row (I = 1024) and
     every GEMM tile on 132 SMs (64 x 64 up to 600 rows, 64 x 128 at 2,048,
-    128 x 256 at 4,097); one launch count a call."""
+    128 x 256 at 4,097), I = 1152 (a row longer than a warp holds: read
+    twice); one launch count a call."""
     x = _randn(dev, m, i, seed=m).to(torch.bfloat16)
     _, _, q = _int8_weights(dev, o, i, seed=i)
     before = fused_ffn.int8_dense_fwd.launches
@@ -193,11 +198,13 @@ def test_int8_dense_matches_plain(dev, m, i, o):
 # and 64 x 128 for the second; 12,000 x 768 takes 128 x 256 for both. M = 1,
 # 37, 65 and 129 (one row past a 64- and a 128-row tile), 4,000 and 4,097
 # leave ragged row tiles; F = 384 is off the 256 grid (a ragged 256-column
-# tile of the first GEMM).
+# tile of the first GEMM). H = 128, 512 and 1152 (F = 4 H, ragged M) are
+# widths off the models', on the JAX kernels' 128 grid.
 FFN_TILE_CASES = [(1, 256, 128), (33, 1024, 384), (37, 768, 512),
                   (64, 256, 256),
                   (65, 1024, 384), (129, 256, 384), (256, 768, 3072),
-                  (4000, 768, 3072), (4097, 1024, 4096), (12000, 768, 3072)]
+                  (4000, 768, 3072), (4097, 1024, 4096), (12000, 768, 3072),
+                  (77, 128, 512), (301, 512, 2048), (65, 1152, 4608)]
 
 
 @pytest.mark.parametrize("m,h,f", FFN_TILE_CASES)
@@ -267,9 +274,10 @@ def test_ffn_fused_fwd_matches_plain(dev, m, h, f):
 
 def test_int8_knobs_dispatch_and_refuse(dev):
     """The public int8_ffn / int8_dense keep the JAX rule on the card:
-    where the shapes do not tile they ARE the unquantized expression and
-    launch nothing; where they tile, the kernel runs or raises (an f32
-    CUDA tensor; H = 1152 or I = 1152, on the JAX grid but not built)."""
+    where the shapes do not tile (40 rows; O = 100; H = I = 96, off the
+    128 grid) they ARE the unquantized expression and launch nothing;
+    where they tile, the kernel runs or raises (an f32 CUDA tensor), and
+    the kernel wrappers themselves refuse H = I = 96."""
     names = ("int8_ffn_fwd", "int8_dense_fwd")
     before = [getattr(fused_ffn, n).launches for n in names]
     x = _randn(dev, 40, 256).to(torch.bfloat16)      # 40 rows: no tile
@@ -296,13 +304,17 @@ def test_int8_knobs_dispatch_and_refuse(dev):
         fused_ffn.int8_ffn(x64.float(), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="bfloat16"):
         fused_ffn.int8_dense(x64.float(), w, b)
-    wide = torch.zeros(64, 1152, dtype=torch.bfloat16, device=dev)
-    w3, b3, _ = _int8_weights(dev, 256, 1152, seed=9)
-    with pytest.raises(ValueError, match="H in"):
-        fused_ffn.int8_ffn(wide, w3, b3, w3.T.contiguous(),
-                           torch.zeros(1152, device=dev))
-    with pytest.raises(ValueError, match="I a multiple"):
-        fused_ffn.int8_dense(wide, w3, b3)
+    odd = _randn(dev, 64, 96).to(torch.bfloat16)
+    w3, b3, q3 = _int8_weights(dev, 256, 96, seed=9)
+    w4, b4, q4 = _int8_weights(dev, 96, 256, seed=11)
+    assert torch.equal(fused_ffn.int8_ffn(odd, w3, b3, w4, b4),
+                       fused_ffn.ffn_reference(odd, w3, b3, w4, b4))
+    assert torch.equal(fused_ffn.int8_dense(odd, w3, b3),
+                       fused_ffn.linear_dt(odd, w3, b3, torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ffn.int8_ffn_fwd(odd, *q3[:2], q3[2], *q4)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ffn.int8_dense_fwd(odd, *q3)
     assert [getattr(fused_ffn, n).launches for n in names] == [
         n + 1 for n in before]
 
@@ -373,10 +385,14 @@ def _close_f32(got, want, what):
 
 @pytest.mark.parametrize("m,h,f", [(64, 256, 256), (256, 256, 384),
                                    (37, 256, 128), (1, 768, 256),
-                                   (200, 768, 512), (96, 1024, 256)])
+                                   (200, 768, 512), (96, 1024, 256),
+                                   (300, 384, 1536), (77, 128, 512),
+                                   (301, 512, 2048), (4100, 768, 3072)])
 def test_ffn_kernels_match_plain(dev, m, h, f):
     """K9-K12 against their plain versions at tiling and ragged M (the
-    kernels mask their edge), one launch each."""
+    kernels mask their edge) and at widths off the models' (H = 128, 384,
+    512), one launch each; K10's g and db1 parts too, and K11 bitwise from
+    run to run (its sums in a fixed order; M = 4,100 splits K)."""
     x, w1, b1, w2, b2, dy = _ffn_inputs(dev, m, h, f, seed=m + h)
     names = ("ffn_train_fwd", "ffn_fused_fwd", "ffn_bwd_dx", "ffn_bwd_dw")
     before = [getattr(fused_ffn, n).launches for n in names]
@@ -386,18 +402,60 @@ def test_ffn_kernels_match_plain(dev, m, h, f):
     _close_bf16(y, y_ref, "y")
     _close_bf16(fused_ffn.ffn_fused_fwd(x, w1, b1, w2, b2), y_ref, "y fused")
     # the backward kernels from the plain hb, so both sides read the same
-    dx, dh = fused_ffn.ffn_bwd_dx(dy, w1, w2, hb_ref)
-    dx_ref, dh_ref = fused_ffn._ffn_bwd_dx_plain(dy, w1, w2, hb_ref)
+    dx, dh, g, parts = fused_ffn.ffn_bwd_dx(dy, w1, w2, hb_ref)
+    dx_ref, dh_ref, g_ref, parts_ref = fused_ffn._ffn_bwd_dx_plain(
+        dy, w1, w2, hb_ref)
     _close_bf16(dh, dh_ref, "dh")
     _close_bf16(dx, dx_ref, "dx")
-    got = fused_ffn.ffn_bwd_dw(x, dy, hb_ref, dh_ref)
-    want = fused_ffn._ffn_bwd_dw_plain(x, dy, hb_ref, dh_ref)
-    for name, g, w in zip(("dw1", "db1", "dw2"), got, want):
-        assert g.dtype == torch.float32 and g.shape == w.shape
-        _close_f32(g, w, name)
+    assert torch.equal(g, g_ref)        # the same GELU of the same hb
+    _close_f32(parts, fused_ffn._column_parts(dh), "parts")   # its own dh
+    # K11 from the plain dh, g and parts, so both sides read the same
+    got = fused_ffn.ffn_bwd_dw(x, dy, g_ref, dh_ref, parts_ref)
+    want = fused_ffn._ffn_bwd_dw_plain(x, dy, g_ref, dh_ref, parts_ref)
+    for name, gt, w in zip(("dw1", "db1", "dw2"), got, want):
+        assert gt.dtype == torch.float32 and gt.shape == w.shape
+        _close_f32(gt, w, name)
+    again = fused_ffn.ffn_bwd_dw(x, dy, g_ref, dh_ref, parts_ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     torch.cuda.synchronize()
     assert [getattr(fused_ffn, n).launches for n in names] == [
-        b + 1 for b in before]
+        b + (2 if n == "ffn_bwd_dw" else 1) for n, b in zip(names, before)]
+
+
+@pytest.mark.parametrize("m,h,f", [(300, 384, 640), (64, 128, 256),
+                                   (4100, 256, 768)])
+def test_mn_major_gemm_is_exact_on_small_integers(dev, m, h, f):
+    """The MN-major operands of the wgmma GEMM alone: K10 (B MN-major) and
+    K11 (A and B MN-major, two products in one launch; M = 4,100 splits K)
+    on small integers in bf16, where every f32 sum is exact, so a layout
+    or descriptor error shows as a wrong value and not as rounding. hb =
+    10 makes gelu'(hb) = 1 and gelu(hb) = 10 in f32 exactly: dh = bf16(dy
+    w2), dx = bf16(dh w1), g = 10, db1's parts and dW1, dW2 the float64
+    products, bitwise. Ragged M, and F = 640 past the last 256-column
+    tile."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(m + h)
+
+    def ints(*shape, hi=2):
+        return torch.randint(-hi, hi + 1, shape, device=dev,
+                             generator=gen).to(bf)
+
+    dy, x = ints(m, h), ints(m, h)
+    w1, w2 = ints(f, h, hi=1), ints(h, f, hi=1)
+    hb = torch.full((m, f), 10.0, dtype=bf, device=dev)
+    dx, dh, g, parts = fused_ffn.ffn_bwd_dx(dy, w1, w2, hb)
+    d = torch.float64
+    want_dh = (dy.to(d) @ w2.to(d)).to(bf)
+    assert torch.equal(dh, want_dh)
+    assert torch.equal(dx, (want_dh.to(d) @ w1.to(d)).to(bf))
+    assert torch.equal(g, torch.full_like(g, 10.0))
+    pad = torch.zeros(-m % 64, f, dtype=d, device=dev)
+    assert torch.equal(parts, torch.cat([want_dh.to(d), pad]).view(
+        -1, 64, f).sum(1).float())
+    dw1, db1, dw2 = fused_ffn.ffn_bwd_dw(x, dy, g, dh, parts)
+    assert torch.equal(dw1, (dh.to(d).T @ x.to(d)).float())
+    assert torch.equal(dw2, (dy.to(d).T @ g.to(d)).float())
+    assert torch.equal(db1, dh.to(d).sum(0).float())
 
 
 @pytest.mark.parametrize("impl", ["fused_vjp", "fused"])
@@ -429,16 +487,26 @@ def test_ffn_knobs_under_autograd(dev, impl):
 
 
 def test_ffn_kernels_refuse_what_they_do_not_take(dev):
-    """On the card a knob launches its kernel or raises: it never gives way
-    to the library composition, whatever the JAX tiling rule says."""
+    """On the card a kernel wrapper launches its kernel or raises (f32
+    activations; H = 96 or F = 192, off the 128 grid), and a knob on the
+    grid launches at any M, whatever the JAX tiling rule says about M. Off
+    the grid the knobs are ``ffn_reference``, as in JAX, and launch
+    nothing."""
     x, w1, b1, w2, b2, _ = _ffn_inputs(dev, 32, 256, 256)
     with pytest.raises(ValueError, match="bfloat16"):
         fused_ffn.ffn_train_fwd(x.float(), w1.float(), b1.float(),
                                 w2.float(), b2.float())
-    big = torch.zeros(32, 1152, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="H in"):
-        fused_ffn.ffn_fused_fwd(big, big.new_zeros(256, 1152), b1,
-                                big.new_zeros(1152, 256), big.new_zeros(1152))
+    odd = torch.zeros(32, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ffn.ffn_fused_fwd(odd, odd.new_zeros(256, 96), b1,
+                                odd.new_zeros(96, 256), odd.new_zeros(96))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ffn.ffn_bwd_dx(x, x.new_zeros(192, 256), x.new_zeros(256, 192),
+                             x.new_zeros(32, 192))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_ffn.ffn_bwd_dw(odd, odd, x.new_zeros(32, 256),
+                             x.new_zeros(32, 256),
+                             torch.zeros(1, 256, device=dev))
     # M = 7 is off the JAX tiling rule: the kernels mask the edge and launch
     names = ("ffn_fused_fwd", "ffn_train_fwd")
     before = [getattr(fused_ffn, n).launches for n in names]
@@ -450,15 +518,67 @@ def test_ffn_kernels_refuse_what_they_do_not_take(dev):
             x[:7], w1, b1, w2, b2)[0], impl)
     assert [getattr(fused_ffn, n).launches for n in names] == [
         b + 1 for b in before]
-    # a width off the kernels' grid raises under both knobs
-    odd = _randn(dev, 7, 96).to(torch.bfloat16)
-    params = (_randn(dev, 200, 96), _randn(dev, 200), _randn(dev, 96, 200),
-              _randn(dev, 96))
+    # a width off the 128 grid is ffn_reference under both knobs, with its
+    # gradients, and launches nothing
+    odd = _randn(dev, 7, 96).to(torch.bfloat16).requires_grad_()
+    params = [p.requires_grad_() for p in (
+        _randn(dev, 200, 96), _randn(dev, 200), _randn(dev, 96, 200),
+        _randn(dev, 96))]
+    bwd = (fused_ffn.ffn_bwd_dx.launches, fused_ffn.ffn_bwd_dw.launches)
     for impl in ("fused", "fused_vjp"):
-        with pytest.raises(ValueError, match="H in"):
-            fused_ffn.ffn(odd, *params, impl)
+        y = fused_ffn.ffn(odd, *params, impl)
+        y_ref = fused_ffn.ffn_reference(odd, *params)
+        assert torch.equal(y, y_ref)
+        grads = torch.autograd.grad(y.float().sum(), [odd, *params])
+        refs = torch.autograd.grad(y_ref.float().sum(), [odd, *params])
+        assert all(torch.equal(a, b) for a, b in zip(grads, refs))
     assert [getattr(fused_ffn, n).launches for n in names] == [
         b + 1 for b in before]
+    assert (fused_ffn.ffn_bwd_dx.launches,
+            fused_ffn.ffn_bwd_dw.launches) == bwd
+
+
+@pytest.mark.parametrize("h", [128, 512, 1152])
+@pytest.mark.parametrize("impl", ["fused", "fused_vjp", "int8", "proj_int8"])
+def test_knobs_run_at_every_lane_width(dev, impl, h):
+    """Every FFN knob, and proj_impl="int8", at widths off the models' on
+    the 128 grid (F = 4 H), through its kernels: the launch counts rise,
+    and the result (and for fused_vjp the input's gradient) agrees with the
+    same call on the plain versions within the bounds of the tests above
+    (bitwise for the int8 kernels)."""
+    bf = torch.bfloat16
+    m, f = 256, 4 * h                   # 256 rows tile for the int8 knobs
+    x = _randn(dev, 2, m // 2, h, seed=h).to(bf)
+    w1, b1 = _randn(dev, f, h, scale=0.05, seed=1), _randn(dev, f, seed=2)
+    w2, b2 = _randn(dev, h, f, scale=0.05, seed=3), _randn(dev, h, seed=4)
+    name = {"fused": "ffn_fused_fwd", "fused_vjp": "ffn_train_fwd",
+            "int8": "int8_ffn_fwd", "proj_int8": "int8_dense_fwd"}[impl]
+    before = getattr(fused_ffn, name).launches
+    if impl == "proj_int8":
+        got = fused_ffn.int8_dense(x, w1, b1)
+        want = fused_ffn._int8_dense_plain(
+            x.view(m, h), *fused_ffn.quantize_weight(w1), b1).view(2, -1, f)
+        assert torch.equal(got, want)
+    elif impl == "int8":
+        got = fused_ffn.ffn(x, w1, b1, w2, b2, impl)
+        want = fused_ffn._int8_ffn_plain(
+            x.view(m, h), *fused_ffn.quantize_weight(w1), b1,
+            *fused_ffn.quantize_weight(w2), b2).view(2, -1, h)
+        assert torch.equal(got, want)
+    else:
+        xg = x.requires_grad_()
+        got = fused_ffn.ffn(xg, w1, b1, w2, b2, impl)
+        cpu = [t.detach().cpu() for t in (x, w1, b1, w2, b2)]
+        cpu[0].requires_grad_()
+        want = fused_ffn.ffn(*cpu, impl)
+        _close_bf16(got.cpu(), want, (impl, h))
+        if impl == "fused_vjp":
+            (gx,) = torch.autograd.grad(got.float().square().sum(), [xg])
+            (rx,) = torch.autograd.grad(want.float().square().sum(), [cpu[0]])
+            err = float((gx.cpu().float() - rx.float()).abs().max())
+            assert err <= 2e-2 * float(rx.float().abs().max()), err
+    torch.cuda.synchronize()
+    assert getattr(fused_ffn, name).launches == before + 1
 
 
 def _attention_inputs(dev, b, heads, s, d, seed=0):

@@ -129,32 +129,49 @@ def test_train_forward_plain_matches_pallas_kernel(m, h, f, dt, f_block_128):
     assert torch.equal(y12, y)       # K12's plain version is K9's without hb
 
 
-@pytest.mark.parametrize("m,h,f,dt", KERNEL_CASES)
+# the backward also at H = 384 (three lane blocks; F = 1536 spans twelve
+# 128-wide f-blocks on the JAX side)
+BWD_CASES = KERNEL_CASES + [(48, 384, 1536, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m,h,f,dt", BWD_CASES)
 def test_backward_plain_matches_pallas_kernels(m, h, f, dt, f_block_128):
-    """K10's and K11's plain versions, and db2, against ``_fused_train_bwd``
-    from the JAX kernel's own residuals: f32 to atol 1e-4 / rtol 1e-3 (the
-    JAX tests' bound), bf16 within 3e-2 of the largest value."""
+    """K10's and K11's plain versions (K10 -> K11 through ``g`` and the
+    parts of db1), and db2, against ``_fused_train_bwd`` from the JAX
+    kernel's own residuals: f32 to atol 1e-4 / rtol 1e-3 (the JAX tests'
+    bound), bf16 within 3e-2 of the largest value. dh and g, which
+    ``_fused_train_bwd`` keeps inside, against the JAX kernels' arithmetic
+    on the same hb (``_gelu_and_deriv``, ``_gelu_exact``): f32 to 1e-5 of
+    the largest value, bf16 to one bf16 step; the parts sum to db1."""
     x, w1, b1, w2, b2, dy = _inputs(m, h, f, 2, dt)
     tile, fb = ff._train_tiles(m, h, f)
     jx = jnp.asarray(x, _JDT[dt])
     _, jhb = ff._fused_train_call(tile, fb, jx, w1, b1, w2, b2)
+    jdy = jnp.asarray(dy, _JDT[dt])
     want = ff._fused_train_bwd(tile, fb, (jx, jnp.asarray(w1),
-                                          jnp.asarray(w2), jhb),
-                               jnp.asarray(dy, _JDT[dt]))
+                                          jnp.asarray(w2), jhb), jdy)
+    jg, jd = ff._gelu_and_deriv(jhb.astype(F32))
+    jdh = (jnp.dot(jdy, jnp.asarray(w2, _JDT[dt]).T,
+                   preferred_element_type=F32) * jd).astype(_JDT[dt])
     px, pw1, _, pw2, _ = _port(x, w1, b1, w2, b2, dt)
     pdy = torch.from_numpy(dy).to(dt)
     phb = torch.from_numpy(np.asarray(jhb, np.float32)).to(dt)
-    dx, dh = pf.ffn_bwd_dx(pdy, pw1.to(dt), pw2.to(dt), phb)
-    dw1, db1, dw2 = pf.ffn_bwd_dw(px, pdy, phb, dh)
-    assert dx.dtype == dh.dtype == dt
-    assert dw1.dtype == db1.dtype == dw2.dtype == torch.float32
+    dx, dh, g, parts = pf.ffn_bwd_dx(pdy, pw1.to(dt), pw2.to(dt), phb)
+    dw1, db1, dw2 = pf.ffn_bwd_dw(px, pdy, g, dh, parts)
+    assert dx.dtype == dh.dtype == g.dtype == dt
+    assert parts.shape == (-(-m // 64), f)
+    assert dw1.dtype == db1.dtype == dw2.dtype == parts.dtype == torch.float32
     got = (dx, dw1.T, db1, dw2.T, pdy.float().sum(0))
-    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+    for name, gt, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         if dt == torch.float32:
-            np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-3,
+            np.testing.assert_allclose(_np(gt), _np(w), atol=1e-4, rtol=1e-3,
                                        err_msg=name)
         else:
-            assert _rel(g, w) < 3e-2, name
+            assert _rel(gt, w) < 3e-2, name
+    step = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    assert _rel(dh, jdh) <= step and _rel(g, jg.astype(_JDT[dt])) <= step
+    np.testing.assert_allclose(_np(parts.sum(0)), _np(dh.float().sum(0)),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("m,h,f,dt", KERNEL_CASES)
@@ -233,6 +250,107 @@ def test_ffn_fwd_workspace(m, h, f, tiles):
     and their second reads (K9's hb is an output, not a workspace)."""
     assert pf.ffn_fwd_workspace(m, h, f, 132) == {
         "tiles": tiles, "g": ((m, f), torch.bfloat16)}
+
+
+# (M, H, F) -> K10's GEMM tiles ([M, F], then [M, H]) and K11's tile and
+# splits of K on 132 SMs: chip_smoke.py's FFN_SHAPES of the training path,
+# its off-model width, and small shapes of the card tests
+@pytest.mark.parametrize("m,h,f,tiles,dw", [
+    (20480, 1024, 4096, ((128, 256), (128, 256)), (128, 256, 1)),
+    (16384, 768, 3072, ((128, 256), (128, 256)), (128, 256, 5)),
+    (65536, 768, 3072, ((128, 256), (128, 256)), (128, 256, 8)),
+    (256, 768, 3072, ((64, 64), (64, 64)), (64, 128, 1)),
+    (3001, 512, 2048, ((64, 128), (64, 128)), (128, 256, 2)),
+    (300, 384, 1536, ((64, 64), (64, 64)), (64, 128, 1)),
+    (37, 128, 512, ((64, 64), (64, 64)), (64, 64, 1))])
+def test_ffn_bwd_workspace(m, h, f, tiles, dw):
+    """K10's tiles, K11's (``_native.dw_tile``) and the pair's workspaces:
+    g [M, F] bf16 and db1's parts [ceil(M / 64), F] from K10, the f32
+    partial products of K11's splits (none without a split)."""
+    splits = dw[2]
+    assert pf.ffn_bwd_workspace(m, h, f, 132) == {
+        "tiles": tiles, "dw": dw, "g": ((m, f), torch.bfloat16),
+        "parts": ((-(-m // 64), f), torch.float32),
+        "partials": ((splits * 2 * h * f if splits > 1 else 0,),
+                     torch.float32)}
+
+
+@pytest.mark.parametrize("m,h,f,sms", [(16384, 768, 3072, 132),
+                                       (65536, 768, 3072, 132),
+                                       (20480, 1024, 4096, 132),
+                                       (20480, 1024, 4096, 114),
+                                       (4096, 768, 3072, 132)])
+def test_dw_tile_splits_only_to_fill_the_sms(m, h, f, sms):
+    """K11's split rule: at 128 x 256 a split is taken only where it
+    shortens the launch's least time (its waves of tiles at the SM's share
+    of the peak, plus the partials' round trip), never above 8 parts or
+    below 1,024 rows a part; the CE-large step's 256 tiles fill two waves
+    of 132 SMs and do not split."""
+    from simxns_tpu_torch.ops import _native
+
+    bm, bn, splits = _native.dw_tile(m, h, f, sms)
+    assert (bm, bn) == (128, 256)
+    tiles = 2 * (f // 128) * (h // 256)
+    assert 1 <= splits <= min(8, m // 1024)
+    if (m, h, f, sms) == (20480, 1024, 4096, 132):
+        assert splits == 1
+    # a split's waves never exceed one wave per split more than needed
+    waves = -(-tiles * splits // sms)
+    assert waves <= -(-tiles // sms) * splits
+    if splits > 1:          # it fills more of the SMs than no split does
+        assert tiles * splits / (waves * sms) > tiles / (-(-tiles // sms)
+                                                         * sms)
+
+
+@pytest.mark.parametrize("h", [128, 384, 512, 896, 1152, 2048])
+def test_kernel_width_limits(h):
+    """What the card's FFN kernels take, one check for every wrapper
+    (K9-K12 and K14: H and F, K13: I and O, any multiple of 128, the JAX
+    kernels' lane grid), at the model widths and off them, at any M >=
+    1."""
+    for m in (1, 7, 300):
+        for f in (4 * h, 3 * h, 128):
+            assert pf._kernel_dims("k", m, h, f, torch.bfloat16) == (m, h, f)
+
+
+@pytest.mark.parametrize("m,h,f,dt,match", [
+    (7, 96, 384, torch.bfloat16, "multiples of 128"),
+    (7, 128, 192, torch.bfloat16, "multiples of 128"),
+    (7, 64, 128, torch.bfloat16, "multiples of 128"),
+    (0, 128, 512, torch.bfloat16, "at least one row"),
+    (7, 128, 512, torch.float32, "bfloat16")])
+def test_kernel_width_refusals(m, h, f, dt, match):
+    """Off the 128 grid (H = 96, F = 192, H = 64), no row, or f32
+    activations: the wrappers' check raises before any launch."""
+    with pytest.raises(ValueError, match=match):
+        pf._kernel_dims("k", m, h, f, dt)
+
+
+@pytest.mark.parametrize("m,h,f,cuda,train,want", [
+    (7, 128, 256, True, True, True),        # ragged M: the card launches
+    (7, 128, 256, False, True, False),      # the CPU keeps the JAX tile
+    (64, 128, 256, False, True, True),
+    (7, 96, 200, True, True, False),        # off the lanes: ffn_reference
+    (7, 96, 200, True, False, False),
+    (64, 96, 256, False, False, False),
+    (64, 128, 192, True, False, False),
+    (300, 384, 1536, True, False, True),
+    (300, 384, 1536, False, False, False),  # 300 rows: no 256-row tile
+    (512, 384, 1536, False, False, True),
+    (20480, 1024, 4096, True, True, True),
+    (20480, 1152, 4608, False, True, True)])
+def test_fused_knobs_dispatch_by_shape(m, h, f, cuda, train, want):
+    """``fused_ffn`` / ``fused_ffn_vjp`` reach their kernels exactly where
+    the JAX package's would run: H and F on the 128 grid on both devices,
+    and on the CPU also M on the token tile (the card masks a ragged M);
+    elsewhere they are ``ffn_reference``. Decided by shape and device type
+    alone."""
+    assert pf.reaches_kernels(m, h, f, cuda, train) is want
+    tiles = ff._train_tiles(m, h, f) if train else (
+        None if h % 128 or f % 128 or m % min(256, max(16, -(-m // 16) * 16))
+        else True)
+    if not cuda:
+        assert (tiles is not None) is want
 
 
 def test_tiling_rules_agree_with_jax():

@@ -64,9 +64,11 @@ def _run(kind, x, w1, b1, w2, b2, dt):
 
 
 # (m, i, o, dtype): both tile (M a multiple of its token tile, widths of
-# the 128 grid), so the JAX side runs its Pallas kernel.
+# the 128 grid), so the JAX side runs its Pallas kernel; I = 1152 is wider
+# than a warp's registers hold of a row in the card's quantizer.
 KERNEL_CASES = [(64, 128, 256, torch.float32),
-                (256, 256, 512, torch.bfloat16)]
+                (256, 256, 512, torch.bfloat16),
+                (64, 1152, 256, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("kind", ["ffn", "dense"])
@@ -133,6 +135,29 @@ def test_quantizers_match_jax(dt):
         np.testing.assert_allclose(scales, jscales, rtol=2.0 ** -23, atol=0)
         diff = np.abs(codes.astype(np.int32) - jcodes)
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_quant_rows_of_wide_rows_match_jax(dt):
+    """``quant_rows`` on rows of 1152 and 2048 values (past the 1024 a warp
+    of the card's quantizer holds at once; it walks such a row twice)
+    against ``_quant_rows``, to the bounds of ``test_quantizers_match_jax``:
+    scales within one f32 ulp, codes one step apart at most and rarely."""
+    for width in (1152, 2048):
+        x = np.random.default_rng(width).standard_normal(
+            (64, width), dtype=np.float32)
+        x[3] = 0.0                              # a zero row: the 1e-12 floor
+        x[5, width - 1] = 40.0                  # the row's max at its end
+        x = torch.from_numpy(x).to(dt).float().numpy()
+        codes, scales = (np.asarray(a) for a in pf.quant_rows(
+            torch.from_numpy(x).to(dt)))
+        jcodes, jscales = (np.asarray(a) for a in ff._quant_rows(
+            jnp.asarray(x).astype(_JDT[dt])))
+        np.testing.assert_allclose(scales, jscales.ravel(), rtol=2.0 ** -23,
+                                   atol=0)
+        diff = np.abs(codes.astype(np.int32) - jcodes)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+        assert codes[5, width - 1] == 127 and not codes[3].any()
 
 
 def test_proj_int8_alone_encodes_like_jax():
