@@ -21,11 +21,15 @@ non-zero and prints no result):
    mine's queries (2,048 tokens; at both with the wrapper's host
    microseconds a call); then one whole layer composed
    of the kernels against the plain composition; K1, K3 (here and in
-   phases 4 and 6), K5 (phase 4) and K7 (phase 6) also with their device
-   time per call from the profiler (at a request's shape the CUDA-event
-   time is the host's launch rate); beside K4, the search's
+   phases 4 and 6), K4, K5 (phase 4) and K7 (phase 6) also with their
+   device time per call from the profiler (at a request's shape the
+   CUDA-event time is the host's launch rate); beside K4, the search's
    last step over its candidates: the stable ``_finalize`` (equal scores
-   in column order, as ``jax.lax.top_k``) and ``torch.topk`` alone;
+   in column order, as ``jax.lax.top_k``) and ``torch.topk`` alone; then
+   K4 where the port once refused what JAX computes: 8,000 rows at the
+   launcher's block for them (2,000, not a multiple of 128), k=100, int8
+   and bf16, and through ``blocked_mips_topk(mode="fused")`` against the
+   same call on the CPU, and ``bucket=100`` (the kernel at gcd(100, 128));
 3. end to end: a full-width BERT-base dual encoder (12 layers, random
    weights from seed 0, layer_impl="fused_int8") behind a DenseRetriever
    with an int8 index in fused mode indexes 65,536 synthetic passages and
@@ -57,7 +61,7 @@ non-zero and prints no result):
    K8's two launches (query pass, key pass), and two K8 calls held bitwise
    equal at every shape; K3 at S=512 (1024 x 512 tokens of
    BERT-base); K4 at the mine's shape (64 queries, k=100, 24,576 int8
-   rows);
+   rows), with its profiler device time (the event time is the host's);
 7. co-training end to end: ``simxns_tpu_torch.run.run_ar2`` at full width
    in ``nq_ar2_simans`` (BERT-base DE, ERNIE-large-shaped CE; 128 / 32 /
    160 tokens) and ``msdoc_ar2_simans`` (BERT-base DE with the 768
@@ -477,9 +481,6 @@ def _check_small_s_attention(torch, randn, gen, cases, h, heads):
 
 def phase_kernels(torch, smi):
     """Phase 2. Returns the kernel records (launches filled in later)."""
-    from simxns_tpu_torch.ops import mips_kernel as mk
-    from simxns_tpu_torch.ops.fused_ffn import quant_rows
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -552,100 +553,183 @@ def phase_kernels(torch, smi):
     del x, got, want, params, ql
 
     # --- K4 mips_bucket_candidates over 8,847,360 x 768 -------------------
-    codes = torch.empty(INDEX_ROWS, H, dtype=torch.int8, device=dev)
-    scales = torch.empty(INDEX_ROWS, dtype=torch.float32, device=dev)
-    corpus16 = torch.empty(INDEX_ROWS, H, dtype=torch.bfloat16, device=dev)
-    step = 262144
-    for r0 in range(0, INDEX_ROWS, step):
-        rows = randn(min(step, INDEX_ROWS - r0), H)
-        codes[r0:r0 + rows.shape[0]], scales[r0:r0 + rows.shape[0]] = \
-            quant_rows(rows)
-        corpus16[r0:r0 + rows.shape[0]] = rows.to(torch.bfloat16)
-    del rows
-    valid_n = INDEX_ROWS - 1000
-    block_n = 2048
-    n_pad = INDEX_ROWS
-    bucket = mk._fit_bucket(128, block_n, n_pad, 10)
-    variants = []
-    for nq in (8, 1024):
-        queries = randn(nq, H)
-        q8, qs = quant_rows(queries)
-        q16 = queries.to(torch.bfloat16)
-        for kind in ("int8", "bf16"):
-            if kind == "int8":
-                args = (q8, codes, valid_n)
-                kw = dict(bucket=bucket, block_n=block_n, query_scales=qs,
-                          row_scales=scales)
-                plain_args = (q8, codes, valid_n, bucket, n_pad, qs, scales)
-            else:
-                args = (q16, corpus16, valid_n)
-                kw = dict(bucket=bucket, block_n=block_n)
-                plain_args = (q16, corpus16, valid_n, bucket, n_pad, None,
-                              None)
-            got_s, got_i = mk.mips_bucket_candidates(*args, **kw)
-            want_s, want_i = mk._candidates_plain(*plain_args)
-            err = float((got_s - want_s).abs().max())
-            ids_off = int((got_i != want_i).sum())
-            if kind == "int8":
-                # exact int32 sums and the same two f32 products
-                check(err == 0.0 and ids_off == 0,
-                      f"mips int8 Q={nq}: err {err}, {ids_off} ids differ")
-            else:
-                # f32 sums in another order: |score| ~ 100 -> ~1e-4; a
-                # near-tie inside a bucket may pick the other row
-                check(err <= 1e-3 and ids_off <= 1e-5 * got_i.numel(),
-                      f"mips bf16 Q={nq}: err {err}, {ids_off} ids differ")
-            top_k = mk._finalize(got_s, got_i, 10, 0)
-            ref_k = mk._finalize(want_s, want_i, 10, 0)
-            overlap = float(sum(len(set(a) & set(b)) for a, b in zip(
-                top_k[1].tolist(), ref_k[1].tolist())) / (10.0 * nq))
-            check(overlap >= 0.99, f"mips {kind} Q={nq}: top-10 overlap "
-                  f"{overlap}")
-            del got_s, got_i, want_s, want_i
-            ms = timed(torch, lambda: mk.mips_bucket_candidates(*args, **kw),
-                       5 if nq == 8 else 3)
-            plain = timed(torch, lambda: mk._candidates_plain(*plain_args),
-                          1, warmup=0)
-            lib = timed(torch, lambda: _library_search(torch, args[0],
-                                                       args[1], kind), 1)
-            # the search's last step over K4's candidates: the port's
-            # stable _finalize, and the same selection by torch.topk alone
-            # (equal scores in no set order; what the port used before)
-            cand = mk.mips_bucket_candidates(*args, **kw)
-            fin = timed(torch, lambda: mk._finalize(*cand, 10, 0), 5)
-            fin_topk = timed(torch, lambda: _topk_finalize(torch, *cand, 10),
-                             5)
-            del cand
-            elt = 1 if kind == "int8" else 2
-            moved = (INDEX_ROWS * H * elt + nq * H * elt
-                     + (4 * (INDEX_ROWS + nq) if kind == "int8" else 0)
-                     + nq * (n_pad // bucket) * 8)
-            bms, by = bound(moved, 2.0 * nq * INDEX_ROWS * H,
-                            PEAK_INT8 if kind == "int8" else PEAK_BF16)
-            variants.append(dict(kind=kind, queries=nq, rows=INDEX_ROWS,
-                                 ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=bms, bound_by=by, max_abs_err=err,
-                                 ids_differing=ids_off,
-                                 top10_overlap=overlap,
-                                 candidates_per_query=n_pad // bucket,
-                                 finalize_ms=fin, topk_finalize_ms=fin_topk,
-                                 search_ms=ms + fin,
-                                 stable_finalize_added_share=(
-                                     (fin - fin_topk) / (ms + fin_topk))))
-            emit("kernel_variant", name="mips_bucket_candidates",
-                 nvidia_smi=smi, **variants[-1])
+    index = _mips_index(torch, INDEX_ROWS)
+    variants = [_check_mips(torch, randn, index, kind, nq,
+                            valid_n=INDEX_ROWS - 1000)
+                for nq in (8, 1024) for kind in ("int8", "bf16")]
+    for v in variants:
+        emit("kernel_variant", name="mips_bucket_candidates", nvidia_smi=smi,
+             **v)
+    del index
+    torch.cuda.empty_cache()
     main = variants[0]                     # int8, 8 queries: a request
-    rec = {key: main[key] for key in ("ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")}
+    rec = {key: main[key] for key in ("ms", "device_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
     rec["max_abs_err"] = max(v["max_abs_err"] for v in variants)
     rec["tolerance"] = ("int8: exact (scores and ids); bf16: 1e-3 on scores, "
                         "<= 1e-5 of ids")
     rec["variants"] = variants
     rec["also_replaces"] = "simxns_tpu/ops/mips_kernel.py:112"   # bf16
+    # what the port refused before K4 covered any block: the launcher's
+    # block for 8,000 passages (2,000) at k=100, and a bucket off 128
+    rec["repair"] = _check_mips_repair(torch, randn)
+    emit("kernel_variant", name="mips_bucket_candidates", nvidia_smi=smi,
+         **rec["repair"])
     records["mips_bucket_candidates"] = rec
-    del codes, scales, corpus16
-    torch.cuda.empty_cache()
     return records
+
+
+def _mips_index(torch, rows, kinds=("int8", "bf16"), seed=5):
+    """A random index of ``rows`` x H on the card, made in slices from its
+    own generator: {"int8": (codes, scales), "bf16": (rows,)}."""
+    from simxns_tpu_torch.ops.fused_ffn import quant_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    if "int8" in kinds:
+        out["int8"] = (torch.empty(rows, H, dtype=torch.int8, device=dev),
+                       torch.empty(rows, dtype=torch.float32, device=dev))
+    if "bf16" in kinds:
+        out["bf16"] = (torch.empty(rows, H, dtype=torch.bfloat16,
+                                   device=dev),)
+    step = 262144
+    for r0 in range(0, rows, step):
+        x = torch.randn(min(step, rows - r0), H, device=dev, generator=gen)
+        r1 = r0 + x.shape[0]
+        if "int8" in out:
+            out["int8"][0][r0:r1], out["int8"][1][r0:r1] = quant_rows(x)
+        if "bf16" in out:
+            out["bf16"][0][r0:r1] = x.to(torch.bfloat16)
+    return out
+
+
+def _check_mips(torch, randn, index, kind, nq, k=10, block_n=2048,
+                bucket=128, valid_n=None, reps=None, search_timing=True):
+    """K4 on ``nq`` random queries over ``index`` (``_mips_index``) at the
+    wrapper's bucket for k (``_fit_bucket``): candidates against
+    ``_candidates_plain`` on the same inputs (int8 scores and ids bitwise;
+    bf16 scores within 1e-3 and at most 1e-5 of ids differing: f32 sums in
+    another order), top-k overlap >= 0.99 after ``_finalize``; its event
+    time and profiler device time a launch, the plain version's, the
+    library's products + ``topk`` and the bound; with ``search_timing`` the
+    search's last step over the candidates too (the stable ``_finalize``
+    and ``torch.topk`` alone)."""
+    from simxns_tpu_torch.ops import mips_kernel as mk
+    from simxns_tpu_torch.ops.fused_ffn import quant_rows
+    from simxns_tpu_torch.parallel.mesh import pad_to_multiple
+
+    corpus = index[kind]
+    rows = corpus[0].shape[0]
+    valid_n = rows if valid_n is None else valid_n
+    n_pad = pad_to_multiple(rows, block_n)
+    bucket = mk._fit_bucket(bucket, block_n, n_pad, k)
+    queries = randn(nq, H)
+    if kind == "int8":
+        q8, qs = quant_rows(queries)
+        args = (q8, corpus[0], valid_n)
+        kw = dict(bucket=bucket, block_n=block_n, query_scales=qs,
+                  row_scales=corpus[1])
+        plain_args = (q8, corpus[0], valid_n, bucket, n_pad, qs, corpus[1])
+    else:
+        args = (queries.to(torch.bfloat16), corpus[0], valid_n)
+        kw = dict(bucket=bucket, block_n=block_n)
+        plain_args = (args[0], corpus[0], valid_n, bucket, n_pad, None, None)
+    label = f"mips {kind} Q={nq} N={rows} block_n={block_n} bucket={bucket}"
+    got_s, got_i = mk.mips_bucket_candidates(*args, **kw)
+    want_s, want_i = mk._candidates_plain(*plain_args)
+    err = float((got_s - want_s).abs().max())
+    ids_off = int((got_i != want_i).sum())
+    if kind == "int8":
+        # exact int32 sums and the same two f32 products
+        check(err == 0.0 and ids_off == 0,
+              f"{label}: err {err}, {ids_off} ids differ")
+    else:
+        # f32 sums in another order: |score| ~ 100 -> ~1e-4; a near-tie
+        # inside a bucket may pick the other row
+        check(err <= 1e-3 and ids_off <= max(1, 1e-5 * got_i.numel()),
+              f"{label}: err {err}, {ids_off} ids differ")
+    top_k = mk._finalize(got_s, got_i, k, 0)
+    ref_k = mk._finalize(want_s, want_i, k, 0)
+    overlap = float(sum(len(set(a) & set(b)) for a, b in zip(
+        top_k[1].tolist(), ref_k[1].tolist())) / (k * nq))
+    check(overlap >= 0.99, f"{label}: top-{k} overlap {overlap}")
+    del got_s, got_i, want_s, want_i, top_k, ref_k
+    big = rows >= 1 << 20                  # the MARCO index
+    reps = reps or (20 if not big else 5 if nq <= 64 else 3)
+
+    def call():
+        return mk.mips_bucket_candidates(*args, **kw)
+
+    ms = timed(torch, call, reps)
+    dev_ms, seen = device_ms(torch, call, ("gemm_kernel", "mips_candidates"),
+                             reps=reps)
+    plain = timed(torch, lambda: mk._candidates_plain(*plain_args),
+                  1 if big else 3, warmup=0 if big else 1)
+    lib = timed(torch, lambda: _library_search(torch, args[0], args[1], kind,
+                                               k=k), 1 if big else 5)
+    elt = 1 if kind == "int8" else 2
+    moved = (rows * H * elt + nq * H * elt
+             + (4 * (rows + nq) if kind == "int8" else 0)
+             + nq * (n_pad // bucket) * 8)
+    bms, by = bound(moved, 2.0 * nq * rows * H,
+                    PEAK_INT8 if kind == "int8" else PEAK_BF16)
+    rec = dict(kind=kind, queries=nq, rows=rows, k=k, block_n=block_n,
+               bucket=bucket, ms=ms, device_ms=dev_ms,
+               device_launches_seen=seen, plain_ms=plain, library_ms=lib,
+               bound_ms=bms, bound_by=by, max_abs_err=err,
+               ids_differing=ids_off, top_k_overlap=overlap,
+               candidates_per_query=n_pad // bucket)
+    if search_timing:
+        # the search's last step over K4's candidates: the port's stable
+        # _finalize, and the same selection by torch.topk alone (equal
+        # scores in no set order; what the port used before)
+        cand = call()
+        fin = timed(torch, lambda: mk._finalize(*cand, k, 0), 5)
+        fin_topk = timed(torch, lambda: _topk_finalize(torch, *cand, k), 5)
+        del cand
+        rec.update(finalize_ms=fin, topk_finalize_ms=fin_topk,
+                   search_ms=ms + fin,
+                   stable_finalize_added_share=(fin - fin_topk)
+                   / (ms + fin_topk))
+    return rec
+
+
+def _check_mips_repair(torch, randn):
+    """What the port refused on the card before K4 covered any block and
+    bucket: 8,000 rows at the launcher's block for them (2,000, not a
+    multiple of 128) and k=100, through ``_check_mips`` and through
+    ``blocked_mips_topk(mode="fused")`` against the same call on the CPU
+    (the plain version; int8 scores and ids bitwise); and ``bucket=100``
+    (the kernel at gcd(100, 128) = 4, its runs of 25 merged)."""
+    from simxns_tpu_torch.ops import mips_kernel as mk
+    from simxns_tpu_torch.ops.topk import blocked_mips_topk
+
+    index = _mips_index(torch, 8000, seed=6)
+    rec = {"block_2000": _check_mips(torch, randn, index, "int8", 64, k=100,
+                                     block_n=2000, search_timing=False),
+           "bucket_100": _check_mips(torch, randn, index, "int8", 64,
+                                     block_n=2000, bucket=100,
+                                     search_timing=False),
+           "bf16_block_2000": _check_mips(torch, randn, index, "bf16", 64,
+                                          k=100, block_n=2000,
+                                          search_timing=False)}
+    codes, scales = index["int8"]
+    queries = randn(64, H).to(torch.bfloat16)
+    before = mk.mips_bucket_candidates.launches
+    got = blocked_mips_topk(queries, codes, 100, block_size=2000,
+                            valid_n=7990, mode="fused", row_scales=scales)
+    check(mk.mips_bucket_candidates.launches == before + 1,
+          "blocked_mips_topk(mode='fused', block_size=2000) did not launch K4")
+    want = blocked_mips_topk(queries.cpu(), codes.cpu(), 100,
+                             block_size=2000, valid_n=7990, mode="fused",
+                             row_scales=scales.cpu())
+    same = (torch.equal(got[0].cpu(), want[0])
+            and torch.equal(got[1].cpu(), want[1]))
+    check(same, "blocked_mips_topk(mode='fused', block_size=2000) on the "
+          "card differs from the plain version")
+    rec["blocked_fused_block_2000_equal_to_plain"] = same
+    return rec
 
 
 def _topk_finalize(torch, flat_s, flat_i, k):
@@ -1330,9 +1414,6 @@ def phase_msdoc_kernels(torch, smi, records):
     at S = 256, 288 and 1024; K3 at the msdoc encode's S=512 (1024 x 512
     tokens, BERT-base); K4 at the mine's shape (64 queries, k=100, over
     24,576 int8 rows)."""
-    from simxns_tpu_torch.ops import mips_kernel as mk
-    from simxns_tpu_torch.ops.fused_ffn import quant_rows
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     torch.cuda.empty_cache()
@@ -1378,36 +1459,13 @@ def phase_msdoc_kernels(torch, smi, records):
          tokens=1024 * MS_S, hidden=H, heads=HEADS, **rec3)
     torch.cuda.empty_cache()
 
-    codes, scales = quant_rows(randn(MINE_ROWS, H))
-    q8, qs = quant_rows(randn(MINE_Q, H))
-    block_n = 2048
-    bucket = mk._fit_bucket(128, block_n, MINE_ROWS, MINE_K)
-    kw = dict(bucket=bucket, block_n=block_n, query_scales=qs,
-              row_scales=scales)
-    got_s, got_i = mk.mips_bucket_candidates(q8, codes, MINE_ROWS, **kw)
-    want_s, want_i = mk._candidates_plain(q8, codes, MINE_ROWS, bucket,
-                                          MINE_ROWS, qs, scales)
-    err = float((got_s - want_s).abs().max())
-    ids_off = int((got_i != want_i).sum())
-    check(err == 0.0 and ids_off == 0,
-          f"mips int8 at the mine's shape: err {err}, {ids_off} ids differ")
-    ms = timed(torch, lambda: mk.mips_bucket_candidates(q8, codes, MINE_ROWS,
-                                                        **kw), 20)
-    plain = timed(torch, lambda: mk._candidates_plain(
-        q8, codes, MINE_ROWS, bucket, MINE_ROWS, qs, scales), 3)
-    lib = timed(torch, lambda: _library_search(torch, q8, codes, "int8",
-                                               k=MINE_K), 5)
-    moved = (MINE_ROWS * H + MINE_Q * H + 4 * (MINE_ROWS + MINE_Q)
-             + MINE_Q * (MINE_ROWS // bucket) * 8)
-    bms, by = bound(moved, 2.0 * MINE_Q * MINE_ROWS * H, PEAK_INT8)
-    rec4 = dict(kind="int8", queries=MINE_Q, rows=MINE_ROWS, k=MINE_K,
-                bucket=bucket, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, max_abs_err=err,
-                ids_differing=ids_off)
+    index = _mips_index(torch, MINE_ROWS, kinds=("int8",), seed=7)
+    rec4 = _check_mips(torch, randn, index, "int8", MINE_Q, k=MINE_K,
+                       search_timing=False)
     records["mips_bucket_candidates"]["mine"] = rec4
     emit("kernel_variant", name="mips_bucket_candidates", nvidia_smi=smi,
          **rec4)
-    del codes, scales, got_s, got_i, want_s, want_i
+    del index
     torch.cuda.empty_cache()
 
 

@@ -33,7 +33,17 @@ one JSON line, with the card's name and power limit:
   (65,536 rows), the DE's queries and a width off the models' (3,001 x 512
   x 2048), against their plain versions (K10 on K9's hb, K11 on K10's dh, g
   and db1 parts), with device times by launch and the ``F.linear`` chain
-  and its autograd backward beside.
+  and its autograd backward beside;
+- ``mips:int8_q8|int8_q1024|bf16_q8|bf16_q1024|mine``: K4 through
+  ``_check_mips`` over the 8,847,360 x 768 index (int8 and bf16, at 8 and
+  1,024 queries, k=10) and at the mine's 64 queries over 24,576 int8 rows
+  (k=100): int8 bitwise and bf16 within its tolerance of the plain version,
+  with the library's products + ``topk`` beside; the index (~21 GB for
+  both kinds) is built once for the cases that share it.
+
+``--mips-tile BMxBN`` makes K4 take that tile wherever its bucket allows
+(``_native.mips_tile`` replaced; a checkout without it is left alone), to
+measure each tile forced.
 
 ``--repo`` imports ``simxns_tpu_torch`` from another checkout (the parent
 commit unpacked with ``git archive``, say) while the checks and timers stay
@@ -47,6 +57,21 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+_MIPS_INDEX = {}    # (rows, kinds) -> the index the mips cases share
+
+
+def _mips(kind, nq, rows, k, valid_n, kinds):
+    def run(torch, cs, randn, gen):
+        key = (rows, kinds)
+        if key not in _MIPS_INDEX:
+            _MIPS_INDEX.clear()
+            torch.cuda.empty_cache()
+            _MIPS_INDEX[key] = cs._mips_index(torch, rows, kinds=kinds)
+        return {"mips_bucket_candidates": cs._check_mips(
+            torch, randn, _MIPS_INDEX[key], kind, nq, k=k, valid_n=valid_n)}
+    return ["mips_candidates"], run
+
 
 # case -> (libraries to build, the check: (torch, chip_smoke, randn, gen)
 # -> {kernel: record})
@@ -92,6 +117,10 @@ CASES = {
                             ("de_passages", "de_passages"),
                             ("msdoc", "msdoc"), ("queries", "de_queries"),
                             ("off_model", "off_model"))},
+    **{f"mips:{kind}_q{nq}": _mips(kind, nq, 8_847_360, 10, 8_847_360 - 1000,
+                                   ("int8", "bf16"))
+       for kind in ("int8", "bf16") for nq in (8, 1024)},
+    "mips:mine": _mips("int8", 64, 24_576, 100, 24_576, ("int8",)),
 }
 
 
@@ -99,6 +128,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", default=str(ROOT))
     ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--mips-tile", default=None)
     args = ap.parse_args()
     cases = args.cases.split(",")
     unknown = set(cases) - set(CASES)
@@ -115,6 +145,10 @@ def main():
     import simxns_tpu_torch
     from simxns_tpu_torch.ops import _native
 
+    if args.mips_tile and hasattr(_native, "mips_tile"):
+        bm, bn = (int(x) for x in args.mips_tile.split("x"))
+        _native.mips_tile = (lambda q, n_pad, bucket, sms:
+                             (bm, bn) if bucket >= 8 else (64, 128))
     smi = cs.nvidia_smi()
     build_s = _native.build(sorted({lib for c in cases
                                     for lib in CASES[c][0]}
@@ -130,7 +164,8 @@ def main():
             print(json.dumps({
                 "case": case, "kernel": kernel,
                 "package": str(Path(simxns_tpu_torch.__file__).parent),
-                "nvidia_smi": smi, "nvcc_s_by_source": build_s, **rec}),
+                "nvidia_smi": smi, "nvcc_s_by_source": build_s,
+                "mips_tile": args.mips_tile, **rec}),
                 flush=True)
         torch.cuda.empty_cache()
     return 0

@@ -66,7 +66,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRegRow = 1024;   // values of a row a warp holds at once
-constexpr int kWarps = sx::kThreads / 32;
+constexpr int kThreads = 256;   // the quantizers' blocks
+constexpr int kWarps = kThreads / 32;
 // rows of x a block codes, one a warp (H100: a request's 256 rows 0.0026
 // ms against 0.0072 at 32 a block, the encode chunk's 131,072 0.116 against
 // 0.121; scripts/torch_kernel_bench.py, in turns)
@@ -101,7 +102,7 @@ __device__ __forceinline__ int code_of(float v, float s, float r) {
 // g [M, F] f32 (F % 128 == 0) and its per-tile row maxima parts [M,
 // n_parts] -> gs [M] and the codes of g [M, F]; one warp a row, 8 rows a
 // block, a lane 8 loads of 16 bytes in flight
-__global__ void __launch_bounds__(sx::kThreads)
+__global__ void __launch_bounds__(kThreads)
     quantize_g_kernel(const float* __restrict__ g,
                       const float* __restrict__ parts, int n_parts,
                       uint8_t* __restrict__ codes, float* __restrict__ gs,
@@ -140,7 +141,7 @@ __global__ void __launch_bounds__(sx::kThreads)
 // pieces of each): max|x| over the chunks, then the codes. A row of one
 // chunk stays in the lanes' registers between the two passes; a longer
 // row is read again (from L1 / L2).
-__global__ void __launch_bounds__(sx::kThreads)
+__global__ void __launch_bounds__(kThreads)
     quantize_x_kernel(const bf16* __restrict__ x, uint8_t* __restrict__ codes,
                       float* __restrict__ xs, int M, int K) {
   constexpr int kPieces = kRegRow / 256;   // 16-byte pieces a lane a chunk
@@ -198,7 +199,7 @@ __global__ void __launch_bounds__(sx::kThreads)
 // quantize_x_kernel's launch; -> cudaGetLastError()
 int quantize_x(const void* x, void* codes, float* xs, int M, int K,
                cudaStream_t s) {
-  quantize_x_kernel<<<(M + kQuantRows - 1) / kQuantRows, sx::kThreads, 0,
+  quantize_x_kernel<<<(M + kQuantRows - 1) / kQuantRows, kThreads, 0,
                       s>>>(static_cast<const bf16*>(x),
                            static_cast<uint8_t*>(codes), xs, M, K);
   return static_cast<int>(cudaGetLastError());
@@ -260,7 +261,7 @@ extern "C" int sx_int8_ffn(const void* x, const void* W1, const float* s1,
   err = gm::run<gm::kDequant, true, false, true>(bm1, bn1, codes, W1, first,
                                                  M, F, H, s);
   if (err != 0) return err;
-  quantize_g_kernel<<<(M + kWarps - 1) / kWarps, sx::kThreads, 0, s>>>(
+  quantize_g_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       g, parts, (F + bn1 - 1) / bn1, static_cast<uint8_t*>(gcodes), gs, M, F);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;

@@ -3,145 +3,97 @@
 // Replaces both TPU MIPS kernels (simxns_tpu/ops/mips_kernel.py:
 // _mips_kernel :112-127, bf16 x bf16 -> f32; _mips_kernel_int8 :181-197,
 // int8 x int8 -> int32 then * qs * cs) and their shared epilogue
-// _bucket_reduce (:87-109). Each block computes the scores of a tile of
-// queries against 128 corpus rows, sets rows >= valid_n to -1e30, and
-// reduces every aligned `bucket` of rows to (max, first index reaching the
-// max), the TPU kernel's tie-break. The [Q, N] score matrix never reaches
-// device memory: the block writes [Q, N / bucket] candidates, laid out in
-// global bucket order (the TPU kernel's [num_blocks, Q, nb] flattened the
-// way its _finalize flattens it). The exact top-k over the candidates,
-// the id offset and the -1 ids stay in PyTorch, as they stay in XLA there.
+// _bucket_reduce (:87-109). The scores of queries [Q, H] against corpus rows
+// [N, H] (columns >= valid_n at -1e30) never reach device memory: every
+// aligned bucket of columns is reduced to (max, first column reaching it),
+// the TPU kernel's tie-break, and only [Q, n_pad / bucket] candidates are
+// written, in global bucket order (the TPU kernel's [num_blocks, Q, nb]
+// flattened the way its _finalize flattens it). The exact top-k over the
+// candidates, the id offset and the -1 ids stay in PyTorch, as they stay in
+// XLA there.
 //
 // Bound on the card: bytes at a serving batch (8 queries read the whole
-// index once: 6.8 GB int8 at 8.8M x 768 rows), operations at a mining
-// batch (1024 queries: 1.39e13 int8 ops). The design reads the corpus
-// once per query tile, and the 1-D grid walks the query tiles of one
-// corpus tile back to back, so a tile re-read for the next query tile
-// comes from L2, not device memory. The query tile shrinks with the batch
-// (32, 64 or 128 rows) so a small batch wastes few tensor-core rows. The
-// scores go through shared memory for the bucket scan. Int8 tiles use
-// mma.sync m16n8k32, bf16 tiles m16n8k16 (csrc/tile_gemm.cuh).
-#include "tile_gemm.cuh"
-
-SX_DEFINE_ERROR_STRING
+// index once: 6.8 GB int8 at 8.8M x 768 rows, 2.04 ms), operations at a
+// mining batch (1024 queries: 1.39e13 int8 operations, 7.03 ms). So K4 is
+// the persistent TMA + wgmma GEMM of wgmma_gemm.cuh (queries = A, corpus
+// = W, both K-major; the s8 or the bf16 warpgroup MMA) with its bucket
+// epilogue: the scores are reduced in the accumulator's registers (pairs
+// of a thread's columns, then the n8 blocks of a bucket, then the lanes of
+// a quad by shuffles) and each row's candidates of a tile leave as one
+// contiguous piece; nothing of the [BM, BN] scores is staged. The walk is
+// corpus-major: the blocks in flight take the query tiles of one corpus
+// tile back to back, so the corpus is read from device memory once and
+// from L2 for the other query tiles, and the producer loads the next tile
+// while the consumers reduce this one. What bounds it (H100, 8.8M x 768,
+// scripts/torch_kernel_bench.py): at 8 queries the index's bytes (~90% of
+// the HBM rate); at 1024 the epilogue, during which the tensor cores wait:
+// the products and the ring alone run at ~80% of the int8 peak at 128 x 256
+// (8.9 ms against the 7.03 ms bound, the epilogue stubbed), ~2.8 ms more
+// with it.
+//
+// The tiles cover n_pad columns (the corpus padded to a multiple of the
+// caller's block; its map has N rows and a tile wholly past them runs no
+// products), whatever the block: bucket divides n_pad. Buckets of 8 to 128
+// columns take kBucket + bucket (one kernel each, at the tile the wrapper
+// chooses: ops/_native.py:mips_tile); 1, 2 and 4 take kBucketSmall at 64 x
+// 128.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-template <class Mma, int MF>
-struct Cfg {
-  using G = sx::TileGemm<Mma, MF>;
-  static constexpr int kTile = G::BM * (G::BN + 1) * 4;
-  static constexpr int kSmem = G::kSmem > kTile ? G::kSmem : kTile;
-};
+namespace gm = sx::gemm;
 
-template <class Mma, int MF, bool SCALED>
-__global__ void __launch_bounds__(sx::kThreads)
-    mips_candidates_kernel(const uint8_t* __restrict__ Q,
-                           const uint8_t* __restrict__ C,
-                           const float* __restrict__ qs,
-                           const float* __restrict__ cs, int M, int N,
-                           long kb, int q_tiles, int valid_n, int bucket,
-                           long nb_total, float* __restrict__ out_s,
-                           int* __restrict__ out_i) {
-  using G = typename Cfg<Mma, MF>::G;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const long tile = blockIdx.x;
-  const int m0 = static_cast<int>(tile % q_tiles) * G::BM;
-  const int n0 = static_cast<int>(tile / q_tiles) * G::BN;
+template <bool S8, int B>
+int run(int bm, int bn, const void* q, const void* c, const gm::Args& args,
+        int M, int N, int K, cudaStream_t s) {
+  return gm::run<B, false, false, false, false, S8>(bm, bn, q, c, args, M, N,
+                                                    K, s);
+}
 
-  typename G::Acc acc[MF][4][4];
-  G::run(acc, smem, Q, C, m0, n0, M, N, kb);
-
-  float* sc = reinterpret_cast<float*>(smem);  // [BM][BN + 1]
-#pragma unroll
-  for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = G::row(mi, e), c = G::col(ni, e);
-        const int m = m0 + r, n = n0 + c;
-        float v = static_cast<float>(acc[mi][ni][e]);
-        if (SCALED) {
-          v = v * (m < M ? qs[m] : 0.0f);
-          v = v * (n < N ? cs[n] : 0.0f);
-        }
-        if (n >= valid_n) v = -1e30f;
-        sc[r * (G::BN + 1) + c] = v;
-      }
-  __syncthreads();
-
-  const int per_tile = G::BN / bucket;
-  for (int task = threadIdx.x; task < G::BM * per_tile; task += sx::kThreads) {
-    const int r = task / per_tile, b = task % per_tile;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    const float* row = sc + r * (G::BN + 1) + b * bucket;
-    float best = row[0];
-    int arg = 0;
-    for (int j = 1; j < bucket; ++j)
-      if (row[j] > best) {
-        best = row[j];
-        arg = j;
-      }
-    const long o = static_cast<long>(m) * nb_total + (n0 + b * bucket) / bucket;
-    out_s[o] = best;
-    out_i[o] = n0 + b * bucket + arg;
+// the bucket size as a template argument: 1, 2 and 4 share kBucketSmall
+template <bool S8>
+int candidates(int bm, int bn, const void* q, const void* c,
+               const gm::Args& args, int M, int N, int K, cudaStream_t s) {
+  switch (args.bucket) {
+    case 128: return run<S8, gm::kBucket + 128>(bm, bn, q, c, args, M, N, K, s);
+    case 64: return run<S8, gm::kBucket + 64>(bm, bn, q, c, args, M, N, K, s);
+    case 32: return run<S8, gm::kBucket + 32>(bm, bn, q, c, args, M, N, K, s);
+    case 16: return run<S8, gm::kBucket + 16>(bm, bn, q, c, args, M, N, K, s);
+    case 8: return run<S8, gm::kBucket + 8>(bm, bn, q, c, args, M, N, K, s);
+    default: return run<S8, gm::kBucketSmall>(bm, bn, q, c, args, M, N, K, s);
   }
-}
-
-template <class Mma, int MF, bool SCALED>
-cudaError_t launch(const void* q, const void* c, const float* qs,
-                   const float* cs, int M, int N, long n_pad, long kb,
-                   int valid_n, int bucket, float* out_s, int* out_i,
-                   cudaStream_t stream) {
-  using C = Cfg<Mma, MF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mips_candidates_kernel<Mma, MF, SCALED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (err != cudaSuccess) return err;
-  const int q_tiles = (M + C::G::BM - 1) / C::G::BM;
-  const long tiles = static_cast<long>(q_tiles) * (n_pad / C::G::BN);
-  mips_candidates_kernel<Mma, MF, SCALED>
-      <<<static_cast<unsigned>(tiles), sx::kThreads, C::kSmem, stream>>>(
-          static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(c), qs,
-          cs, M, N, kb, q_tiles, valid_n, bucket, n_pad / bucket, out_s,
-          out_i);
-  return cudaGetLastError();
-}
-
-template <class Mma, bool SCALED>
-cudaError_t by_rows(const void* q, const void* c, const float* qs,
-                    const float* cs, int M, int N, long n_pad, long kb,
-                    int valid_n, int bucket, float* out_s, int* out_i,
-                    cudaStream_t s) {
-  if (M <= 32)
-    return launch<Mma, 1, SCALED>(q, c, qs, cs, M, N, n_pad, kb, valid_n,
-                                  bucket, out_s, out_i, s);
-  if (M <= 64)
-    return launch<Mma, 2, SCALED>(q, c, qs, cs, M, N, n_pad, kb, valid_n,
-                                  bucket, out_s, out_i, s);
-  return launch<Mma, 4, SCALED>(q, c, qs, cs, M, N, n_pad, kb, valid_n,
-                                bucket, out_s, out_i, s);
 }
 
 }  // namespace
 
+extern "C" const char* sx_error_string(int code) {
+  return gm::error_string(code);
+}
+
 // queries [M, H] and corpus [N, H], both int8 (int8 != 0, with per-row
-// scales qs [M] and cs [N]) or both bf16 (scales unused). The candidate
-// grid covers n_pad rows (a multiple of 128; rows >= N read as zeros);
-// bucket divides 128. out_s/out_i are [M, n_pad / bucket].
-// Returns cudaGetLastError() after the launch.
+// scales qs [M] and cs [N]) or both bf16 (scales unused); H bytes a row a
+// multiple of 16, 16-byte aligned. The candidates cover n_pad >= N columns
+// (columns >= N score as zero rows would, then -1e30 as >= valid_n);
+// bucket is a power of two up to 128 dividing n_pad. out_s / out_i are
+// [M, n_pad / bucket]. The tile bm x bn (ops/_native.py:mips_tile).
+// Returns 0, a CUDA error code, or one of wgmma_gemm.cuh's.
 extern "C" int sx_mips_candidates(const void* q, const void* c, const float* qs,
-                                  const float* cs, int M, int N, long n_pad,
+                                  const float* cs, int M, int N, int n_pad,
                                   int H, int int8, int valid_n, int bucket,
-                                  float* out_s, int* out_i, void* stream) {
-  if (bucket < 1 || sx::kBN % bucket || n_pad % sx::kBN)
+                                  float* out_s, int* out_i, int bm, int bn,
+                                  void* stream) {
+  if (bucket < 1 || 128 % bucket || n_pad % bucket || n_pad < N || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  gm::Args args;
+  args.xs = qs;
+  args.ws = cs;
+  args.out = out_s;
+  args.ids = out_i;
+  args.bucket = bucket;
+  args.valid_n = valid_n;
+  args.n_cover = n_pad;
+  args.out_cols = n_pad / bucket;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8)
-    return by_rows<sx::MmaS8, true>(q, c, qs, cs, M, N, n_pad, H, valid_n,
-                                    bucket, out_s, out_i, s);
-  return by_rows<sx::MmaBf16, false>(q, c, qs, cs, M, N, n_pad, 2L * H,
-                                     valid_n, bucket, out_s, out_i, s);
+  return int8 ? candidates<true>(bm, bn, q, c, args, M, N, H, s)
+              : candidates<false>(bm, bn, q, c, args, M, N, 2 * H, s);
 }

@@ -1,6 +1,6 @@
-// The persistent Hopper GEMM that K1 (int8_linear.cu), K9 and K12
-// (ffn_fwd.cu), K10 and K11 (fused_ffn.cu), K13 and K14 (int8_ffn.cu) run
-// on:
+// The persistent Hopper GEMM that K1 (int8_linear.cu), K4
+// (mips_candidates.cu), K9 and K12 (ffn_fwd.cu), K10 and K11 (fused_ffn.cu),
+// K13 and K14 (int8_ffn.cu) run on:
 //   out[M, N] = epilogue(A W^T) over K,
 // int8 with exact s32 sums or bf16 with f32 sums, on the pieces of
 // wgmma_ring.cuh:
@@ -12,8 +12,8 @@
 //   rows);
 // - a block owns BM x BN output tiles: 128 x 256 (two consumer warpgroups of
 //   64 rows, 128 accumulators a thread), 64 x 128 or 64 x 64 (one consumer
-//   warpgroup). The caller chooses (ops/_native.py: wgmma_tile, and
-//   dw_tile for K11's long K);
+//   warpgroup). The caller chooses
+//   (ops/_native.py: wgmma_tile, dw_tile for K11's long K, mips_tile);
 // - one producer thread (its warpgroup hands registers to the consumers by
 //   setmaxnreg) keeps a ring of 4 stages of 128 bytes of K full with TMA
 //   copies (128-byte swizzle; rows and K past the edges land as zeros);
@@ -25,7 +25,11 @@
 //   order: the same bits every run). That walk is the MULTI flag: with it
 //   in every instance, K1 and K14 ran 2-3% slower at the encode chunk
 //   (H100, scripts/torch_kernel_bench.py, in turns), so a single
-//   product's walk is compiled without it;
+//   product's walk is compiled without it. K4's bucket epilogues walk with
+//   M fastest instead (also compiled in, not a runtime branch): the blocks
+//   in flight take every query tile of one corpus tile back to back, so the
+//   corpus comes from device memory once and from L2 for the other query
+//   tiles;
 // - the epilogue stages column slices of each warpgroup's 64 rows in shared
 //   memory and writes them as 16-byte row pieces (masked at the edges); its
 //   per-column vectors land in shared memory (cp.async) during the
@@ -52,7 +56,14 @@
 //   of kBias, it ran at a third of this speed (H100, K10's GEMM 1 at the
 //   CE-large step: 1.55-1.63 ms, 0.49-0.51 staged; the staged kernel has
 //   2,120 SASS instructions, K9's and K12's unrolled GELU kernels over
-//   4,096).
+//   4,096);
+// - kBucket + B and kBucketSmall (K4, bucket_epilogue, small_bucket_epilogue):
+//   the score of each element (int8 operands: (f32(acc) * xs[m]) * ws[n];
+//   bf16: f32(acc)), -1e30 from column valid_n on, and every aligned bucket
+//   of columns reduced to (max, first column reaching it) in registers; only
+//   the [M, n_cover / bucket] candidates reach device memory. The tiles cover
+//   n_cover >= N columns (the corpus padded to a block multiple; its map has
+//   N rows and a tile wholly past N runs no products).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -106,7 +117,8 @@ inline const char* error_string(int code) {
     return "the kernel was not built with 168 registers a thread at launch "
            "(setmaxnreg needs them)";
   if (code == kBadTile)
-    return "no kernel for this tile (128 x 256, 64 x 128 and 64 x 64 exist)";
+    return "no kernel for this tile in this library (128 x 256, 64 x 128 and "
+           "64 x 64; K4 128 x 256 and 64 x 128)";
   if (code <= kEncodeFailed) {
     snprintf(msg, sizeof(msg), "cuTensorMapEncodeTiled failed (CUresult %d)",
              kEncodeFailed - code);
@@ -115,7 +127,20 @@ inline const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-enum Epilogue { kDequant = 0, kBias = 1, kPlain = 2, kGeluBwd = 3 };
+enum Epilogue {
+  kDequant = 0,
+  kBias = 1,
+  kPlain = 2,
+  kGeluBwd = 3,
+  kBucketSmall = 4,   // buckets of 1, 2 or 4 columns (a runtime size)
+  kBucket = 256,      // kBucket + B: buckets of B = 8 .. 128 columns
+};
+
+__host__ __device__ constexpr bool is_bucket(int epi) {
+  return epi == kBucketSmall || (epi > kBucket && epi <= kBucket + 128);
+}
+
+constexpr float kMaskedScore = -1e30f;   // the JAX kernel's _NEG
 
 struct Args {
   const float* xs = nullptr;     // kDequant: [M] row scales of A's codes
@@ -130,6 +155,14 @@ struct Args {
   void* g = nullptr;             // kGeluBwd: [M, N] bf16 gelu(hb) (N even)
   float* col_sums = nullptr;     // kGeluBwd: [ceil(M / 64), N] f32, the
                                  // column sums of bf16 out over 64 rows
+  // the bucket epilogues: out holds [M, out_cols] f32 scores, ids the first
+  // column reaching each; columns >= valid_n score kMaskedScore; the tiles
+  // cover n_cover columns (>= N; bucket divides n_cover)
+  int* ids = nullptr;
+  int bucket = 0;
+  int valid_n = 0;
+  int n_cover = 0;
+  long long out_cols = 0;        // n_cover / bucket
 };
 
 // One product of a launch: out[M, N] = A W^T over K; K in bytes of K
@@ -186,19 +219,26 @@ __device__ __forceinline__ float round_bf16(float v) {
 // Tile `tile` of a launch: its product (q), split and place. The products'
 // tiles come one after another, each product's splits one after another,
 // N fastest inside a split. Without MULTI a launch has one product and
-// one split, and the walk is the plain one (known at compile time).
+// one split, and the walk is the plain one (known at compile time), with
+// N fastest or, under M_FAST, M fastest.
 struct Work {
   int q, split, m0, tn, kt0, kt1;
 };
 
-template <int BM, bool MULTI>
+template <int BM, bool MULTI, bool M_FAST>
 __device__ __forceinline__ Work decode(int tile, const Problem& p0,
                                        const Problem& p1, int splits) {
   Work w;
   if (!MULTI) {
     w.q = w.split = w.kt0 = 0;
-    w.m0 = (tile / p0.tiles_n) * BM;
-    w.tn = tile % p0.tiles_n;
+    if (M_FAST) {
+      const int tiles_m = p0.tiles / p0.tiles_n;
+      w.m0 = (tile % tiles_m) * BM;
+      w.tn = tile / tiles_m;
+    } else {
+      w.m0 = (tile / p0.tiles_n) * BM;
+      w.tn = tile % p0.tiles_n;
+    }
     w.kt1 = (p0.K + kBK - 1) / kBK;
     return w;
   }
@@ -363,8 +403,189 @@ __device__ __forceinline__ void gelu_bwd_epilogue(
   }
 }
 
+// The bucket epilogues read each element's score from the accumulator: in
+// register 4c + 2h + e a thread holds row 16 w + g + 8 h, tile column
+// 8c + 2t + e (w = warp of the warpgroup, g = lane / 4, t = lane % 4).
+// int8 (S8): (f32(acc) * x) * cs[col], the plain version's two products in
+// its order; bf16: f32(acc). Under MASK columns n0 + col >= valid_n score
+// kMaskedScore: col < lim with lim = valid_n - n0 - 2t.
+template <bool S8, bool MASK, class Acc>
+__device__ __forceinline__ float bucket_score(Acc a, float x, float cs,
+                                              int col_less_2t, int lim) {
+  float v = static_cast<float>(a);
+  if (S8) v = (v * x) * cs;
+  return !MASK || col_less_2t < lim ? v : kMaskedScore;
+}
+
+// (v, col) of this lane or of lane ^ o, whichever is larger, the lower
+// column on a tie: the first maximum of both lanes' columns
+__device__ __forceinline__ void pick_lane(float& v, int& col, int o) {
+  const float pv = __shfl_xor_sync(0xffffffffu, v, o);
+  const int pc = __shfl_xor_sync(0xffffffffu, col, o);
+  if (pv > v || (pv == v && pc < col)) v = pv, col = pc;
+}
+
+// kBucket + B (K4, buckets of B = 8 to 128 columns, a power of two known at
+// compile time) for one consumer warpgroup's 64 rows (m0 ..) of a tile
+// (columns n0 ..). All in registers: each pair of a thread's columns (2t,
+// 2t + 1 of an n8 block) to its first maximum; then the B / 8 n8 blocks of
+// a bucket in a tree, in column order (the earlier block wins a tie); then
+// the four lanes of a quad, which hold interleaved columns, by shuffles
+// that break ties by column. Each warp then writes its 16 rows by slices of
+// 128 columns (128 / B buckets a row), staged in its own shared memory so
+// that a row's candidates of the slice leave as one contiguous piece of
+// consecutive words. MASK (the tile holds column valid_n) applies the
+// -1e30; every other tile skips that test. A warp whose rows all lie past
+// M does nothing; the caller syncs the warpgroup after (tile_ws). The size
+// and the mask are compile-time: decided at run time, the guarded code for
+// every possible bucket took the 128 x 256 kernels past 4,096 SASS
+// instructions and the epilogue to 10 of the 19.5 ms of the int8 search at
+// 1024 queries over 8.8M rows (H100, against a stub storing one value a
+// tile); compile-time, 2.8 of 11.7.
+constexpr int kBucketPitch = 17;   // words a staged row: 16 buckets + 1
+constexpr int kBucketStage = 2 * 16 * kBucketPitch * 4;   // a warp's bytes
+
+template <int BN, bool S8, int B, bool MASK, class Acc>
+__device__ __forceinline__ void bucket_epilogue(const Acc (&acc)[BN / 2],
+                                                uint8_t* stg,
+                                                const float* tile_ws,
+                                                const Args& args, int M,
+                                                int m0, int n0, float xa,
+                                                float xb, int tid) {
+  static_assert(B >= 8 && B <= 128 && (B & (B - 1)) == 0 && BN % 128 == 0,
+                "a bucket of 8 to 128 columns lies in one tile");
+  static_assert(4 * kBucketStage <= 64 * staged_pitch(kSliceLinear, false),
+                "the staged buckets fit before the tile's column vectors");
+  constexpr int kBlocks = B / 8;          // n8 blocks a bucket
+  constexpr int kPerRow = 128 / B;        // buckets a row of a slice
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rw = m0 + warp * 16;
+  if (rw >= M) return;
+  const int lim = MASK ? args.valid_n - n0 - 2 * t : 0;
+  float v[2][BN / 8];
+  int col[2][BN / 8];
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const float2 cs = S8 ? *reinterpret_cast<const float2*>(tile_ws + 8 * c +
+                                                            2 * t)
+                         : make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x = h ? xb : xa;
+      const float s0 =
+          bucket_score<S8, MASK>(acc[4 * c + 2 * h], x, cs.x, 8 * c, lim);
+      const float s1 =
+          bucket_score<S8, MASK>(acc[4 * c + 2 * h + 1], x, cs.y, 8 * c + 1, lim);
+      const bool second = s1 > s0;
+      v[h][c] = second ? s1 : s0;
+      col[h][c] = 8 * c + 2 * t + (second ? 1 : 0);
+    }
+  }
+#pragma unroll
+  for (int d = 1; d < kBlocks; d *= 2)
+#pragma unroll
+    for (int c = 0; c < BN / 8; c += 2 * d)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (v[h][c + d] > v[h][c]) v[h][c] = v[h][c + d], col[h][c] = col[h][c + d];
+#pragma unroll
+  for (int c = 0; c < BN / 8; c += kBlocks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pick_lane(v[h][c], col[h][c], 1);
+      pick_lane(v[h][c], col[h][c], 2);
+    }
+  float* st_s = reinterpret_cast<float*>(stg + warp * kBucketStage);
+  int* st_i = reinterpret_cast<int*>(st_s + 16 * kBucketPitch);
+  const int width = args.n_cover - n0;
+  float* out_s = static_cast<float*>(args.out);
+#pragma unroll
+  for (int sl = 0; sl < BN / 128; ++sl) {
+    if (t == 0)
+#pragma unroll
+      for (int j = 0; j < kPerRow; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 16 * sl + j * kBlocks;
+          st_s[(g + 8 * h) * kBucketPitch + j] = v[h][c];
+          st_i[(g + 8 * h) * kBucketPitch + j] = n0 + col[h][c];
+        }
+    __syncwarp();
+#pragma unroll
+    for (int w0 = 0; w0 < 2 * 16 * kPerRow; w0 += 32) {
+      const int w = w0 + lane;
+      const bool ids = w >= 16 * kPerRow;
+      const int x = ids ? w - 16 * kPerRow : w;
+      const int r = x / kPerRow, j = x % kPerRow;
+      const long long m = rw + r;
+      const int first = 128 * sl + j * B;   // the bucket's tile column
+      if (w < 2 * 16 * kPerRow && m < M && first < width) {
+        const long long o = m * args.out_cols + (n0 + first) / B;
+        if (ids)
+          args.ids[o] = st_i[r * kBucketPitch + j];
+        else
+          out_s[o] = st_s[r * kBucketPitch + j];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// kBucketSmall (K4, buckets of b = 1, 2 or 4 columns): the same scores, each
+// pair of a thread's columns to its first maximum (b = 2), then the pair of
+// lanes t, t ^ 1 (b = 4); written straight from the registers, 4 bytes a
+// store (b = 1 writes every score: the score matrix itself, twice its
+// bytes with the ids).
+template <int BN, bool S8, class Acc>
+__device__ __forceinline__ void small_bucket_epilogue(
+    const Acc (&acc)[BN / 2], const float* tile_ws, const Args& args, int M,
+    int m0, int n0, float xa, float xb, int tid) {
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  if (m0 + warp * 16 >= M) return;
+  const int b = args.bucket, lb = __ffs(b) - 1;
+  const int lim = args.valid_n - n0 - 2 * t;
+  const int width = args.n_cover - n0;
+  float* out_s = static_cast<float*>(args.out);
+  auto store = [&](long long m, int col, float v, int id) {
+    if (m < M && col < width) {
+      const long long o = m * args.out_cols + ((n0 + col) >> lb);
+      out_s[o] = v;
+      args.ids[o] = id;
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const float2 cs = S8 ? *reinterpret_cast<const float2*>(tile_ws + 8 * c +
+                                                            2 * t)
+                         : make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + warp * 16 + g + 8 * h;
+      const float x = h ? xb : xa;
+      const int c0 = 8 * c + 2 * t;
+      const float s0 =
+          bucket_score<S8, true>(acc[4 * c + 2 * h], x, cs.x, 8 * c, lim);
+      const float s1 =
+          bucket_score<S8, true>(acc[4 * c + 2 * h + 1], x, cs.y, 8 * c + 1, lim);
+      if (b == 1) {
+        store(m, c0, s0, n0 + c0);
+        store(m, c0 + 1, s1, n0 + c0 + 1);
+        continue;
+      }
+      float v = s1 > s0 ? s1 : s0;
+      int col = s1 > s0 ? c0 + 1 : c0;
+      if (b == 4) {
+        pick_lane(v, col, 1);
+        if (t & 1) continue;
+      }
+      store(m, c0, v, n0 + col);
+    }
+  }
+}
+
+// S8: int8 operands (kDequant; K4's int8 template), else bf16
 template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX,
-          bool PRE, bool A_MN, bool B_MN, bool MULTI>
+          bool PRE, bool A_MN, bool B_MN, bool MULTI, bool S8>
 __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
     gemm_kernel(__grid_constant__ const CUtensorMap map_a,
                 __grid_constant__ const CUtensorMap map_w,
@@ -373,10 +594,14 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
                 __grid_constant__ const Problem p0,
                 __grid_constant__ const Problem p1, int splits, int n_tiles) {
   using C = Cfg<WGS, BN>;
-  using Op = Mma<EPI != kDequant, BN, A_MN, B_MN>;
+  using Op = Mma<!S8, BN, A_MN, B_MN>;
   using Acc = typename Op::Acc;
-  static_assert(!(A_MN || B_MN) || EPI != kDequant,
+  static_assert(!(A_MN || B_MN) || !S8,
                 "MN-major operands are bf16 (int8 wgmma is K-major only)");
+  static_assert(!is_bucket(EPI) || !MULTI, "K4 walks one product");
+  // K4: the query tiles of a corpus tile back to back; a tile wholly past
+  // the corpus's N rows (the padding to n_cover) runs no products
+  constexpr bool kMFast = is_bucket(EPI);
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: stages start on that
   uint8_t* smem = smem_raw + ((1024 - (wg::smem_u32(smem_raw) & 1023)) & 1023);
@@ -403,7 +628,8 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const Work w = decode<C::BM, MULTI>(tile, p0, p1, splits);
+        Work w = decode<C::BM, MULTI, kMFast>(tile, p0, p1, splits);
+        if (kMFast && w.tn * BN >= p0.N) w.kt1 = w.kt0;
         const CUtensorMap* ma = w.q ? &map_a1 : &map_a;
         const CUtensorMap* mw = w.q ? &map_w1 : &map_w;
         const int n0 = w.tn * BN;
@@ -452,7 +678,8 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
   int stage = 0;
   uint32_t phase = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const Work w = decode<C::BM, MULTI>(tile, p0, p1, splits);
+    Work w = decode<C::BM, MULTI, kMFast>(tile, p0, p1, splits);
+    if (kMFast && w.tn * BN >= p0.N) w.kt1 = w.kt0;
     const Args& args = w.q ? p1.args : p0.args;
     const int M = w.q ? p1.M : p0.M, N = w.q ? p1.N : p0.N;
     const int tiles_n = w.q ? p1.tiles_n : p0.tiles_n;
@@ -471,7 +698,8 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
                            (n_real > 0 ? c : 0),
                        n_real >= 8 ? 16 : (n_real > 0 ? 2 * n_real : 0));
       }
-    } else if (EPI == kDequant && tid < BN / 2) {
+    } else if ((EPI == kDequant && tid < BN / 2) ||
+               (is_bucket(EPI) && S8 && tid < BN / 4)) {
       const int c = (tid % (BN / 4)) * 4;
       const int n_real = N - n0 - c;   // of these 4 columns
       const float* src =
@@ -482,8 +710,8 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
     }
     wg::cp_async_commit();
     const int ra = m0 + warp * 16 + g, rb = ra + 8;
-    const float xa = EPI == kDequant && ra < M ? args.xs[ra] : 0.0f;
-    const float xb = EPI == kDequant && rb < M ? args.xs[rb] : 0.0f;
+    const float xa = S8 && ra < M ? args.xs[ra] : 0.0f;
+    const float xb = S8 && rb < M ? args.xs[rb] : 0.0f;
     Acc acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
@@ -519,6 +747,18 @@ __global__ void __launch_bounds__(Cfg<WGS, BN>::kThreads, 1)
     if constexpr (EPI == kGeluBwd) {
       gelu_bwd_epilogue<BN>(acc, stg, args, M, N, m0, n0, tid);
       continue;
+    } else if constexpr (is_bucket(EPI)) {
+      if constexpr (EPI == kBucketSmall)
+        small_bucket_epilogue<BN, S8>(acc, tile_ws, args, M, m0, n0, xa, xb,
+                                      tid);
+      else if (n0 + BN > args.valid_n)   // the tile holds column valid_n
+        bucket_epilogue<BN, S8, EPI - kBucket, true>(acc, stg, tile_ws, args,
+                                                     M, m0, n0, xa, xb, tid);
+      else
+        bucket_epilogue<BN, S8, EPI - kBucket, false>(acc, stg, tile_ws, args,
+                                                      M, m0, n0, xa, xb, tid);
+      wg::named_sync(1 + role, 128);   // tile_ws is read: the next tile's
+      continue;                        // cp.async may overwrite it
     }
     float max_a = 0.0f, max_b = 0.0f;   // ROWMAX: rows ra and rb
 #pragma unroll
@@ -727,11 +967,11 @@ struct Product {
 // the walk over more than one product or split). Returns 0, a CUDA error
 // code, or one of the codes above.
 template <int WGS, int BN, int EPI, bool GELU, bool OUT_BF16, bool ROWMAX,
-          bool PRE, bool A_MN, bool B_MN, bool MULTI>
+          bool PRE, bool A_MN, bool B_MN, bool MULTI, bool S8>
 int launch(const Product* prods, int count, int splits, cudaStream_t stream) {
   using C = Cfg<WGS, BN>;
   auto kernel = gemm_kernel<WGS, BN, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN,
-                            B_MN, MULTI>;
+                            B_MN, MULTI, S8>;
   static int blocks_per_sm = 0;
   static const int prepared =
       prepare(kernel, C::kSmem, C::kThreads, WGS == 2, &blocks_per_sm);
@@ -756,7 +996,10 @@ int launch(const Product* prods, int count, int splits, cudaStream_t stream) {
     Problem& q = probs[i];
     q.args = p.args;
     q.M = p.M, q.N = p.N, q.K = p.K;
-    q.tiles_n = (p.N + BN - 1) / BN;
+    // K4's tiles cover the padded corpus (n_cover >= N columns)
+    const int cover =
+        is_bucket(EPI) && p.args.n_cover > p.N ? p.args.n_cover : p.N;
+    q.tiles_n = (cover + BN - 1) / BN;
     const long long tiles =
         i < count ? static_cast<long long>((p.M + C::BM - 1) / C::BM) * q.tiles_n
                   : 0;
@@ -774,29 +1017,49 @@ int launch(const Product* prods, int count, int splits, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch for tile (bm, bn): 128 x 256, 64 x 128 or 64 x 64.
+// The launch for tile (bm, bn): 128 x 256, 64 x 128 or 64 x 64; for K4's
+// kBucket + B 128 x 256 or 64 x 128 (a bucket of 128 columns lies in one
+// tile), for kBucketSmall 64 x 128 only.
 template <int EPI, bool GELU, bool OUT_BF16, bool ROWMAX, bool PRE = false,
-          bool A_MN = false, bool B_MN = false, bool MULTI = false>
+          bool A_MN = false, bool B_MN = false, bool MULTI = false,
+          bool S8 = EPI == kDequant>
 int run_products(int bm, int bn, const Product* prods, int count, int splits,
                  cudaStream_t s) {
-  if (bm == 128 && bn == 256)
-    return launch<2, 256, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
-                  MULTI>(prods, count, splits, s);
-  if (bm == 64 && bn == 128)
-    return launch<1, 128, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
-                  MULTI>(prods, count, splits, s);
-  if (bm == 64 && bn == 64)
-    return launch<1, 64, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
-                  MULTI>(prods, count, splits, s);
-  return kBadTile;
+  if constexpr (EPI == kBucketSmall) {
+    if (bm == 64 && bn == 128)
+      return launch<1, 128, EPI, false, false, false, false, false, false,
+                    false, S8>(prods, count, splits, s);
+    return kBadTile;
+  } else if constexpr (is_bucket(EPI)) {
+    if (bm == 128 && bn == 256)
+      return launch<2, 256, EPI, false, false, false, false, false, false,
+                    false, S8>(prods, count, splits, s);
+    if (bm == 64 && bn == 128)
+      return launch<1, 128, EPI, false, false, false, false, false, false,
+                    false, S8>(prods, count, splits, s);
+    return kBadTile;
+  } else {
+    if (bm == 128 && bn == 256)
+      return launch<2, 256, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
+                    MULTI, S8>(prods, count, splits, s);
+    if (bm == 64 && bn == 128)
+      return launch<1, 128, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
+                    MULTI, S8>(prods, count, splits, s);
+    if (bm == 64 && bn == 64)
+      return launch<1, 64, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN, B_MN,
+                    MULTI, S8>(prods, count, splits, s);
+    return kBadTile;
+  }
 }
 
-// One product, K-major A and W, whole K (K1, K9, K12-K14).
-template <int EPI, bool GELU, bool OUT_BF16, bool ROWMAX, bool PRE = false>
+// One product, K-major A and W, whole K (K1, K4, K9, K12-K14).
+template <int EPI, bool GELU, bool OUT_BF16, bool ROWMAX, bool PRE = false,
+          bool S8 = EPI == kDequant>
 int run(int bm, int bn, const void* A, const void* W, const Args& args,
         int M, int N, int K, cudaStream_t s) {
   const Product p{A, W, args, M, N, K};
-  return run_products<EPI, GELU, OUT_BF16, ROWMAX, PRE>(bm, bn, &p, 1, 1, s);
+  return run_products<EPI, GELU, OUT_BF16, ROWMAX, PRE, false, false, false,
+                      S8>(bm, bn, &p, 1, 1, s);
 }
 
 }  // namespace

@@ -146,7 +146,7 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# --- the tile of the persistent wgmma GEMM (csrc/wgmma_gemm.cuh) ------------
+# --- the tiles of the persistent wgmma GEMM (csrc/wgmma_gemm.cuh) -----------
 
 _SMS: Dict[int, int] = {}
 
@@ -176,6 +176,28 @@ def wgmma_tile(m: int, n: int, sms: int) -> Tuple[int, int]:
     if tiles(64, 128) >= sms:
         return 64, 128
     return 64, 64
+
+
+def mips_tile(q: int, n_pad: int, bucket: int, sms: int) -> Tuple[int, int]:
+    """(BM, BN) of K4 for ``q`` queries over ``n_pad`` corpus columns on
+    ``sms`` SMs (``csrc/mips_candidates.cu``; its kernels exist at 128 x 256
+    and 64 x 128, and at 64 x 128 only for buckets under 8).
+
+    - Up to 64 queries 64 x 128: one consumer warpgroup (a 128-row tile
+      would have its second warpgroup multiply zero rows), and two blocks an
+      SM, so that one block's epilogue overlaps the other's products. The
+      search is bound by the corpus's bytes there (6.8 GB int8 at 8.8M x
+      768).
+    - Above, 128 x 256 once its tiles fill the SMs: the densest tile (a byte
+      landed feeds 85 int8 operations), whose products alone run at ~80% of
+      the int8 peak at 1024 queries.
+    - Else 64 x 128, so that more SMs take part.
+    """
+    if bucket < 8 or q <= 64:
+        return 64, 128
+    if -(-q // 128) * -(-n_pad // 256) >= sms:
+        return 128, 256
+    return 64, 128
 
 
 _PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor-core flop/s

@@ -6,9 +6,11 @@ collapses to (max score, first index reaching it), and one exact top-k
 over the surviving [Q, N/bucket] candidates finishes the search. Both TPU
 kernels (bf16 ``_mips_kernel`` and int8 ``_mips_kernel_int8``) become the
 one CUDA kernel K4 :func:`mips_bucket_candidates`
-(``csrc/mips_candidates.cu``), templated over bf16 x bf16 -> f32 and
-int8 x int8 -> int32 (x qs x cs). The exact top-k over the candidates
-(:func:`_finalize`) stays in PyTorch, as it stays in XLA on the TPU.
+(``csrc/mips_candidates.cu``: the persistent TMA + wgmma GEMM of
+``csrc/wgmma_gemm.cuh`` with a bucket epilogue in registers), over bf16 x
+bf16 -> f32 and int8 x int8 -> int32 (x qs x cs). The exact top-k over the
+candidates (:func:`_finalize`) stays in PyTorch, as it stays in XLA on the
+TPU.
 
 Semantics: FAISS-exact search except that two true top-k hits landing in
 one bucket return only the better one (recall@k ~ 1 - k(k-1)/2 / (N/bucket)).
@@ -17,6 +19,7 @@ one bucket return only the better one (recall@k ~ 1 - k(k-1)/2 / (N/bucket)).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -28,8 +31,9 @@ from simxns_tpu_torch.parallel.mesh import pad_to_multiple
 NEG_INF = -1e30
 _PLAIN_CHUNK_ROWS = 65536     # corpus rows per plain-version product
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_long]
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+_KERNEL_BUCKETS = 128          # K4 reduces buckets that divide 128
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def _fit_bucket(bucket: int, block_n: int, total_n: int, k: int) -> int:
@@ -114,8 +118,9 @@ def _finalize(flat_s: torch.Tensor, flat_i: torch.Tensor, k: int,
 def _candidates_plain(queries, corpus, valid_n, bucket, n_pad, qs, cs):
     nq = queries.shape[0]
     out_s, out_i = [], []
-    for start in range(0, n_pad, _PLAIN_CHUNK_ROWS):
-        stop = min(start + _PLAIN_CHUNK_ROWS, n_pad)
+    step = max(1, _PLAIN_CHUNK_ROWS // bucket) * bucket   # whole buckets
+    for start in range(0, n_pad, step):
+        stop = min(start + step, n_pad)
         rows = corpus[start:stop]
         if rows.shape[0] < stop - start:       # rows past N are zeros
             rows = torch.nn.functional.pad(
@@ -140,6 +145,22 @@ def _candidates_plain(queries, corpus, valid_n, bucket, n_pad, qs, cs):
     return torch.cat(out_s, dim=1), torch.cat(out_i, dim=1)
 
 
+def _merge_buckets(flat_s: torch.Tensor, flat_i: torch.Tensor, r: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates of buckets of g columns [Q, C] -> those of buckets of r g
+    [Q, C / r]: each run of r to (max, the id of the first reaching it).
+    The first maximum of the sub-buckets' first maxima is the bucket's
+    first maximum, so this is exact."""
+    nq, cols = flat_s.shape
+    s3 = flat_s.view(nq, cols // r, r)
+    best = s3.amax(dim=-1)
+    lane = torch.arange(r, device=flat_s.device)
+    first = torch.where(s3 >= best[..., None], lane,
+                        torch.full_like(lane, r)).amin(dim=-1)
+    ids = torch.gather(flat_i.view(nq, cols // r, r), 2, first[..., None])
+    return best, ids[..., 0]
+
+
 def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
                            valid_n: int, *, bucket: int, block_n: int,
                            query_scales: Optional[torch.Tensor] = None,
@@ -148,13 +169,23 @@ def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
     """Scores of queries [Q, H] against corpus [N, H], rows >= ``valid_n``
     set to -1e30, each aligned ``bucket`` of rows reduced to (max, first
     argmax). The corpus is covered to a ``block_n`` multiple (rows past N
-    count as zeros). -> (scores f32, ids int32), each [Q, N_pad / bucket]
-    in global bucket order.
+    count as zeros); ``bucket`` divides ``block_n``. -> (scores f32, ids
+    int32), each [Q, N_pad / bucket] in global bucket order.
 
     int8: queries/corpus int8 with ``query_scales`` [Q] / ``row_scales``
     [N] (scores ``(acc * qs) * cs``); else both bf16 (f32 accumulation).
+
+    On the card K4 reduces buckets that divide 128. Any other bucket runs it
+    at g = gcd(bucket, 128), and each bucket's ``bucket / g`` candidates are
+    then reduced to its (max, first id reaching it) here, exactly; the
+    kernel then writes ``bucket / g`` times more candidates (``bucket=100``:
+    25 times). The kernel takes rows of a multiple of 16 bytes (its TMA
+    maps need 16-byte row strides: H a multiple of 16 int8 or 8 bf16 values).
     """
     n, h = corpus.shape
+    if bucket < 1 or block_n % bucket:
+        raise ValueError(f"mips_bucket_candidates: bucket {bucket} must "
+                         f"divide block_n {block_n}")
     n_pad = pad_to_multiple(max(n, 1), block_n)
     if not corpus.is_cuda:
         return _candidates_plain(queries, corpus, valid_n, bucket, n_pad,
@@ -168,27 +199,31 @@ def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
         _native.check_tensor(query_scales, torch.float32, (nq,),
                              "query_scales")
         _native.check_tensor(row_scales, torch.float32, (n,), "row_scales")
-    if (h * corpus.element_size()) % 16 or block_n % 128 or 128 % bucket:
+    if (h * corpus.element_size()) % 16 or n == 0:
         raise ValueError(
             f"mips_bucket_candidates: the kernel takes rows of a multiple of "
-            f"16 bytes, block_n a multiple of 128 and a bucket dividing 128 "
-            f"(H={h}, block_n={block_n}, bucket={bucket})")
-    out_s = torch.empty(nq, n_pad // bucket, dtype=torch.float32,
+            f"16 bytes (its TMA maps need 16-byte row strides) and at least "
+            f"one corpus row (H={h}, {corpus.dtype}, N={n})")
+    g = math.gcd(bucket, _KERNEL_BUCKETS)
+    out_s = torch.empty(nq, n_pad // g, dtype=torch.float32,
                         device=corpus.device)
-    out_i = torch.empty(nq, n_pad // bucket, dtype=torch.int32,
+    out_i = torch.empty(nq, n_pad // g, dtype=torch.int32,
                         device=corpus.device)
-    if nq == 0:
-        return out_s, out_i
-    fn = _native.function("mips_candidates", "sx_mips_candidates", _ARGS)
-    null = ctypes.c_void_p(0)
-    code = fn(_native.ptr(queries), _native.ptr(corpus),
-               _native.ptr(query_scales) if int8 else null,
-               _native.ptr(row_scales) if int8 else null,
-               nq, n, n_pad, h, int(int8), int(min(valid_n, n)), bucket,
-               _native.ptr(out_s), _native.ptr(out_i),
-               _native.stream(corpus.device))
-    _native.check("mips_candidates", code, "mips_bucket_candidates")
-    mips_bucket_candidates.launches += 1
+    if nq > 0:
+        bm, bn = _native.mips_tile(nq, n_pad, g,
+                                   _native.sm_count(corpus.device))
+        fn = _native.function("mips_candidates", "sx_mips_candidates", _ARGS)
+        null = ctypes.c_void_p(0)
+        code = fn(_native.ptr(queries), _native.ptr(corpus),
+                  _native.ptr(query_scales) if int8 else null,
+                  _native.ptr(row_scales) if int8 else null,
+                  nq, n, n_pad, h, int(int8), int(min(valid_n, n)), g,
+                  _native.ptr(out_s), _native.ptr(out_i), bm, bn,
+                  _native.stream(corpus.device))
+        _native.check("mips_candidates", code, "mips_bucket_candidates")
+        mips_bucket_candidates.launches += 1
+    if g != bucket:
+        return _merge_buckets(out_s, out_i, bucket // g)
     return out_s, out_i
 
 

@@ -19,8 +19,11 @@ tiling and ragged shapes (K14 at every branch of its tile rule, without a
 launch of K1 or K2; both at I = H = 1152), in a model, and the JAX
 dispatch where the shapes do not tile); the knobs at every width on the
 128 grid through their kernels, and off it as the JAX package's
-expressions; what a kernel does not take raises instead of running a
-plain version on the card.
+expressions; K4, the MIPS bucket candidates, bitwise (int8) at every
+bucket, at query counts across both tiles, at blocks off the 128 grid
+and through the gcd merge of a bucket off 128, with the fused search at
+the launcher's block for 8,000 rows; what a kernel does not take raises
+instead of running a plain version on the card.
 """
 
 import pytest
@@ -141,24 +144,165 @@ def test_stable_finalize_on_duplicate_rows(dev):
     assert mk.mips_bucket_candidates.launches == before + 2
 
 
-def test_mips_candidates_match_plain(dev):
+# (Q, N, block_n, bucket) across K4's tiles and edges: Q from 1 to 300 (one
+# or two consumer warpgroups, ragged query tiles), N off every tile and
+# block (a tile wholly past N runs no products), blocks off the 128 grid
+# (2,000 and 1,750: the JAX launcher's block for 8,000 and 7,000 rows),
+# every bucket from 1 to 128 (under 8 the small-bucket kernel), and both
+# tiles (64 x 128 up to 64 queries; 128 x 256 from 130 queries over 70,001
+# rows on 132 SMs)
+K4_CASES = [(5, 3000, 2048, 64), (1, 3001, 2048, 128), (8, 3001, 2048, 8),
+            (63, 5000, 2048, 16), (64, 2999, 2048, 32), (65, 3001, 2048, 128),
+            (130, 4097, 2048, 64), (300, 3001, 2048, 128),
+            (8, 7999, 2000, 16), (130, 8000, 2000, 8), (64, 7001, 1750, 2),
+            (65, 3001, 2048, 1), (300, 3001, 2048, 4), (8, 40000, 2048, 128),
+            (130, 70001, 2048, 128), (300, 70001, 2048, 16)]
+
+
+@pytest.mark.parametrize("q,n,block_n,bucket", K4_CASES)
+def test_mips_candidates_match_plain(dev, q, n, block_n, bucket):
     """int8: the same integer sums and the same two f32 products, so scores
-    and ids are equal; bf16 scores agree to f32 summation order."""
-    q = _randn(dev, 5, 128)
-    c = _randn(dev, 3000, 128, seed=3)
-    q8, qs = mk.quantize_rows(q)
+    and ids are equal; bf16 scores agree to f32 summation order, and where
+    an id differs the two rows' f32 scores tie to that order (a near-tie
+    inside a bucket)."""
+    valid_n = n - 37
+    n_pad = -(-n // block_n) * block_n
+    qf = _randn(dev, q, 128, seed=q)
+    c = _randn(dev, n, 128, seed=n)
+    q8, qs = mk.quantize_rows(qf)
     c8, cs = mk.quantize_rows(c)
     before = mk.mips_bucket_candidates.launches
-    kw = dict(bucket=64, block_n=2048)
-    got = mk.mips_bucket_candidates(q8, c8, 2900, query_scales=qs,
+    kw = dict(bucket=bucket, block_n=block_n)
+    got = mk.mips_bucket_candidates(q8, c8, valid_n, query_scales=qs,
                                     row_scales=cs, **kw)
-    want = mk._candidates_plain(q8, c8, 2900, 64, 4096, qs, cs)
+    want = mk._candidates_plain(q8, c8, valid_n, bucket, n_pad, qs, cs)
+    assert got[0].shape == (q, n_pad // bucket)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    q16, c16 = q.to(torch.bfloat16), c.to(torch.bfloat16)
-    got = mk.mips_bucket_candidates(q16, c16, 2900, **kw)
-    want = mk._candidates_plain(q16, c16, 2900, 64, 4096, None, None)
+    q16, c16 = qf.to(torch.bfloat16), c.to(torch.bfloat16)
+    got = mk.mips_bucket_candidates(q16, c16, valid_n, **kw)
+    want = mk._candidates_plain(q16, c16, valid_n, bucket, n_pad, None, None)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    off = got[1] != want[1]
+    if bool(off.any()):
+        rows = off.nonzero()[:, 0]
+        full = q16.float() @ c16.float().T
+        mine = full[rows, got[1][off].long()]
+        theirs = full[rows, want[1][off].long()]
+        torch.testing.assert_close(mine, theirs, rtol=1e-5, atol=1e-4)
+    assert int(off.sum()) <= max(2, 1e-5 * off.numel())
     assert mk.mips_bucket_candidates.launches == before + 2
+
+
+@pytest.mark.parametrize("bucket", [1, 4, 8, 128])
+def test_mips_candidates_first_duplicate_wins(dev, bucket):
+    """Small-integer rows, each stored twice side by side (so both copies
+    lie in one bucket) and products exact in f32 on both sides: the first
+    copy is the bucket's id, int8 and bf16 bitwise equal to the plain
+    version."""
+    gen = torch.Generator().manual_seed(11)
+    rows = torch.randint(-3, 4, (1500, 64), generator=gen).float()
+    c = rows.repeat_interleave(2, dim=0)
+    q = torch.randint(-3, 4, (70, 64), generator=gen).float()
+    codes, scales = mk.quantize_rows(c)
+    q8, qs = mk.quantize_rows(q)
+    kw = dict(bucket=bucket, block_n=2048)
+    for args, scl in (((q8, codes), dict(query_scales=qs, row_scales=scales)),
+                      ((q.to(torch.bfloat16), c.to(torch.bfloat16)), {})):
+        got = mk.mips_bucket_candidates(*(a.to(dev) for a in args), 2990,
+                                        **kw, **{k: v.to(dev)
+                                                 for k, v in scl.items()})
+        want = mk.mips_bucket_candidates(*args, 2990, **kw, **scl)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        if bucket > 1:
+            assert bool((want[1][:, :1400] % 2 == 0).all())   # first copy
+
+
+def test_mips_bucket_off_128_through_gcd(dev):
+    """bucket=100 at block_n=2000: the kernel runs at gcd(100, 128) = 4 (one
+    launch) and the wrapper merges runs of 25; equal to the plain version
+    at bucket 100 (int8 bitwise), and through fused_mips_topk_int8."""
+    qf, c = _randn(dev, 70, 128, seed=4), _randn(dev, 4000, 128, seed=5)
+    q8, qs = mk.quantize_rows(qf)
+    c8, cs = mk.quantize_rows(c)
+    before = mk.mips_bucket_candidates.launches
+    got = mk.mips_bucket_candidates(q8, c8, 3950, bucket=100, block_n=2000,
+                                    query_scales=qs, row_scales=cs)
+    want = mk._candidates_plain(q8, c8, 3950, 100, 4000, qs, cs)
+    assert got[0].shape == (70, 40)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert mk.mips_bucket_candidates.launches == before + 1
+    kw = dict(block_n=2000, bucket=100, valid_n=3950, id_offset=3)
+    top = mk.fused_mips_topk_int8(qf, c8, cs, 10, **kw)
+    ref = mk.fused_mips_topk_int8(qf.cpu(), c8.cpu(), cs.cpu(), 10, **kw)
+    assert torch.equal(top[1].cpu(), ref[1])
+    assert torch.equal(top[0].cpu(), ref[0])
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_fused_search_at_block_size_2000(dev, int8):
+    """The launcher's block for 8,000 passages (min(8192, max(32, N // 4))
+    = 2,000, not a multiple of 128) at k=100: blocked_mips_topk in fused
+    mode and a fused MIPSIndex launch K4 and return what the plain version
+    returns on the CPU (int8 bitwise; bf16 ids where no near-tie decides,
+    top-100 overlap >= 0.99)."""
+    import numpy as np
+
+    from simxns_tpu_torch.index.engine import MIPSIndex
+    from simxns_tpu_torch.ops.topk import blocked_mips_topk
+
+    rng = np.random.default_rng(12)
+    emb = rng.standard_normal((8000, 128), dtype=np.float32)
+    qry = rng.standard_normal((64, 128), dtype=np.float32)
+    dtype = torch.int8 if int8 else torch.bfloat16
+    before = mk.mips_bucket_candidates.launches
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        index = MIPSIndex(device=device, block_size=2000, store_dtype=dtype,
+                          mode="fused")
+        index.build(emb)
+        out[device.type] = index.search(qry, 100)
+        qt = torch.from_numpy(qry).to(device).to(index.query_dtype())
+        out[device.type + "_blocked"] = blocked_mips_topk(
+            qt, index.embeddings, 100, block_size=2000, valid_n=7990,
+            mode="fused",
+            row_scales=index.row_scales if int8 else None)
+    assert mk.mips_bucket_candidates.launches == before + 2
+    got_i, want_i = out["cuda"][1], out["cpu"][1]
+    got_b = [t.cpu() for t in out["cuda_blocked"]]
+    want_b = out["cpu_blocked"]
+    if int8:
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+        assert torch.equal(got_b[0], want_b[0])
+        assert torch.equal(got_b[1], want_b[1])
+    else:
+        for g, w in ((got_i, want_i), (got_b[1].numpy(), want_b[1].numpy())):
+            overlap = sum(len(set(a) & set(b)) for a, b in zip(
+                g.tolist(), w.tolist())) / g.size
+            assert overlap >= 0.99
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                                   atol=1e-4)
+    assert int(want_i.max()) < 8000 and int(want_b[1].max()) < 7990
+
+
+def test_mips_candidates_refuse_rows_off_16_bytes(dev):
+    """A TMA map needs 16-byte row strides: bf16 rows of 100 values (200
+    bytes) and int8 rows of 24 raise ValueError on the card, no launch."""
+    before = mk.mips_bucket_candidates.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        mk.mips_bucket_candidates(
+            torch.zeros(4, 100, dtype=torch.bfloat16, device=dev),
+            torch.zeros(300, 100, dtype=torch.bfloat16, device=dev), 300,
+            bucket=128, block_n=2048)
+    c8 = torch.zeros(300, 24, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        mk.mips_bucket_candidates(
+            torch.zeros(4, 24, dtype=torch.int8, device=dev), c8, 300,
+            bucket=128, block_n=2048,
+            query_scales=torch.ones(4, device=dev),
+            row_scales=torch.ones(300, device=dev))
+    assert mk.mips_bucket_candidates.launches == before
 
 
 def _int8_weights(dev, o, i, seed):

@@ -207,3 +207,107 @@ def test_tied_scores_come_back_in_jax_order(what):
     np.testing.assert_array_equal(got_i, want_i)
     # the ties are real: each query's list holds equal scores
     assert all(len(set(row)) < k for row in got_s.tolist())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("block_n,bucket", [(2000, 128), (2000, 100),
+                                            (1750, 128)])
+def test_fused_at_any_block_and_bucket_matches_jax(int8, block_n, bucket):
+    """~4,000 rows at a block that is not a multiple of 128 (the JAX kernel
+    pads the corpus to any block) and at a bucket that does not divide 128
+    (bucket=100 at block_n=2000): equal ids; scores as the tests above hold
+    them. On the card K4 covers the padded corpus whatever the block and
+    runs such a bucket at gcd(bucket, 128)."""
+    q, c = _data(64, n=3990, seed=7)
+    kw = dict(block_n=block_n, bucket=bucket, valid_n=3950, id_offset=11)
+    if int8:
+        codes, scales = jmk.quantize_rows(jnp.asarray(c))
+        want = jmk.fused_mips_topk_int8(jnp.asarray(q), codes, scales, 10,
+                                        **kw)
+        got = tmk.fused_mips_topk_int8(
+            torch.from_numpy(q), torch.from_numpy(np.asarray(codes)),
+            torch.from_numpy(np.asarray(scales)), 10, **kw)
+        rtol = 1e-6
+    else:
+        want = jmk.fused_mips_topk(jnp.asarray(q, jnp.bfloat16),
+                                   jnp.asarray(c, jnp.bfloat16), 10, **kw)
+        got = tmk.fused_mips_topk(torch.from_numpy(q).to(torch.bfloat16),
+                                  torch.from_numpy(c).to(torch.bfloat16), 10,
+                                  **kw)
+        rtol = 1e-5
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_blocked_fused_at_block_size_1750_matches_jax(int8):
+    """blocked_mips_topk(mode="fused", block_size=1750): the block the JAX
+    launcher's min(8192, max(32, N // 4)) gives a corpus of 7,000 rows
+    (bucket 2 there, from _fit_bucket); equal ids, scores to 1e-5."""
+    q, c = _data(128, n=4000, seed=8)
+    kw = dict(block_size=1750, valid_n=3900, id_offset=3, mode="fused")
+    if int8:
+        codes, scales = jmk.quantize_rows(jnp.asarray(c))
+        jq = jnp.asarray(q, jnp.bfloat16)
+        want = jax_blocked(jq, codes, 10, row_scales=scales, **kw)
+        got = blocked_mips_topk(
+            torch.from_numpy(np.array(jq.astype(jnp.float32))).to(
+                torch.bfloat16),
+            torch.from_numpy(np.asarray(codes)), 10,
+            row_scales=torch.from_numpy(np.asarray(scales)), **kw)
+    else:
+        want = jax_blocked(jnp.asarray(q), jnp.asarray(c), 10, **kw)
+        got = blocked_mips_topk(torch.from_numpy(q), torch.from_numpy(c), 10,
+                                **kw)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("bucket,g,n_pad", [(100, 4, 1600),
+                                            (256, 128, 1792),
+                                            (12, 4, 1608), (40, 8, 1600)])
+def test_merging_kernel_buckets_is_exact(bucket, g, n_pad):
+    """What the wrapper does on the card for a bucket that does not divide
+    128: candidates of buckets of g = gcd(bucket, 128), merged by runs of
+    bucket / g, equal those of ``bucket`` itself, ties included (the
+    duplicate corpus: the first row reaching a bucket's maximum wins)."""
+    q, c = _duplicate_rows(h=32, passages=800, copies=2, nq=5, seed=9)
+    tq, tc = torch.from_numpy(q), torch.from_numpy(c)
+    want = tmk._candidates_plain(tq, tc, 1580, bucket, n_pad, None, None)
+    sub = tmk._candidates_plain(tq, tc, 1580, g, n_pad, None, None)
+    got = tmk._merge_buckets(*sub, bucket // g)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # ties across sub-buckets are real: some bucket's maximum is reached in
+    # more than one of its sub-buckets
+    runs = sub[0].view(sub[0].shape[0], -1, bucket // g)
+    assert bool(((runs == want[0][..., None]).sum(dim=-1) > 1).any())
+
+
+def test_plain_candidates_cut_whole_buckets():
+    """The plain version walks the corpus in chunks of whole buckets: a
+    bucket that does not divide its 65,536-row chunk (100) still reduces
+    aligned buckets past the first chunk."""
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(rng.standard_normal((2, 16), dtype=np.float32))
+    c = torch.from_numpy(rng.standard_normal((70000, 16), dtype=np.float32))
+    s, i = tmk._candidates_plain(q, c, 70000, 100, 70000, None, None)
+    scores = q @ c.T
+    want = scores.view(2, 700, 100).max(dim=-1)
+    assert torch.equal(s, want.values)
+    assert torch.equal(i.long(), want.indices + torch.arange(700) * 100)
+
+
+@pytest.mark.parametrize("q,n_pad,bucket,tile", [
+    (8, 8_847_360, 128, (64, 128)), (1, 8_847_360, 16, (64, 128)),
+    (64, 24_576, 32, (64, 128)), (1024, 8_847_360, 128, (128, 256)),
+    (300, 4096, 128, (64, 128)), (300, 70_001, 16, (128, 256)),
+    (1024, 8_847_360, 4, (64, 128))])
+def test_mips_tile_rule(q, n_pad, bucket, tile):
+    """K4's tile on an H100's 132 SMs: 64 x 128 up to 64 queries, 128 x 256
+    above once its tiles fill the SMs, else 64 x 128; 64 x 128 (the only
+    kernel) for buckets under 8."""
+    from simxns_tpu_torch.ops import _native
+
+    assert _native.mips_tile(q, n_pad, bucket, 132) == tile
