@@ -114,7 +114,32 @@ non-zero and prints no result):
    ``ffn_impl="int8"``, then with ``proj_impl="int8"`` too; K14 launched 12
    times per chunk and request, K13 24 times in the second; the embeddings
    against the same model on the plain versions and under ``"xla"``;
-13. the ``kernels`` line (K1-K14, launches of every path); then the last
+13. ``remat_policy="dots"``: the msdoc reranker (BERT-base CE, vocab
+   50265) at the recipe's 32 queries x 16 passages x 512 tokens, 1 warm-up
+   and 3 timed steps under full remat, then under "dots" (without remat
+   it does not fit): step ms, peak memory, K7/K8 launches (twice and once
+   a layer a step under both), equal losses and gradient cosine >=
+   0.999999 between the two, and the dense products the backward runs
+   (full remat recomputes six a layer, "dots" none); then the nq reranker
+   (CE-large, S=160, 8 x 16) under ``ffn_impl="fused_vjp"``, "dots"
+   against no remat: the same checks, K9 and K5 launched twice a layer;
+14. dropout: phase 5's three step kinds with ``dropout=True``, 3 steps each,
+   twice from the same weights at lr 0 (bitwise-equal losses); step ms
+   beside phase 5's; K5/K6 not launched under ``attention_dropout=0.1``
+   (the plain attention, as in JAX) and launched under
+   ``attention_dropout=0``; a remat reranker step with dropout against
+   one without (the masks replay);
+15. LEAD's teacher: a BERT-base CE with ``per_layer_logits`` and attention
+   maps over 8 x 2 rows of 160 tokens (the last layer's logits are the
+   logits, every probability row sums to 1 over the unmasked keys); a
+   tied ``MLMHead`` forward and backward over BERT-base at 8 x 128 tokens;
+16. rerank: K1-K3 checked and timed at the rerank batch (256 x 160 tokens
+   of CE-large), then ``evals.rerank_topk`` over 64 queries x top-100
+   joint rows (6,400) through the int8 view (K1-K3) and in bf16 (K5):
+   rows/s, launches, each order the stable argsort of its scores, the
+   first batch's CLS vectors and scores against the plain versions, the
+   top-10 overlap of the two orders;
+17. the ``kernels`` line (K1-K14, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,6 +164,11 @@ N_Q, N_P, LQ, LC, LJ = 8, 16, 32, 128, 160
 # the synthetic corpus keeps the recipe's token lengths), 64 queries, k=100
 MS_S = 512
 MINE_ROWS, MINE_Q, MINE_K = 24_576, 64, 100
+# the rerank phase's limits, kernels against plain over 256 rows of the nq
+# reranker (scripts/torch_rerank_witness.py, PERF.md section 2): each layer
+# on the plain path's input within two bf16 steps of its largest output;
+# the scores within twice their spread, correlation >= 0.8
+RERANK_LAYER_TOL, RERANK_GAP, RERANK_CORR = 2.0 ** -6, 2.0, 0.8
 
 
 def emit(phase, **fields):
@@ -1120,9 +1150,7 @@ def _full_models(torch, ffn_impl):
     from seed 0: a BERT-base DE and an ERNIE-large-shaped CE (24 layers,
     H=1024, small_s_attn="group"), both with ``ffn_impl``. -> (de, ce,
     seconds)."""
-    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
-                                         BiEncoderConfig, CrossEncoder,
-                                         CrossEncoderConfig)
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1130,11 +1158,7 @@ def _full_models(torch, ffn_impl):
         vocab_size=30522, hidden_size=H, num_layers=12, num_heads=HEADS,
         intermediate_size=F, dtype=torch.bfloat16, ffn_impl=ffn_impl)),
         generator=torch.Generator().manual_seed(0)).to(dev)
-    ce = CrossEncoder(CrossEncoderConfig(bert=BertConfig(
-        vocab_size=30522, hidden_size=CE_H, num_layers=CE_LAYERS,
-        num_heads=CE_HEADS, intermediate_size=CE_F, dtype=torch.bfloat16,
-        small_s_attn="group", ffn_impl=ffn_impl)),
-        generator=torch.Generator().manual_seed(0)).to(dev)
+    ce = _ce_large(torch, ffn_impl=ffn_impl)
     return de, ce, time.perf_counter() - t0
 
 
@@ -1824,8 +1848,7 @@ def phase_ffn_training(torch, smi, records, xla):
     import numpy as np
 
     from simxns_tpu_torch import ops
-    from simxns_tpu_torch.models import CrossEncoder, int8_view
-    from simxns_tpu_torch.models.bert import share_parameters
+    from simxns_tpu_torch.models import int8_view
     from simxns_tpu_torch.ops import fused_ffn as pf
     from simxns_tpu_torch.train import (TrainState, make_adamw,
                                         make_ar2_retriever_step,
@@ -1837,15 +1860,6 @@ def phase_ffn_training(torch, smi, records, xla):
     de, ce, init_s = _full_models(torch, "fused_vjp")
     batches = [_train_batch(np, seed) for seed in range(3)]
     b0 = steps.to_device(batches[0], dev)
-
-    def view_of(**knobs):
-        """``ce`` under another config, over the same Parameters."""
-        import dataclasses
-
-        with torch.device("meta"):
-            view = CrossEncoder(dataclasses.replace(
-                ce.cfg, bert=ce.cfg.bert.replace(**knobs)))
-        return share_parameters(view, ce)
 
     # the first reranker step's gradients: K9-K11, their plain versions,
     # and ffn_impl="xla", from the same weights (no update in between)
@@ -1862,8 +1876,8 @@ def phase_ffn_training(torch, smi, records, xla):
         loss_p, grad_p = _flat_gradients(torch, steps, ce, b0)
     finally:
         pf.ffn_train_fwd, pf.ffn_bwd_dx, pf.ffn_bwd_dw = kernels
-    loss_x, grad_x = _flat_gradients(torch, steps, view_of(ffn_impl="xla"),
-                                     b0)
+    loss_x, grad_x = _flat_gradients(
+        torch, steps, _view_of(torch, ce, ffn_impl="xla"), b0)
     grad_cos = _cosine(torch, grad_k, grad_p)
     cos_kx = _cosine(torch, grad_k, grad_x)
     cos_px = _cosine(torch, grad_p, grad_x)
@@ -1930,7 +1944,7 @@ def phase_ffn_training(torch, smi, records, xla):
                     launches={k: v for k, v in ops.launches().items()
                               if v}), flat
 
-    remat_view = view_of(remat=True)
+    remat_view = _view_of(torch, ce, remat=True)
     measured(remat_view)                       # warm
     off, grad_off = measured(ce)
     on, grad_on = measured(remat_view)
@@ -2265,14 +2279,12 @@ def phase_int8_encode(torch, smi, records):
     ``ffn_impl="int8"`` (K14), then with ``proj_impl="int8"`` too (K13 for
     q, k, v as one call and for the output projection), over the same
     weights. Each indexes 16,384 passages and answers 8 requests."""
-    import dataclasses
-
     import numpy as np
 
     from simxns_tpu_torch import ops
     from simxns_tpu_torch.data import HashTokenizer
     from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
-    from simxns_tpu_torch.models.bert import BertLayer, share_parameters
+    from simxns_tpu_torch.models.bert import BertLayer
     from simxns_tpu_torch.ops import fused_ffn as pf
     from simxns_tpu_torch.serve import DenseRetriever
 
@@ -2283,12 +2295,6 @@ def phase_int8_encode(torch, smi, records):
         intermediate_size=F, dtype=torch.bfloat16, ffn_impl="int8")),
         generator=torch.Generator().manual_seed(0)).to(dev).eval()
 
-    def view_of(**knobs):
-        with torch.device("meta"):
-            view = BiEncoder(dataclasses.replace(
-                model.cfg, bert=model.cfg.bert.replace(**knobs)))
-        return share_parameters(view, model).eval()
-
     tok = HashTokenizer(vocab_size=30522)
     n_pass, chunk, n_req = 16384, 1024, 8
     layers = model.cfg.bert.num_layers
@@ -2297,11 +2303,12 @@ def phase_int8_encode(torch, smi, records):
     picks = rng.integers(0, n_pass, n_req * 8)
     requests = [[" ".join(passages[int(i)][0].split()[:12])
                  for i in picks[r * 8:(r + 1) * 8]] for r in range(n_req)]
-    xla = view_of(ffn_impl="xla")
+    xla = _view_of(torch, model, ffn_impl="xla").eval()
     ids = mask = None
     for label, encoder, per_layer in (
             ("ffn_int8", model, {"int8_ffn": 1}),
-            ("ffn_proj_int8", view_of(proj_impl="int8"),
+            ("ffn_proj_int8",
+             _view_of(torch, model, proj_impl="int8").eval(),
              {"int8_ffn": 1, "int8_dense": 2})):
         fresh_peak(torch)
         retriever = DenseRetriever(encoder, tok, max_q_length=LQ,
@@ -2409,6 +2416,652 @@ def phase_int8_encode(torch, smi, records):
         del retriever, kern, plain, ref
 
 
+def _view_of(torch, model, **knobs):
+    """``model`` under another ``BertConfig``, over the same Parameters."""
+    import dataclasses
+
+    from simxns_tpu_torch.models.bert import share_parameters
+
+    with torch.device("meta"):
+        view = type(model)(dataclasses.replace(
+            model.cfg, bert=model.cfg.bert.replace(**knobs)))
+    return share_parameters(view, model)
+
+
+def _counted_gradients(torch, steps, model, batch, generator=None):
+    """``_flat_gradients`` with the dense products (``aten.mm`` and
+    ``aten.addmm``) that the backward runs counted, the recompute's
+    included; and the launches of the forward and backward. Untimed: the
+    count runs every op of the backward through a Python dispatch mode.
+    -> (loss, flat gradients, dense products, launches, peak GB)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from simxns_tpu_torch import ops
+
+    dense = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    class CountDense(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountDense.count += func in dense
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    fresh_peak(torch)
+    ops.reset_launches()
+    loss, _ = steps.reranker_loss(model, batch, generator=generator)
+    for p in model.parameters():
+        p.grad = None
+    CountDense.count = 0
+    with CountDense():
+        loss.backward()
+    flat = torch.cat([p.grad.float().flatten() for p in model.parameters()
+                      if p.grad is not None])
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    return (float(loss.detach()), flat, CountDense.count,
+            {k: v for k, v in ops.launches().items() if v},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _same_step(torch, what, a, b):
+    """Two forward and backward passes that must give the same step: equal
+    losses, gradient cosine >= 0.999999 and every gradient within 1e-3 of
+    the largest (the embedding gradients add with atomics in an order that
+    changes from run to run). -> (cosine, error of the largest)."""
+    cos = _cosine(torch, a[1], b[1])
+    err = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+    check(a[0] == b[0] and cos >= 0.999999 and err <= 1e-3,
+          f"{what}: loss {a[0]} vs {b[0]}, gradient cosine {cos}, err {err} "
+          "of the largest")
+    return cos, err
+
+
+def _ce_large(torch, seed=0, **knobs):
+    """The nq recipe's reranker at full width on the card (ERNIE-large
+    shape: 24 layers, H=1024, 16 heads, small_s_attn="group"), random
+    weights from ``seed``."""
+    from simxns_tpu_torch.models import (BertConfig, CrossEncoder,
+                                         CrossEncoderConfig)
+
+    return CrossEncoder(CrossEncoderConfig(bert=BertConfig(
+        vocab_size=30522, hidden_size=CE_H, num_layers=CE_LAYERS,
+        num_heads=CE_HEADS, intermediate_size=CE_F, dtype=torch.bfloat16,
+        small_s_attn="group", **knobs)),
+        generator=torch.Generator().manual_seed(seed)).to(
+            torch.device("cuda"))
+
+
+def _launch_totals(records, path, launches):
+    for name, rec in records.items():
+        rec.setdefault("launches_by_path", {})[path] = launches.get(name, 0)
+        rec["launches"] = sum(rec["launches_by_path"].values())
+
+
+def phase_remat_dots(torch, smi, records):
+    """Phase 13: ``remat_policy="dots"``. The msdoc reranker (BERT-base CE,
+    vocab 50265) at the recipe's 32 queries x 16 passages x 512 tokens under
+    full remat, then under "dots" (it does not fit without remat); then the
+    nq reranker (CE-large, S=160, 8 x 16) under ``ffn_impl="fused_vjp"``,
+    "dots" against no remat."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.config import RECIPES
+    from simxns_tpu_torch.models import CrossEncoder, CrossEncoderConfig
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_reranker_step, steps)
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    recipe = RECIPES["msdoc_ar2_simans"]
+    bert = recipe.reranker.bert.replace(dtype=torch.bfloat16, remat=True)
+    n_q, n_p = 32, 16
+    t0 = time.perf_counter()
+    ce = CrossEncoder(CrossEncoderConfig(bert=bert),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+
+    def batch():
+        lens = rng.integers(MS_S * 3 // 5, MS_S + 1, n_q * n_p)
+        ids = rng.integers(1000, bert.vocab_size,
+                           (n_q * n_p, MS_S)).astype(np.int32)
+        mask = (np.arange(MS_S)[None, :] < lens[:, None]).astype(np.int32)
+        return {"joint_ids": (ids * mask).reshape(n_q, n_p, MS_S),
+                "joint_mask": mask.reshape(n_q, n_p, MS_S)}
+
+    batches = [batch() for _ in range(4)]
+    b0 = steps.to_device(batches[0], dev)
+    modes = {"full": ce, "dots": _view_of(torch, ce, remat_policy="dots")}
+    first = {mode: _counted_gradients(torch, steps, model, b0)
+             for mode, model in modes.items()}
+    cos, err = _same_step(torch, "msdoc dots vs full remat", first["dots"],
+                          first["full"])
+    dense = {mode: r[2] for mode, r in first.items()}
+    # full remat recomputes every layer's six dense products; "dots" takes
+    # them from what the forward kept
+    check(dense["full"] - dense["dots"] == 6 * bert.num_layers,
+          f"msdoc: dense products in the backward {dense}")
+    msdoc = {"queries": n_q, "passages": n_p, "joint_length": MS_S,
+             "tokens_per_step": n_q * n_p * MS_S, "model_init_s": init_s,
+             "loss": first["full"][0], "gradient_cosine_dots_vs_full": cos,
+             "gradient_err_of_largest": err,
+             "dense_products_in_backward": dense}
+    tx = make_adamw(recipe.reranker_optim.learning_rate, total_steps=0)
+    launches = {}
+    for mode, model in modes.items():
+        del first[mode]
+        state, step = TrainState.create(model, tx), make_reranker_step(tx)
+        resident = fresh_peak(torch)
+        state, _ = step(state, batches[0])          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ms, losses = [], []
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches[mode] = ops.launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = len(ms)
+        check(launches[mode]["bh_attention_fwd"] == 2 * bert.num_layers * n
+              and launches[mode]["bh_attention_bwd"] == bert.num_layers * n,
+              f"msdoc {mode}: K7/K8 launched {launches[mode]} over {n} "
+              "steps, not twice and once a layer a step")
+        check(all(math.isfinite(x) for x in losses),
+              f"msdoc {mode}: non-finite loss {losses}")
+        msdoc[mode] = dict(step_ms=ms, mean_step_ms=float(np.mean(ms)),
+                           losses=losses, resident_gb=resident,
+                           max_memory_gb=peak,
+                           launches={k: v for k, v in launches[mode].items()
+                                     if v})
+        del state
+    del modes, ce
+    fresh_peak(torch)
+
+    # the nq reranker under fused_vjp: "dots" against no remat
+    ce = _ce_large(torch, ffn_impl="fused_vjp")
+    b0 = steps.to_device(_train_batch(np, 0), dev)
+    dots = _view_of(torch, ce, remat=True, remat_policy="dots")
+    _counted_gradients(torch, steps, dots, b0)          # warm
+    runs = {"none": _counted_gradients(torch, steps, ce, b0),
+            "dots": _counted_gradients(torch, steps, dots, b0)}
+    cos, err = _same_step(torch, "nq dots vs no remat", runs["dots"],
+                          runs["none"])
+    got = {mode: r[3] for mode, r in runs.items()}
+    want = {"none": dict(ffn_train_fwd=CE_LAYERS, group_attention_fwd=CE_LAYERS),
+            "dots": dict(ffn_train_fwd=2 * CE_LAYERS,
+                         group_attention_fwd=2 * CE_LAYERS)}
+    for mode, counts in want.items():
+        counts.update(ffn_bwd_dx=CE_LAYERS, ffn_bwd_dw=CE_LAYERS,
+                      group_attention_bwd=CE_LAYERS)
+        check(all(got[mode].get(k) == v for k, v in counts.items()),
+              f"nq {mode}: launches {got[mode]}, want {counts}")
+    check(runs["dots"][2] == runs["none"][2],
+          f"nq: dense products in the backward, dots {runs['dots'][2]} vs "
+          f"none {runs['none'][2]}")
+
+    def forward_backward(model):
+        loss, _ = steps.reranker_loss(model, b0)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+
+    # selective checkpointing runs every op of the forward and the
+    # recompute through a Python dispatch mode: the trace's idle share
+    traces = {mode: _trace(torch, [lambda m=model: forward_backward(m)],
+                           "call")
+              for mode, model in (("none", ce), ("dots", dots))}
+    nq = {"rows": N_Q * N_P, "joint_length": LJ, "ffn_impl": "fused_vjp",
+          "gradient_cosine_dots_vs_none": cos,
+          "gradient_err_of_largest": err,
+          **{mode: dict(loss=r[0], dense_products_in_backward=r[2],
+                        launches=r[3], max_memory_gb=r[4],
+                        trace=traces[mode])
+             for mode, r in runs.items()}}
+    emit("remat_dots", nvidia_smi=smi, msdoc_reranker=msdoc,
+         nq_reranker=nq)
+    _launch_totals(records, "remat_dots",
+                   {k: launches["full"][k] + launches["dots"][k]
+                    + got["none"].get(k, 0) + got["dots"].get(k, 0)
+                    for k in launches["full"]})
+    del runs, ce, dots
+    fresh_peak(torch)
+
+
+def phase_dropout_steps(torch, smi, records, xla):
+    """Phase 14: the Training configuration's three step kinds with
+    ``dropout=True`` (the JAX seeds 0, 1, 2), 3 steps each, twice from the
+    same weights at lr 0 (the weights stay bitwise equal; the embedding
+    gradients add with atomics, so a real update would part two runs by
+    rounding); a remat reranker step with dropout against one without; a
+    reranker step with ``attention_dropout=0`` (K5/K6 run)."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import int8_view
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_ar2_retriever_step,
+                                        make_biencoder_step,
+                                        make_reranker_step, steps)
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    de, ce, init_s = _full_models(torch, "xla")
+    view = int8_view(ce)
+    batches = [_train_batch(np, seed) for seed in range(3)]
+    tx = make_adamw(0.0, total_steps=0)
+
+    def run():
+        kinds = {"biencoder": make_biencoder_step(tx, dropout=True),
+                 "reranker": make_reranker_step(tx, dropout=True),
+                 "retriever": make_ar2_retriever_step(
+                     tx, temperature=1.0, adv_lambda=0.0, dropout=True)}
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        out = _run_steps(torch, kinds, batches, TrainState.create(de, tx),
+                         TrainState.create(ce, tx), view)
+        return out[:4], ops.launches()
+
+    (step_ms, losses, peak_gb, _), launches = run()
+    (_, again, _, _), _ = run()
+    check(all(math.isfinite(x) for v in losses.values() for x in v),
+          f"dropout steps: non-finite loss {losses}")
+    check(losses == again, f"dropout steps at one seed: {losses} then "
+          f"{again}")
+    # attention_dropout=0.1: the attention takes the plain path (no K5/K6)
+    check(launches["group_attention_fwd"] == 0
+          and launches["group_attention_bwd"] == 0
+          and launches["int8_linear"] > 0,
+          f"dropout steps: launches {launches}")
+
+    b0 = steps.to_device(batches[0], dev)
+    gen = steps.dropout_generator(True, 1, 0)
+    plain = _counted_gradients(torch, steps, ce, b0, generator=gen)
+    remat = _counted_gradients(torch, steps, _view_of(torch, ce, remat=True),
+                               b0, generator=steps.dropout_generator(True, 1,
+                                                                     0))
+    cos, err = _same_step(torch, "dropout under remat", remat, plain)
+    del plain, remat
+
+    # hidden dropout alone: K5/K6 run
+    hidden_only = _view_of(torch, ce, attention_dropout=0.0)
+    state = TrainState.create(hidden_only, tx)
+    step = make_reranker_step(tx, dropout=True)
+    ops.reset_launches()
+    hidden_ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        check(math.isfinite(float(metrics["loss"])), "hidden-only: loss")
+        torch.cuda.synchronize()
+        hidden_ms.append((time.perf_counter() - t0) * 1e3)
+    hidden_launches = ops.launches()
+    check(hidden_launches["group_attention_fwd"] == 3 * CE_LAYERS
+          and hidden_launches["group_attention_bwd"] == 3 * CE_LAYERS,
+          f"attention_dropout=0: launches {hidden_launches}")
+
+    steady = {kind: float(np.mean(ms[1:])) for kind, ms in step_ms.items()}
+    emit("dropout_steps", nvidia_smi=smi, model_init_s=init_s,
+         hidden_dropout=ce.cfg.bert.hidden_dropout,
+         attention_dropout=ce.cfg.bert.attention_dropout, step_ms=step_ms,
+         steady_step_ms=steady,
+         steady_step_ms_dropout_off=xla["steady_step_ms"], losses=losses,
+         losses_bitwise_equal_two_runs=True, max_memory_gb_by_kind=peak_gb,
+         launches={k: v for k, v in launches.items() if v},
+         remat_vs_none={"gradient_cosine": cos,
+                        "gradient_err_of_largest": err},
+         reranker_attention_dropout_0={
+             "step_ms": hidden_ms,
+             "launches": {k: v for k, v in hidden_launches.items() if v}})
+    _launch_totals(records, "dropout_steps",
+                   {k: launches[k] + hidden_launches[k] for k in launches})
+    del de, ce, view, state, hidden_only
+    fresh_peak(torch)
+
+
+def phase_lead_ce(torch, smi):
+    """Phase 15: LEAD's teacher, a BERT-base CE with ``per_layer_logits``
+    and ``output_attentions`` over 8 x 2 rows of 160 tokens; then a tied
+    ``MLMHead`` forward and backward over BERT-base at 8 x 128 tokens."""
+    import numpy as np
+
+    from simxns_tpu_torch.models import (BertConfig, CrossEncoder,
+                                         CrossEncoderConfig, MLMHead)
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    bert = BertConfig(vocab_size=30522, hidden_size=H, num_layers=12,
+                      num_heads=HEADS, intermediate_size=F,
+                      dtype=torch.bfloat16)
+    ce = CrossEncoder(CrossEncoderConfig(bert=bert, per_layer_logits=True),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = _train_batch(np, 5)
+    ids = torch.from_numpy(batch["joint_ids"][:, :2].reshape(-1, LJ)).to(
+        dev).long()
+    mask = torch.from_numpy(batch["joint_mask"][:, :2].reshape(-1, LJ)).to(
+        dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ce(ids, mask, group_size=2, output_attentions=True)
+        torch.cuda.synchronize()
+        lead_ms = (time.perf_counter() - t0) * 1e3
+    per_layer = out["per_layer_logits"]
+    check(per_layer.shape == (12, N_Q, 2)
+          and torch.equal(per_layer[-1], out["logits"])
+          and bool(torch.isfinite(per_layer).all()),
+          "per_layer_logits: shape, last layer or finiteness")
+    row_err = 0.0
+    for p in out["attentions"]:
+        check(p.shape == (N_Q * 2, HEADS, LJ, LJ), f"attention map {p.shape}")
+        rows = (p * mask[:, None, None, :]).sum(-1)
+        row_err = max(row_err, float((rows - 1.0).abs().max()))
+    check(row_err <= 1e-5, f"attention rows sum to 1 within {row_err}")
+    check(len(out["hidden_states"]) == 13, "hidden states: 13")
+
+    head = MLMHead(bert, tied=True).to(dev)
+    words = ce.encoder.embeddings.word_embeddings.weight
+    rng = np.random.default_rng(6)
+    mlm_ids = torch.from_numpy(rng.integers(1000, 30522, (8, 128))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 30522, (8, 128))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hidden = ce.encoder(mlm_ids).last_hidden_state
+    logits = head(hidden, words)
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, 30522),
+                                             labels.reshape(-1))
+    loss.backward()
+    torch.cuda.synchronize()
+    mlm_ms = (time.perf_counter() - t0) * 1e3
+    check(logits.dtype == torch.float32 and logits.shape == (8, 128, 30522)
+          and math.isfinite(float(loss.detach())) and bool(
+              torch.isfinite(words.grad).all()),
+          f"MLM head: loss {float(loss.detach())}")
+    emit("lead_ce", nvidia_smi=smi, rows=N_Q * 2, joint_length=LJ,
+         forward_ms=lead_ms, per_layer_logits_shape=list(per_layer.shape),
+         attention_row_sum_max_err=row_err,
+         last_layer_equals_logits=True, mlm_tokens=8 * 128,
+         mlm_loss=float(loss.detach()), mlm_forward_backward_ms=mlm_ms,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del ce, head, out, logits, hidden
+    fresh_peak(torch)
+
+
+def _rerank_joint(n_q=64, k=100, n_pass=2048):
+    """The rerank phase's joint rows [n_q, k, LJ]: queries of 12 words of a
+    synthetic passage, each against k of the 2,048 passages drawn at
+    random, through ``build_joint_inputs``."""
+    import numpy as np
+
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.evals import build_joint_inputs
+
+    tok = HashTokenizer(vocab_size=30522)
+    passages = _synthetic_passages(n_pass, seed=3)
+    corpus = np.zeros((n_pass, LC), np.int32)
+    for i in range(n_pass):
+        enc = tok.encode(passages[i][1], text_pair=passages[i][0],
+                         max_length=LC)
+        corpus[i, :len(enc)] = enc
+    rng = np.random.default_rng(5)
+    queries = np.zeros((n_q, LQ), np.int32)
+    for qi, pid in enumerate(rng.integers(0, n_pass, n_q)):
+        enc = tok.encode(" ".join(passages[int(pid)][0].split()[:12]),
+                         max_length=LQ)
+        queries[qi, :len(enc)] = enc
+    topk = np.stack([rng.choice(n_pass, k, replace=False)
+                     for _ in range(n_q)]).astype(np.int32)
+    return build_joint_inputs(queries, corpus, topk, LJ)
+
+
+def _score_gap(np, got, want):
+    """Scores ``got`` against ``want`` over the same rows: the largest
+    difference, the spread (standard deviation) of ``want``, their ratio
+    and the correlation."""
+    err = float(np.abs(got - want).max())
+    spread = float(want.std())
+    return dict(max_abs_err=err, spread=spread, gap_over_spread=err / spread,
+                correlation=float(np.corrcoef(got, want)[0, 1]))
+
+
+def _layer_walk(torch, a, b, x, score):
+    """Two stacks of layer functions (hidden [B, S, H] -> hidden) from the
+    same input ``x``: stack ``b`` as the reference, stack ``a`` both
+    free-running and on ``b``'s input at every layer (teacher-forced).
+    ``score`` maps CLS vectors to numpy scores. -> (per layer: the
+    teacher-forced error, max |a(x_b) - b(x_b)| over max |b(x_b)|, and the
+    free-running score gap at that depth; the last layer's scores of ``a``
+    and ``b``, and the minimum cosine of their CLS vectors, as they are and
+    each centred on the rows' mean)."""
+    import numpy as np
+
+    xa = xb = x
+    layers = []
+    for fa, fb in zip(a, b):
+        yb = fb(xb).float()
+        forced = fa(xb).float()
+        xa = fa(xa)
+        sa, sb = score(xa[:, 0]), score(yb[:, 0])
+        layers.append(dict(
+            forced_err=float((forced - yb).abs().max() / yb.abs().max()),
+            score_gap=_score_gap(np, sa, sb)))
+        xb = yb.to(x.dtype)
+        del forced
+    ca, cb = xa[:, 0].float(), xb[:, 0].float()
+    cos = torch.nn.functional.cosine_similarity
+    return layers, dict(
+        scores=(sa, sb), cls_min_cosine=float(cos(ca, cb, dim=1).min()),
+        cls_centred_min_cosine=float(cos(ca - ca.mean(0), cb - cb.mean(0),
+                                         dim=1).min()))
+
+
+def _rerank_stacks(torch, ce, mask, fault_at=None, int8_hook=None):
+    """The layer stacks of the rerank phase's two paths over one batch
+    (``mask`` its key mask): {"int8": (the int8 view's layers on K1-K3,
+    their plain composition), "bf16": (the CE's layers with K5, with the
+    plain attention)}, and the input each path starts from as a function
+    of the token ids. ``fault_at``: layer ``i`` of each plain stack
+    attends over every key, padding included (a control the gates must
+    reject). ``int8_hook(i, quant, attend) -> (quant, attend)`` swaps the
+    row pass and the attention of layer ``i`` of the plain int8 stack
+    (``scripts/torch_rerank_witness.py``'s controls)."""
+    from simxns_tpu_torch.models import int8_view
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.ops import fused_layer as fl
+
+    view = int8_view(ce)
+    cfg = view.encoder.cfg
+    ones = torch.ones_like(mask)
+
+    def plain8(layer, i):
+        def attend(qkv, m, heads):
+            return fl._small_s_attention_plain(
+                qkv, ones if i == fault_at else m, heads)
+
+        def linear(a8, xs, w8, ws, b, gelu=False, out_dtype=torch.float32):
+            return fl._int8_linear_plain(a8, xs, w8, ws, b, gelu, out_dtype)
+
+        def quant(x, residual=None, ln=None, eps=1e-12, quant=True,
+                  out_f32=False, out_bf16=False):
+            return fl._row_quant_plain(x, residual, ln, eps, quant, out_f32,
+                                       out_bf16)
+
+        if int8_hook is not None:
+            quant, attend = int8_hook(i, quant, attend)
+        return lambda h: fl._compose(h, mask, layer.quantized(),
+                                     cfg.num_heads, cfg.layer_norm_eps,
+                                     linear, quant, attend)
+
+    def plain16(layer, i):
+        def attend(q, k, v, m):
+            return fa._group_fwd_plain(q, k, v, ones if i == fault_at else m)
+
+        def run(h):
+            fwd = fa.group_attention_fwd
+            fa.group_attention_fwd = attend
+            try:
+                return layer(h, mask)[0]
+            finally:
+                fa.group_attention_fwd = fwd
+        return run
+
+    def kernel(layer):
+        return lambda h: layer(h, mask)[0]
+
+    stacks = {
+        "int8": ([kernel(layer) for layer in view.encoder.layers],
+                 [plain8(layer, i)
+                  for i, layer in enumerate(view.encoder.layers)]),
+        "bf16": ([kernel(layer) for layer in ce.encoder.layers],
+                 [plain16(layer, i)
+                  for i, layer in enumerate(ce.encoder.layers)])}
+    embed = {"int8": lambda ids: view.encoder.embed(ids).to(cfg.dtype),
+             "bf16": lambda ids: ce.encoder.embed(ids)}
+    return stacks, embed
+
+
+def phase_rerank(torch, smi, records):
+    """Phase 16: ``rerank_topk`` with the nq reranker (CE-large,
+    small_s_attn="group", random weights from seed 0) over 64 queries x
+    top-100 joint rows of 160 tokens (6,400 rows, batches of 256), through
+    the int8 view (K1-K3) and in bf16 (K5 forward); K1-K3 checked and timed
+    at the rerank batch (40,960 tokens); the first batch held against the
+    plain versions layer by layer, and a fault that must fail that check."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.evals import rerank_topk
+    from simxns_tpu_torch.models.bert import dense
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fresh_peak(torch)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    batch, n_q, k, n_pass = 256, 64, 100, 2048
+    m = batch * LJ
+    kernels = {
+        "int8_linear": _check_int8_linear(torch, randn, m, CE_H, CE_F),
+        "row_quant": _check_row_quant(torch, randn, m, CE_H, CE_F),
+        "small_s_attention": _check_small_s_attention(
+            torch, randn, gen, ((batch, LJ, 100),), CE_H, CE_HEADS)}
+    for name, rec in kernels.items():
+        records[name]["rerank"] = rec
+        emit("kernel_rerank_shapes", name=name, nvidia_smi=smi, tokens=m,
+             hidden=CE_H, ffn=CE_F, heads=CE_HEADS, **rec)
+    torch.cuda.empty_cache()
+
+    joint = _rerank_joint(n_q, k, n_pass)
+
+    ce = _ce_large(torch)
+    rerank_topk(ce, joint[:4], batch=batch, fused_int8=True)     # warm
+    rerank_topk(ce, joint[:4], batch=batch)
+    out, launches = {}, {}
+    for label, fused in (("int8", True), ("bf16", False)):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, order = rerank_topk(ce, joint, batch=batch, fused_int8=fused)
+        seconds = time.perf_counter() - t0
+        launches[label] = ops.launches()
+        check(np.isfinite(scores).all() and scores.shape == (n_q, k)
+              and (order == np.argsort(-scores, axis=1,
+                                       kind="stable")).all(),
+              f"rerank {label}: scores not finite or order not their "
+              "stable argsort")
+        out[label] = dict(scores=scores, order=order, seconds=seconds,
+                          rows_per_s=n_q * k / seconds)
+    batches = -(-n_q * k // batch)
+    layers = CE_LAYERS * batches
+    check(launches["int8"]["int8_linear"] == 4 * layers
+          and launches["int8"]["small_s_attention"] == layers
+          and launches["int8"]["row_quant"] > 0
+          and launches["bf16"]["group_attention_fwd"] == layers
+          and launches["bf16"]["group_attention_bwd"] == 0,
+          f"rerank launches {launches}")
+
+    # the first 256 rows, layer by layer, against the plain versions: K1-K3
+    # (the int8 view), K5 (bf16). The limits are readings of
+    # scripts/torch_rerank_witness.py (PERF.md section 2): with random
+    # weights the rows' scores spread so little that one bf16 rounding in
+    # one layer moves them by about their spread, so the scores only
+    # catch scores on the wrong rows; each layer on the plain path's input
+    # catches a fault in a kernel
+    ids = torch.from_numpy(joint.reshape(-1, LJ)[:batch]).to(dev).long()
+    mask = (ids != 0).to(torch.int32)
+
+    def score(cls):
+        return dense(ce.qa_classifier, cls.to(torch.bfloat16),
+                     torch.bfloat16)[:, 0].float().cpu().numpy()
+
+    def held_to(layers, final):
+        rec = dict(_score_gap(np, *final["scores"]),
+                   layer_forced_err_max=max(r["forced_err"] for r in layers),
+                   cls_min_cosine=final["cls_min_cosine"],
+                   cls_centred_min_cosine=final["cls_centred_min_cosine"])
+        rec["within_limits"] = (
+            rec["layer_forced_err_max"] <= RERANK_LAYER_TOL
+            and rec["gap_over_spread"] <= RERANK_GAP
+            and rec["correlation"] >= RERANK_CORR)
+        return rec
+
+    held = {}
+    with torch.no_grad():
+        stacks, embed = _rerank_stacks(torch, ce, mask)
+        for label, (kern, plain) in stacks.items():
+            layers, final = _layer_walk(torch, kern, plain, embed[label](ids),
+                                        score)
+            # rerank_topk's first batch is the kernel path over these rows
+            check(np.array_equal(out[label]["scores"].reshape(-1)[:batch],
+                                 final["scores"][0]),
+                  f"rerank {label}: rerank_topk's first batch differs from a "
+                  "forward of its rows")
+            held[label] = held_to(layers, final)
+            check(held[label]["within_limits"]
+                  and held[label]["cls_min_cosine"] >= 0.995,
+                  f"rerank {label}, kernels vs plain: {held[label]}")
+        # a fault the limits must reject: the middle layer of the plain int8
+        # path attends over the padding too
+        faulty, _ = _rerank_stacks(torch, ce, mask, fault_at=CE_LAYERS // 2)
+        fault = held_to(*_layer_walk(torch, faulty["int8"][1],
+                                     stacks["int8"][1], embed["int8"](ids),
+                                     score))
+        check(not fault["within_limits"],
+              f"rerank: a layer attending over padding passed: {fault}")
+    del stacks, faulty
+    top = 10
+    overlap = float(np.mean([
+        len(set(out["int8"]["order"][q, :top])
+            & set(out["bf16"]["order"][q, :top])) / top
+        for q in range(n_q)]))
+    emit("rerank", nvidia_smi=smi, queries=n_q, top_k=k, joint_length=LJ,
+         rows=n_q * k, batch=batch,
+         rows_per_s={lbl: r["rows_per_s"] for lbl, r in out.items()},
+         seconds={lbl: r["seconds"] for lbl, r in out.items()},
+         launches={lbl: {n: v for n, v in c.items() if v}
+                   for lbl, c in launches.items()},
+         kernel_vs_plain_first_batch=held,
+         limits={"layer_forced_err": RERANK_LAYER_TOL,
+                 "gap_over_spread": RERANK_GAP,
+                 "correlation": RERANK_CORR, "cls_min_cosine": 0.995},
+         fault_unmasked_middle_layer=fault,
+         top10_overlap_int8_vs_bf16=overlap,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    _launch_totals(records, "rerank",
+                   {n: launches["int8"][n] + launches["bf16"][n]
+                    for n in launches["int8"]})
+    del ce
+    fresh_peak(torch)
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -2471,6 +3124,10 @@ def main():
     phase_ffn_encode(torch, smi, records)
     phase_int8_kernels(torch, smi, records)
     phase_int8_encode(torch, smi, records)
+    phase_remat_dots(torch, smi, records)
+    phase_dropout_steps(torch, smi, records, xla)
+    phase_lead_ce(torch, smi)
+    phase_rerank(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

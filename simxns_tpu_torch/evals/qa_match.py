@@ -8,8 +8,8 @@ Pipeline: NFD-normalize -> tokenize -> uncased sliding-window subsequence
 match of each answer's token list inside the passage's token list.
 
 The JAX package tokenizes with the ``regex`` package's
-``([\\p{L}\\p{N}\\p{M}]+)|([^\\p{Z}\\p{C}])``. This module needs no
-``regex``: a scanner over ``unicodedata.category`` gives the same tokens.
+``([\\p{L}\\p{N}\\p{M}]+)|([^\\p{Z}\\p{C}])``. The string mode needs
+no ``regex``: a scanner over ``unicodedata.category`` gives the same tokens.
 A run of letters, numbers and marks (L*, N*, M*) is one token; any other
 character outside the separators (Z*) and the controls, formats,
 surrogates and unassigned code points (C*) is a token of its own; Z* and
@@ -87,13 +87,13 @@ def has_answer(answers: Sequence[str], text: str,
                match_type: str = "string") -> bool:
     """True if any answer appears as a token subsequence of ``text``.
 
-    ``match_type="regex"`` (the curated-TREC path of the reference) is not
-    ported: it compiles each answer as a ``regex`` pattern.
+    ``match_type="regex"`` (the reference's curated-TREC path) searches the
+    normalized text with each normalized answer as a case-insensitive
+    pattern of the ``regex`` package (imported here, so the string mode
+    needs nothing); an answer that is no valid pattern is skipped.
     """
     if match_type == "regex":
-        raise NotImplementedError(
-            "has_answer(match_type='regex') needs the regex package's "
-            "pattern syntax; not ported yet (ROADMAP.md Queue 1)")
+        return _has_answer_regex(answers, _normalize(text))
     if match_type != "string":
         raise ValueError(f"unknown match_type {match_type!r}")
     words = _TOKENIZER.words(_normalize(text))
@@ -107,6 +107,20 @@ def has_answer(answers: Sequence[str], text: str,
         for i in range(n - m + 1):
             if tuple(words[i: i + m]) == asw:
                 return True
+    return False
+
+
+def _has_answer_regex(answers: Sequence[str], text: str) -> bool:
+    import regex
+
+    flags = regex.IGNORECASE + regex.UNICODE + regex.MULTILINE
+    for answer in answers:
+        try:
+            pattern = regex.compile(_normalize(answer), flags=flags)
+        except regex.error:
+            continue
+        if pattern.search(text):
+            return True
     return False
 
 

@@ -18,17 +18,40 @@ K5/K6 and K7/K8 have their own backward, ``ops/flash_attention.py``).
 ``ffn_impl="fused"`` encodes through K12 (``ops/fused_ffn.py``);
 ``ffn_impl="int8"`` and ``proj_impl="int8"`` encode through K14 and K13
 (q, k and v as one call), over the layer's cached int8 weights; the
-parameters are the same under every knob. ``remat=True`` recomputes each
-layer in the backward pass (``torch.utils.checkpoint``, per layer, as the
-JAX ``run_layers``); ``remat_policy="dots"`` is not ported.
-``layer_impl="fused_int8"`` runs each layer on the Hopper kernels of
-:mod:`simxns_tpu_torch.ops.fused_layer` (encode only, under
-``torch.no_grad()``); its int8 weights, and those of the two int8 knobs,
-are cached per layer and quantized again whenever a parameter changes, so
-an encode-only view that shares a training model's ``Parameter`` objects
-(:func:`share_parameters`, the ``int8_view`` of either model) follows
-every optimizer update. Not ported yet: dropout, the MLM head. Parameter
-names follow the JAX tree (``layers.{i}`` for ``layer_{i}``);
+parameters are the same under every knob. ``layer_impl="fused_int8"`` runs
+each layer on the Hopper kernels of :mod:`simxns_tpu_torch.ops.fused_layer`
+(encode only, under ``torch.no_grad()``); its int8 weights, and those of
+the two int8 knobs, are cached per layer and quantized again whenever a
+parameter changes, so an encode-only view that shares a training model's
+``Parameter`` objects (:func:`share_parameters`, the ``int8_view`` of
+either model) follows every optimizer update. In train mode, and for a
+call that asks for attention maps, ``fused_int8`` gives way to the
+standard composition, as in JAX.
+
+Train mode is a call with a ``torch.Generator`` (None is eval mode): dropout
+(``hidden_dropout`` after the embeddings' LayerNorm and on the attention
+and FFN outputs before their residual; ``attention_dropout`` on the
+probabilities) then draws its masks through
+:mod:`simxns_tpu_torch.ops.dropout`. The encoder draws one seed per layer
+from the caller's generator, and each layer builds its own generator from
+its seed, so a layer recomputed under remat draws the same masks again.
+The attention dropout needs the probabilities, so with
+``attention_dropout > 0`` in train mode the attention takes the plain path
+and K5-K8 do not run, as in JAX; with ``attention_dropout=0`` and
+``hidden_dropout > 0`` the attention kernels still run, and so do K9-K11
+under ``ffn_impl="fused_vjp"``.
+
+``remat=True`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, per layer, as the JAX ``run_layers``);
+``remat_policy="dots"`` (``dots_with_no_batch_dims_saveable``) keeps the
+outputs of the dense products (``aten.mm``/``aten.addmm``: q, k, v, the
+attention output, the FFN's two products) and recomputes everything else:
+the elementwise work, LayerNorm, softmax, the batched attention products
+and every hand-written kernel's output (a Pallas output is no dot in JAX
+either). A call that asks for attention maps is not rematerialised.
+``embed`` gives the embeddings alone, :class:`MLMHead` the MLM classifier
+and :func:`truncate_layers` the first layers of a deeper state_dict.
+Parameter names follow the JAX tree (``layers.{i}`` for ``layer_{i}``);
 :func:`simxns_tpu_torch.models.convert.params_from_jax` maps a flax tree
 onto them.
 """
@@ -36,12 +59,17 @@ onto them.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import functools
+import re
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from simxns_tpu_torch.ops import dropout as drop
 from simxns_tpu_torch.ops import fused_ffn
 from simxns_tpu_torch.ops.attention import multi_head_attention
 from simxns_tpu_torch.ops.fused_layer import (QuantizedLayer,
@@ -58,6 +86,8 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2           # 0 = no token-type embeddings
+    hidden_dropout: float = 0.1        # train mode only (a generator)
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     position_style: str = "bert"       # "roberta": positions from non-pad
@@ -79,7 +109,8 @@ class BertConfig:
         """A 2-layer config for tests."""
         base = dict(vocab_size=1024, hidden_size=64, num_layers=2,
                     num_heads=4, intermediate_size=128,
-                    max_position_embeddings=128, dtype=torch.float32)
+                    max_position_embeddings=128, hidden_dropout=0.0,
+                    attention_dropout=0.0, dtype=torch.float32)
         base.update(kw)
         return BertConfig(**base)
 
@@ -118,7 +149,8 @@ class BertConfig:
 class EncoderOutput:
     last_hidden_state: torch.Tensor                 # [B, S, H]
     pooled: torch.Tensor                            # [B, H] == CLS token
-    hidden_states: Optional[List[torch.Tensor]] = None
+    hidden_states: Optional[Tuple[torch.Tensor, ...]] = None  # L+1 x [B, S, H]
+    attentions: Optional[Tuple[torch.Tensor, ...]] = None  # L x [B, heads, S, S]
 
 
 def _guard_quantized_under_grad(module: nn.Module, x: torch.Tensor,
@@ -180,7 +212,9 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: train mode's dropout after the LayerNorm."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, s = input_ids.shape
         if position_ids is None:
@@ -198,6 +232,7 @@ class BertEmbeddings(nn.Module):
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids).to(dt)
         x = layer_norm(self.layer_norm, x, dt, cfg.layer_norm_eps)
+        x = drop.dropout(x, cfg.hidden_dropout, generator)
         if hasattr(self, "embeddings_project"):
             x = dense(self.embeddings_project, x, dt)
         return x
@@ -218,9 +253,14 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden: torch.Tensor,
                 attention_mask: Optional[torch.Tensor],
-                quantized: Optional[QuantizedLayer] = None) -> torch.Tensor:
-        """``quantized``: the layer's int8 weights (:meth:`BertLayer.
-        quantized`), which ``proj_impl="int8"`` runs on."""
+                quantized: Optional[QuantizedLayer] = None, *,
+                generator: Optional[torch.Generator] = None,
+                output_attention: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (output, probabilities or None). ``quantized``: the layer's
+        int8 weights (:meth:`BertLayer.quantized`), which
+        ``proj_impl="int8"`` runs on; ``generator``: train mode's dropout
+        (the probabilities, then the output before its residual)."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, s, h = hidden.shape
         d = h // cfg.num_heads
@@ -234,10 +274,11 @@ class BertSelfAttention(nn.Module):
         else:
             q, k, v = (dense(m, hidden, dt)
                        for m in (self.query, self.key, self.value))
-        ctx, _ = multi_head_attention(split(q), split(k), split(v),
-                                      attention_mask,
-                                      impl=cfg.attention_impl,
-                                      small_s_impl=cfg.small_s_attn)
+        ctx, probs = multi_head_attention(
+            split(q), split(k), split(v), attention_mask,
+            impl=cfg.attention_impl, return_probs=output_attention,
+            dropout_rate=cfg.attention_dropout, generator=generator,
+            small_s_impl=cfg.small_s_attn)
         ctx = ctx.transpose(1, 2).reshape(b, s, h)
         if cfg.proj_impl == "int8":
             out = fused_ffn.int8_dense(
@@ -245,8 +286,9 @@ class BertSelfAttention(nn.Module):
                 quantized=(quantized.wo, quantized.so, quantized.bo))
         else:
             out = dense(self.output, ctx, dt)
+        out = drop.dropout(out, cfg.hidden_dropout, generator)
         return layer_norm(self.output_layer_norm, out + hidden, dt,
-                          cfg.layer_norm_eps)
+                          cfg.layer_norm_eps), probs
 
     def _int8_qkv(self, x8: torch.Tensor, ql: QuantizedLayer):
         """q, k, v under ``proj_impl="int8"``: where the shapes tile, ONE
@@ -310,20 +352,29 @@ class BertLayer(nn.Module):
         self._qbox.clear()
 
     def forward(self, hidden: torch.Tensor,
-                attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                attention_mask: Optional[torch.Tensor], *,
+                generator: Optional[torch.Generator] = None,
+                output_attention: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (output, attention probabilities or None). ``generator``
+        draws train mode's dropout masks (None in eval mode)."""
         cfg, dt = self.cfg, self.cfg.dtype
-        if cfg.layer_impl == "fused_int8":
+        if (cfg.layer_impl == "fused_int8" and generator is None
+                and not output_attention):
             _guard_quantized_under_grad(self, hidden,
                                         "layer_impl='fused_int8'")
             return fused_encoder_layer_int8(
                 hidden.to(dt), attention_mask, quantized=self.quantized(),
-                num_heads=cfg.num_heads, layer_norm_eps=cfg.layer_norm_eps)
+                num_heads=cfg.num_heads,
+                layer_norm_eps=cfg.layer_norm_eps), None
         ql = None
         if "int8" in (cfg.proj_impl, cfg.ffn_impl):
             knob = ("proj_impl" if cfg.proj_impl == "int8" else "ffn_impl")
             _guard_quantized_under_grad(self, hidden, f"{knob}='int8'")
             ql = self.quantized()
-        attn_out = self.attention(hidden, attention_mask, ql)
+        attn_out, probs = self.attention(
+            hidden, attention_mask, ql, generator=generator,
+            output_attention=output_attention)
         if cfg.ffn_impl == "int8":
             out = fused_ffn.int8_ffn(
                 attn_out.to(dt), self.intermediate.weight,
@@ -339,12 +390,32 @@ class BertLayer(nn.Module):
                 inter.float(),
                 approximate="tanh" if cfg.gelu == "tanh" else "none").to(dt)
             out = dense(self.output, inter, dt)
+        out = drop.dropout(out, cfg.hidden_dropout, generator)
         return layer_norm(self.output_layer_norm, out + attn_out, dt,
-                          cfg.layer_norm_eps)
+                          cfg.layer_norm_eps), probs
+
+
+# remat_policy="dots": the outputs of the dense products are kept; the
+# batched attention products (aten.bmm) are dots with batch dims, which
+# JAX's dots_with_no_batch_dims_saveable recomputes too
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = functools.partial(create_selective_checkpoint_contexts, _save_dots)
 
 
 class BertEncoder(nn.Module):
-    """Token ids -> contextual hiddens + CLS pooled vector."""
+    """Token ids -> contextual hiddens + CLS pooled vector.
+
+    ``output_hidden_states``/``output_attentions`` give every layer's
+    hiddens and attention probabilities (LEAD); :meth:`embed` the
+    embedding sublayer alone (MASTER's Condenser heads).
+    """
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -353,44 +424,142 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg)
                                     for _ in range(cfg.num_layers))
 
-    def _remat(self) -> bool:
-        """Whether this call checkpoints its layers: ``cfg.remat`` while
-        autograd records (an encode under ``torch.no_grad()`` has nothing
-        to recompute)."""
+    def _remat(self):
+        """The checkpoint ``context_fn`` of this call, or None when it does
+        not rematerialise: ``cfg.remat`` while autograd records (an encode
+        under ``torch.no_grad()`` has nothing to recompute)."""
         cfg = self.cfg
         if not cfg.remat:
-            return False
-        if cfg.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' (save the matmul outputs, recompute the "
-                "elementwise work) is not ported yet (ROADMAP.md Queue 1, "
-                "item 3)")
-        if cfg.remat_policy is not None:
+            return None
+        if cfg.remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-        return torch.is_grad_enabled()
+        if not torch.is_grad_enabled():
+            return None
+        return _DOTS if cfg.remat_policy == "dots" else noop_context_fn
+
+    def embed(self, input_ids: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor] = None, *,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Fresh (position-aware) embeddings of a token sequence."""
+        gen = None
+        if generator is not None:
+            gen = drop.generator(drop.seeds(generator, 1)[0],
+                                 input_ids.device)
+        return self.embeddings(input_ids, token_type_ids, generator=gen)
+
+    def run_layers(self, hidden: torch.Tensor,
+                   attention_mask: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   output_hidden_states: bool = False,
+                   output_attentions: bool = False):
+        """-> (last hiddens, every layer's hiddens or None, every layer's
+        probabilities or None)."""
+        n = len(self.layers)
+        seeds = (drop.seeds(generator, n) if generator is not None
+                 else [None] * n)
+        context_fn = None if output_attentions else self._remat()
+        all_hidden = [hidden] if output_hidden_states else None
+        all_attn = [] if output_attentions else None
+        x = hidden
+        for layer, seed in zip(self.layers, seeds):
+            # the layer's generator is built inside the call from its seed:
+            # a recompute under remat draws the same masks again
+            def call(h, layer=layer, seed=seed):
+                g = None if seed is None else drop.generator(seed, h.device)
+                return layer(h, attention_mask, generator=g,
+                             output_attention=output_attentions)
+
+            if context_fn is not None:
+                # nothing random draws from the global generators: no RNG
+                # state to restore
+                x = checkpoint(lambda h, call=call: call(h)[0], x,
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=context_fn)
+                probs = None
+            else:
+                x, probs = call(x)
+            if output_hidden_states:
+                all_hidden.append(x)
+            if output_attentions:
+                all_attn.append(probs)
+        return x, all_hidden, all_attn
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None, *,
-                output_hidden_states: bool = False) -> EncoderOutput:
+                generator: Optional[torch.Generator] = None,
+                output_hidden_states: bool = False,
+                output_attentions: bool = False) -> EncoderOutput:
+        """A ``generator`` is train mode (dropout on)."""
         b, s = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones(b, s, dtype=torch.int32,
                                         device=input_ids.device)
-        x = self.embeddings(input_ids, token_type_ids)
-        hidden = [x] if output_hidden_states else None
-        remat = self._remat()
-        for layer in self.layers:
-            if remat:
-                # nothing random runs in a layer: no RNG state to restore
-                x = checkpoint(layer, x, attention_mask, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = layer(x, attention_mask)
-            if output_hidden_states:
-                hidden.append(x)
-        return EncoderOutput(last_hidden_state=x, pooled=x[:, 0],
-                             hidden_states=hidden)
+        x = self.embed(input_ids, token_type_ids, generator=generator)
+        x, hidden, attn = self.run_layers(
+            x, attention_mask, generator=generator,
+            output_hidden_states=output_hidden_states,
+            output_attentions=output_attentions)
+        return EncoderOutput(
+            last_hidden_state=x, pooled=x[:, 0],
+            hidden_states=tuple(hidden) if output_hidden_states else None,
+            attentions=tuple(attn) if output_attentions else None)
+
+
+class MLMHead(nn.Module):
+    """BERT's MLM classifier (``BertOnlyMLMHead``): a dense transform,
+    exact GELU and LayerNorm, then the vocab projection. ``tied=True``
+    projects onto the word-embedding table passed to :meth:`forward` (f32
+    accumulation, plus the head's own ``bias``), as HF ties it; else an
+    untied ``decoder`` is learned. Logits are f32 [..., vocab]."""
+
+    def __init__(self, cfg: BertConfig, tied: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.tied = tied
+        h = cfg.hidden_size
+        self.transform = _linear(h, h, cfg)
+        self.transform_layer_norm = _ln(h, cfg)
+        if tied:
+            self.bias = nn.Parameter(torch.zeros(cfg.vocab_size,
+                                                 dtype=cfg.param_dtype))
+        else:
+            self.decoder = _linear(h, cfg.vocab_size, cfg)
+
+    def forward(self, hidden: torch.Tensor,
+                shared_embedding: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        cfg, dt = self.cfg, self.cfg.dtype
+        if self.tied != (shared_embedding is not None):
+            raise ValueError(
+                "a tied MLMHead takes the word-embedding table [V, H], an "
+                "untied one none")
+        x = dense(self.transform, hidden, dt)
+        x = torch.nn.functional.gelu(x.float()).to(dt)
+        x = layer_norm(self.transform_layer_norm, x, dt, cfg.layer_norm_eps)
+        if shared_embedding is None:
+            return dense(self.decoder, x, dt).float()
+        # products of dt values, accumulated and returned in f32 (the
+        # einsum's preferred_element_type); a plain product, no kernel
+        logits = torch.matmul(x.float(), shared_embedding.to(dt).float().T)
+        return logits + self.bias.float()
+
+
+_LAYER_KEY = re.compile(r"(?:^|\.)layers\.(\d+)\.")
+
+
+def truncate_layers(state: Mapping[str, torch.Tensor],
+                    num_layers: int) -> Dict[str, torch.Tensor]:
+    """Keep the embeddings and the first ``num_layers`` layers of a
+    state_dict (``...layers.{i}....`` names): the PROD student init, whose
+    n-layer student starts from a deeper teacher's first n layers
+    (``simxns_tpu/models/bert.py:538-553``)."""
+    out = {}
+    for key, val in state.items():
+        m = _LAYER_KEY.search(key)
+        if m is None or int(m.group(1)) < num_layers:
+            out[key] = val
+    return out
 
 
 def share_parameters(view: nn.Module, model: nn.Module) -> nn.Module:

@@ -9,8 +9,10 @@ The port's modules keep the flax names, so the map is mechanical:
 
 Works for a ``BiEncoder`` tree (``question_model``/``ctx_model``; with
 ``share_weight`` only ``question_model``), a ``CrossEncoder`` tree
-(``encoder``, ``qa_classifier``, ``binary_classifier``) and a bare
-``BertEncoder``.
+(``encoder``, ``qa_classifier``, ``binary_classifier``), a bare
+``BertEncoder`` (whole, or cut by ``truncate_layers``: the layers it
+keeps) and an ``MLMHead`` (``transform``, ``transform_layer_norm``, and the
+tied head's ``bias`` leaf or the untied ``decoder``).
 The same state_dict serves every ``layer_impl``, as the flax trees do.
 """
 

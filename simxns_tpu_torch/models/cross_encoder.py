@@ -3,8 +3,11 @@
 A BERT encoder over joint (query, passage) rows [N*M, L], a 1-unit
 ``qa_classifier`` over the CLS vector, the logits viewed as [N, M] when
 ``group_size`` is given, and the optional 2-way ``binary_classifier``
-(``Reranker_2``). Not ported yet: ``per_layer_logits`` and
-``output_attentions`` (LEAD).
+(``Reranker_2``). LEAD's per-layer reranker: ``per_layer_logits`` runs
+the same ``qa_classifier`` over every layer's CLS, and
+``output_attentions`` returns every layer's attention probabilities.
+A call with a ``torch.Generator`` trains with dropout
+(:mod:`simxns_tpu_torch.models.bert`).
 
 :func:`int8_view` builds the encode-only ``fused_int8`` view of a live
 reranker that the AR2 retriever step uses as its frozen teacher: the
@@ -28,6 +31,7 @@ from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
 class CrossEncoderConfig:
     bert: BertConfig
     binary_head: bool = False         # Reranker_2's extra 2-way head
+    per_layer_logits: bool = False    # LEAD: rank logit from every layer's CLS
 
 
 class CrossEncoder(nn.Module):
@@ -50,20 +54,41 @@ class CrossEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                group_size: Optional[int] = None
-                ) -> Dict[str, torch.Tensor]:
+                group_size: Optional[int] = None, *,
+                generator: Optional[torch.Generator] = None,
+                output_attentions: bool = False) -> Dict[str, object]:
         """-> ``{"logits": [N*M] or [N, M]}``, plus ``"binary_logits"``
-        ([N*M, 2] or [N, M, 2]) with ``binary_head``."""
-        dt = self.cfg.bert.dtype
-        pooled = self.encoder(input_ids, attention_mask,
-                              token_type_ids).pooled
-        logits = dense(self.qa_classifier, pooled, dt)[..., 0]
-        out = {"logits": logits.reshape(-1, group_size) if group_size
-               else logits}
-        if self.cfg.binary_head:
-            binary = dense(self.binary_classifier, pooled, dt)
+        ([N*M, 2] or [N, M, 2]) with ``binary_head``; with
+        ``per_layer_logits``, ``"per_layer_logits"`` ([L, N*M] or [L, N, M])
+        and ``"hidden_states"`` (L+1 x [N*M, S, H]); with
+        ``output_attentions``, ``"attentions"`` (L x [N*M, heads, S, S])."""
+        cfg = self.cfg
+        dt = cfg.bert.dtype
+        enc = self.encoder(input_ids, attention_mask, token_type_ids,
+                           generator=generator,
+                           output_hidden_states=cfg.per_layer_logits,
+                           output_attentions=output_attentions)
+
+        def group(x):
+            return x.reshape(-1, group_size) if group_size else x
+
+        logits = dense(self.qa_classifier, enc.pooled, dt)[..., 0]
+        out = {"logits": group(logits)}
+        if cfg.per_layer_logits:
+            per_layer = torch.stack(
+                [dense(self.qa_classifier, h[:, 0], dt)[..., 0]
+                 for h in enc.hidden_states[1:]])
+            out["per_layer_logits"] = (
+                per_layer.reshape(per_layer.shape[0], -1, group_size)
+                if group_size else per_layer)
+        if cfg.binary_head:
+            binary = dense(self.binary_classifier, enc.pooled, dt)
             out["binary_logits"] = (binary.reshape(-1, group_size, 2)
                                     if group_size else binary)
+        if output_attentions:
+            out["attentions"] = enc.attentions
+        if cfg.per_layer_logits:
+            out["hidden_states"] = enc.hidden_states
         return out
 
 

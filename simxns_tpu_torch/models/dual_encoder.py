@@ -2,6 +2,8 @@
 
 Separate or shared question/context BERT towers, CLS or mean pooling, and
 the optional RobertaDot-style projection head (Dense + LayerNorm).
+A call with a ``torch.Generator`` trains with dropout (the
+towers draw in call order: the question tower, then the context tower).
 :func:`int8_view` is the encode-only ``fused_int8`` view of a live dual
 encoder that the mine's ``--fast-encode`` encodes with.
 """
@@ -54,10 +56,12 @@ class _Tower(nn.Module):
                     cfg.projection_dim, eps=bert.layer_norm_eps,
                     dtype=bert.param_dtype)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
+                generator: Optional[torch.Generator] = None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        out = self.encoder(input_ids, attention_mask, token_type_ids)
+        out = self.encoder(input_ids, attention_mask, token_type_ids,
+                           generator=generator)
         emb = _pool(out, attention_mask, self.cfg.pooling)
         if self.cfg.projection_dim is not None:
             bert = self.cfg.bert
@@ -90,17 +94,27 @@ class BiEncoder(nn.Module):
         return self.question_model if self.cfg.share_weight else self.ctx_model
 
     def encode_query(self, input_ids, attention_mask=None,
-                     token_type_ids=None) -> torch.Tensor:
-        return self.question_model(input_ids, attention_mask, token_type_ids)
+                     token_type_ids=None, *,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        return self.question_model(input_ids, attention_mask, token_type_ids,
+                                   generator=generator)
 
     def encode_passage(self, input_ids, attention_mask=None,
-                       token_type_ids=None) -> torch.Tensor:
-        return self._ctx_tower()(input_ids, attention_mask, token_type_ids)
+                       token_type_ids=None, *,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        return self._ctx_tower()(input_ids, attention_mask, token_type_ids,
+                                 generator=generator)
 
     def forward(self, q_ids, q_mask, ctx_ids, ctx_mask, q_type_ids=None,
-                ctx_type_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        return (self.encode_query(q_ids, q_mask, q_type_ids),
-                self.encode_passage(ctx_ids, ctx_mask, ctx_type_ids))
+                ctx_type_ids=None, *,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.encode_query(q_ids, q_mask, q_type_ids,
+                                  generator=generator),
+                self.encode_passage(ctx_ids, ctx_mask, ctx_type_ids,
+                                    generator=generator))
 
 
 def int8_view(model: BiEncoder) -> BiEncoder:

@@ -20,10 +20,6 @@ from simxns_tpu_torch.data import sampling as psampling
 from torch_parity import _DTYPES
 from torch_parity import one_torch_thread  # noqa: F401
 
-# BertConfig fields the port has not taken yet (dropout, remat)
-_UNPORTED_BERT = {"hidden_dropout", "attention_dropout"}
-
-
 def _cases():
     rng = np.random.default_rng(0)
     ids = list(range(100, 140))
@@ -123,8 +119,7 @@ def _same_config(got, want, path):
         assert type(got).__name__ == type(want).__name__, path
         mine = {f.name for f in dataclasses.fields(got)}
         theirs = {f.name for f in dataclasses.fields(want)}
-        left = _UNPORTED_BERT if type(got).__name__ == "BertConfig" else set()
-        assert theirs - mine == left and mine <= theirs, path
+        assert mine == theirs, path
         for name in mine:
             _same_config(getattr(got, name), getattr(want, name),
                          f"{path}.{name}")
@@ -137,6 +132,6 @@ def _same_config(got, want, path):
 @pytest.mark.parametrize("recipe", sorted(JRECIPES))
 def test_recipes_match_jax(recipe):
     """Every recipe of the port's config is the JAX package's, field by
-    field (the port's BertConfig lacks only dropout)."""
+    field."""
     assert sorted(RECIPES) == sorted(JRECIPES)
     _same_config(RECIPES[recipe], JRECIPES[recipe], recipe)

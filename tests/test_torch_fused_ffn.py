@@ -460,8 +460,9 @@ def test_remat_changes_nothing_but_memory(knob):
 
 def test_remat_runs_the_forward_twice_and_guards_its_policy(monkeypatch):
     """A recomputed layer calls the forward wrapper (K9 on the card) a
-    second time inside backward(); an encode under no_grad is untouched;
-    ``remat_policy="dots"`` is refused by name, an unknown one as in JAX."""
+    second time inside backward(), under ``remat_policy="dots"`` too (a
+    kernel's output is no dense product, so it is recomputed); an encode
+    under no_grad is untouched; an unknown policy is refused as in JAX."""
     calls = []
     real = pf.ffn_train_fwd
     monkeypatch.setattr(pf, "ffn_train_fwd",
@@ -477,8 +478,10 @@ def test_remat_runs_the_forward_twice_and_guards_its_policy(monkeypatch):
     with torch.no_grad():
         enc(ids)
     assert len(calls) == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BertEncoder(cfg.replace(remat_policy="dots"))(ids)
+    dots = BertEncoder(cfg.replace(remat_policy="dots"))
+    dots.load_state_dict(enc.state_dict())
+    dots(ids).pooled.square().sum().backward()
+    assert len(calls) == 10
     with pytest.raises(ValueError, match="unknown remat_policy"):
         BertEncoder(cfg.replace(remat_policy="everything"))(ids)
 

@@ -56,8 +56,13 @@ def test_quirks_and_regex_mode():
         assert jqa.has_answer(answers, "anything") is True
     assert pqa.has_answer(["Café"], "the café opens") is True
     assert pqa.has_answer(["fact1"], "fact12 and fact13") is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pqa.has_answer(["a.c"], "abc", match_type="regex")
+    # the regex mode: each answer a case-insensitive pattern; an answer
+    # that is no valid pattern is skipped
+    for answers, text in ((["a.c"], "ABC"), (["a.c"], "a-d"),
+                          (["(unclosed"], "(unclosed"),
+                          (["(unclosed", "b+"], "abbb")):
+        assert pqa.has_answer(answers, text, match_type="regex") == \
+            jqa.has_answer(answers, text, match_type="regex")
     with pytest.raises(ValueError):
         pqa.has_answer(["a"], "a", match_type="fuzzy")
 
