@@ -139,13 +139,33 @@ non-zero and prints no result):
    rows/s, launches, each order the stable argsort of its scores, the
    first batch's CLS vectors and scores against the plain versions, the
    top-10 overlap of the two orders;
-17. the ``kernels`` line (K1-K14, launches of every path); then the last
+17. data parallelism over ``torch.distributed``: (a) NCCL at world 1 in
+   this process, phase 5's three step kinds (2 steps each, batches 0 and
+   1) through the mesh path bitwise equal to the same steps with no group
+   (deterministic algorithms on); (b) two gloo ranks on the card, launched
+   by ``torchrun`` (this script in its rank mode), the same steps with
+   the global batch of 8 queries split 4 and 4 against the world-1 steps
+   (loss, the cosine of the parameter updates, the largest parameter
+   difference in learning rates; limits ``DP_*`` from readings), the
+   parameters bitwise equal across the ranks, then the 8,847,360 x 768
+   int8 index built in two shards (each rank encodes its own) and searched
+   at 8 and 1,024 queries: ids and scores bitwise the world-1 search's;
+   (c) ``run_ar2`` under ``torchrun`` at world 2 in phase 7's nq
+   configuration (gloo on the card), beside phase 7's losses, each rank's
+   peak memory and phase times, then a relaunch that resumes from step 8.
+   Launches counted in every rank. Two ranks on one card check
+   correctness, not scaling: the gloo collectives cross the host;
+18. the ``kernels`` line (K1-K14, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --data-parallel-rank steps|co_training DIR`` is a
+rank of phase 17 (started by ``torchrun``, not by hand).
 """
 
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1504,6 +1524,47 @@ CO_TRAINING = {
 }
 
 
+# phase 7's flags and cuts: full width, the int8 views and index, 8 queries
+# a step, 8 steps, 1 warm-up epoch, 24,576 passages, 64 queries
+CO_TRAINING_FLAGS = ["--synthetic", "--full-size", "--fast-encode",
+                     "--fast-teacher", "--int8-index", "--batch", str(N_Q),
+                     "--steps", "8", "--warm-epochs", "1", "--corpus-size",
+                     str(MINE_ROWS), "--num-queries", str(MINE_Q)]
+STEP_FACTORIES = {"make_biencoder_step": "biencoder",
+                  "make_reranker_step": "reranker",
+                  "make_ar2_retriever_step": "retriever"}
+
+
+def _timed_factory(torch, factory, kind, step_ms):
+    """``factory`` whose steps append their ms (host clock to a synchronise)
+    to ``step_ms[kind]``."""
+    def make(*a, **kw):
+        step = factory(*a, **kw)
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.setdefault(kind, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed_step
+
+    return make
+
+
+def _co_training_losses(out_dir):
+    """(step, kind, loss) of every co-training step in ``metrics.jsonl``."""
+    losses = []
+    with open(f"{out_dir}/metrics.jsonl", encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["phase"] in ("reranker", "retriever"):
+                losses.append((rec["step"], rec["phase"], rec["loss"]))
+    return losses
+
+
 def _co_training_run(run, recipe, argv):
     """One ``run.run_ar2`` of ``recipe`` with windows of 4 steps (1 + 1
     reranker steps, then 2 retriever steps); -> its output."""
@@ -1532,38 +1593,16 @@ def phase_co_training(torch, smi, records):
 
     from simxns_tpu_torch import ops, run
 
-    factories = {"make_biencoder_step": "biencoder",
-                 "make_reranker_step": "reranker",
-                 "make_ar2_retriever_step": "retriever"}
+    factories = STEP_FACTORIES
     real = {name: getattr(run, name) for name in factories}
     step_ms = {}
-
-    def timing(factory, kind):
-        def make(*a, **kw):
-            step = factory(*a, **kw)
-
-            def timed_step(*args):
-                t0 = time.perf_counter()
-                out = step(*args)
-                torch.cuda.synchronize()
-                step_ms.setdefault(kind, []).append(
-                    (time.perf_counter() - t0) * 1e3)
-                return out
-
-            return timed_step
-
-        return make
-
-    common = ["--synthetic", "--full-size", "--fast-encode", "--fast-teacher",
-              "--int8-index", "--batch", str(N_Q), "--steps", "8",
-              "--warm-epochs", "1", "--corpus-size", str(MINE_ROWS),
-              "--num-queries", str(MINE_Q)]
+    common = CO_TRAINING_FLAGS
     root = tempfile.mkdtemp(prefix="chip_smoke_co_training_")
     free_gb = shutil.disk_usage(root).free / 1e9
     totals = {name: 0 for name in ops.KERNELS}
     summary = {}
     for name, kind in factories.items():
-        setattr(run, name, timing(real[name], kind))
+        setattr(run, name, _timed_factory(torch, real[name], kind, step_ms))
     try:
         for recipe, path in CO_TRAINING.items():
             out_dir = os.path.join(root, recipe)
@@ -1583,14 +1622,7 @@ def phase_co_training(torch, smi, records):
                       f"{recipe} co-training path")
             for name in totals:
                 totals[name] += launches[name]
-            losses = []
-            with open(os.path.join(out_dir, "metrics.jsonl"),
-                      encoding="utf-8") as f:
-                for line in f:
-                    rec = json.loads(line)
-                    if rec["phase"] in ("reranker", "retriever"):
-                        losses.append((rec["step"], rec["phase"],
-                                       rec["loss"]))
+            losses = _co_training_losses(out_dir)
             check(len(losses) == 8 and all(math.isfinite(x[2])
                                            for x in losses),
                   f"{recipe}: co-training losses {losses}")
@@ -3062,6 +3094,451 @@ def phase_rerank(torch, smi, records):
     fresh_peak(torch)
 
 
+# --- phase 17: data parallelism ---------------------------------------------
+
+DP_WORLD = 2            # gloo ranks sharing the one card
+DP_STEPS = 2            # steps of each kind, on phase 5's batches 0 and 1
+DP_CHUNK = 262_144      # rows a streaming-build chunk of the split index
+DP_K = 10
+# two gloo ranks (4 queries each) against the world-1 steps over the same 8
+# queries, each kind 2 steps from the same weights: the loss (relative), the
+# cosine of the two runs' parameter updates, the largest parameter
+# difference in units of the step's learning rate. Readings (PERF.md, PR
+# 14): loss 3.2e-4 (reranker) to 0.019 (the DE's second step), cosine
+# 0.982-0.997, difference up to 4.0 lr. Limits: 2.5x the loss and cosine
+# gaps; the difference within AdamW's bound (two steps of at most ~1.05 lr
+# each way), which only a wrong update scale exceeds.
+DP_LOSS_REL, DP_UPDATE_COS, DP_PARAM_LR = 5e-2, 0.95, 4.5
+DP_PATH = ("int8_linear", "row_quant", "small_s_attention",
+           "group_attention_fwd", "group_attention_bwd")
+DP_MINE = ("int8_linear", "row_quant", "small_s_attention",
+           "mips_bucket_candidates")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_models(torch):
+    """Phase 5's models (seed 0), the teacher view and ``DP_STEPS`` global
+    batches of 8 x 16. -> (de, ce, view, batches, init seconds)."""
+    import numpy as np
+
+    from simxns_tpu_torch.models import int8_view
+
+    de, ce, init_s = _full_models(torch, "xla")
+    return (de, ce, int8_view(ce),
+            [_train_batch(np, seed) for seed in range(DP_STEPS)], init_s)
+
+
+def _dp_kinds(torch, de, ce, view, mesh):
+    """{kind: (model, step(state, batch), lr)}: phase 5's three steps (the
+    retriever's teacher the int8 view; adv_lambda=0, the nq recipe's)."""
+    from simxns_tpu_torch.train import (make_adamw, make_ar2_retriever_step,
+                                        make_biencoder_step,
+                                        make_reranker_step)
+
+    tx_de = make_adamw(1e-5, total_steps=0)
+    tx_ce = make_adamw(1e-6, total_steps=0)
+    retriever = make_ar2_retriever_step(tx_de, temperature=1.0,
+                                        adv_lambda=0.0, mesh=mesh)
+    return {"biencoder": (de, make_biencoder_step(tx_de, mesh=mesh), tx_de,
+                          1e-5),
+            "retriever": (de, lambda s, b: retriever(s, view, b), tx_de,
+                          1e-5),
+            "reranker": (ce, make_reranker_step(tx_ce, mesh=mesh), tx_ce,
+                         1e-6)}
+
+
+def _dp_steps(torch, kind, init, batches, mesh):
+    """``DP_STEPS`` steps of one kind (``_dp_kinds``' tuple) from the
+    parameters ``init``, each on this rank's rows of its global batch.
+    -> (metrics per step, ms per step: host clock to a synchronise)."""
+    from simxns_tpu_torch.parallel import shard_batch
+    from simxns_tpu_torch.train import TrainState
+
+    model, step, tx, _ = kind
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    state = TrainState.create(model, tx)
+    metrics, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, shard_batch(batch, mesh))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, step_ms
+
+
+def _dp_index_rows(torch):
+    """The passage encoder of the split index: row i is token id i + 1, and
+    a streaming-build chunk's rows are normal values from a generator
+    seeded by its first token, so a chunk holds the same rows whichever
+    rank builds it (every shard starts on a chunk boundary)."""
+    def encode(ids, mask):
+        gen = torch.Generator(device=ids.device).manual_seed(
+            1000 + int(ids[0, 0]))
+        return torch.randn(ids.shape[0], H, device=ids.device, generator=gen)
+
+    return encode
+
+
+def _dp_search(torch, mesh):
+    """Build the ``INDEX_ROWS`` x 768 int8 index (fused mode; under a group
+    each rank its shard) and search it with 8 and 1,024 queries, k=10.
+    -> ({"q8"/"q1024": (scores, ids)}, {"q8"/"q1024": ms}, build s)."""
+    import numpy as np
+
+    from simxns_tpu_torch.index import MIPSIndex
+
+    queries = np.random.default_rng(11).standard_normal((1024, H),
+                                                        dtype=np.float32)
+    index = MIPSIndex(torch.device("cuda"), store_dtype=torch.int8,
+                      mode="fused", mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.build_streaming(_dp_index_rows(torch), np.arange(
+        1, INDEX_ROWS + 1, dtype=np.int32)[:, None], chunk_size=DP_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    found, ms = {}, {}
+    for nq in (8, 1024):
+        index.search(queries[:nq], DP_K)                # warm-up
+        t0 = time.perf_counter()
+        found[f"q{nq}"] = index.search(queries[:nq], DP_K)
+        ms[f"q{nq}"] = (time.perf_counter() - t0) * 1e3
+    del index
+    return found, ms, build_s
+
+
+def _dp_world_one(torch, root):
+    """(a) NCCL at world 1, in this process: each kind's steps with no group,
+    then through the mesh path from the same weights, under
+    ``torch.use_deterministic_algorithms`` (without it the position and
+    token-type embedding gradients add with atomics): metrics and
+    parameters bitwise equal. The no-group results and the world-1 search
+    of the split index are saved under ``root`` for the ranks of (b)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.parallel import Mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{_free_port()}")
+    rec = {"kinds": {}}
+    launches = {name: 0 for name in ops.KERNELS}
+    try:
+        mesh = Mesh.of_group(None, dev)
+        fresh_peak(torch)
+        de, ce, view, batches, rec["model_init_s"] = _dp_models(torch)
+        plain = _dp_kinds(torch, de, ce, view, None)
+        grouped = _dp_kinds(torch, de, ce, view, mesh)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for kind in plain:
+                model = plain[kind][0]
+                init = {n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+                want, want_ms = _dp_steps(torch, plain[kind], init, batches,
+                                          None)
+                after = {n: p.detach().clone()
+                         for n, p in model.named_parameters()}
+                # the main path: launch counts zeroed just before, read after
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                got, got_ms = _dp_steps(torch, grouped[kind], init, batches,
+                                        mesh)
+                for name, n in ops.launches().items():
+                    launches[name] += n
+                differ = [n for n, p in model.named_parameters()
+                          if not torch.equal(p.detach(), after[n])]
+                check(got == want and not differ,
+                      f"{kind}: NCCL world 1 differs from no group: "
+                      f"{got} vs {want}; parameters {differ[:5]}")
+                torch.save({"metrics": want,
+                            "init": {n: t.cpu() for n, t in init.items()},
+                            "params": {n: t.cpu() for n, t in after.items()}},
+                           f"{root}/world1_{kind}.pt")
+                rec["kinds"][kind] = {"metrics": want,
+                                      "step_ms_no_group": want_ms,
+                                      "step_ms_nccl_world_1": got_ms,
+                                      "bitwise_equal": True}
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        p.copy_(init[n])
+                del init, after
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for name in DP_PATH:
+            check(launches[name] > 0, f"{name} was not launched on the NCCL "
+                  "world-1 step path")
+        rec["launches"] = launches
+        rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del de, ce, view, plain, grouped
+    finally:
+        dist.destroy_process_group()
+    fresh_peak(torch)
+    found, ms, build_s = _dp_search(torch, None)
+    np.savez(f"{root}/world1_search.npz",
+             **{f"{q}_{part}": np.asarray(arr)
+                for q, pair in found.items()
+                for part, arr in zip(("scores", "ids"), pair)})
+    rec["search_world_1"] = {"ms": ms, "build_s": build_s}
+    fresh_peak(torch)
+    return rec, launches
+
+
+def _dp_rank_steps(torch, root):
+    """(b), one gloo rank of ``DP_WORLD`` on the card: the three kinds on
+    its 4 of every 8 queries against the world-1 steps of (a) (saved under
+    ``root``), the parameters compared across ranks bit for bit; then its
+    shard of the split index, searched, against the world-1 search."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh("cuda:0", backend="gloo", timeout_s=900)
+    dev = mesh.device
+    rec = {"rank": mesh.rank, "kinds": {}}
+    de, ce, view, batches, rec["model_init_s"] = _dp_models(torch)
+    kinds = _dp_kinds(torch, de, ce, view, mesh)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    for kind, spec in kinds.items():
+        model, lr = spec[0], spec[3]
+        ref = torch.load(f"{root}/world1_{kind}.pt", weights_only=True)
+        init = {n: t.to(dev) for n, t in ref["init"].items()}
+        metrics, step_ms = _dp_steps(torch, spec, init, batches, mesh)
+        dot = n_got = n_want = 0.0
+        max_diff = 0.0
+        differ_across_ranks = 0
+        for n, p in model.named_parameters():
+            got = p.detach()
+            want = ref["params"][n].to(dev)
+            d_got = (got - init[n]).double()
+            d_want = (want - init[n]).double()
+            dot += float((d_got * d_want).sum())
+            n_got += float((d_got * d_got).sum())
+            n_want += float((d_want * d_want).sum())
+            max_diff = max(max_diff, float((got - want).abs().max()))
+            parts = [torch.empty_like(got) for _ in range(mesh.world_size)]
+            dist.all_gather(parts, got.contiguous(), group=mesh.group)
+            differ_across_ranks += int(not all(torch.equal(parts[0], x)
+                                               for x in parts[1:]))
+        rec["kinds"][kind] = {
+            "metrics": metrics, "world1_metrics": ref["metrics"],
+            "step_ms": step_ms,
+            "loss_rel": max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                            for g, w in zip(metrics, ref["metrics"])),
+            "update_cosine": dot / math.sqrt(n_got * n_want),
+            "param_max_diff_over_lr": max_diff / lr,
+            "params_differing_across_ranks": differ_across_ranks}
+        del init, ref
+    rec["launches_steps"] = ops.launches()
+    del de, ce, view, kinds
+    fresh_peak(torch)
+    ops.reset_launches()
+    found, ms, build_s = _dp_search(torch, mesh)
+    rec["launches_index"] = ops.launches()
+    want = np.load(f"{root}/world1_search.npz")
+    rec["search"] = {"ms": ms, "build_s": build_s, "bitwise_equal": {
+        q: bool(np.array_equal(found[q][0], want[f"{q}_scores"])
+                and np.array_equal(found[q][1], want[f"{q}_ids"]))
+        for q in found}}
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(f"{root}/steps_rank{mesh.rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _dp_rank_co_training(torch, root, resume):
+    """(c), one rank of ``run_ar2`` under torchrun: phase 7's nq run (its
+    flags and cuts) with the gloo group on the card, each step timed."""
+    import torch.distributed as dist
+
+    from simxns_tpu_torch import ops, run
+
+    step_ms = {}
+    for name, kind in STEP_FACTORIES.items():
+        setattr(run, name, _timed_factory(torch, getattr(run, name), kind,
+                                          step_ms))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = _co_training_run(run, "nq_ar2_simans", CO_TRAINING_FLAGS + [
+        "--output-dir", f"{root}/co_training", "--dist-backend", "gloo",
+        "--device", "cuda:0"] + (["--resume", "auto"] if resume else []))
+    torch.cuda.synchronize()
+    rank = dist.get_rank()
+    rec = {"rank": rank, "wall_s": time.perf_counter() - t0,
+           "launches": ops.launches(), "step_ms": step_ms,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **{k: out[k] for k in ("top1", "mrr10", "history_top1",
+                                  "phase_times_s", "max_memory_gb_by_rank",
+                                  "world_size")}}
+    name = "co_training_resume" if resume else "co_training"
+    with open(f"{root}/{name}_rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _torchrun(args, timeout_s):
+    """``python -m torch.distributed.run --standalone`` with ``DP_WORLD``
+    ranks of this script in its rank mode; the process group (torchrun and
+    its ranks) is killed if it outlives ``timeout_s``. -> wall seconds."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={DP_WORLD}", os.path.abspath(__file__),
+           "--data-parallel-rank", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"torchrun {args}: over {timeout_s} s\n"
+                             f"{out[-6000:]}")
+    check(proc.returncode == 0,
+          f"torchrun {args}: exit {proc.returncode}\n{out[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def _rank_files(root, name):
+    out = []
+    for rank in range(DP_WORLD):
+        with open(f"{root}/{name}_rank{rank}.json", encoding="utf-8") as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_data_parallel(torch, smi, records, co_training):
+    """Phase 17: data parallelism over ``torch.distributed``. (a) NCCL at
+    world 1 in this process; (b) two gloo ranks on the card (torchrun):
+    the three step kinds at phase 5's width against the world-1 steps, the
+    split 8.8M-row index against the world-1 search; (c) ``run_ar2`` under
+    torchrun at world 2 in phase 7's nq configuration, and a resume. Two
+    ranks on one card check correctness, not scaling: the gloo collectives
+    cross the host."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_parallel_")
+    totals = {}
+    try:
+        # (a)
+        t0 = time.perf_counter()
+        world1, launches = _dp_world_one(torch, root)
+        world1["seconds"] = time.perf_counter() - t0
+        emit("data_parallel_world_1", nvidia_smi=smi, **world1)
+        totals = dict(launches)
+
+        # (b)
+        wall = _torchrun(["steps", root], 900)
+        ranks = _rank_files(root, "steps")
+        for r in ranks:
+            for kind, k in r["kinds"].items():
+                what = f"rank {r['rank']} {kind}"
+                check(k["params_differing_across_ranks"] == 0,
+                      f"{what}: parameters differ across ranks")
+                check(k["loss_rel"] <= DP_LOSS_REL
+                      and k["update_cosine"] >= DP_UPDATE_COS
+                      and k["param_max_diff_over_lr"] <= DP_PARAM_LR,
+                      f"{what} against world 1: {k}")
+                check(all(math.isfinite(m["loss"]) for m in k["metrics"]),
+                      f"{what}: losses {k['metrics']}")
+            check(all(r["search"]["bitwise_equal"].values()),
+                  f"rank {r['rank']}: the split index's search differs "
+                  f"from the world-1 search: {r['search']}")
+            for name in DP_PATH:
+                check(r["launches_steps"][name] > 0,
+                      f"rank {r['rank']}: {name} not launched in its steps")
+            check(r["launches_index"]["mips_bucket_candidates"] > 0,
+                  f"rank {r['rank']}: K4 not launched in its search")
+            for name in totals:
+                totals[name] += (r["launches_steps"][name]
+                                 + r["launches_index"][name])
+        emit("data_parallel_steps", nvidia_smi=smi, world=DP_WORLD,
+             backend="gloo", torchrun_wall_s=wall,
+             limits={"loss_rel": DP_LOSS_REL,
+                     "update_cosine": DP_UPDATE_COS,
+                     "param_max_diff_over_lr": DP_PARAM_LR},
+             world1_search=world1["search_world_1"], ranks=ranks)
+
+        # (c)
+        co = {}
+        for resume in (False, True):
+            name = "co_training_resume" if resume else "co_training"
+            wall = _torchrun(["co_training", root]
+                             + (["resume"] if resume else []), 900)
+            ranks = _rank_files(root, name)
+            for r in ranks:
+                check(r["world_size"] == DP_WORLD
+                      and r["history_top1"] == ranks[0]["history_top1"]
+                      and r["top1"] == ranks[0]["top1"],
+                      f"{name}: the ranks' mines differ: {ranks}")
+                # the relaunch resumes at the last step: it mines, no step
+                path = (DP_MINE if resume
+                        else CO_TRAINING["nq_ar2_simans"])
+                for kname in path:
+                    check(r["launches"][kname] > 0,
+                          f"{name} rank {r['rank']}: {kname} not launched")
+                for kname in totals:
+                    totals[kname] += r["launches"][kname]
+            co[name] = {"torchrun_wall_s": wall, "ranks": ranks}
+        out_dir = f"{root}/co_training"
+        losses = _co_training_losses(out_dir)
+        check(len(losses) == 8 and all(math.isfinite(x[2]) for x in losses),
+              f"world-2 co-training losses {losses}")
+        names = set(os.listdir(out_dir))
+        for step in (4, 8):
+            for state in ("retriever_state", "reranker_state"):
+                check(f"{state}-{step}" in names,
+                      f"world 2: no {state}-{step} checkpoint")
+        with open(f"{out_dir}/metrics.jsonl", encoding="utf-8") as f:
+            resumed = [json.loads(line) for line in f
+                       if '"resume_eval"' in line]
+        check(len(resumed) == 1 and resumed[0]["step"] == 8,
+              f"world-2 resume did not restore step 8: {resumed}")
+        nq = co_training["nq_ar2_simans"]
+        emit("data_parallel_co_training", nvidia_smi=smi, world=DP_WORLD,
+             backend="gloo", losses=losses, world1_losses=nq["losses"],
+             world1_phase_times_s=nq["phase_times_s"],
+             world1_max_memory_gb=nq["max_memory_gb"], **co)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _launch_totals(records, "data_parallel", totals)
+
+
+def _data_parallel_rank(argv):
+    """A rank of phase 17 under torchrun: ``steps ROOT`` or ``co_training
+    ROOT [resume]``."""
+    import torch
+
+    check(torch.cuda.is_available(), "a data-parallel rank needs the card")
+    what, root = argv[0], argv[1]
+    if what == "steps":
+        _dp_rank_steps(torch, root)
+    elif what == "co_training":
+        _dp_rank_co_training(torch, root, argv[2:] == ["resume"])
+    else:
+        raise ValueError(f"unknown rank task {what!r}")
+    return 0
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -3096,6 +3573,8 @@ SOURCES = {
 
 
 def main():
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        return _data_parallel_rank(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -3118,7 +3597,7 @@ def main():
     phase_train_kernels(torch, smi, records)
     xla = phase_training(torch, smi, records)
     phase_msdoc_kernels(torch, smi, records)
-    phase_co_training(torch, smi, records)
+    co_training = phase_co_training(torch, smi, records)
     phase_ffn_kernels(torch, smi, records)
     phase_ffn_training(torch, smi, records, xla)
     phase_ffn_encode(torch, smi, records)
@@ -3128,6 +3607,7 @@ def main():
     phase_dropout_steps(torch, smi, records, xla)
     phase_lead_ce(torch, smi)
     phase_rerank(torch, smi, records)
+    phase_data_parallel(torch, smi, records, co_training)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

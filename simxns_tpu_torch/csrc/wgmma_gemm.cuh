@@ -109,6 +109,9 @@ constexpr int kRegisterBudget = -2;       // launch registers != kLaunchRegs
 constexpr int kBadTile = -3;              // a tile this library has not built
 constexpr int kEncodeFailed = -1000;      // - CUresult of the encode
 
+// devices one process may launch on (each gets its own launch setup)
+constexpr int kMaxDevices = 64;
+
 inline const char* error_string(int code) {
   static char msg[160];
   if (code == kNoEncoder)
@@ -972,10 +975,23 @@ int launch(const Product* prods, int count, int splits, cudaStream_t stream) {
   using C = Cfg<WGS, BN>;
   auto kernel = gemm_kernel<WGS, BN, EPI, GELU, OUT_BF16, ROWMAX, PRE, A_MN,
                             B_MN, MULTI, S8>;
-  static int blocks_per_sm = 0;
-  static const int prepared =
-      prepare(kernel, C::kSmem, C::kThreads, WGS == 2, &blocks_per_sm);
-  if (prepared != 0) return prepared;
+  // the shared memory limit is set per device: once for each device a
+  // process launches on
+  int dev = 0;
+  cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  static int blocks_per_sm_of[kMaxDevices] = {};
+  static int prepared_of[kMaxDevices] = {};
+  static bool done_of[kMaxDevices] = {};
+  if (!done_of[dev]) {
+    prepared_of[dev] = prepare(kernel, C::kSmem, C::kThreads, WGS == 2,
+                               &blocks_per_sm_of[dev]);
+    done_of[dev] = true;
+  }
+  if (prepared_of[dev] != 0) return prepared_of[dev];
+  const int blocks_per_sm = blocks_per_sm_of[dev];
   if (count < 1 || count > 2 || splits < 1 ||
       (!MULTI && (count != 1 || splits != 1)))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,4 @@
-"""Encode -> index -> search on one device (port of ``simxns_tpu/index/engine.py``).
+"""Encode -> index -> search (port of ``simxns_tpu/index/engine.py``).
 
 - :class:`CorpusEncoder` — chunked corpus encode with a bounded window of
   chunks in flight (the host runs ahead of the card by at most ``inflight``
@@ -12,9 +12,14 @@
   (``has_answer`` over passage text, or gold ``positive_ids``), metrics
   and the SimANS train records (:func:`reform_out`).
 
-Single device: the sharded merge waits for the multi-GPU slice. Buffers
-are updated in place where the JAX package donates them (``update_rows``,
-``build_streaming``).
+Data parallelism (``mesh``, a :class:`~simxns_tpu_torch.parallel.mesh.Mesh`
+with a group of W ranks, one per GPU): the encoder splits each chunk over
+the ranks and all-gathers the embeddings in row order; the index holds W
+row shards (rank r the global rows ``[r * shard_rows, (r + 1) *
+shard_rows)``, the corpus padded as the JAX index pads it over its mesh)
+and a search merges the ranks' top-k lists, so every rank gets the same
+results (and the mine the same records). Buffers are updated in place
+where the JAX package donates them (``update_rows``, ``build_streaming``).
 """
 
 from __future__ import annotations
@@ -30,12 +35,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from simxns_tpu_torch.device import resolve_device
 from simxns_tpu_torch.evals.metrics import get_metrics, top_k_hits_accuracy
 from simxns_tpu_torch.evals.qa_match import has_answer
 from simxns_tpu_torch.ops.fused_ffn import quant_rows
-from simxns_tpu_torch.ops.topk import blocked_mips_topk
-from simxns_tpu_torch.parallel.mesh import pad_to_multiple
+from simxns_tpu_torch.ops.topk import blocked_mips_topk, merge_topk
+from simxns_tpu_torch.parallel.collectives import all_gather_rows
+from simxns_tpu_torch.parallel.mesh import Mesh, mesh_device, pad_to_multiple
 from simxns_tpu_torch.parallel.sync import force_sync
 from simxns_tpu_torch.parallel.watchdog import run_with_deadline
 
@@ -46,13 +51,18 @@ class CorpusEncoder:
     ``encode_fn(ids, mask) -> [B, H]`` takes device tensors, typically
     ``BiEncoder.encode_passage``. Replaces the reference's per-rank encode
     and disk merge (``co_training_generate_new_train_wiki.py:239-280``).
+    Under a group each rank encodes its contiguous part of every chunk
+    (the chunk padded to a multiple of W rows) and the parts are
+    all-gathered in row order: every rank returns the whole corpus's
+    embeddings.
     """
 
     def __init__(self, encode_fn: Callable, device=None, chunk_size: int = 4096,
                  inflight: int = 4, stall_timeout_s: Optional[float] = None,
-                 stall_retries: int = 2):
+                 stall_retries: int = 2, mesh: Optional[Mesh] = None):
         self.encode_fn = encode_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.chunk_size = chunk_size
         self.inflight = inflight
         self.stall_timeout_s = stall_timeout_s
@@ -75,11 +85,17 @@ class CorpusEncoder:
 
         with torch.inference_mode():
             for s in range(0, n, self.chunk_size):
-                ids = torch.from_numpy(np.ascontiguousarray(
-                    token_ids[s: s + self.chunk_size])).to(self.device)
-                mask = torch.from_numpy(np.ascontiguousarray(
-                    attention_mask[s: s + self.chunk_size])).to(self.device)
-                pending.append((self.encode_fn(ids, mask), ids.shape[0]))
+                ids = token_ids[s: s + self.chunk_size]
+                mask = attention_mask[s: s + self.chunk_size]
+                valid = ids.shape[0]
+                if self.mesh is not None and self.mesh.distributed:
+                    ids, mask = self._rank_rows(ids), self._rank_rows(mask)
+                emb = self.encode_fn(
+                    torch.from_numpy(np.ascontiguousarray(ids)).to(
+                        self.device),
+                    torch.from_numpy(np.ascontiguousarray(mask)).to(
+                        self.device))
+                pending.append((all_gather_rows(emb, self.mesh), valid))
                 if len(pending) > self.inflight:
                     drain_one()
             while pending:
@@ -88,9 +104,16 @@ class CorpusEncoder:
             return np.zeros((0, 0), out_dtype)
         return np.concatenate(done, axis=0)
 
+    def _rank_rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's rows of a chunk padded (zeros) to a multiple of W."""
+        w, r = self.mesh.world_size, self.mesh.rank
+        per = -(-x.shape[0] // w)
+        x = np.pad(x, ((0, per * w - x.shape[0]), (0, 0)))
+        return x[r * per:(r + 1) * per]
+
 
 class MIPSIndex:
-    """Device-resident exact/fused MIPS index on one device.
+    """Device-resident exact/fused MIPS index, row-sharded over a group.
 
     ``store_dtype=torch.int8`` keeps per-row symmetric codes + f32 scales
     (half the bytes of bf16; the fused search then runs int8 x int8 on the
@@ -101,16 +124,28 @@ class MIPSIndex:
     streaming-built corpus larger than that is not built at once: the
     token source is kept and :meth:`search` runs build -> search -> free
     per pass, merging the per-pass top-k on the host.
+
+    ``mesh`` with a group of W ranks: ``n_shards = W``; the corpus is padded
+    to a multiple of ``W * block_size`` rows (``build_streaming``: of
+    ``lcm(chunk_size, W * block_size)``) and rank r holds the rows
+    ``[r * shard_rows, (r + 1) * shard_rows)``. Every rank calls every
+    method with the same arguments (the whole corpus, the same queries);
+    a search runs on each shard with its id offset and live rows, then the
+    ``[W, Q, k]`` lists are all-gathered and merged: equal scores come back
+    in global-id order (shard order, then within-shard order), as
+    ``jax.lax.top_k`` over the gathered lists.
     """
 
     def __init__(self, device=None, block_size: int = 4096,
                  store_dtype: torch.dtype = torch.bfloat16,
                  mode: str = "exact", stall_timeout_s: Optional[float] = None,
                  stall_retries: int = 2, sync_rows: int = 262144,
-                 max_resident_rows: Optional[int] = None):
+                 max_resident_rows: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
         if mode not in ("exact", "approx", "fused"):
             raise ValueError(f"unknown search mode {mode!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.device = mesh_device(mesh, device)
         self.block_size = block_size
         self.store_dtype = store_dtype
         self.quantized = store_dtype == torch.int8
@@ -122,7 +157,24 @@ class MIPSIndex:
         self.embeddings: Optional[torch.Tensor] = None
         self.row_scales: Optional[torch.Tensor] = None
         self.num_rows = 0
+        self.shard_rows = 0
         self._pass_src: Optional[dict] = None
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world_size
+
+    @property
+    def shard_start(self) -> int:
+        """The global row of this rank's first row."""
+        return 0 if self.mesh is None else self.mesh.rank * self.shard_rows
+
+    @property
+    def shard_valid(self) -> int:
+        """This rank's live rows (0 on a shard wholly past the corpus)."""
+        if self.mesh is None:
+            return self.num_rows
+        return min(max(self.num_rows - self.shard_start, 0), self.shard_rows)
 
     @staticmethod
     def _quantize(embeddings: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -134,13 +186,18 @@ class MIPSIndex:
 
     def build(self, embeddings: np.ndarray) -> None:
         """Copy [N, H] host embeddings to the device (int8: quantized on the
-        host first), padded to a ``block_size`` multiple."""
+        host first), padded to a ``n_shards * block_size`` multiple; each
+        rank copies its shard."""
         n = embeddings.shape[0]
         self.num_rows = n
         self._pass_src = None
-        padded = pad_to_multiple(n, self.block_size)
-        if padded != n:
-            embeddings = np.pad(embeddings, ((0, padded - n), (0, 0)))
+        padded = pad_to_multiple(n, self.n_shards * self.block_size)
+        self.shard_rows = padded // self.n_shards
+        embeddings = embeddings[self.shard_start:
+                                self.shard_start + self.shard_rows]
+        if embeddings.shape[0] != self.shard_rows:
+            embeddings = np.pad(embeddings, (
+                (0, self.shard_rows - embeddings.shape[0]), (0, 0)))
         if self.quantized:
             codes, scales = self._quantize(embeddings)
             self.embeddings = torch.from_numpy(codes).to(self.device)
@@ -161,7 +218,8 @@ class MIPSIndex:
         the embeddings are quantized there (the math of :meth:`update_rows`)
         and written in place into the preallocated index. A corpus larger
         than ``max_resident_rows`` is only recorded here (see
-        :meth:`_search_passes`).
+        :meth:`_search_passes`). Each rank encodes only the passages of its
+        own shard.
         """
         n, _ = token_ids.shape
         self.num_rows = n
@@ -177,17 +235,20 @@ class MIPSIndex:
             wire_dtype = token_ids.dtype
         wire_max = (np.iinfo(wire_dtype).max
                     if np.dtype(wire_dtype) != token_ids.dtype else None)
-        padded = pad_to_multiple(n, math.lcm(chunk_size, self.block_size))
+        padded = pad_to_multiple(
+            n, math.lcm(chunk_size, self.n_shards * self.block_size))
+        self.shard_rows = padded // self.n_shards
+        start, live = self.shard_start, self.shard_valid
         self.embeddings = None
         self.row_scales = None
         beat, synced = time.monotonic(), 0
         with torch.inference_mode():
-            for s in range(0, n, chunk_size):
+            for s in range(0, live, chunk_size):
                 if time.monotonic() - beat >= 60.0:
-                    print(f"[build_streaming] {s}/{n} rows dispatched",
-                          file=sys.stderr, flush=True)
+                    print(f"[build_streaming] {s}/{live} rows of the shard "
+                          "dispatched", file=sys.stderr, flush=True)
                     beat = time.monotonic()
-                ids = token_ids[s: s + chunk_size]
+                ids = token_ids[start + s: start + min(s + chunk_size, live)]
                 if wire_max is not None and ids.max(initial=0) > wire_max:
                     raise ValueError(
                         f"token id {ids.max()} overflows wire dtype "
@@ -201,7 +262,7 @@ class MIPSIndex:
                 emb = torch.where((mask.sum(dim=1) > 0)[:, None], emb,
                                   torch.zeros_like(emb))
                 if self.embeddings is None:
-                    self._alloc(padded, emb.shape[1])
+                    self._alloc(self.shard_rows, emb.shape[1])
                 rows = slice(s, s + emb.shape[0])
                 if self.quantized:
                     self.embeddings[rows], self.row_scales[rows] = \
@@ -210,11 +271,17 @@ class MIPSIndex:
                     self.embeddings[rows] = emb.to(self.store_dtype)
                 if (self.stall_timeout_s is not None
                         and s + chunk_size - synced >= self.sync_rows):
-                    self._bounded_sync(f"build_streaming rows {s}/{n}")
+                    self._bounded_sync(f"build_streaming rows {s}/{live}")
                     synced = s + chunk_size
+        width = 0 if self.embeddings is None else self.embeddings.shape[1]
+        if self.mesh is not None:
+            # a shard wholly past the corpus encoded nothing: take the
+            # width of the others
+            width = int(all_gather_rows(torch.tensor(
+                [width], device=self.device), self.mesh).max())
         if self.embeddings is None:
-            self._alloc(padded, 0)
-        self._bounded_sync(f"build_streaming rows {n}/{n}")
+            self._alloc(self.shard_rows, width)
+        self._bounded_sync(f"build_streaming rows {live}/{live}")
 
     def _alloc(self, rows: int, width: int) -> None:
         self.embeddings = torch.zeros(rows, width, dtype=self.store_dtype,
@@ -234,8 +301,10 @@ class MIPSIndex:
         self.row_scales = None
 
     def update_rows(self, start: int, embeddings: np.ndarray) -> None:
-        """Overwrite rows ``[start, start + n)`` in place; int8 rows are
-        quantized on the device (the math of :meth:`_quantize`)."""
+        """Overwrite the global rows ``[start, start + n)`` in place; int8
+        rows are quantized on the device (the math of :meth:`_quantize`).
+        Each rank writes the part that falls in its shard (a write may
+        cross a shard boundary)."""
         n = embeddings.shape[0]
         if self._pass_src is not None:
             raise RuntimeError(
@@ -248,13 +317,17 @@ class MIPSIndex:
                 f"update_rows([{start}:{start + n}]) outside the live row "
                 f"range [0:{self.num_rows}] (padding rows are not "
                 "addressable)")
-        rows = torch.from_numpy(np.asarray(embeddings, np.float32)).to(
-            self.device)
+        lo = max(start, self.shard_start)
+        hi = min(start + n, self.shard_start + self.shard_rows)
+        if lo >= hi:
+            return
+        rows = torch.from_numpy(np.asarray(
+            embeddings[lo - start:hi - start], np.float32)).to(self.device)
+        local = slice(lo - self.shard_start, hi - self.shard_start)
         if self.quantized:
-            self.embeddings[start:start + n], \
-                self.row_scales[start:start + n] = quant_rows(rows)
+            self.embeddings[local], self.row_scales[local] = quant_rows(rows)
         else:
-            self.embeddings[start:start + n] = rows.to(self.store_dtype)
+            self.embeddings[local] = rows.to(self.store_dtype)
 
     def query_dtype(self) -> torch.dtype:
         """Queries are cast to bf16 for an int8 index, else to its dtype."""
@@ -263,13 +336,22 @@ class MIPSIndex:
     def search_tensor(self, queries: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k of device queries [Q, H] (already in :meth:`query_dtype`)
-        -> (scores [Q, k] f32, ids [Q, k] int32) on the device."""
+        -> (scores [Q, k] f32, ids [Q, k] int32) on the device; under a
+        group the merge of every shard's list, the same on every rank."""
         if self.embeddings is None:
             raise RuntimeError("index not built")
-        return blocked_mips_topk(
+        scores, ids = blocked_mips_topk(
             queries, self.embeddings, k, block_size=self.block_size,
-            valid_n=self.num_rows, mode=self.mode,
+            id_offset=self.shard_start, valid_n=self.shard_valid,
+            mode=self.mode,
             row_scales=self.row_scales if self.quantized else None)
+        if self.mesh is None:
+            return scores, ids
+        w = self.n_shards
+        g_scores = all_gather_rows(scores, self.mesh)
+        g_ids = all_gather_rows(ids, self.mesh)
+        return merge_topk(g_scores.reshape(w, *scores.shape),
+                          g_ids.reshape(w, *ids.shape), k)
 
     def search(self, queries: np.ndarray, k: int, query_batch: int = 1024
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -303,10 +385,11 @@ class MIPSIndex:
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """Search a corpus larger than ``max_resident_rows`` in passes.
 
-        Per pass: streaming-build the slice (encoded from its tokens),
-        search every query against it, free it, and merge the per-pass
-        top-k on the host with a stable sort. Exact by construction: each
-        pass's top-k is exact over its rows.
+        Per pass: streaming-build the slice (encoded from its tokens; under
+        a group each rank its shard of the slice), search every query
+        against it, free it, and merge the per-pass top-k on the host with
+        a stable sort. Exact by construction: each pass's top-k is exact
+        over its rows.
         """
         src = self._pass_src
         n = src["token_ids"].shape[0]

@@ -9,6 +9,10 @@ a ``torch.save`` of a tree of CPU tensors and numbers (for a train state,
 A checkpoint is written under a temporary name and renamed into place, so
 a crash never leaves a half-written one that :func:`latest_step` would
 offer for a resume.
+
+Under data parallelism (``mesh`` with a group) rank 0 writes and every
+rank waits at a barrier until the checkpoint is in place; a failed write
+raises on every rank. Every rank restores (the ranks share a filesystem).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Any, Optional
 
 import torch
 
+from simxns_tpu_torch.parallel.collectives import barrier
+
 _FILE = "state.pt"
 
 
@@ -29,16 +35,26 @@ def _path(directory: str, name: str, step: int) -> str:
 
 
 def save_checkpoint(directory: str, tree: Any, step: int,
-                    name: str = "checkpoint") -> str:
+                    name: str = "checkpoint", mesh=None) -> str:
     """Write ``tree`` (CPU tensors, numbers, nested dicts) as
-    ``<name>-<step>``, replacing an earlier one of the same name."""
+    ``<name>-<step>``, replacing an earlier one of the same name. With a
+    ``mesh``, rank 0 writes and every rank returns once it is written."""
     path = _path(directory, name, step)
-    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
-    os.makedirs(tmp, exist_ok=True)
-    torch.save(tree, os.path.join(tmp, _FILE))
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
+    failed = None
+    if mesh is None or mesh.rank == 0:
+        try:
+            tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
+            os.makedirs(tmp, exist_ok=True)
+            torch.save(tree, os.path.join(tmp, _FILE))
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            os.replace(tmp, path)
+        except BaseException as e:  # every rank raises below
+            failed = e
+    if mesh is not None:
+        barrier(mesh, failed is not None, f"checkpoint write {path}")
+    if failed is not None:
+        raise failed
     return path
 
 

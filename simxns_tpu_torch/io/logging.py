@@ -5,7 +5,8 @@
 ``output_dir/metrics.jsonl``; :meth:`MetricLogger.timed` adds a phase's
 wall time to ``phase_times`` (the per-phase split of a co-training run);
 :meth:`MetricLogger.trace` records a ``torch.profiler`` trace of the card
-and the host.
+and the host. Under data parallelism only rank 0 writes (``rank``); every
+rank keeps its own phase times.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ logger = logging.getLogger("simxns_tpu_torch")
 
 
 class MetricLogger:
-    def __init__(self, output_dir: Optional[str] = None):
-        self.output_dir = output_dir
+    def __init__(self, output_dir: Optional[str] = None, rank: int = 0):
+        """``rank`` != 0: records phase times but writes nothing."""
+        self.rank = rank
+        self.output_dir = output_dir if rank == 0 else None
         self._fh = None
-        if output_dir:
+        if self.output_dir:
             os.makedirs(output_dir, exist_ok=True)
             self._fh = open(os.path.join(output_dir, "metrics.jsonl"), "a",
                             encoding="utf-8")
@@ -37,7 +40,8 @@ class MetricLogger:
         if self._fh:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
-        logger.info("%s", rec)
+        if self.rank == 0:
+            logger.info("%s", rec)
 
     @contextmanager
     def timed(self, phase: str):
@@ -58,6 +62,9 @@ class MetricLogger:
         writing a Chrome trace to ``output_dir/traces/<name>.json``."""
         from torch.profiler import ProfilerActivity, profile
 
+        if self.rank != 0:
+            yield None
+            return
         if not self.output_dir:
             raise ValueError("trace() needs MetricLogger(output_dir=...)")
         path = os.path.join(self.output_dir, "traces")

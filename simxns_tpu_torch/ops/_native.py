@@ -12,6 +12,7 @@ multiply-add's).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,6 +145,23 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def on(device: torch.device):
+    """The context of a launch for tensors on ``device``: the runtime (and
+    Triton) launch on the current device, so ``device`` is made current for
+    the launch when it is not (a data-parallel rank's tensors live on its
+    own card, whatever the process's current device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device.index)
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
+    """Call the C launcher ``fn`` on ``device`` (:func:`on`), with the
+    device's current stream as its last argument. -> its error code."""
+    with on(device):
+        return fn(*args, stream(device))
 
 
 # --- the tiles of the persistent wgmma GEMM (csrc/wgmma_gemm.cuh) -----------

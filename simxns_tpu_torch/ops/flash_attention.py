@@ -159,9 +159,10 @@ def group_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = _out(q)
     fn = _native.function("group_attention", "sx_group_attention_fwd",
                           _FWD_ARGS)
-    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
-              *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s,
-              d, 1.0 / math.sqrt(d), _native.stream(q.device))
+    code = _native.launch(
+            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+            *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s, d,
+            1.0 / math.sqrt(d))
     _native.check("group_attention", code, "group_attention_fwd")
     group_attention_fwd.launches += 1
     return o
@@ -188,11 +189,11 @@ def group_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = _out(q), _out(q), _out(q)
     fn = _native.function("group_attention", "sx_group_attention_bwd",
                           _BWD_ARGS)
-    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
-              *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
-              _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
-              *dq.stride()[:3], b, h, s, d, 1.0 / math.sqrt(d),
-              _native.stream(q.device))
+    code = _native.launch(
+            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+            *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
+            _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
+            *dq.stride()[:3], b, h, s, d, 1.0 / math.sqrt(d))
     _native.check("group_attention", code, "group_attention_bwd")
     group_attention_bwd.launches += 1
     return dq, dk, dv
@@ -216,9 +217,10 @@ def bh_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
     o = _out(q)
     fn = _native.function("bh_attention", "sx_bh_attention_fwd", _FWD_ARGS)
-    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
-              *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s,
-              d, 1.0 / math.sqrt(d), _native.stream(q.device))
+    code = _native.launch(
+            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+            *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s, d,
+            1.0 / math.sqrt(d))
     _native.check("bh_attention", code, "bh_attention_fwd")
     bh_attention_fwd.launches += 1
     return o
@@ -248,11 +250,12 @@ def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device)
     fn = _native.function("bh_attention", "sx_bh_attention_bwd",
                           _BH_BWD_ARGS)
-    code = fn(_native.ptr(q), _native.ptr(k), _native.ptr(v),
-              *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
-              _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
-              *dq.stride()[:3], _native.ptr(stats), b, h, s, d,
-              1.0 / math.sqrt(d), _native.stream(q.device))
+    code = _native.launch(
+            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+            *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
+            _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
+            *dq.stride()[:3], _native.ptr(stats), b, h, s, d,
+            1.0 / math.sqrt(d))
     _native.check("bh_attention", code, "bh_attention_bwd")
     bh_attention_bwd.launches += 1
     return dq, dk, dv

@@ -305,9 +305,9 @@ def _ffn_fwd(what, x, w1, b1, w2, b2, with_hb):
     y = torch.empty(m, h, dtype=bf, device=x.device)
     (bm1, bn1), (bm2, bn2) = ws["tiles"]
     fn = _native.function("ffn_fwd", "sx_ffn_fwd", _FFN_FWD_ARGS)
-    code = fn(_ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(g),
-              _ptr(hb), _ptr(y), m, h, f, bm1, bn1, bm2, bn2,
-              _native.stream(x.device))
+    code = _native.launch(
+            fn, x.device, _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2),
+            _ptr(g), _ptr(hb), _ptr(y), m, h, f, bm1, bn1, bm2, bn2)
     _native.check("ffn_fwd", code, what)
     return y, hb
 
@@ -390,9 +390,9 @@ def ffn_bwd_dx(dy: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     dx = torch.empty(m, h, dtype=bf, device=dy.device)
     dh = torch.empty(m, f, dtype=bf, device=dy.device)
     fn = _native.function("fused_ffn", "sx_ffn_bwd_dx", _DX_ARGS)
-    code = fn(_ptr(dy), _ptr(w1), _ptr(w2), _ptr(hb), _ptr(dx), _ptr(dh),
-              _ptr(g), _ptr(parts), m, h, f, bm1, bn1, bm2, bn2,
-              _native.stream(dy.device))
+    code = _native.launch(
+            fn, dy.device, _ptr(dy), _ptr(w1), _ptr(w2), _ptr(hb), _ptr(dx),
+            _ptr(dh), _ptr(g), _ptr(parts), m, h, f, bm1, bn1, bm2, bn2)
     _native.check("fused_ffn", code, "ffn_bwd_dx")
     ffn_bwd_dx.launches += 1
     return dx, dh, g, parts
@@ -428,9 +428,10 @@ def ffn_bwd_dw(x: torch.Tensor, dy: torch.Tensor, g: torch.Tensor,
     db1 = torch.empty(f, dtype=torch.float32, device=x.device)
     dw2 = torch.empty(h, f, dtype=torch.float32, device=x.device)
     fn = _native.function("fused_ffn", "sx_ffn_bwd_dw", _DW_ARGS)
-    code = fn(_ptr(x), _ptr(dy), _ptr(g), _ptr(dh), _ptr(parts), _ptr(dw1),
-              _ptr(db1), _ptr(dw2), _ptr(partials), m, h, f, bm, bn, splits,
-              _native.stream(x.device))
+    code = _native.launch(
+            fn, x.device, _ptr(x), _ptr(dy), _ptr(g), _ptr(dh), _ptr(parts),
+            _ptr(dw1), _ptr(db1), _ptr(dw2), _ptr(partials), m, h, f, bm, bn,
+            splits)
     _native.check("fused_ffn", code, "ffn_bwd_dw")
     ffn_bwd_dw.launches += 1
     return dw1, db1, dw2
@@ -614,9 +615,9 @@ def int8_dense_fwd(x: torch.Tensor, w8: torch.Tensor, ws: torch.Tensor,
     buf = {name: torch.empty(shape, dtype=dt, device=x.device)
            for name, (shape, dt) in work.items()}
     fn = _native.function("int8_ffn", "sx_int8_dense", _DENSE8_ARGS)
-    code = fn(_ptr(x), _ptr(w8), _ptr(ws), _ptr(b), _ptr(out),
-              _ptr(buf["codes"]), _ptr(buf["xs"]), m, i, o, bm, bn,
-              _native.stream(x.device))
+    code = _native.launch(
+            fn, x.device, _ptr(x), _ptr(w8), _ptr(ws), _ptr(b), _ptr(out),
+            _ptr(buf["codes"]), _ptr(buf["xs"]), m, i, o, bm, bn)
     _native.check("int8_ffn", code, "int8_dense_fwd")
     int8_dense_fwd.launches += 1
     return out
@@ -650,11 +651,11 @@ def int8_ffn_fwd(x: torch.Tensor, w1_8: torch.Tensor, s1: torch.Tensor,
     buf = {name: torch.empty(shape, dtype=dt, device=x.device)
            for name, (shape, dt) in ws.items()}
     fn = _native.function("int8_ffn", "sx_int8_ffn", _FFN8_ARGS)
-    code = fn(_ptr(x), _ptr(w1_8), _ptr(s1), _ptr(b1), _ptr(w2_8), _ptr(s2),
-              _ptr(b2), _ptr(out), _ptr(buf["codes"]), _ptr(buf["xs"]),
-              _ptr(buf["g"]), _ptr(buf["parts"]), _ptr(buf["gcodes"]),
-              _ptr(buf["gs"]), m, h, f, bm1, bn1, bm2, bn2,
-              _native.stream(x.device))
+    code = _native.launch(
+            fn, x.device, _ptr(x), _ptr(w1_8), _ptr(s1), _ptr(b1), _ptr(w2_8),
+            _ptr(s2), _ptr(b2), _ptr(out), _ptr(buf["codes"]), _ptr(buf["xs"]),
+            _ptr(buf["g"]), _ptr(buf["parts"]), _ptr(buf["gcodes"]),
+            _ptr(buf["gs"]), m, h, f, bm1, bn1, bm2, bn2)
     _native.check("int8_ffn", code, "int8_ffn_fwd")
     int8_ffn_fwd.launches += 1
     return out

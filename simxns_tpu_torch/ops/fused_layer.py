@@ -81,10 +81,10 @@ def int8_linear(a8: torch.Tensor, xs: torch.Tensor, w8: torch.Tensor,
         return out
     bm, bn = _native.wgmma_tile(m, n, _native.sm_count(a8.device))
     fn = _native.function("int8_linear", "sx_int8_linear", _LINEAR_ARGS)
-    code = fn(_native.ptr(a8), _native.ptr(w8), _native.ptr(xs),
-              _native.ptr(ws), _native.ptr(b), _native.ptr(out), m, n, k,
-              int(gelu), int(out_dtype == torch.bfloat16), bm, bn,
-              _native.stream(a8.device))
+    code = _native.launch(
+            fn, a8.device, _native.ptr(a8), _native.ptr(w8), _native.ptr(xs),
+            _native.ptr(ws), _native.ptr(b), _native.ptr(out), m, n, k,
+            int(gelu), int(out_dtype == torch.bfloat16), bm, bn)
     _native.check("int8_linear", code, "int8_linear")
     int8_linear.launches += 1
     return out
@@ -208,14 +208,16 @@ def row_quant(x: torch.Tensor, *, residual: Optional[torch.Tensor] = None,
     kernel = _row_quant_kernel()
     block = max(16, 1 << (n - 1).bit_length())
     dummy = x
-    kernel[(m,)](
-        x, residual if residual is not None else dummy,
-        ln[0] if ln is not None else dummy, ln[1] if ln is not None else dummy,
-        codes if quant else dummy, scales if quant else dummy,
-        y32 if out_f32 else dummy, y16 if out_bf16 else dummy, n, eps,
-        HAS_RES=residual is not None, DO_LN=ln is not None, QUANT=quant,
-        OUT_F32=out_f32, OUT_BF16=out_bf16, BLOCK=block,
-        num_warps=min(16, max(4, block // 256)), enable_fp_fusion=False)
+    with _native.on(dev):
+        kernel[(m,)](
+            x, residual if residual is not None else dummy,
+            ln[0] if ln is not None else dummy,
+            ln[1] if ln is not None else dummy,
+            codes if quant else dummy, scales if quant else dummy,
+            y32 if out_f32 else dummy, y16 if out_bf16 else dummy, n, eps,
+            HAS_RES=residual is not None, DO_LN=ln is not None, QUANT=quant,
+            OUT_F32=out_f32, OUT_BF16=out_bf16, BLOCK=block,
+            num_warps=min(16, max(4, block // 256)), enable_fp_fusion=False)
     row_quant.launches += 1
     return codes, scales, y32, y16
 
@@ -270,8 +272,9 @@ def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
         return ctx
     fn = _native.function("small_s_attention", "sx_small_s_attention",
                           _ATTN_ARGS)
-    code = fn(_native.ptr(qkv), _native.ptr(mask32), _native.ptr(ctx), b, s,
-              h, d, 1.0 / math.sqrt(d), _native.stream(qkv.device))
+    code = _native.launch(
+            fn, qkv.device, _native.ptr(qkv), _native.ptr(mask32),
+            _native.ptr(ctx), b, s, h, d, 1.0 / math.sqrt(d))
     _native.check("small_s_attention", code, "small_s_attention")
     small_s_attention.launches += 1
     return ctx

@@ -214,12 +214,12 @@ def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
                                    _native.sm_count(corpus.device))
         fn = _native.function("mips_candidates", "sx_mips_candidates", _ARGS)
         null = ctypes.c_void_p(0)
-        code = fn(_native.ptr(queries), _native.ptr(corpus),
-                  _native.ptr(query_scales) if int8 else null,
-                  _native.ptr(row_scales) if int8 else null,
-                  nq, n, n_pad, h, int(int8), int(min(valid_n, n)), g,
-                  _native.ptr(out_s), _native.ptr(out_i), bm, bn,
-                  _native.stream(corpus.device))
+        code = _native.launch(
+                fn, corpus.device, _native.ptr(queries), _native.ptr(corpus),
+                _native.ptr(query_scales) if int8 else null,
+                _native.ptr(row_scales) if int8 else null, nq, n, n_pad, h,
+                int(int8), int(min(valid_n, n)), g, _native.ptr(out_s),
+                _native.ptr(out_i), bm, bn)
         _native.check("mips_candidates", code, "mips_bucket_candidates")
         mips_bucket_candidates.launches += 1
     if g != bucket:

@@ -20,6 +20,20 @@ and ``reranker_state-<step>`` checkpoints at each boundary (what
 ``--resume auto`` continues from), the final ``retriever``/``reranker``
 parameters and ``eval.json``.
 
+On N GPUs, one process per GPU, launched by ``torchrun``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m simxns_tpu_torch.run --recipe nq_ar2_simans ...
+
+Each rank takes ``cuda:LOCAL_RANK`` (an explicit ``--device cuda:0`` keeps
+that card on every rank), joins the group (``--dist-backend``: ``nccl`` on
+cards, ``gloo`` on the CPU by default), iterates the same global batches
+from the same seed and steps on its rows of each (the global batch must
+divide by N); the index is sharded over the ranks and every rank mines the
+same records. Rank 0 writes the metrics, checkpoints and outputs; every
+rank restores on ``--resume auto``. The global batch, the losses and the
+checkpoints are those of one device over the whole batch.
+
 Only the AR2 recipes run here; the other runners, ``--init-checkpoint``
 and LAMB raise ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
@@ -41,13 +55,16 @@ from simxns_tpu_torch.config import AR2RecipeConfig, RECIPES
 from simxns_tpu_torch.data import HashTokenizer, from_mining_result
 from simxns_tpu_torch.data.datasets import (load_id_text, load_passages_tsv,
                                             load_qrels)
-from simxns_tpu_torch.device import resolve_device
 from simxns_tpu_torch.index import CorpusEncoder, MIPSIndex, RetrievalEngine
 from simxns_tpu_torch.io import (MetricLogger, latest_step,
                                  restore_checkpoint, save_checkpoint)
 from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
                                      CrossEncoder, CrossEncoderConfig)
 from simxns_tpu_torch.models import cross_encoder, dual_encoder
+from simxns_tpu_torch.parallel.collectives import (all_gather_rows, barrier,
+                                                   broadcast_int)
+from simxns_tpu_torch.parallel.mesh import (create_mesh, local_batch_size,
+                                            shard_batch)
 from simxns_tpu_torch.parallel.offload import HostStash, host_copy, ready_event
 from simxns_tpu_torch.parallel.sync import force_sync
 from simxns_tpu_torch.parallel.watchdog import retry_on_stall
@@ -85,8 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--output-dir", default=None,
                     help="metrics.jsonl + checkpoints directory")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the run (default cuda; the CPU "
-                         "runs each kernel's plain PyTorch version)")
+                    help="torch device of the run (default cuda: under "
+                         "torchrun cuda:LOCAL_RANK; an explicit index is "
+                         "kept; the CPU runs each kernel's plain PyTorch "
+                         "version)")
+    ap.add_argument("--dist-backend", default=None,
+                    help="torch.distributed backend under torchrun (default "
+                         "nccl on cards, gloo on the CPU)")
     ap.add_argument("--steps", type=int, default=None,
                     help="override the recipe's max_steps")
     ap.add_argument("--batch", type=int, default=None,
@@ -183,7 +205,8 @@ def _build_index(index: MIPSIndex, encode_fn, token_ids: np.ndarray,
             wire_dtype=np.uint16 if vocab_size <= 0xFFFF else np.int32)
     else:
         enc = CorpusEncoder(encode_fn, index.device, chunk_size=chunk,
-                            stall_timeout_s=_stall_timeout(args))
+                            stall_timeout_s=_stall_timeout(args),
+                            mesh=index.mesh)
         index.build(enc(token_ids, mask))
 
 
@@ -409,12 +432,22 @@ def _get_corpus(args, data_cfg) -> _Corpus:
     return _synthesize(args, data_cfg)
 
 
-def _resume_step(args, name: str):
+def _resume_step(args, name: str, mesh=None):
     """Highest saved ``<name>-<step>`` in --output-dir from a run of the
     same recipe, or None (``--resume never``, no directory, or another
-    recipe's checkpoints: restoring those would be silent corruption)."""
+    recipe's checkpoints: restoring those would be silent corruption).
+    Under a group rank 0 decides and every rank gets its answer."""
     if not args.output_dir or args.resume == "never":
         return None
+    step = -1
+    if mesh is None or mesh.rank == 0:
+        found = _scan_resume(args, name)
+        step = -1 if found is None else found
+    step = broadcast_int(step, mesh)
+    return None if step < 0 else step
+
+
+def _scan_resume(args, name: str):
     meta_path = os.path.join(args.output_dir, "run_meta.json")
     prev = None
     if os.path.exists(meta_path):
@@ -470,15 +503,21 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     (``SimANS/train_NQ_AR2.sh:15-50``, ``co_training_wiki_train.py:
     606-693``)."""
     t_start = time.time()
-    device = resolve_device(args.device)
+    # under torchrun: this rank's card and the group; else a world of one
+    mesh = create_mesh(args.device, backend=args.dist_backend,
+                       timeout_s=_stall_timeout(args))
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
     data = _get_corpus(args, cfg.data)
     tiny = args.tiny_models or (
         not args.full_size and not (args.corpus and not args.synthetic))
-    logger = MetricLogger(args.output_dir)
+    logger = MetricLogger(args.output_dir, rank=mesh.rank)
     steps = args.steps if args.steps is not None else (
         60 if tiny else cfg.max_steps)
     batch_size = args.batch if args.batch is not None else cfg.global_batch
     batch_size = min(batch_size, len(data.query_ids))
+    local_batch_size(batch_size, mesh)      # raises unless W divides it
     topk = args.topk if args.topk is not None else cfg.topk
     topk = min(topk, len(data.corpus_ids))
     # tiny models cannot rank 15 hard negatives from scratch; the synthetic
@@ -523,7 +562,7 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     tx_warm_ce = make_adamw(ce_lr or cfg.reranker_optim.learning_rate,
                             total_steps=0)
     # the resume scan runs before warm-up: a relaunch skips it
-    resume_step = _resume_step(args, "retriever_state")
+    resume_step = _resume_step(args, "retriever_state", mesh)
     de_state = TrainState.create(de, tx_warm_de)
     ce_state = TrainState.create(ce, tx_warm_ce)
 
@@ -531,7 +570,8 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
              else torch.bfloat16 if device.type == "cuda" else torch.float32)
     index = MIPSIndex(device,
                       block_size=min(8192, max(32, len(data.corpus_ids) // 4)),
-                      store_dtype=store, **_index_kwargs(args, device))
+                      store_dtype=store, mesh=mesh,
+                      **_index_kwargs(args, device))
     engine = RetrievalEngine(index, data.passages, logger=logger)
     # --fast-encode: mine through a fused-int8 view of the same Parameters;
     # training stays on the bf16 composition
@@ -539,7 +579,7 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
                  else de)
     q_enc = CorpusEncoder(enc_model.encode_query, device,
                           chunk_size=min(1024, max(64, len(data.query_ids))),
-                          stall_timeout_s=_stall_timeout(args))
+                          stall_timeout_s=_stall_timeout(args), mesh=mesh)
     offload_mode = (args.offload_mine if args.offload_mine != "auto"
                     else ("overlap" if args.full_size else "off"))
 
@@ -642,8 +682,10 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     warm_ds = dataset_from(gold, args.seed)
     guard = RecallGuard()
     if resume_step is None:
-        warm_de = make_biencoder_step(tx_warm_de, device)
-        warm_ce = make_reranker_step(tx_warm_ce, device)
+        warm_de = _on_shard(make_biencoder_step(tx_warm_de, device,
+                                                mesh=mesh), mesh)
+        warm_ce = _on_shard(make_reranker_step(tx_warm_ce, device,
+                                               mesh=mesh), mesh)
         warm_epochs = (args.warm_epochs if args.warm_epochs is not None
                        else 40 if tiny else max(1, min(25, steps // 4)))
         with logger.timed("warmup"):
@@ -669,7 +711,7 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
         logger.log(0, {"top1": res.top_k_hits[0],
                        "mrr10": res.metrics.get("MRR_n@_10", 0.0)},
                    phase="warmup_eval")
-        print(f"[{name}] warmup: top1={res.top_k_hits[0]:.3f}")
+        say(f"[{name}] warmup: top1={res.top_k_hits[0]:.3f}")
         # co-training: fresh optimizer states on the recipe schedule
         de_state = TrainState.create(de, tx_de)
         ce_state = TrainState.create(ce, tx_ce)
@@ -687,20 +729,22 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
         guard.update(res.top_k_hits[0])
         logger.log(resume_step, {"top1": res.top_k_hits[0]},
                    phase="resume_eval")
-        print(f"[{name}] resumed at step {resume_step}: "
-              f"top1={res.top_k_hits[0]:.3f}")
+        say(f"[{name}] resumed at step {resume_step}: "
+            f"top1={res.top_k_hits[0]:.3f}")
         first_seed = resume_step
     # --fast-teacher: the retriever step's frozen reranker forward runs
     # through the fused int8 view of the live reranker's Parameters
     teacher = (_int8_view(ce, cross_encoder.int8_view) if args.fast_teacher
                else ce)
-    r_step = make_ar2_retriever_step(
+    r_step = _on_shard(make_ar2_retriever_step(
         tx_de, temperature=cfg.temperature_normal, adv_lambda=cfg.adv_lambda,
         # --scale_simmila: softmax(scores / sqrt(H))
         scale_scores=(1.0 / float(de_bert.hidden_size) ** 0.5
                       if cfg.scale_simmila else None),
-        device=device)
-    c_step = make_reranker_step(tx_ce, device)
+        device=device, mesh=mesh), mesh)
+    c_step = _on_shard(make_reranker_step(tx_ce, device, mesh=mesh), mesh)
+    # rank 0 writes the checkpoints; every rank meets it at join_saves
+    writer = bool(args.output_dir) and lead
     history = [res.top_k_hits[0]]
 
     def refresh(state, gstep):
@@ -713,7 +757,7 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
 
             def pre_search():
                 stash = join()
-                if args.output_dir:
+                if writer:
                     stash_for_ckpt.put(stash.state_dict())
                 holder["stash"] = stash
 
@@ -746,14 +790,20 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     save_errors: list = []
 
     def join_saves():
-        # a failed background write must not pass for a resumable run
+        # a failed background write must not pass for a resumable run; under
+        # a group every rank waits here for rank 0's write, and raises if it
+        # failed
         while pending_saves:
             pending_saves.pop().join()
-        if save_errors:
-            err = save_errors[0]
+        err = save_errors[0] if save_errors else None
+        if err is not None:
             print(f"[{name}] FATAL: background checkpoint write failed: "
                   f"{err!r}", file=sys.stderr, flush=True)
-            raise RuntimeError("background checkpoint write failed") from err
+        try:
+            barrier(mesh, err is not None, "background checkpoint write")
+        except RuntimeError as e:
+            raise RuntimeError("background checkpoint write failed") from (
+                err or e)
 
     pending_pulls: list = []
 
@@ -777,6 +827,8 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
             return
         with logger.timed("checkpoint"):
             join_saves()   # one write in flight at a time
+            if not writer:
+                return
             stashed = isinstance(ce_s, HostStash)
             de_host = (host_copy(de_s.state_dict(), device) if stashed
                        else None)
@@ -831,30 +883,50 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     phases = dict(logger.phase_times)
     phases["train_steps_and_overhead"] = max(
         0.0, total_s - sum(logger.phase_times.values()))
-    print(f"[{name}] phase split ({total_s:.1f}s total):")
+    say(f"[{name}] phase split ({total_s:.1f}s total):")
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
-        print(f"    {k:24s} {v:9.1f}s  {100 * v / total_s:5.1f}%")
+        say(f"    {k:24s} {v:9.1f}s  {100 * v / total_s:5.1f}%")
     out = {"recipe": name, "steps": steps,
            "top1": final.top_k_hits[0],
            "top5": final.top_k_hits[min(4, topk - 1)],
            "mrr10": final.metrics.get("MRR_n@_10", 0.0),
            "history_top1": history,
            "total_s": total_s,
-           "phase_times_s": phases}
+           "phase_times_s": phases,
+           "world_size": mesh.world_size}
+    if device.type == "cuda":
+        peak = torch.tensor([torch.cuda.max_memory_allocated(device) / 1e9],
+                            dtype=torch.float64, device=device)
+        out["max_memory_gb_by_rank"] = all_gather_rows(peak, mesh).tolist()
     if args.output_dir:
         for state, ckpt in ((trainer.de_state, "retriever"),
                             (trainer.ce_state, "reranker")):
-            save_checkpoint(args.output_dir, {"params": host_copy(
-                state.state_dict()["params"], device)}, steps, name=ckpt)
-        with open(os.path.join(args.output_dir, "eval.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(out, f, indent=1)
+            tree = ({"params": host_copy(state.state_dict()["params"],
+                                         device)} if writer else None)
+            save_checkpoint(args.output_dir, tree, steps, name=ckpt,
+                            mesh=mesh if mesh.distributed else None)
+        if writer:
+            with open(os.path.join(args.output_dir, "eval.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(out, f, indent=1)
     # the last boundary's write must land before exit; joined after
     # eval.json so a failed boundary write cannot lose the final outputs
     join_saves()
     logger.close()
-    print(f"[{name}] final: top1={out['top1']:.3f} mrr10={out['mrr10']:.3f}")
+    say(f"[{name}] final: top1={out['top1']:.3f} mrr10={out['mrr10']:.3f}")
     return out
+
+
+def _on_shard(step, mesh):
+    """``step`` called with this rank's rows of each global batch (its last
+    argument); ``step`` itself without a group."""
+    if not mesh.distributed:
+        return step
+
+    def sharded(*args):
+        return step(*args[:-1], shard_batch(args[-1], mesh))
+
+    return sharded
 
 
 # the JAX package's other runners and the ROADMAP.md Queue 1 items that
@@ -878,7 +950,15 @@ def main(argv=None) -> dict:
                                   f"{item})")
     if args.output_dir:
         os.makedirs(args.output_dir, exist_ok=True)
-    return run_ar2(args.recipe, cfg, args)
+    import torch.distributed as dist
+
+    ours = not (dist.is_available() and dist.is_initialized())
+    try:
+        return run_ar2(args.recipe, cfg, args)
+    finally:
+        # a group this run started (under torchrun) ends with it
+        if ours and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

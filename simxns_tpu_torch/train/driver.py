@@ -10,6 +10,13 @@ Replaces the reference's bash relaunch pipeline (``SimANS/train_NQ_AR2.sh:
   steps train the reranker, the rest the retriever;
 - at each window boundary: checkpoint, mine again (re-encode the corpus,
   search, relabel hits), rebuild the training set, continue.
+
+Under data parallelism every rank runs its own trainer over the same
+global batches: the steps shard them and sum over the group, the mine
+returns the same records on every rank, so :meth:`AR2CoTrainer._flag`
+and :class:`RecallGuard` decide the same everywhere and every rank reaches
+the same collectives in the same order. Each rank stashes its own
+reranker state (``HostStash``); the checkpoint callback writes from rank 0.
 """
 
 from __future__ import annotations

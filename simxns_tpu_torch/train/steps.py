@@ -3,8 +3,8 @@
 Each factory returns ``step(state, batch) -> (state, metrics)`` with the JAX
 metric names; the retriever step takes ``(de_state, teacher, batch)``.
 A step runs the loss forward, the backward, and the AdamW update in place
-on one device (``device=None`` is the card). Batches are dicts of numpy
-arrays or tensors:
+(``device=None`` is the mesh's device, else the card). Batches are dicts of
+numpy arrays or tensors:
 
 - :func:`make_biencoder_step`: ``q_ids``/``q_mask`` [N, Lq],
   ``ctx_ids``/``ctx_mask`` [C, Lc], ``positive_idx`` [N] — in-batch
@@ -19,9 +19,31 @@ arrays or tensors:
 ``dropout``; ``run_ar2`` never turns it on): the step's generator is
 :func:`dropout_generator` of ``(dropout_seed, state.step)``, the
 counterpart of ``dropout_rngs``' ``fold_in``, so a run is reproducible
-and every step draws fresh masks. The retriever step's teacher stays in
-eval mode. Not ported yet (multi-GPU): ``grad_mode="local"``, slice
-scope, ``with_grad_accum``, meshes.
+and every step draws fresh masks; under a group of W > 1 the rank is
+folded in too (the JAX steps fold ``axis_index``), so ranks draw
+different masks. The retriever step's teacher stays in eval mode.
+
+Data parallelism (``mesh``, a :class:`~simxns_tpu_torch.parallel.mesh.Mesh`
+with a group; one process per GPU): every rank passes its rows of the
+global batch (``parallel.shard_batch``, rank-major) and the group computes
+what the JAX step computes on a mesh of W devices over the whole batch.
+The convention: **each rank's loss is its share of the global objective,
+and the gradients are summed** over the group (one all-reduce of flat
+buffers after the backward, then the same AdamW update on every rank, so
+every rank holds the same parameter bits). A rank's share of a mean over
+the global batch is its local mean over W (every rank holds B / W rows);
+the AR2 adversarial term, a global sum divided by ``adv_world_size``, is
+the local sum over ``adv_world_size``. The reported ``loss`` is the
+global loss (the shares summed), ``correct`` the global count (JAX's
+``psum``), ``normal_loss`` the global mean and ``adv_loss`` the global
+sum. The bi-encoder step gathers the context embeddings over the group
+(``grad_mode="full"``: gradients to every shard; ``"local"``: the
+reference's detach-remote contract) and ``positive_idx`` stays a global
+flat index. Without a group (``mesh=None`` or ``Mesh(group=None)``) every
+step is the single-device step, the counterpart of JAX's 1x1 mesh.
+
+Not ported (ROADMAP.md item 9b): slice scope (``negatives_scope``) and
+tensor-parallel state layouts.
 """
 
 from __future__ import annotations
@@ -31,9 +53,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from simxns_tpu_torch.device import resolve_device
 from simxns_tpu_torch.losses.contrastive import grouped_nll, in_batch_nll
 from simxns_tpu_torch.losses.distill import ar2_retriever_loss
+from simxns_tpu_torch.parallel.collectives import (all_reduce_grads,
+                                                   gather_in_batch_negatives,
+                                                   sum_metrics)
+from simxns_tpu_torch.parallel.mesh import Mesh, dp_size, mesh_device
 from simxns_tpu_torch.train.optim import AdamW
 from simxns_tpu_torch.train.state import TrainState
 
@@ -59,37 +84,55 @@ def _check_on(module: nn.Module, device: torch.device) -> None:
                          f"runs on {device}: move the model first")
 
 
-def dropout_generator(dropout: bool, seed: int, step: int
+def dropout_generator(dropout: bool, seed: int, step: int, rank: int = 0
                       ) -> Optional[torch.Generator]:
     """The step's dropout generator: None in eval mode, else a CPU
-    generator that is a function of ``(seed, step)`` alone (the models
-    draw one seed per layer from it)."""
+    generator that is a function of ``(seed, step, rank)`` alone (the models
+    draw one seed per layer from it); rank 0's is the single-device one."""
     if not dropout:
         return None
-    return torch.Generator().manual_seed((seed << 32) + step)
+    base = (seed << 32) + step
+    if rank:
+        # the CPU generator keeps the low 32 bits of its seed: mix the rank
+        # into all 64
+        base ^= (rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    return torch.Generator().manual_seed(base)
+
+
+def _share(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A rank's share of a global mean, x / W (x itself in a world of
+    one)."""
+    w = dp_size(mesh)
+    return x if w == 1 else x / w
 
 
 def biencoder_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
                    score_scale: float = 1.0,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[Mesh] = None, grad_mode: str = "full"
                    ) -> Tuple[torch.Tensor, Metrics]:
-    """``generator``: train mode (dropout), None for eval mode."""
+    """``generator``: train mode (dropout), None for eval mode. Under a
+    group: this rank's share of the global loss over the gathered contexts
+    (``grad_mode``) and its local ``correct``."""
     q_emb, ctx_emb = model(batch["q_ids"], batch["q_mask"], batch["ctx_ids"],
                            batch["ctx_mask"], generator=generator)
+    ctx_emb = gather_in_batch_negatives(ctx_emb, mesh, grad_mode)
     loss, correct = in_batch_nll(q_emb, ctx_emb, batch["positive_idx"],
                                  score_scale=score_scale)
-    return loss, {"correct": correct}
+    return _share(loss, mesh), {"correct": correct}
 
 
 def reranker_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[torch.Tensor, Metrics]:
+    """Under a group: this rank's share of the global mean."""
     n, m, lj = batch["joint_ids"].shape
     logits = model(batch["joint_ids"].reshape(n * m, lj),
                    batch["joint_mask"].reshape(n * m, lj),
                    group_size=m, generator=generator)["logits"]
     correct = (logits.argmax(dim=1) == 0).sum().to(torch.int32)
-    return grouped_nll(logits), {"correct": correct}
+    return _share(grouped_nll(logits), mesh), {"correct": correct}
 
 
 def retriever_loss(model: nn.Module, teacher: nn.Module,
@@ -97,12 +140,16 @@ def retriever_loss(model: nn.Module, teacher: nn.Module,
                    adv_lambda: float = 0.5,
                    scale_scores: Optional[float] = None,
                    adv_world_size: int = 1,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, Metrics]:
     """The AR2 retriever objective. The adversarial term is a per-device
     sum that the reference's DDP averages over its world, so it is divided
     by ``adv_world_size`` (1 on one device). ``generator`` puts the
-    retriever in train mode; the teacher always runs in eval mode."""
+    retriever in train mode; the teacher always runs in eval mode. Under a
+    group: this rank's share, ``adv_lambda * adv_r / adv_world_size +
+    (1 - adv_lambda) * normal_r / W`` (``adv_r`` the local sum,
+    ``normal_r`` the local mean), and the local aux terms."""
     n, m, lj = batch["joint_ids"].shape
     with torch.no_grad():
         logits = teacher(batch["joint_ids"].reshape(n * m, lj),
@@ -116,9 +163,9 @@ def retriever_loss(model: nn.Module, teacher: nn.Module,
                                    adv_lambda=adv_lambda,
                                    scale_scores=scale_scores)
     if adv_lambda != 0.0:
-        loss = (adv_lambda * aux["adv_loss"] / adv_world_size
-                + (1.0 - adv_lambda) * aux["normal_loss"])
-    return loss, aux
+        return (adv_lambda * aux["adv_loss"] / adv_world_size
+                + (1.0 - adv_lambda) * _share(aux["normal_loss"], mesh)), aux
+    return _share(loss, mesh), aux
 
 
 def gradients(module: nn.Module, loss: torch.Tensor
@@ -132,42 +179,111 @@ def gradients(module: nn.Module, loss: torch.Tensor
 
 
 def _apply(state: TrainState, loss: torch.Tensor, aux: Metrics,
-           tx: AdamW) -> Tuple[TrainState, Metrics]:
-    grads = gradients(state.module, loss)
+           tx: AdamW, mesh: Optional[Mesh] = None,
+           mean_metrics: Tuple[str, ...] = ()) -> Tuple[TrainState, Metrics]:
+    """Backward, the gradients summed over the group, AdamW; the metrics
+    summed over the group (``mean_metrics``: then divided by W)."""
+    grads = all_reduce_grads(gradients(state.module, loss), mesh)
     state = state.apply_gradients(grads, tx)
     for p in state.module.parameters():
         p.grad = None
-    return state, {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in aux.items()}}
+    metrics = {"loss": loss.detach(),
+               **{k: v.detach() for k, v in aux.items()}}
+    return state, sum_metrics(metrics, mesh, divide=mean_metrics)
+
+
+def with_grad_accum(loss_fn: Callable, micro_steps: int) -> Callable:
+    """Wrap ``loss_fn(module, batch) -> (loss, aux)`` to average the
+    gradients over ``micro_steps`` equal slices of the batch's leading dim
+    (the JAX ``with_grad_accum``; the reference's
+    ``--gradient_accumulation_steps``). Returns ``vg(module, batch) ->
+    ((loss, aux), grads)``: the loss and float aux averaged, integer aux
+    summed, the gradients (by name) summed over the slices in order and
+    scaled by ``1 / micro_steps``; the ``.grad`` fields are cleared.
+
+    For an in-batch loss the negative pool shrinks to the slice and
+    ``positive_idx`` must be slice-local: a full-batch index raises
+    ``ValueError`` (the JAX guard on concrete batches). Under a group,
+    ``loss_fn`` returns the rank's share and the caller sums the gradients
+    (``parallel.all_reduce_grads``).
+    """
+    def vg(module: nn.Module, batch: dict):
+        if micro_steps <= 1:
+            loss, aux = loss_fn(module, batch)
+            return (loss, aux), gradients(module, loss)
+        pos = batch.get("positive_idx")
+        if pos is not None and "ctx_ids" in batch:
+            rows = batch["ctx_ids"].shape[0] // micro_steps
+            top = int(torch.as_tensor(pos).max())
+            if top >= rows:
+                raise ValueError(
+                    f"with_grad_accum(micro_steps={micro_steps}): "
+                    f"positive_idx max {top} >= {rows} ctx rows per "
+                    "microbatch — positive_idx must be microbatch-LOCAL "
+                    "under accumulation (see docstring)")
+        for p in module.parameters():
+            p.grad = None
+        loss_sum, aux_sum = None, None
+        for i in range(micro_steps):
+            micro = {k: v.reshape((micro_steps, v.shape[0] // micro_steps)
+                                  + tuple(v.shape[1:]))[i]
+                     for k, v in batch.items()}
+            loss, aux = loss_fn(module, micro)
+            loss.backward()
+            loss = loss.detach()
+            aux = {k: v.detach() for k, v in aux.items()}
+            if loss_sum is None:
+                loss_sum, aux_sum = loss, aux
+            else:
+                loss_sum = loss_sum + loss
+                aux_sum = {k: aux_sum[k] + v for k, v in aux.items()}
+        scale = 1.0 / micro_steps
+        aux = {k: v * scale if v.is_floating_point() else v
+               for k, v in aux_sum.items()}
+        grads = {n: None if p.grad is None else p.grad * scale
+                 for n, p in module.named_parameters()}
+        for p in module.parameters():
+            p.grad = None
+        return (loss_sum * scale, aux), grads
+
+    return vg
 
 
 def make_biencoder_step(tx: AdamW, device=None, score_scale: float = 1.0,
                         dropout: bool = False,
-                        dropout_seed: int = 0) -> Callable:
+                        dropout_seed: int = 0, mesh: Optional[Mesh] = None,
+                        grad_mode: str = "full") -> Callable:
     """In-batch contrastive step of a ``BiEncoder`` state; the scores are
-    multiplied by ``score_scale`` before the softmax."""
-    dev = resolve_device(device)
+    multiplied by ``score_scale`` before the softmax. Under a group the
+    contexts are gathered (``grad_mode`` ``"full"`` or ``"local"``)."""
+    if grad_mode not in ("full", "local"):
+        raise ValueError(f"bad grad_mode {grad_mode!r}")
+    dev = mesh_device(mesh, device)
 
     def step(state: TrainState, batch: dict):
         _check_on(state.module, dev)
-        gen = dropout_generator(dropout, dropout_seed, state.step)
+        gen = dropout_generator(dropout, dropout_seed, state.step,
+                                0 if mesh is None else mesh.rank)
         loss, aux = biencoder_loss(state.module, to_device(batch, dev),
-                                   score_scale, gen)
-        return _apply(state, loss, aux, tx)
+                                   score_scale, gen, mesh, grad_mode)
+        return _apply(state, loss, aux, tx, mesh)
 
     return step
 
 
 def make_reranker_step(tx: AdamW, device=None, dropout: bool = False,
-                       dropout_seed: int = 1) -> Callable:
+                       dropout_seed: int = 1,
+                       mesh: Optional[Mesh] = None) -> Callable:
     """Grouped CE step of a ``CrossEncoder`` state."""
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
 
     def step(state: TrainState, batch: dict):
         _check_on(state.module, dev)
-        gen = dropout_generator(dropout, dropout_seed, state.step)
-        loss, aux = reranker_loss(state.module, to_device(batch, dev), gen)
-        return _apply(state, loss, aux, tx)
+        gen = dropout_generator(dropout, dropout_seed, state.step,
+                                0 if mesh is None else mesh.rank)
+        loss, aux = reranker_loss(state.module, to_device(batch, dev), gen,
+                                  mesh)
+        return _apply(state, loss, aux, tx, mesh)
 
     return step
 
@@ -177,21 +293,28 @@ def make_ar2_retriever_step(tx: AdamW, temperature: float = 1.0,
                             scale_scores: Optional[float] = None,
                             adv_world_size: Optional[int] = None,
                             device=None, dropout: bool = False,
-                            dropout_seed: int = 2) -> Callable:
+                            dropout_seed: int = 2,
+                            mesh: Optional[Mesh] = None) -> Callable:
     """AR2 retriever step: KL to a frozen reranker plus the adversarial
     reward. ``step(de_state, teacher, batch)``; ``teacher`` is the live
     ``CrossEncoder`` or its ``int8_view``. With ``dropout`` the retriever
     trains in train mode and the teacher stays in eval mode, as the
-    reference's ``model.train(); reranker_model.eval()``."""
-    dev = resolve_device(device)
-    world = 1 if adv_world_size is None else adv_world_size
+    reference's ``model.train(); reranker_model.eval()``.
+    ``adv_world_size`` defaults to the group's world size (JAX's
+    ``dp_size(mesh)``; 1 without a group); pass 8 to pin the reference's
+    8-GPU scale on another world."""
+    dev = mesh_device(mesh, device)
+    world = dp_size(mesh) if adv_world_size is None else adv_world_size
 
     def step(de_state: TrainState, teacher: nn.Module, batch: dict):
         _check_on(de_state.module, dev)
-        gen = dropout_generator(dropout, dropout_seed, de_state.step)
+        gen = dropout_generator(dropout, dropout_seed, de_state.step,
+                                0 if mesh is None else mesh.rank)
         loss, aux = retriever_loss(de_state.module, teacher,
                                    to_device(batch, dev), temperature,
-                                   adv_lambda, scale_scores, world, gen)
-        return _apply(de_state, loss, aux, tx)
+                                   adv_lambda, scale_scores, world, gen,
+                                   mesh)
+        return _apply(de_state, loss, aux, tx, mesh,
+                      mean_metrics=("normal_loss",))
 
     return step

@@ -1,0 +1,372 @@
+"""A pool of gloo ranks for the tests that hold the port's data parallelism
+to the JAX package's multi-device mesh, and the tasks the ranks run.
+
+:class:`Pool` starts W worker processes (plain Python: no JAX, no pytest;
+one torch thread each) in one gloo group, and in subgroups of the first w
+ranks for every w < W, so that one pool serves every world size a test
+file needs. ``pool.run(task, *args, world=w)`` calls ``task(mesh, *args)``
+on ranks 0 .. w-1 (``mesh`` over the group of those w ranks) and returns
+their results in rank order. A task is a function of this module, so a
+worker imports nothing but torch, numpy and the port.
+"""
+
+import datetime
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import traceback
+from multiprocessing.connection import Client, Listener
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+_KEY = b"simxns-torch-dist-tests"
+# a stalled collective raises after this long in every rank of its group
+GROUP_TIMEOUT_S = 120
+
+
+class Pool:
+    """W gloo ranks serving tasks; ``close()`` stops them."""
+
+    def __init__(self, world: int, timeout_s: float = 120.0):
+        self.world = world
+        self.timeout_s = timeout_s
+        old = socket.getdefaulttimeout()
+        socket.setdefaulttimeout(timeout_s)   # bounds accept() below
+        try:
+            self._listener = Listener(("localhost", 0), authkey=_KEY)
+        finally:
+            socket.setdefaulttimeout(old)
+        host, port = self._listener.address
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([HERE, ROOT]))
+        # the group meets in a file (no port to race for)
+        self._dir = tempfile.mkdtemp(prefix="torch_dist_")
+        store = os.path.join(self._dir, "store")
+        self._procs = [subprocess.Popen(
+            [sys.executable, "-c", "import torch_dist; torch_dist._serve()",
+             host, str(port), str(rank), str(world), store],
+            cwd=ROOT, env=env) for rank in range(world)]
+        conns = {}
+        try:
+            for _ in range(world):
+                conn = self._listener.accept()
+                conns[conn.recv()] = conn
+        except BaseException:
+            self._kill()
+            shutil.rmtree(self._dir, ignore_errors=True)
+            raise
+        self._conns = [conns[r] for r in range(world)]
+
+    def run(self, task, *args, world=None, timeout_s=None):
+        return self.submit(task, *args, world=world)(timeout_s)
+
+    def submit(self, task, *args, world=None):
+        """Start ``task`` on the ranks; -> ``wait(timeout_s=None)``, which
+        returns what :meth:`run` returns (the caller may work meanwhile)."""
+        w = self.world if world is None else world
+        for conn in self._conns:
+            conn.send((task, args, w))
+        return lambda timeout_s=None: self._collect(w, timeout_s)
+
+    def _collect(self, w, timeout_s):
+        out = []
+        for rank, conn in enumerate(self._conns):
+            if not conn.poll(timeout_s or 4 * self.timeout_s):
+                self._kill()
+                raise TimeoutError(f"rank {rank} gave no answer")
+            out.append(conn.recv())
+        errors = [msg for kind, msg in out if kind == "error"]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [msg for _, msg in out[:w]]
+
+    def _kill(self):
+        for p in self._procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def close(self):
+        for conn in getattr(self, "_conns", []):
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+        for p in self._procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        self._listener.close()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+def _serve():
+    host, port, rank, world, store = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    import torch
+    import torch.distributed as dist
+
+    from simxns_tpu_torch.parallel.mesh import Mesh
+
+    torch.set_num_threads(1)
+    conn = Client((host, int(port)), authkey=_KEY)
+    conn.send(rank)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    meshes = {world: Mesh.of_group(None, "cpu")}
+    for w in range(1, world):        # every rank makes every group, in order
+        group = dist.new_group(list(range(w)))
+        if rank < w:
+            meshes[w] = Mesh.of_group(group, "cpu")
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            break
+        task, args, w = msg
+        try:
+            out = task(meshes[w], *args) if rank < w else None
+            conn.send(("ok", out))
+        except BaseException:
+            conn.send(("error", f"rank {rank}:\n{traceback.format_exc()}"))
+    dist.destroy_process_group()
+
+
+# --- the tasks --------------------------------------------------------------
+
+def _local(x, mesh):
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+
+    return shard_batch(x, mesh)
+
+
+def gather_order(mesh, rows):
+    """The full-grad gather of this rank's rows of ``arange(rows)``."""
+    import torch
+
+    from simxns_tpu_torch.parallel import all_gather_full_grad
+
+    x = _local(torch.arange(rows, dtype=torch.float32).reshape(rows, 1), mesh)
+    return all_gather_full_grad(x, mesh)[:, 0].numpy()
+
+
+def gather_grads(mesh, x, w, mode):
+    """d/dx of the group's sum of ``sum(gather(x_r) * w)`` for this rank's
+    rows x_r of ``x``: each rank's term, backward through the gather."""
+    import torch
+
+    from simxns_tpu_torch.parallel import gather_in_batch_negatives
+
+    xs = torch.from_numpy(_local(x, mesh)).requires_grad_(True)
+    g = gather_in_batch_negatives(xs, mesh, mode)
+    (g * torch.from_numpy(w)).sum().backward()
+    return xs.grad.numpy()
+
+
+def positive_offsets(mesh, local_batch):
+    import torch
+
+    from simxns_tpu_torch.parallel import gather_positive_offsets
+
+    pos = torch.zeros(local_batch, dtype=torch.int32)
+    return gather_positive_offsets(pos, local_batch, mesh).numpy()
+
+
+def global_in_batch_nll(mesh, q, c, pos):
+    """The in-batch NLL over the gathered contexts, summed over the group
+    and divided by the global batch; the global count of correct."""
+    import torch
+
+    from simxns_tpu_torch.losses.contrastive import in_batch_nll
+    from simxns_tpu_torch.parallel import all_gather_full_grad
+    from simxns_tpu_torch.parallel.collectives import all_reduce_sum
+
+    qs, cs, ps = (torch.from_numpy(_local(a, mesh)) for a in (q, c, pos))
+    loss, correct = in_batch_nll(qs, all_gather_full_grad(cs, mesh), ps,
+                                 reduction="sum")
+    return (float(all_reduce_sum(loss, mesh)) / q.shape[0],
+            int(all_reduce_sum(correct, mesh)))
+
+
+def numpy_state(module):
+    """A module's state as numpy arrays (what a task takes: tensors would
+    cross the pipe as shared memory)."""
+    return {k: v.detach().numpy() for k, v in module.state_dict().items()}
+
+
+def _model(kind_cfg, state):
+    import torch
+
+    from simxns_tpu_torch.models import (BiEncoder, BiEncoderConfig,
+                                         CrossEncoder, CrossEncoderConfig)
+
+    cls = BiEncoder if isinstance(kind_cfg, BiEncoderConfig) else CrossEncoder
+    assert isinstance(kind_cfg, (BiEncoderConfig, CrossEncoderConfig))
+    model = cls(kind_cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.eval()
+
+
+def _flat_params(module):
+    return {n: p.detach().numpy().copy() for n, p in module.named_parameters()}
+
+
+def train_steps(mesh, kind, cfg, state, batches, tx_kw, step_kw,
+                teacher=None):
+    """``len(batches)`` steps of ``kind`` (``biencoder``, ``reranker`` or
+    ``retriever``) on this rank's rows of each global batch. -> (metrics
+    per step, the parameters after the last)."""
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_ar2_retriever_step,
+                                        make_biencoder_step,
+                                        make_reranker_step)
+
+    model = _model(cfg, state)
+    tx = make_adamw(**tx_kw)
+    factory = {"biencoder": make_biencoder_step,
+               "reranker": make_reranker_step,
+               "retriever": make_ar2_retriever_step}[kind]
+    step = factory(tx, device="cpu", mesh=mesh, **step_kw)
+    ts = TrainState.create(model, tx)
+    extra = () if teacher is None else (_model(*teacher),)
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, *extra, shard_batch(b, mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, _flat_params(model)
+
+
+def accum_step(mesh, cfg, state, batch, micro_steps, tx_kw):
+    """One reranker update from ``with_grad_accum`` over this rank's rows,
+    the gradients summed over the group. -> (global loss, parameters)."""
+    import torch
+
+    from simxns_tpu_torch.parallel import all_reduce_grads
+    from simxns_tpu_torch.parallel.collectives import all_reduce_sum
+    from simxns_tpu_torch.train import TrainState, make_adamw, steps
+
+    model = _model(cfg, state)
+    tx = make_adamw(**tx_kw)
+    ts = TrainState.create(model, tx)
+    vg = steps.with_grad_accum(
+        lambda m, b: steps.reranker_loss(m, b, mesh=mesh), micro_steps)
+    local = steps.to_device(_local(batch, mesh), torch.device("cpu"))
+    (loss, _), grads = vg(model, local)
+    ts.apply_gradients(all_reduce_grads(grads, mesh), tx)
+    return float(all_reduce_sum(loss, mesh)), _flat_params(model)
+
+
+def _index(mesh, store, mode, block_size):
+    import torch
+
+    from simxns_tpu_torch.index import MIPSIndex
+
+    return MIPSIndex("cpu", block_size=block_size, mode=mode, mesh=mesh,
+                     store_dtype={"f32": torch.float32,
+                                  "int8": torch.int8}[store])
+
+
+def index_build_update_search(mesh, store, mode, block_size, emb, queries,
+                              k, updates):
+    """build, search; then each ``(start, rows)`` of ``updates`` and a
+    search after each. -> [(scores, ids), ...], this shard's row count."""
+    idx = _index(mesh, store, mode, block_size)
+    idx.build(emb)
+    out = [idx.search(queries, k)]
+    for start, rows in updates:
+        idx.update_rows(start, rows)
+        out.append(idx.search(queries, k))
+    return out, idx.embeddings.shape[0]
+
+
+def table_encode(table):
+    """The tests' stand-in passage encoder: the table row of the second
+    token over the live length (the JAX twin is the same expression)."""
+    import torch
+
+    table = torch.from_numpy(table)
+
+    def encode(ids, mask):
+        return table[ids[:, 1]] / mask.sum(dim=1, keepdim=True).float()
+
+    return encode
+
+
+def index_streaming_search(mesh, store, block_size, table, ids, chunk_size,
+                           queries, k, max_resident_rows=None):
+    """build_streaming from token ids (each rank its shard), then search.
+    -> ((scores, ids), this shard's stored rows as f32, its live rows)."""
+    idx = _index(mesh, store, "exact", block_size)
+    idx.max_resident_rows = max_resident_rows
+    idx.build_streaming(table_encode(table), ids, chunk_size=chunk_size,
+                        wire_dtype=np.uint16)
+    got = idx.search(queries, k)
+    rows = (None if idx.embeddings is None
+            else idx.embeddings.float().numpy())
+    return got, rows, idx.shard_valid
+
+
+def mine_records(mesh, emb, queries, texts, answers, k):
+    """The mine over the sharded index (f32, exact) and what the launcher
+    decides from it: -> (train records, top-k accuracy, each RecallGuard
+    reading's verdict over the readings [top-1, then top-1 halved])."""
+    from simxns_tpu_torch.index import MIPSIndex, RetrievalEngine
+    from simxns_tpu_torch.train.driver import RecallGuard
+
+    index = MIPSIndex("cpu", block_size=16, mode="exact", mesh=mesh)
+    index.build(emb)
+    passages = {i: (t, f"title{i}") for i, t in enumerate(texts)}
+    res = RetrievalEngine(index, passages).mine(queries, [f"q{i}" for i in
+                                                          range(len(answers))],
+                                                answers, k=k)
+    guard = RecallGuard()
+    top1 = res.top_k_hits[0]
+    verdicts = [guard.update(top1), guard.update(top1 / 2 - 1e-9)]
+    return res.train_examples, res.top_k_hits, verdicts
+
+
+def corpus_encode(mesh, table, ids, mask, chunk_size):
+    from simxns_tpu_torch.index import CorpusEncoder
+
+    enc = CorpusEncoder(table_encode(table), "cpu", chunk_size=chunk_size,
+                        inflight=2, mesh=mesh)
+    return enc(ids, mask)
+
+
+def run_launcher(mesh, argv, die_after=None):
+    """``simxns_tpu_torch.run.main(argv)`` on this rank (the group is the
+    pool's whole world). ``die_after``: the co-training loop stops after
+    that many steps and the run raises, as a crash would (rank 0's
+    checkpoint write is let finish), -> None."""
+    import threading
+
+    from simxns_tpu_torch import run
+    from simxns_tpu_torch.train import driver
+
+    if die_after is None:
+        return run.main(argv)
+    real = driver.AR2CoTrainer.run
+
+    def dying_run(self, num_steps=None):
+        real(self, num_steps=die_after)
+        raise KeyboardInterrupt("simulated crash")
+
+    driver.AR2CoTrainer.run = dying_run
+    try:
+        run.main(argv)
+    except KeyboardInterrupt:
+        for t in threading.enumerate():
+            if t.name.startswith("ckpt-"):
+                t.join(timeout=120)
+    finally:
+        driver.AR2CoTrainer.run = real
+    return None

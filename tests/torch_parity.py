@@ -135,3 +135,57 @@ def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     b = np.asarray(b, np.float64)
     return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
                              * np.linalg.norm(b, axis=1))
+
+
+# --- data parallelism: gloo ranks (tests/torch_dist.py) against the mesh ----
+
+DIST_N, DIST_M = 4, 2       # global queries (W in {2, 4} divides it), group
+DIST_TX = dict(lr=1e-4, total_steps=0, eps=1e-3)
+
+
+def dist_batch(seed):
+    """A global AR2 batch of ``DIST_N`` queries x ``DIST_M`` passages."""
+    n, m = DIST_N, DIST_M
+    rng = np.random.default_rng(seed)
+    q_ids, q_mask = token_batch(rng, n, 8)
+    ctx_ids, ctx_mask = token_batch(rng, n * m, 12)
+    joint_ids, joint_mask = token_batch(rng, n * m, 20)
+    return {"q_ids": q_ids, "q_mask": q_mask, "ctx_ids": ctx_ids,
+            "ctx_mask": ctx_mask,
+            "positive_idx": (np.arange(n) * m).astype(np.int32),
+            "joint_ids": joint_ids.reshape(n, m, 20),
+            "joint_mask": joint_mask.reshape(n, m, 20)}
+
+
+def jax_mesh_run(jstep, jparams, batches, mesh, extra=()):
+    """The JAX step over ``batches`` on ``mesh`` from ``jparams`` (AdamW at
+    ``DIST_TX``). -> (metrics per step, the final params)."""
+    from simxns_tpu.parallel import shard_batch
+    from simxns_tpu.train import TrainState, make_adamw
+
+    state = TrainState.create(jax.tree.map(jnp.copy, jparams),
+                              make_adamw(**DIST_TX))
+    metrics = []
+    for b in batches:
+        state, m = jstep(state, *extra, shard_batch(b, mesh))
+        metrics.append(jax.device_get(m))
+    return metrics, state.params
+
+
+def check_ranks(got, jmetrics, jparams):
+    """Every rank's ``(metrics per step, params)``: the JAX metrics within
+    1e-4 relative, the parameters within 1e-5 (AdamW at eps=1e-3, as
+    ``test_torch_train.py`` explains), and rank 0's parameter bits."""
+    want = params_from_jax(jax.device_get(jparams))
+    bits = got[0][1]
+    for metrics, params in got:
+        for step, jm in zip(metrics, jmetrics):
+            assert set(step) == set(jm)
+            for key, value in jm.items():
+                np.testing.assert_allclose(step[key], float(value),
+                                           rtol=1e-4, atol=1e-6,
+                                           err_msg=key)
+        for name, p in params.items():
+            err = float(np.abs(p - want[name].numpy()).max())
+            assert err <= 1e-5, (name, err)
+            np.testing.assert_array_equal(p, bits[name], err_msg=name)
