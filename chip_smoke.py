@@ -155,11 +155,38 @@ non-zero and prints no result):
    peak memory and phase times, then a relaunch that resumes from step 8.
    Launches counted in every rank. Two ranks on one card check
    correctness, not scaling: the gloo collectives cross the host;
-18. the ``kernels`` line (K1-K14, launches of every path); then the last
+18. PROD distillation at full width: ``run_kd`` in ``prod_kd_marcodoc``
+   (6-layer BERT-base student, 12-layer BERT-base CE teacher; 32 / 256 /
+   288 tokens: K7/K8) and ``prod_kd_nq`` (32 / 128 / 160: K5/K6 in the
+   teacher's warm-up) with ``--synthetic --full-size --fast-teacher``
+   (K1-K3), 8 queries a step, 8 KD steps, then a relaunch that resumes to
+   12; per recipe the step ms, the peak memory, the losses and the
+   launches, zeroed just before each run; then marcodoc's first KD step:
+   the student's gradients on K7/K8 against the plain versions (beside two
+   plain versions' cosine), the teacher view's CLS vectors against the
+   plain int8 composition, one ``double`` and one ``dual_encoder`` step
+   and a LAMB step, whose next update is held against the same update on
+   the host;
+19. the rest of the mesh: (a) NCCL at world 1 in this process as (data 1,
+   model 1) and as a (1, 1, 1) multislice mesh: the BERT-base DE step and
+   the AR2 retriever step (``auto_state``; slice-scoped negatives) on
+   phase 18's marcodoc batches (the DE's queries on K5/K6, its passages
+   on K7/K8, the teacher's int8 view on K1-K3) bitwise equal to the steps
+   with no group, and beside them the same steps with every dense layer an
+   f32 product (the rounding floor); (b)-(d) two gloo ranks on the card
+   under one ``torchrun``: the DE split over (data 1, model 2) (K5-K8 at
+   6 heads a rank), 2 steps of each kind against the world-1 steps (loss,
+   update cosine, the gathered parameters and each rank's slice in
+   learning rates, beside the floor; limits ``TP_*``),
+   2 slices x 1 with ``negatives_scope="slice"`` against the per-slice
+   oracle, and ``DenseRetriever(mesh=...)`` over 65,536 passages answering
+   8 requests with the world-1 retriever's ids. Two ranks on one card
+   check correctness, not scaling;
+20. the ``kernels`` line (K1-K14, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --data-parallel-rank steps|co_training DIR`` is a
-rank of phase 17 (started by ``torchrun``, not by hand).
+``python3 chip_smoke.py --data-parallel-rank steps|co_training|mesh DIR``
+is a rank of phase 17 or 19 (started by ``torchrun``, not by hand).
 """
 
 import gc
@@ -3524,19 +3551,808 @@ def phase_data_parallel(torch, smi, records, co_training):
 
 
 def _data_parallel_rank(argv):
-    """A rank of phase 17 under torchrun: ``steps ROOT`` or ``co_training
-    ROOT [resume]``."""
+    """A rank of phase 17 or 19 under torchrun: ``steps ROOT``,
+    ``co_training ROOT [resume]`` or ``mesh ROOT``."""
     import torch
 
     check(torch.cuda.is_available(), "a data-parallel rank needs the card")
     what, root = argv[0], argv[1]
     if what == "steps":
         _dp_rank_steps(torch, root)
+    elif what == "mesh":
+        _mesh_rank(torch, root)
     elif what == "co_training":
         _dp_rank_co_training(torch, root, argv[2:] == ["resume"])
     else:
         raise ValueError(f"unknown rank task {what!r}")
     return 0
+
+
+# --- phase 18: PROD distillation --------------------------------------------
+
+# the KD recipes at full width: the student's and teacher's attention pair
+KD_RECIPES = {"prod_kd_marcodoc": ("bh_attention_fwd", "bh_attention_bwd"),
+              "prod_kd_nq": ("group_attention_fwd", "group_attention_bwd")}
+KD_TEACHER = ("int8_linear", "row_quant", "small_s_attention")
+# 8 queries a step (the recipe's 64 over 8 GPUs), 16 queries (2 teacher
+# warm-up steps), 20,480 synthetic passages (above 20,000 they keep the
+# recipe's token lengths: 256 marcodoc, 128 nq), then a relaunch to 12
+KD_FLAGS = ["--synthetic", "--full-size", "--fast-teacher", "--batch", "8",
+            "--corpus-size", "20480", "--num-queries", "16"]
+KD_STEPS, KD_RESUME_STEPS = 8, 12
+KD_N, KD_M, KD_LQ, KD_LC, KD_LJ = 8, 8, 32, 256, 288   # marcodoc's shapes
+# the first KD step's student gradients with K7/K8 against their plain
+# versions (marcodoc), beside two plain versions that round p otherwise,
+# as phase 5's reranker rule. With random weights the student's CLS
+# embeddings nearly coincide (scores ~|e|^2), so one bf16 rounding moves
+# the KD loss by percents. Readings (PERF.md, section 6): kernel against plain
+# loss 0.0529 relative, two plain versions 0.0523; gradient cosine 0.9728,
+# two plain versions 0.9745. Limits: the loss within 2.5x the two plain
+# versions' gap (or 1e-2), the cosine within 2.5x the reading's 0.0017 of
+# theirs.
+KD_LOSS_REL, KD_LOSS_FACTOR, KD_FLOOR_GAP = 1e-2, 2.5, 0.005
+
+
+def _kd_batch(np, seed):
+    """One marcodoc KD batch: 8 queries x 8 passages (1 positive, 7
+    negatives, the recipe's cut), 32 / 256 / 288 tokens, random lengths;
+    the joint row is the query's tokens, then the passage's."""
+    rng = np.random.default_rng(seed)
+    n, m = KD_N, KD_M
+
+    def tokens(rows, width, lo):
+        lens = rng.integers(lo, width + 1, rows)
+        ids = rng.integers(1000, 30522, (rows, width)).astype(np.int32)
+        ids[:, 0] = 101
+        mask = (np.arange(width)[None, :] < lens[:, None]).astype(np.int32)
+        return ids * mask, mask, lens
+
+    q_ids, q_mask, q_lens = tokens(n, KD_LQ, 8)
+    c_ids, c_mask, c_lens = tokens(n * m, KD_LC, 120)
+    pos = np.arange(KD_LJ)[None, :]
+    ql = np.repeat(q_lens, m)[:, None]
+    src = np.clip(pos - ql + 1, 0, KD_LC - 1)
+    joint = np.where(pos < ql, np.repeat(q_ids, m, 0)[:, np.minimum(
+        np.arange(KD_LJ), KD_LQ - 1)], np.take_along_axis(c_ids, src, 1))
+    jmask = (pos < np.minimum(ql + c_lens[:, None] - 1, KD_LJ)).astype(
+        np.int32)
+    return {"q_ids": q_ids, "q_mask": q_mask, "ctx_ids": c_ids,
+            "ctx_mask": c_mask,
+            "positive_idx": (np.arange(n) * m).astype(np.int32),
+            "joint_ids": (joint * jmask).reshape(n, m, KD_LJ),
+            "joint_mask": jmask.reshape(n, m, KD_LJ)}
+
+
+def _kd_models(torch):
+    """marcodoc's student (6-layer BERT-base DE), CE teacher (12 layers,
+    small_s_attn="group") and a 12-layer BERT-base DE teacher, random
+    weights from seeds 0, 1, 2, on the card."""
+    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
+                                         BiEncoderConfig, CrossEncoder,
+                                         CrossEncoderConfig)
+
+    dev = torch.device("cuda")
+    base = BertConfig(vocab_size=30522, dtype=torch.bfloat16)
+    student = BiEncoder(BiEncoderConfig(bert=base.replace(num_layers=6)),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    ce = CrossEncoder(CrossEncoderConfig(bert=base.replace(
+        small_s_attn="group")),
+        generator=torch.Generator().manual_seed(1)).to(dev)
+    de = BiEncoder(BiEncoderConfig(bert=base),
+                   generator=torch.Generator().manual_seed(2)).to(dev)
+    return student, ce, de
+
+
+def _kd_student_loss(torch, student, batch, t_logits):
+    """The recipe's cross_encoder KD objective (CE_WEIGHT 0.1, KD_WEIGHT
+    0.9, T 4, LwF 0 as ``run_kd`` passes it) on given teacher logits."""
+    from simxns_tpu_torch.train.kd import _grouped_scores, soft_kd_loss
+
+    q, ctx = student(batch["q_ids"], batch["q_mask"], batch["ctx_ids"],
+                     batch["ctx_mask"])
+    s = _grouped_scores(q, ctx)
+    hard = -torch.log_softmax(s, dim=1)[:, 0].mean()
+    zeros = torch.zeros(s.shape[0], dtype=torch.long, device=s.device)
+    return 0.1 * hard + 0.9 * soft_kd_loss("KD_softmax", s, t_logits,
+                                           zeros, 4.0)
+
+
+def _kd_full_width(torch, smi):
+    """The first KD step's student gradients with K7/K8 against the plain
+    versions (and the teacher view's CLS vectors against the plain int8
+    composition); one ``double`` and one ``dual_encoder`` step; one LAMB
+    step and its update against the same update on the host."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import int8_view
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.ops.fused_layer import layer_int8_plain
+    from simxns_tpu_torch.train import (TrainState, make_adamw, make_kd_step,
+                                        make_lamb, steps)
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    student, ce, de = _kd_models(torch)
+    init_s = time.perf_counter() - t0
+    view = int8_view(ce)
+    batch = _kd_batch(np, 0)
+    b0 = steps.to_device(batch, dev)
+    jid = b0["joint_ids"].reshape(-1, KD_LJ)
+    jmask = b0["joint_mask"].reshape(-1, KD_LJ)
+    with torch.no_grad():
+        t_logits = view(jid, jmask, group_size=KD_M)["logits"]
+        kern = view.encoder(jid, jmask).pooled.float()
+        plain = _plain_encode(view.encoder, jid, jmask,
+                              layer_int8_plain).float()
+    teacher_cos = float(torch.nn.functional.cosine_similarity(
+        kern, plain, dim=1).min())
+    check(teacher_cos >= 0.995, f"KD teacher CLS: min cosine {teacher_cos}")
+    del kern, plain
+
+    def grads():
+        loss = _kd_student_loss(torch, student, b0, t_logits)
+        g = steps.gradients(student, loss)
+        flat = torch.cat([x.float().flatten() for x in g.values()
+                          if x is not None])
+        for p in student.parameters():
+            p.grad = None
+        return float(loss.detach()), flat
+
+    def softmax_probs(q, k, mask):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        s = torch.where(mask[:, None, None, :] > 0, s, -1e9)
+        return torch.softmax(s, dim=-1), scale
+
+    ops.reset_launches()
+    loss_k, grad_k = grads()
+    launched = ops.launches()
+    check(launched["bh_attention_fwd"] > 0 and launched["bh_attention_bwd"]
+          > 0, f"K7/K8 not launched in the KD student step: {launched}")
+    kernels = fa.bh_attention_fwd, fa.bh_attention_bwd, fa._probs
+    fa.bh_attention_fwd, fa.bh_attention_bwd = (fa._group_fwd_plain,
+                                                fa._group_bwd_plain)
+    try:
+        loss_p, grad_p = grads()
+        fa._probs = softmax_probs
+        loss_f, grad_f = grads()
+    finally:
+        fa.bh_attention_fwd, fa.bh_attention_bwd, fa._probs = kernels
+    grad_cos = _cosine(torch, grad_k, grad_p)
+    floor_cos = _cosine(torch, grad_p, grad_f)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    floor_loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    del grad_k, grad_p, grad_f
+    check(loss_rel <= max(KD_LOSS_REL, KD_LOSS_FACTOR * floor_loss_rel)
+          and grad_cos >= floor_cos - KD_FLOOR_GAP,
+          f"KD student step, K7/K8 vs plain: loss rel {loss_rel} (two plain "
+          f"versions: {floor_loss_rel}), gradient cosine {grad_cos} (two "
+          f"plain versions: {floor_cos})")
+
+    # one step of each other teacher mode; then LAMB
+    rec = {"model_init_s": init_s, "teacher_cls_min_cosine": teacher_cos,
+           "student_kernel_vs_plain": {
+               "loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_plain_softmax": loss_f, "loss_rel": loss_rel,
+               "loss_rel_two_plain": floor_loss_rel,
+               "gradient_cosine": grad_cos,
+               "gradient_cosine_two_plain": floor_cos},
+           "limits": {"loss_rel": KD_LOSS_REL,
+                      "loss_factor_over_two_plain": KD_LOSS_FACTOR,
+                      "floor_gap": KD_FLOOR_GAP}}
+    init = {n: p.detach().clone() for n, p in student.named_parameters()}
+    launches = {name: 0 for name in ops.KERNELS}
+    for mode, teachers in (("double", {"de": de, "ce": view}),
+                           ("dual_encoder", {"de": de})):
+        tx = make_adamw(5e-5, total_steps=0)
+        step = make_kd_step(tx, mode, kd_type="KD_softmax", temperature=4.0,
+                            ce_weight=0.1, kd_weight=0.9)
+        state = TrainState.create(student, tx)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, teachers, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, n in ops.launches().items():
+            launches[name] += n
+        m = {k: float(v) for k, v in m.items()}
+        check(math.isfinite(m["loss"]), f"{mode} KD step: {m}")
+        rec[mode] = {"metrics": m, "step_ms": ms}
+        with torch.no_grad():
+            for n, p in student.named_parameters():
+                p.copy_(init[n])
+    check(rec["double"]["metrics"]["teacher_pick"] in (0.0, 1.0),
+          f"double: {rec['double']}")
+    for name in ("bh_attention_fwd", "bh_attention_bwd") + KD_TEACHER:
+        check(launches[name] > 0, f"{name} not launched in the double / "
+              "dual_encoder steps")
+
+    # LAMB: one KD step, then one more update from its state against the
+    # same update on the host (f32), at lr 1 so that the update, not the
+    # parameters' f32 spacing, sets the scale of the comparison
+    tx = make_lamb(5e-5, total_steps=0)
+    lamb_step = make_kd_step(tx, "cross_encoder", kd_type="KD_softmax",
+                             temperature=4.0, ce_weight=0.1, kd_weight=0.9)
+    state = TrainState.create(student, tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = lamb_step(state, {"ce": view}, batch)
+    torch.cuda.synchronize()
+    lamb_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(float(m["loss"])), f"LAMB KD step: {m}")
+    g = steps.gradients(student, _kd_student_loss(torch, student, b0,
+                                                  t_logits))
+    params = dict(student.named_parameters())
+    before = {n: p.detach().cpu().double() for n, p in params.items()}
+    host = {n: p.clone() for n, p in before.items()}
+    host_state = {"count": state.opt_state["count"],
+                  "mu": {n: t.cpu().double()
+                         for n, t in state.opt_state["mu"].items()},
+                  "nu": {n: t.cpu().double()
+                         for n, t in state.opt_state["nu"].items()}}
+    one = make_lamb(1.0, total_steps=0)
+    one.update_(host, {n: x.cpu().double() for n, x in g.items()},
+                host_state)
+    one.update_(params, g, state.opt_state)
+    # each parameter within 1e-4 of its own update's largest element,
+    # against the same update in f64 on the host (reading 5.9e-7; the
+    # host's f32 norm of the 23M-element embedding table drifted 1.5e-3;
+    # a wrong trust ratio, eps or decay moves a parameter by the order of
+    # its update)
+    lamb_err = max(float((params[n].detach().cpu().double() - host[n])
+                         .abs().max())
+                   / max(float((host[n] - before[n]).abs().max()), 1e-30)
+                   for n in params)
+    moved = sum(int(not torch.equal(host[n], before[n])) for n in params)
+    check(lamb_err <= 1e-4 and moved == len(params),
+          f"LAMB on the card against the host: {lamb_err}, {moved} of "
+          f"{len(params)} moved")
+    rec["lamb"] = {"loss": float(m["loss"]), "step_ms": lamb_ms,
+                   "update_vs_host_max_rel": lamb_err,
+                   "parameters_moved": moved}
+    rec["launches"] = launches
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for p in student.parameters():
+        p.grad = None
+    del student, ce, de, view, state, init, g, host, before
+    return rec, launches
+
+
+def _kd_losses(out_dir):
+    with open(f"{out_dir}/metrics.jsonl", encoding="utf-8") as f:
+        return [(r["step"], r["loss"]) for r in map(json.loads, f)
+                if r["phase"] == "kd"]
+
+
+def phase_prod_kd(torch, smi, records):
+    """Phase 18: PROD distillation at full width. ``run_kd`` in
+    ``prod_kd_marcodoc`` and ``prod_kd_nq`` (8 KD steps, then a relaunch
+    that resumes to 12), launch counts zeroed just before each run; then
+    the student's gradients on the kernels against the plain versions, a
+    ``double`` and a ``dual_encoder`` step and a LAMB step."""
+    import shutil
+    import tempfile
+
+    from simxns_tpu_torch import ops, run
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_prod_kd_")
+    factories = {name: getattr(run, name)
+                 for name in ("make_kd_step", "make_reranker_step")}
+    totals = {name: 0 for name in ops.KERNELS}
+    try:
+        for recipe, pair in KD_RECIPES.items():
+            out_dir = f"{root}/{recipe}"
+            step_ms = {}
+            run.make_kd_step = _timed_factory(torch, factories[
+                "make_kd_step"], "kd", step_ms)
+            run.make_reranker_step = _timed_factory(torch, factories[
+                "make_reranker_step"], "teacher_warmup", step_ms)
+            rec = {}
+            for steps_to, label in ((KD_STEPS, "run"),
+                                    (KD_RESUME_STEPS, "resume")):
+                fresh_peak(torch)
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run.main(["--recipe", recipe, *KD_FLAGS, "--steps",
+                                str(steps_to), "--output-dir", out_dir])
+                torch.cuda.synchronize()
+                launches = ops.launches()
+                for name, n in launches.items():
+                    totals[name] += n
+                rec[label] = {"wall_s": time.perf_counter() - t0,
+                              "steps": out["steps"],
+                              "final_loss": out["final_loss"],
+                              "phase_times_s": out["phase_times_s"],
+                              "max_memory_gb": out["max_memory_gb"],
+                              "launches": launches}
+                check(out["steps"] == steps_to
+                      and math.isfinite(out["final_loss"]),
+                      f"{recipe} {label}: {out}")
+                path = KD_TEACHER + (pair if label == "run"
+                                     else ("bh_attention_fwd",
+                                           "bh_attention_bwd")
+                                     if recipe == "prod_kd_marcodoc" else ())
+                for name in path:
+                    check(launches[name] > 0,
+                          f"{recipe} {label}: {name} not launched")
+            losses = _kd_losses(out_dir)
+            check([s for s, _ in losses] == list(range(1, KD_RESUME_STEPS
+                                                       + 1))
+                  and all(math.isfinite(x) for _, x in losses),
+                  f"{recipe}: KD losses {losses}")
+            names = set(os.listdir(out_dir))
+            for name in ("eval.json", "kd_teacher_state-0",
+                         f"student_state-{KD_STEPS}",
+                         f"student-{KD_RESUME_STEPS}"):
+                check(name in names, f"{recipe}: no {name}")
+            check("teacher_warmup" not in rec["resume"]["phase_times_s"],
+                  f"{recipe}: the relaunch warmed the teacher again")
+            emit("prod_kd", nvidia_smi=smi, recipe=recipe, flags=KD_FLAGS,
+                 losses=losses, step_ms=step_ms,
+                 steady_kd_step_ms=float(sum(step_ms["kd"][1:KD_STEPS])
+                                         / (KD_STEPS - 1)), **rec)
+            shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        for name, fn in factories.items():
+            setattr(run, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    rec, launches = _kd_full_width(torch, smi)
+    for name, n in launches.items():
+        totals[name] += n
+    emit("prod_kd_steps", nvidia_smi=smi, **rec)
+    fresh_peak(torch)
+    _launch_totals(records, "prod_kd", totals)
+
+
+# --- phase 19: the rest of the mesh -----------------------------------------
+
+MESH_WORLD = DP_WORLD   # gloo ranks sharing the one card (torchrun's)
+MESH_STEPS = 2          # steps of each kind, on phase 18's batches 0 and 1
+MESH_PASSAGES, MESH_REQUESTS = 65_536, 8
+# two model ranks (each half of every split layer) against the world-1
+# steps from the same weights: the loss (relative), the cosine of the two
+# runs' updates, the largest parameter difference in learning rates, over
+# the gathered parameters and over each rank's slice. A row-split layer
+# sums f32 partials before its bf16 rounding, and with random weights the
+# in-batch loss is ill-conditioned (CLS embeddings nearly coincide), so
+# the TP readings are held beside a floor measured in (a): the world-1
+# steps with every dense layer an f32 product of the bf16 operands (the
+# CPU's formula of the same flax function) against the bf16 GEMMs.
+# Readings (PERF.md, section 6), TP / floor, on these batches: DE loss 0.017
+# / 0.029 relative, update cosine 0.918 / 0.923; retriever 0.017 / 0.045,
+# 0.893 / 0.883; on phase 5's batches (8 x 16 x 128) 0.043 / 0.053, 0.913
+# / 0.925 and 0.022 / 0.032, 0.887 / 0.905; all 4.00 lr (Adam's sign
+# flips). Limits: the loss within 2.5x the floor's gap (or 1e-2), the
+# cosine within 2.5x the larger gap seen (0.018) of the floor's, the
+# parameters within AdamW's two-step bound (DP_PARAM_LR).
+TP_LOSS_REL, TP_LOSS_FACTOR, TP_COS_GAP, TP_PARAM_LR = 1e-2, 2.5, 0.045, 4.5
+# slice-scoped negatives over 2 slices against the per-slice oracle from
+# world-1 embeddings (the first step's loss, relative). Readings: 9.9e-4
+# on these batches (a rank encodes 32 passages, world 1 64: other GEMM
+# shapes), 3.5e-8 on phase 5's; negatives gathered over both slices would
+# read the global oracle instead (reported beside it). Limit: 5x.
+SLICE_LOSS_REL = 5e-3
+# the steps: the DE's queries on K5/K6 and its passages on K7/K8 (at
+# heads / 2 on a model rank), the teacher's int8 view on K1-K3
+MESH_PATH = ("int8_linear", "row_quant", "small_s_attention",
+             "group_attention_fwd", "group_attention_bwd",
+             "bh_attention_fwd", "bh_attention_bwd")
+MESH_SERVING = ("int8_linear", "row_quant", "small_s_attention",
+                "mips_bucket_candidates")
+
+
+def _mesh_models(torch):
+    """A BERT-base DE (seed 0, small_s_attn="group") and the int8 view of a
+    BERT-base CE teacher (seed 1), phase 18's marcodoc batches 0 and 1 (8
+    queries x 8 passages, 32 / 256 / 288 tokens)."""
+    import numpy as np
+
+    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
+                                         BiEncoderConfig, CrossEncoder,
+                                         CrossEncoderConfig, int8_view)
+
+    dev = torch.device("cuda")
+    base = BertConfig(vocab_size=30522, dtype=torch.bfloat16,
+                      small_s_attn="group")
+    de = BiEncoder(BiEncoderConfig(bert=base),
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    ce = CrossEncoder(CrossEncoderConfig(bert=base),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    return de, int8_view(ce), [_kd_batch(np, s) for s in range(MESH_STEPS)]
+
+
+def _mesh_kinds(torch, view, mesh, auto_state=False, scope="global"):
+    """{kind: step(state, batch)}: the DE step and the AR2 retriever step
+    (adv_lambda 0) at lr 1e-5."""
+    from simxns_tpu_torch.train import (make_adamw, make_ar2_retriever_step,
+                                        make_biencoder_step)
+
+    tx = make_adamw(1e-5, total_steps=0)
+    r = make_ar2_retriever_step(tx, temperature=1.0, adv_lambda=0.0,
+                                mesh=mesh, auto_state=auto_state)
+    return tx, {"biencoder": make_biencoder_step(
+        tx, mesh=mesh, auto_state=auto_state, negatives_scope=scope),
+        "retriever": lambda s, b: r(s, view, b)}
+
+
+def _mesh_run(torch, model, tx, step, init, batches, mesh):
+    """Steps from ``init`` (whole parameters; a split model takes its
+    slices); -> (metrics, ms per step)."""
+    from simxns_tpu_torch.parallel import shard_batch
+    from simxns_tpu_torch.parallel.tp import _split_dim, tensor_parallel_of
+    from simxns_tpu_torch.train import TrainState
+
+    info = tensor_parallel_of(model)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            src = init[n]
+            if info is not None and n in info[1]:
+                src = src.chunk(info[0].world_size, _split_dim(n, src.ndim))[
+                    info[0].rank]
+            p.copy_(src)
+    state = TrainState.create(model, tx)
+    metrics, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, shard_batch(b, mesh))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, ms
+
+
+def _slice_oracle(torch, de, batch):
+    """The per-slice in-batch NLL over 2 slices (each slice's 4 queries
+    against its 32 passages), averaged over the 8 queries, from the
+    world-1 encoders (no update); and the global one (every query against
+    all 64 passages). -> (slice loss, global loss)."""
+    from simxns_tpu_torch.losses import in_batch_nll
+    from simxns_tpu_torch.train import steps
+
+    b = steps.to_device(batch, torch.device("cuda"))
+    with torch.no_grad():
+        q, c = de(b["q_ids"], b["q_mask"], b["ctx_ids"], b["ctx_mask"])
+    half_q, half_c = KD_N // 2, KD_N * KD_M // 2
+    total = 0.0
+    for s in range(2):
+        loss, _ = in_batch_nll(q[s * half_q:(s + 1) * half_q],
+                               c[s * half_c:(s + 1) * half_c],
+                               b["positive_idx"][s * half_q:(s + 1) * half_q]
+                               - s * half_c, reduction="sum")
+        total += float(loss)
+    every, _ = in_batch_nll(q, c, b["positive_idx"])
+    return total / KD_N, float(every)
+
+
+def _mesh_retriever(torch, mesh, tokens=None):
+    """Phase 3's serving model (BERT-base, fused_int8, seed 0) behind a
+    ``DenseRetriever`` over ``MESH_PASSAGES`` synthetic passages (int8
+    index, fused mode; ``tokens``: their token ids, else tokenized here)
+    answering ``MESH_REQUESTS`` requests of 8 queries (k=10). -> (ids
+    [R*8, 10], scores, index s, request ms, the token ids)."""
+    import numpy as np
+
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.serve import DenseRetriever
+
+    model = BiEncoder(BiEncoderConfig(bert=BertConfig(
+        vocab_size=30522, dtype=torch.bfloat16, layer_impl="fused_int8")),
+        generator=torch.Generator().manual_seed(0))
+    passages = _synthetic_passages(MESH_PASSAGES)
+    r = DenseRetriever(model, HashTokenizer(vocab_size=30522),
+                       device="cuda:0", max_q_length=32, max_ctx_length=128,
+                       index_mode="fused", store_dtype=torch.int8,
+                       query_batch=8, encode_chunk=1024, mesh=mesh)
+    rng = np.random.default_rng(1)
+    picks = rng.integers(0, MESH_PASSAGES, MESH_REQUESTS * 8)
+    requests = [[" ".join(passages[int(i)][0].split()[:12])
+                 for i in picks[q * 8:(q + 1) * 8]]
+                for q in range(MESH_REQUESTS)]
+    if tokens is None:
+        tokens, _ = r._tokenize([passages[i][1] for i in range(MESH_PASSAGES)],
+                                [passages[i][0] for i in range(MESH_PASSAGES)],
+                                128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.index_corpus(passages, precomputed_tokens=tokens)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    ids, scores, ms = [], [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        hits = r.search(req, k=10)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ids += [[h.passage_id for h in q] for q in hits]
+        scores += [[h.score for h in q] for q in hits]
+    del r, model
+    return np.array(ids), np.array(scores), index_s, ms, tokens
+
+
+def _update_gap(torch, got, want, init, lr):
+    """(update cosine, largest parameter difference in learning rates) of
+    two runs from ``init``."""
+    dot = n_got = n_want = diff = 0.0
+    for n, g in got.items():
+        w = want[n]
+        d_got, d_want = (g - init[n]).double(), (w - init[n]).double()
+        dot += float((d_got * d_want).sum())
+        n_got += float((d_got * d_got).sum())
+        n_want += float((d_want * d_want).sum())
+        diff = max(diff, float((g - w).abs().max()))
+    return dot / math.sqrt(n_got * n_want), diff / lr
+
+
+def _mesh_floor(torch, de, step, tx, init, batches, want, after):
+    """The same world-1 steps with every dense layer an f32 product of its
+    bf16 operands, rounded (``linear_dt``'s CPU formula of the same flax
+    function) against the bf16 GEMMs: the size of a rounding change, beside
+    which the tensor-parallel steps are held. -> {loss_rel, update_cosine,
+    param_max_diff_over_lr}."""
+    from simxns_tpu_torch.ops import fused_ffn
+
+    def linear_f32(x, weight, bias, dt):
+        y = torch.matmul(x.to(dt).float(), weight.to(dt).float().T)
+        return y.to(dt) + bias.to(dt)
+
+    real = fused_ffn.linear_dt
+    fused_ffn.linear_dt = linear_f32
+    try:
+        got, _ = _mesh_run(torch, de, tx, step, init, batches, None)
+    finally:
+        fused_ffn.linear_dt = real
+    cos, diff = _update_gap(torch, {n: p.detach() for n, p in
+                                    de.named_parameters()}, after, init, 1e-5)
+    return {"metrics": got,
+            "loss_rel": max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                            for g, w in zip(got, want)),
+            "update_cosine": cos, "param_max_diff_over_lr": diff}
+
+
+def _mesh_world_one(torch, root):
+    """(a) NCCL at world 1 in this process: the DE and retriever steps with
+    no group, then on ``create_mesh(n_data=1, n_model=1)`` (``auto_state``,
+    the split a no-op) and on ``create_multislice_mesh(1)`` (slice-scoped
+    negatives), bitwise equal (deterministic algorithms on). Saved under
+    ``root`` for the ranks of (b)-(d): the world-1 steps, the per-slice
+    oracle, the world-1 retriever's hits."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.parallel import create_mesh, create_multislice_mesh
+    from simxns_tpu_torch.parallel.tp import shard_params
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://localhost:{_free_port()}")
+    rec = {"kinds": {}}
+    launches = {name: 0 for name in ops.KERNELS}
+    try:
+        fresh_peak(torch)
+        de, view, batches = _mesh_models(torch)
+        init = {n: p.detach().clone() for n, p in de.named_parameters()}
+        tp = create_mesh("cuda:0", n_data=1, n_model=1)
+        ms = create_multislice_mesh(1, device="cuda:0")
+        shard_params(de, tp)          # n_model 1: the module as it is
+        rec["oracle_slice_loss"], rec["oracle_global_loss"] = \
+            _slice_oracle(torch, de, batches[0])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for kind in ("biencoder", "retriever"):
+                tx, plain = _mesh_kinds(torch, view, None)
+                want, want_ms = _mesh_run(torch, de, tx, plain[kind], init,
+                                          batches, None)
+                after = {n: p.detach().clone()
+                         for n, p in de.named_parameters()}
+                runs = {"model_1": _mesh_kinds(torch, view, tp,
+                                               auto_state=True),
+                        "multislice_1": _mesh_kinds(torch, view, ms,
+                                                    scope="slice")}
+                got_ms = {}
+                for label, (tx2, kinds) in runs.items():
+                    # the main path: launch counts zeroed just before
+                    ops.reset_launches()
+                    torch.cuda.synchronize()
+                    got, got_ms[label] = _mesh_run(torch, de, tx2,
+                                                   kinds[kind], init,
+                                                   batches, tp if label ==
+                                                   "model_1" else ms)
+                    for name, n in ops.launches().items():
+                        launches[name] += n
+                    differ = [n for n, p in de.named_parameters()
+                              if not torch.equal(p.detach(), after[n])]
+                    check(got == want and not differ,
+                          f"{kind} on {label} differs from no group: {got} "
+                          f"vs {want}; parameters {differ[:5]}")
+                torch.save({"metrics": want,
+                            "init": {n: t.cpu() for n, t in init.items()},
+                            "params": {n: t.cpu() for n, t in after.items()}},
+                           f"{root}/mesh1_{kind}.pt")
+                rec["kinds"][kind] = {"metrics": want,
+                                      "step_ms_no_group": want_ms,
+                                      "step_ms": got_ms,
+                                      "bitwise_equal": True,
+                                      "floor": _mesh_floor(
+                                          torch, de, plain[kind], tx, init,
+                                          batches, want, after)}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for name in MESH_PATH:
+            check(launches[name] > 0, f"{name} not launched on the world-1 "
+                  "mesh steps")
+        with open(f"{root}/mesh1_oracle.json", "w") as f:
+            json.dump({"slice": rec["oracle_slice_loss"],
+                       "global": rec["oracle_global_loss"]}, f)
+        for kind in rec["kinds"]:
+            check(all(math.isfinite(m["loss"]) for m in
+                      rec["kinds"][kind]["floor"]["metrics"]),
+                  f"{kind}: the f32-product floor run: {rec['kinds'][kind]}")
+        rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del de, view, init, after
+    finally:
+        dist.destroy_process_group()
+    fresh_peak(torch)
+    ids, scores, index_s, req_ms, tokens = _mesh_retriever(torch, None)
+    np.savez(f"{root}/mesh1_retriever.npz", ids=ids, scores=scores,
+             tokens=tokens)
+    rec["retriever_world_1"] = {"index_s": index_s, "request_ms": req_ms}
+    fresh_peak(torch)
+    return rec, launches
+
+
+def _mesh_rank(torch, root):
+    """(b)-(d), one gloo rank of ``MESH_WORLD`` on the card: (b) the DE and
+    retriever steps with the DE split over (data 1, model 2)
+    (``auto_state``) against the world-1 steps; (c) slice-scoped negatives
+    over 2 slices x 1 against the per-slice oracle; (d) the sharded
+    ``DenseRetriever`` against the world-1 retriever's ids."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.parallel import create_mesh, create_multislice_mesh
+    from simxns_tpu_torch.parallel.tp import (_all_gather, _split_dim,
+                                              shard_params,
+                                              tensor_parallel_of)
+
+    world = create_mesh("cuda:0", backend="gloo", timeout_s=900)
+    dev = world.device
+    tp = create_mesh("cuda:0", n_data=1, n_model=MESH_WORLD)
+    ms = create_multislice_mesh(MESH_WORLD, device="cuda:0")
+    rec = {"rank": world.rank, "kinds": {}}
+    de, view, batches = _mesh_models(torch)
+    shard_params(de, tp)
+    split = tensor_parallel_of(de)[1]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    for kind in ("biencoder", "retriever"):
+        ref = torch.load(f"{root}/mesh1_{kind}.pt", weights_only=True)
+        init = {n: t.to(dev) for n, t in ref["init"].items()}
+        tx, kinds = _mesh_kinds(torch, view, tp, auto_state=True)
+        metrics, step_ms = _mesh_run(torch, de, tx, kinds[kind], init,
+                                     batches, tp)
+        full = {n: (_all_gather(p.detach(), tp.model_mesh,
+                                _split_dim(n, p.ndim))
+                    if n in split else p.detach())
+                for n, p in de.named_parameters()}
+        cos, diff = _update_gap(torch, full, {
+            n: t.to(dev) for n, t in ref["params"].items()}, init, 1e-5)
+        slice_diff = 0.0
+        for n, p in de.named_parameters():
+            dim = _split_dim(n, p.ndim)
+            want = ref["params"][n].to(dev)
+            if p.shape != want.shape:
+                want = want.chunk(MESH_WORLD, dim)[tp.model_mesh.rank]
+            slice_diff = max(slice_diff, float((p.detach() - want).abs()
+                                               .max()))
+        rec["kinds"][kind] = {
+            "metrics": metrics, "world1_metrics": ref["metrics"],
+            "step_ms": step_ms,
+            "loss_rel": max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                            for g, w in zip(metrics, ref["metrics"])),
+            "update_cosine": cos, "param_max_diff_over_lr": diff,
+            "slice_max_diff_over_lr": slice_diff / 1e-5}
+    rec["launches_tp"] = ops.launches()
+    del de
+    # (c) slice scope over 2 slices x 1: a whole DE from the same init
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
+
+    de = BiEncoder(BiEncoderConfig(bert=BertConfig(
+        vocab_size=30522, dtype=torch.bfloat16))).to(dev)
+    ref = torch.load(f"{root}/mesh1_biencoder.pt", weights_only=True)
+    init = {n: t.to(dev) for n, t in ref["init"].items()}
+    tx, kinds = _mesh_kinds(torch, view, ms, scope="slice")
+    metrics, slice_ms = _mesh_run(torch, de, tx, kinds["biencoder"], init,
+                                  batches[:1], ms)
+    with open(f"{root}/mesh1_oracle.json", encoding="utf-8") as f:
+        oracle = json.load(f)
+    rec["slice"] = {"loss": metrics[0]["loss"], "oracle": oracle["slice"],
+                    "oracle_global": oracle["global"],
+                    "loss_rel": abs(metrics[0]["loss"] - oracle["slice"])
+                    / oracle["slice"],
+                    "step_ms": slice_ms, "replica": ms.replica_index}
+    del de, view, init, ref
+    fresh_peak(torch)
+    # (d) the sharded retriever
+    want = np.load(f"{root}/mesh1_retriever.npz")
+    ops.reset_launches()
+    ids, scores, index_s, req_ms, _ = _mesh_retriever(torch, world,
+                                                      want["tokens"])
+    rec["launches_serving"] = ops.launches()
+    rec["retriever"] = {"index_s": index_s, "request_ms": req_ms,
+                        "ids_bitwise_equal": bool(np.array_equal(
+                            ids, want["ids"])),
+                        "scores_bitwise_equal": bool(np.array_equal(
+                            scores, want["scores"]))}
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(f"{root}/mesh_rank{world.rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh(torch, smi, records):
+    """Phase 19: the rest of the mesh. (a) NCCL at world 1 as (data 1,
+    model 1) and as a (1, 1, 1) multislice mesh; (b)-(d) two gloo ranks on
+    the card under ``torchrun``: tensor parallelism at (data 1, model 2),
+    2 slices x 1 with slice-scoped negatives, the sharded retriever. Two
+    ranks on one card check correctness, not scaling: the gloo
+    collectives cross the host."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        world1, totals = _mesh_world_one(torch, root)
+        world1["seconds"] = time.perf_counter() - t0
+        emit("mesh_world_1", nvidia_smi=smi, **world1)
+        wall = _torchrun(["mesh", root], 900)
+        ranks = _rank_files(root, "mesh")
+        emit("mesh_ranks", nvidia_smi=smi, world=MESH_WORLD, backend="gloo",
+             torchrun_wall_s=wall,
+             limits={"tp_loss_rel": TP_LOSS_REL,
+                     "tp_loss_factor_over_floor": TP_LOSS_FACTOR,
+                     "tp_cosine_gap_to_floor": TP_COS_GAP,
+                     "tp_param_max_diff_over_lr": TP_PARAM_LR,
+                     "slice_loss_rel": SLICE_LOSS_REL},
+             retriever_world_1=world1["retriever_world_1"], ranks=ranks)
+        for r in ranks:
+            for kind, k in r["kinds"].items():
+                what = f"rank {r['rank']} {kind} at (data 1, model 2)"
+                floor = world1["kinds"][kind]["floor"]
+                check(k["loss_rel"] <= max(TP_LOSS_REL, TP_LOSS_FACTOR
+                                           * floor["loss_rel"])
+                      and k["update_cosine"] >= floor["update_cosine"]
+                      - TP_COS_GAP
+                      and k["param_max_diff_over_lr"] <= TP_PARAM_LR
+                      and k["slice_max_diff_over_lr"] <= TP_PARAM_LR,
+                      f"{what} against world 1: {k}; floor {floor}")
+                check(all(math.isfinite(m["loss"]) for m in k["metrics"]),
+                      f"{what}: losses {k['metrics']}")
+            check(r["slice"]["loss_rel"] <= SLICE_LOSS_REL,
+                  f"rank {r['rank']}: slice scope against the oracle: "
+                  f"{r['slice']}")
+            check(r["retriever"]["ids_bitwise_equal"],
+                  f"rank {r['rank']}: the sharded retriever's ids differ "
+                  f"from world 1's: {r['retriever']}")
+            for name in MESH_PATH:
+                check(r["launches_tp"][name] > 0,
+                      f"rank {r['rank']}: {name} not launched in its steps")
+            for name in MESH_SERVING:
+                check(r["launches_serving"][name] > 0,
+                      f"rank {r['rank']}: {name} not launched serving")
+            for name in totals:
+                totals[name] += (r["launches_tp"][name]
+                                 + r["launches_serving"][name])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _launch_totals(records, "mesh", totals)
 
 
 SOURCES = {
@@ -3608,6 +4424,8 @@ def main():
     phase_lead_ce(torch, smi)
     phase_rerank(torch, smi, records)
     phase_data_parallel(torch, smi, records, co_training)
+    phase_prod_kd(torch, smi, records)
+    phase_mesh(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

@@ -13,7 +13,9 @@
   and the SimANS train records (:func:`reform_out`).
 
 Data parallelism (``mesh``, a :class:`~simxns_tpu_torch.parallel.mesh.Mesh`
-with a group of W ranks, one per GPU): the encoder splits each chunk over
+with a group of W ranks, one per GPU; on a multislice or tensor-parallel
+mesh, W is the data axis of one slice, and the index is replicated across
+slices and model ranks): the encoder splits each chunk over
 the ranks and all-gathers the embeddings in row order; the index holds W
 row shards (rank r the global rows ``[r * shard_rows, (r + 1) *
 shard_rows)``, the corpus padded as the JAX index pads it over its mesh)
@@ -61,7 +63,7 @@ class CorpusEncoder:
                  inflight: int = 4, stall_timeout_s: Optional[float] = None,
                  stall_retries: int = 2, mesh: Optional[Mesh] = None):
         self.encode_fn = encode_fn
-        self.mesh = mesh
+        self.mesh = None if mesh is None else mesh.within_slice
         self.device = mesh_device(mesh, device)
         self.chunk_size = chunk_size
         self.inflight = inflight
@@ -144,7 +146,10 @@ class MIPSIndex:
                  mesh: Optional[Mesh] = None):
         if mode not in ("exact", "approx", "fused"):
             raise ValueError(f"unknown search mode {mode!r}")
-        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        # rows split over the data axis of a slice: replicated across
+        # slices and model ranks (JAX: ``mesh.shape["data"]`` shards)
+        self.mesh = (mesh.within_slice if mesh is not None
+                     and mesh.distributed else None)
         self.device = mesh_device(mesh, device)
         self.block_size = block_size
         self.store_dtype = store_dtype

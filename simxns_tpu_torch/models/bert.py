@@ -241,6 +241,8 @@ class BertEmbeddings(nn.Module):
 class BertSelfAttention(nn.Module):
     """q/k/v projections, attention, output projection, residual + LN."""
 
+    tp = None      # parallel.tp.TensorParallel once its weights are split
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -262,6 +264,9 @@ class BertSelfAttention(nn.Module):
         ``proj_impl="int8"`` runs on; ``generator``: train mode's dropout
         (the probabilities, then the output before its residual)."""
         cfg, dt = self.cfg, self.cfg.dtype
+        if self.tp is not None:
+            return self._forward_tp(hidden, attention_mask, generator,
+                                    output_attention)
         b, s, h = hidden.shape
         d = h // cfg.num_heads
 
@@ -290,6 +295,51 @@ class BertSelfAttention(nn.Module):
         return layer_norm(self.output_layer_norm, out + hidden, dt,
                           cfg.layer_norm_eps), probs
 
+    def _forward_tp(self, hidden, attention_mask, generator,
+                    output_attention):
+        """The split layer (``parallel.tp``): q, k, v of this rank's heads
+        (column-split), the attention over them, the row-split output
+        summed over the model group. Where the heads do not divide by the
+        model size, q, k and v are gathered and every rank attends over
+        all heads, then keeps its columns of the context."""
+        cfg, dt, tp = self.cfg, self.cfg.dtype, self.tp
+        b, s, h = hidden.shape
+        d = h // cfg.num_heads
+        x = tp.copy_in(hidden)
+        q, k, v = (dense(m, x, dt) for m in (self.query, self.key,
+                                              self.value))
+        local = q.shape[-1]
+        attn_gen = generator
+        if cfg.num_heads % tp.size == 0:
+            heads = cfg.num_heads // tp.size
+            if generator is not None and cfg.attention_dropout > 0.0:
+                # the probabilities of other heads than the other model
+                # ranks'; the layer's own stream stays the same on every
+                # rank (it drops the replicated hiddens)
+                attn_gen = drop.generator(
+                    drop.seeds(generator, 1)[0] ^ (tp.rank << 40),
+                    generator.device)
+        else:
+            heads = cfg.num_heads
+            q, k, v = (tp.gather(t, -1, summed=True) for t in (q, k, v))
+        width = heads * d
+
+        def split(x):
+            return x.reshape(b, s, heads, d).transpose(1, 2)
+
+        ctx, probs = multi_head_attention(
+            split(q), split(k), split(v), attention_mask,
+            impl=cfg.attention_impl, return_probs=output_attention,
+            dropout_rate=cfg.attention_dropout, generator=attn_gen,
+            small_s_impl=cfg.small_s_attn)
+        ctx = ctx.transpose(1, 2).reshape(b, s, width)
+        if width != local:
+            ctx = ctx[..., tp.rank * local:(tp.rank + 1) * local]
+        out = tp.row_dense(self.output, ctx, dt)
+        out = drop.dropout(out, cfg.hidden_dropout, generator)
+        return layer_norm(self.output_layer_norm, out + hidden, dt,
+                          cfg.layer_norm_eps), probs
+
     def _int8_qkv(self, x8: torch.Tensor, ql: QuantizedLayer):
         """q, k, v under ``proj_impl="int8"``: where the shapes tile, ONE
         K13 call over the concatenated [Wq; Wk; Wv] (the codes of x and
@@ -307,6 +357,8 @@ class BertSelfAttention(nn.Module):
 
 class BertLayer(nn.Module):
     """Post-LN transformer block (attention + GELU FFN), HF-BERT layout."""
+
+    tp = None      # parallel.tp.TensorParallel once its weights are split
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -359,8 +411,16 @@ class BertLayer(nn.Module):
         """-> (output, attention probabilities or None). ``generator``
         draws train mode's dropout masks (None in eval mode)."""
         cfg, dt = self.cfg, self.cfg.dtype
-        if (cfg.layer_impl == "fused_int8" and generator is None
-                and not output_attention):
+        fused_layer = (cfg.layer_impl == "fused_int8" and generator is None
+                       and not output_attention)
+        if self.tp is not None and (fused_layer or cfg.ffn_impl != "xla"
+                                    or cfg.proj_impl != "xla"):
+            # a kernel over the layer's whole weights (JAX: GSPMD gathers
+            # the kernel's operands)
+            return self.tp.whole(self, hidden, attention_mask,
+                                 generator=generator,
+                                 output_attention=output_attention)
+        if fused_layer:
             _guard_quantized_under_grad(self, hidden,
                                         "layer_impl='fused_int8'")
             return fused_encoder_layer_int8(
@@ -385,11 +445,15 @@ class BertLayer(nn.Module):
                                 self.intermediate.bias, self.output.weight,
                                 self.output.bias, cfg.ffn_impl)
         else:
-            inter = dense(self.intermediate, attn_out, dt)
+            tp = self.tp       # the split FFN: column, then row (+ its sum)
+            inter = dense(self.intermediate,
+                          attn_out if tp is None else tp.copy_in(attn_out),
+                          dt)
             inter = torch.nn.functional.gelu(
                 inter.float(),
                 approximate="tanh" if cfg.gelu == "tanh" else "none").to(dt)
-            out = dense(self.output, inter, dt)
+            out = (dense(self.output, inter, dt) if tp is None
+                   else tp.row_dense(self.output, inter, dt))
         out = drop.dropout(out, cfg.hidden_dropout, generator)
         return layer_norm(self.output_layer_norm, out + attn_out, dt,
                           cfg.layer_norm_eps), probs
@@ -513,6 +577,8 @@ class MLMHead(nn.Module):
     accumulation, plus the head's own ``bias``), as HF ties it; else an
     untied ``decoder`` is learned. Logits are f32 [..., vocab]."""
 
+    tp = None      # parallel.tp.TensorParallel once its decoder is split
+
     def __init__(self, cfg: BertConfig, tied: bool = True):
         super().__init__()
         self.cfg = cfg
@@ -538,6 +604,11 @@ class MLMHead(nn.Module):
         x = torch.nn.functional.gelu(x.float()).to(dt)
         x = layer_norm(self.transform_layer_norm, x, dt, cfg.layer_norm_eps)
         if shared_embedding is None:
+            if self.tp is not None:
+                # the vocabulary-split logits, gathered (every rank then
+                # computes the same loss over the whole vocabulary)
+                return self.tp.gather(
+                    dense(self.decoder, self.tp.copy_in(x), dt).float())
             return dense(self.decoder, x, dt).float()
         # products of dt values, accumulated and returned in f32 (the
         # einsum's preferred_element_type); a plain product, no kernel
@@ -574,6 +645,9 @@ def share_parameters(view: nn.Module, model: nn.Module) -> nn.Module:
     theirs = [m for m in model.modules() if isinstance(m, BertLayer)]
     for v_layer, m_layer in zip(mine, theirs):
         v_layer._qbox = m_layer._qbox
+    for v_mod, m_mod in zip(view.modules(), model.modules()):
+        if getattr(m_mod, "tp", None) is not None:
+            v_mod.tp = m_mod.tp          # the split layers of parallel.tp
     return view
 
 

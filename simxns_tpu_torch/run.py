@@ -1,5 +1,5 @@
-"""Command-line launcher of the AR2 co-training run (port of
-``simxns_tpu/run.py``).
+"""Command-line launcher of the AR2 co-training and PROD distillation runs
+(port of ``simxns_tpu/run.py``).
 
     python -m simxns_tpu_torch.run --recipe nq_ar2_simans --synthetic
     python -m simxns_tpu_torch.run --recipe nq_ar2_simans --synthetic \\
@@ -7,6 +7,8 @@
     python -m simxns_tpu_torch.run --recipe nq_ar2_simans \\
         --corpus corpus.npz --queries queries.npz \\
         --passages-tsv psgs_w100.tsv --output-dir runs/nq
+    python -m simxns_tpu_torch.run --recipe prod_kd_marco --synthetic \\
+        --device cpu --steps 8 --batch 8 --corpus-size 48 --num-queries 16
 
 :func:`run_ar2` runs warm-up -> mine -> co-training windows -> a mine and
 a checkpoint at each window boundary -> a final eval, on the card unless
@@ -34,8 +36,17 @@ same records. Rank 0 writes the metrics, checkpoints and outputs; every
 rank restores on ``--resume auto``. The global batch, the losses and the
 checkpoints are those of one device over the whole batch.
 
-Only the AR2 recipes run here; the other runners, ``--init-checkpoint``
-and LAMB raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+:func:`run_kd` runs a PROD distillation stage (``prod_kd_marco``,
+``prod_kd_nq``, ``prod_kd_marcodoc``): the CE teacher (the student's BERT
+at 12 layers, grouped small-S attention) warms up on reranker steps, then
+the student dual encoder distils from it (``--fast-teacher``: through the
+teacher's fused-int8 view). Outputs: ``kd_teacher_state-0``,
+``student_state-<step>`` every ``steps // 5`` (what ``--resume auto``
+continues from, with the warmed teacher restored), the final ``student``
+parameters and ``eval.json``; under ``torchrun`` as ``run_ar2``.
+
+The AR2 and KD recipes run here; the other runners and
+``--init-checkpoint`` raise ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -51,7 +62,7 @@ import time
 import numpy as np
 import torch
 
-from simxns_tpu_torch.config import AR2RecipeConfig, RECIPES
+from simxns_tpu_torch.config import AR2RecipeConfig, KDRecipeConfig, RECIPES
 from simxns_tpu_torch.data import HashTokenizer, from_mining_result
 from simxns_tpu_torch.data.datasets import (load_id_text, load_passages_tsv,
                                             load_qrels)
@@ -70,7 +81,8 @@ from simxns_tpu_torch.parallel.sync import force_sync
 from simxns_tpu_torch.parallel.watchdog import retry_on_stall
 from simxns_tpu_torch.train import (TrainState, make_adamw,
                                     make_ar2_retriever_step,
-                                    make_biencoder_step, make_reranker_step)
+                                    make_biencoder_step, make_kd_step,
+                                    make_lamb, make_reranker_step)
 from simxns_tpu_torch.train.driver import (AR2Config, AR2CoTrainer,
                                            RecallGuard, check_teacher_warmth)
 
@@ -78,11 +90,13 @@ from simxns_tpu_torch.train.driver import (AR2Config, AR2CoTrainer,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m simxns_tpu_torch.run",
-        description="Run a SimXNS AR2/SimANS co-training recipe on a CUDA "
-                    "card (or the CPU with --device cpu).")
+        description="Run a SimXNS AR2/SimANS co-training or PROD "
+                    "distillation recipe on a CUDA card (or the CPU with "
+                    "--device cpu).")
     ap.add_argument("--recipe", required=True, choices=sorted(RECIPES),
                     help="named configuration from simxns_tpu_torch.config."
-                         "RECIPES (only the AR2 recipes run in this port)")
+                         "RECIPES (the AR2 and PROD KD recipes run in this "
+                         "port)")
     ap.add_argument("--corpus", default=None,
                     help="packed corpus .npz from scripts/prepare_data.py")
     ap.add_argument("--queries", default=None,
@@ -157,8 +171,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "worker thread under the index build; 'off' = "
                          "resident. auto = overlap for --full-size runs")
     ap.add_argument("--fast-teacher", action="store_true",
-                    help="run the retriever step's frozen reranker forward "
-                         "through the fused int8 view of its parameters")
+                    help="run the frozen reranker's forward (the AR2 "
+                         "retriever step's teacher, the KD teacher) through "
+                         "the fused int8 view of its parameters")
     ap.add_argument("--remat", choices=["recipe", "de", "ce", "both", "none"],
                     default="recipe",
                     help="activation checkpointing per model: 'ce' "
@@ -465,14 +480,12 @@ def _scan_resume(args, name: str):
 
 
 def _make_optim(optim_cfg, lr_override=None, steps=None):
-    if optim_cfg.optimizer == "lamb":
-        raise NotImplementedError("LAMB is not ported yet (ROADMAP.md "
-                                  "Queue 1, item 11)")
     lr = lr_override if lr_override is not None else optim_cfg.learning_rate
     total = steps if steps is not None else optim_cfg.total_steps
-    return make_adamw(lr, warmup_steps=min(optim_cfg.warmup_steps, total // 4),
-                      total_steps=total, weight_decay=optim_cfg.weight_decay,
-                      max_grad_norm=optim_cfg.max_grad_norm)
+    factory = make_lamb if optim_cfg.optimizer == "lamb" else make_adamw
+    return factory(lr, warmup_steps=min(optim_cfg.warmup_steps, total // 4),
+                   total_steps=total, weight_decay=optim_cfg.weight_decay,
+                   max_grad_norm=optim_cfg.max_grad_norm)
 
 
 def _int8_view(model, make_view):
@@ -488,13 +501,140 @@ def _int8_view(model, make_view):
 
 def init_models(de_cfg: BiEncoderConfig, ce_cfg: CrossEncoderConfig,
                 seed: int):
-    """The initial dual encoder and reranker, with the JAX package's
-    initializers drawn from ``torch.Generator``s seeded ``seed`` and
-    ``seed + 1``."""
+    """The initial dual encoder and reranker (AR2; KD's student and
+    teacher), with the JAX package's initializers drawn from
+    ``torch.Generator``s seeded ``seed`` and ``seed + 1``."""
     de = BiEncoder(de_cfg, generator=torch.Generator().manual_seed(seed))
     ce = CrossEncoder(ce_cfg,
                       generator=torch.Generator().manual_seed(seed + 1))
     return de, ce
+
+
+def run_kd(name: str, cfg: KDRecipeConfig, args) -> dict:
+    """PROD progressive distillation stage (``PROD/README.md`` pipeline): a
+    student dual encoder distilled from a warmed cross-encoder teacher."""
+    t_start = time.time()
+    mesh = create_mesh(args.device, backend=args.dist_backend,
+                       timeout_s=_stall_timeout(args))
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    data = _get_corpus(args, cfg.data)
+    tiny = args.tiny_models or (
+        not args.full_size and not (args.corpus and not args.synthetic))
+    logger = MetricLogger(args.output_dir, rank=mesh.rank)
+    steps = args.steps if args.steps is not None else (
+        60 if tiny else cfg.max_steps)
+    batch_size = min(args.batch or cfg.global_batch, len(data.query_ids))
+    local_batch_size(batch_size, mesh)      # raises unless W divides it
+    negs = min(cfg.data.num_negatives, 7, len(data.corpus_ids) - 1)
+    lj = min(cfg.data.max_joint_length,
+             data.query_ids.shape[1] + data.corpus_ids.shape[1] + 1)
+
+    s_bert = _bert_cfg(cfg.student.bert, tiny, data.vocab_size)
+    # the teacher: the student's BERT at 12 layers, a joint tower
+    t_bert = _bert_cfg(cfg.student.bert.replace(num_layers=12), tiny,
+                       data.vocab_size, joint=True)
+    if args.remat != "recipe":
+        s_bert = s_bert.replace(remat=args.remat in ("de", "both"))
+        t_bert = t_bert.replace(remat=args.remat in ("ce", "both"))
+    if args.init_checkpoint:
+        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
+                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    # the student at seed, the teacher at seed + 1, as the JAX launcher
+    student, teacher = init_models(BiEncoderConfig(bert=s_bert),
+                                   CrossEncoderConfig(bert=t_bert), args.seed)
+    student, teacher = student.to(device), teacher.to(device)
+    kd_lr = args.lr if args.lr is not None else (1e-3 if tiny else None)
+    tx = _make_optim(cfg.optim, kd_lr, steps)
+    state = TrainState.create(student, tx)
+
+    gold = _gold_warm(data, negs + 1)
+    ds = from_mining_result(data.corpus_ids, data.query_ids, gold,
+                            num_negatives=negs, max_joint_length=lj,
+                            sep_id=data.sep_id, seed=args.seed,
+                            simans_mode=None)
+
+    # teacher warm-up (the pipeline's CE stage precedes distillation); a
+    # relaunch restores the warmed teacher instead (the reference reloads
+    # --teacher_model_path)
+    t_tx = _make_optim(cfg.optim, kd_lr, steps)
+    t_state = TrainState.create(teacher, t_tx)
+    resume_step = _resume_step(args, "student_state", mesh)
+    writer = bool(args.output_dir) and lead
+    group = mesh if mesh.distributed else None
+
+    def save(st: TrainState, step: int, ckpt: str, params_only=False):
+        if not args.output_dir:
+            return
+        tree = None
+        if writer:
+            tree = host_copy(st.state_dict(), device)
+            if params_only:
+                tree = {"params": tree["params"]}
+        save_checkpoint(args.output_dir, tree, step, name=ckpt, mesh=group)
+
+    if resume_step is not None:
+        restore_checkpoint(args.output_dir, t_state, 0,
+                           name="kd_teacher_state")
+        say(f"[{name}] resumed at step {resume_step}")
+    else:
+        ce_step = _on_shard(make_reranker_step(t_tx, device, mesh=mesh),
+                            mesh)
+        with logger.timed("teacher_warmup"):
+            for _ in range(max(1, steps // 8)):
+                for b in ds.batches(batch_size=batch_size):
+                    t_state, _ = ce_step(t_state, {
+                        "joint_ids": b["joint_ids"],
+                        "joint_mask": b["joint_mask"]})
+            force_sync(device)
+        save(t_state, 0, "kd_teacher_state")
+
+    # --fast-teacher: the frozen teacher's forwards run through the fused
+    # int8 view of its Parameters
+    kd_teacher = (_int8_view(teacher, cross_encoder.int8_view)
+                  if args.fast_teacher else teacher)
+    step = _on_shard(make_kd_step(
+        tx, cfg.teacher_type, kd_type=cfg.kd_type,
+        temperature=cfg.temperature, ce_weight=cfg.ce_weight,
+        kd_weight=cfg.kd_weight, lwf_weight=cfg.lwf_weight,
+        dkd_alpha=cfg.dkd_alpha, dkd_beta=cfg.dkd_beta, device=device,
+        mesh=mesh), mesh)
+    # the JAX launcher passes the CE teacher alone: the recipe's LwF term
+    # (lwf_weight 1.0) has no "student_init" teacher and stays 0
+    teachers = {"ce": kd_teacher}
+    done, last = 0, float("nan")
+    save_every = max(1, steps // 5)
+    if resume_step is not None:
+        restore_checkpoint(args.output_dir, state, resume_step,
+                           name="student_state")
+        done = resume_step
+    with logger.timed("kd"):
+        while done < steps:
+            for b in ds.batches(batch_size=batch_size):
+                state, m = step(state, teachers, b)
+                done += 1
+                last = float(m["loss"])
+                if done % max(1, steps // 10) == 0:
+                    logger.log(done, {"loss": last}, phase="kd")
+                if done % save_every == 0:
+                    save(state, done, "student_state")
+                if done >= steps:
+                    break
+    out = {"recipe": name, "steps": done, "final_loss": last,
+           "total_s": time.time() - t_start,
+           "phase_times_s": dict(logger.phase_times),
+           "world_size": mesh.world_size}
+    if device.type == "cuda":
+        out["max_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    save(state, done, "student", params_only=True)
+    if writer:
+        with open(os.path.join(args.output_dir, "eval.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(out, f, indent=1)
+    logger.close()
+    say(f"[{name}] distilled {done} steps, loss={last:.4f}")
+    return out
 
 
 def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
@@ -932,7 +1072,6 @@ def _on_shard(step, mesh):
 # the JAX package's other runners and the ROADMAP.md Queue 1 items that
 # bring them to the port
 _NOT_PORTED = {
-    "KDRecipeConfig": ("run_kd (PROD distillation)", 11),
     "MasterPretrainConfig": ("run_pretrain (MASTER pre-training)", 13),
     "LeadRecipeConfig": ("run_lead (LEAD joint distillation)", 12),
     "CapstoneRecipeConfig": ("run_capstone (CAPSTONE curriculum)", 15),
@@ -943,7 +1082,7 @@ _NOT_PORTED = {
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     cfg = RECIPES[args.recipe]
-    if not isinstance(cfg, AR2RecipeConfig):
+    if not isinstance(cfg, (AR2RecipeConfig, KDRecipeConfig)):
         what, item = _NOT_PORTED[type(cfg).__name__]
         raise NotImplementedError(f"recipe {args.recipe}: {what} is not "
                                   f"ported yet (ROADMAP.md Queue 1, item "
@@ -953,8 +1092,9 @@ def main(argv=None) -> dict:
     import torch.distributed as dist
 
     ours = not (dist.is_available() and dist.is_initialized())
+    runner = run_kd if isinstance(cfg, KDRecipeConfig) else run_ar2
     try:
-        return run_ar2(args.recipe, cfg, args)
+        return runner(args.recipe, cfg, args)
     finally:
         # a group this run started (under torchrun) ends with it
         if ours and dist.is_available() and dist.is_initialized():

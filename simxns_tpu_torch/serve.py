@@ -9,7 +9,14 @@ top-k search -> passage lookup, behind one object:
 
 With ``model`` at ``layer_impl="fused_int8"``, ``store_dtype=torch.int8``
 and ``index_mode="fused"`` every encoder layer and the search run on the
-port's Hopper kernels. ``from_checkpoint`` waits for the checkpoint slice.
+port's Hopper kernels.
+
+Sharded serving (``mesh``, a :class:`~simxns_tpu_torch.parallel.mesh.Mesh`
+over the ranks of ``torchrun``): the index is row-split over the data axis
+of the mesh, the passage encoder's chunk is ``encode_chunk`` times the
+mesh's ranks (JAX: times its chips) split over that axis, and every rank
+calls every method with the same arguments and returns the same hits.
+``from_checkpoint`` waits for ROADMAP.md Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -20,8 +27,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from simxns_tpu_torch.device import resolve_device
 from simxns_tpu_torch.index.engine import CorpusEncoder, MIPSIndex
+from simxns_tpu_torch.parallel.mesh import Mesh, mesh_device
 
 
 @dataclasses.dataclass
@@ -37,8 +44,10 @@ class DenseRetriever:
                  max_q_length: int = 32, max_ctx_length: int = 128,
                  index_mode: str = "approx", block_size: int = 8192,
                  encode_chunk: int = 1024, query_batch: int = 8,
-                 store_dtype: Optional[torch.dtype] = None):
-        self.device = resolve_device(device)
+                 store_dtype: Optional[torch.dtype] = None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
         self.max_q_length = max_q_length
@@ -46,11 +55,15 @@ class DenseRetriever:
         self.query_batch = query_batch
         index_kw = {} if store_dtype is None else {"store_dtype": store_dtype}
         self.index = MIPSIndex(self.device, block_size=block_size,
-                               mode=index_mode, **index_kw)
+                               mode=index_mode, mesh=mesh, **index_kw)
+        n_chips = 1 if mesh is None else mesh.world_size * mesh.n_model
         self._p_encoder = CorpusEncoder(self.model.encode_passage,
-                                        self.device, chunk_size=encode_chunk)
+                                        self.device,
+                                        chunk_size=encode_chunk * n_chips,
+                                        mesh=mesh)
         self._q_encoder = CorpusEncoder(self.model.encode_query, self.device,
-                                        chunk_size=max(query_batch, 8))
+                                        chunk_size=max(query_batch, 8),
+                                        mesh=mesh)
         self.passages: Dict[int, Tuple[str, str]] = {}
 
     # --- indexing ----------------------------------------------------------

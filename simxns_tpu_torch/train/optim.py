@@ -1,4 +1,5 @@
-"""AdamW with the JAX package's semantics (port of ``simxns_tpu/train/optim.py``).
+"""AdamW and LAMB with the JAX package's semantics (port of
+``simxns_tpu/train/optim.py``).
 
 ``make_adamw`` is ``optax.chain(clip_by_global_norm(max_grad_norm),
 adamw(schedule, mask=_decay_mask))`` written out, because
@@ -14,9 +15,19 @@ adamw(schedule, mask=_decay_mask))`` written out, because
 - a parameter with no gradient takes a zero gradient (its moments decay
   and it still decays), as JAX's dense gradients do.
 
+``make_lamb`` is ``optax.chain(clip_by_global_norm(max_grad_norm),
+lamb(schedule, weight_decay, mask=_decay_mask))``: the same clipping and
+Adam moments at ``optax.lamb``'s ``eps=1e-6``, the masked weight decay
+added to the update, then each parameter's update scaled by its trust
+ratio ``||p|| / ||u||`` (1 where either norm is 0), then by the learning
+rate.
+
 Updates are made in place under ``no_grad``, which bumps each parameter's
 version: encode-only views that cache quantized weights see the change.
-LAMB is not ported yet.
+Under tensor parallelism (``tp``: the model group and the names of the
+split parameters, ``parallel.tp.tensor_parallel_of``) every norm of a
+split parameter is the norm of the whole one: the squares are summed over
+the model group.
 """
 
 from __future__ import annotations
@@ -60,34 +71,42 @@ def _decay_mask(names: Iterable[str]) -> Dict[str, bool]:
     return mask
 
 
-@dataclasses.dataclass(frozen=True)
-class AdamW:
-    """The optimizer's constants; its state is a separate dict
-    (:meth:`init`), as optax keeps it in the train state."""
+def _sq_sum_over_model(sq: torch.Tensor, split: torch.Tensor, tp
+                      ) -> torch.Tensor:
+    """Squared norms [n] with the split entries summed over the model
+    group (the whole parameters' are equal on every model rank)."""
+    from simxns_tpu_torch.parallel.collectives import all_reduce_sum
 
-    learning_rate: Union[float, Schedule]
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
-    weight_decay: float = 0.01
-    max_grad_norm: Optional[float] = 1.0
+    return torch.where(split, all_reduce_sum(sq * split, tp[0]), sq)
+
+
+def _global_norm(gs, names, tp) -> torch.Tensor:
+    norms = torch._foreach_norm(gs)
+    if tp is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).double() ** 2
+    split = torch.tensor([n in tp[1] for n in names], device=sq.device)
+    return _sq_sum_over_model(sq, split, tp).sum().sqrt().float()
+
+
+class _Adam:
+    """The clipping and Adam moments both optimizers share; the subclass
+    turns the bias-corrected ratio into the update."""
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         return {"count": 0,
                 "mu": {n: torch.zeros_like(p) for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
-    @torch.no_grad()
-    def update_(self, params: Dict[str, torch.Tensor],
-                grads: Dict[str, Optional[torch.Tensor]], state: dict) -> None:
-        """One step: ``params`` and ``state`` change in place."""
+    def _moments(self, params, grads, state, tp):
+        """-> (names, params, the Adam ratios mu_hat / (sqrt(nu_hat) +
+        eps), this step's learning rate); the moments and count move."""
         names = list(params)
         ps = [params[n] for n in names]
         gs = [grads[n] if grads.get(n) is not None else torch.zeros_like(p)
               for n, p in zip(names, ps)]
         if self.max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(gs)))
+            norm = _global_norm(gs, names, tp)
             clip = torch.where(norm < self.max_grad_norm,
                                torch.ones_like(norm),
                                self.max_grad_norm / norm)
@@ -116,6 +135,59 @@ class AdamW:
         if pairs and self.weight_decay:
             us, dps = zip(*pairs)
             torch._foreach_add_(list(us), list(dps), alpha=self.weight_decay)
+        return names, ps, upd, step_lr
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(_Adam):
+    """The optimizer's constants; its state is a separate dict
+    (:meth:`init`), as optax keeps it in the train state."""
+
+    learning_rate: Union[float, Schedule]
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    max_grad_norm: Optional[float] = 1.0
+
+    @torch.no_grad()
+    def update_(self, params: Dict[str, torch.Tensor],
+                grads: Dict[str, Optional[torch.Tensor]], state: dict,
+                tp=None) -> None:
+        """One step: ``params`` and ``state`` change in place."""
+        _, ps, upd, step_lr = self._moments(params, grads, state, tp)
+        torch._foreach_add_(ps, upd, alpha=-step_lr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lamb(_Adam):
+    """``optax.lamb`` behind the global-norm clipping (its ``eps=1e-6``);
+    the state is AdamW's."""
+
+    learning_rate: Union[float, Schedule]
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-6
+    weight_decay: float = 0.0
+    max_grad_norm: Optional[float] = 1.0
+
+    @torch.no_grad()
+    def update_(self, params: Dict[str, torch.Tensor],
+                grads: Dict[str, Optional[torch.Tensor]], state: dict,
+                tp=None) -> None:
+        """One step: ``params`` and ``state`` change in place."""
+        names, ps, upd, step_lr = self._moments(params, grads, state, tp)
+        p_norm = torch.stack(torch._foreach_norm(ps)).double()
+        u_norm = torch.stack(torch._foreach_norm(upd)).double()
+        if tp is not None:
+            split = torch.tensor([n in tp[1] for n in names],
+                                 device=p_norm.device)
+            p_norm = _sq_sum_over_model(p_norm ** 2, split, tp).sqrt()
+            u_norm = _sq_sum_over_model(u_norm ** 2, split, tp).sqrt()
+        p_norm, u_norm = p_norm.float(), u_norm.float()
+        ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones_like(p_norm), p_norm / u_norm)
+        torch._foreach_mul_(upd, list(ratio.unbind()))
         torch._foreach_add_(ps, upd, alpha=-step_lr)
 
 
@@ -129,3 +201,14 @@ def make_adamw(lr: float, warmup_steps: int = 0,
                 if total_steps else lr)
     return AdamW(schedule, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                  max_grad_norm=max_grad_norm)
+
+
+def make_lamb(lr: float, warmup_steps: int = 0,
+              total_steps: int = 1_000_000, weight_decay: float = 0.01,
+              max_grad_norm: Optional[float] = 1.0) -> Lamb:
+    """The JAX ``make_lamb``: clipping, then ``optax.lamb`` with the decay
+    mask, on the same schedule as :func:`make_adamw`."""
+    schedule = (linear_warmup_schedule(lr, warmup_steps, total_steps)
+                if total_steps else lr)
+    return Lamb(schedule, weight_decay=weight_decay,
+                max_grad_norm=max_grad_norm)

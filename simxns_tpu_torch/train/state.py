@@ -1,8 +1,9 @@
 """Training state (port of ``simxns_tpu/train/state.py``).
 
 The module (whose ``Parameter`` objects are the params), the optimizer
-state and the step count. Unlike the JAX pytree it is updated in place:
-``apply_gradients`` changes the parameters and returns the same object.
+state (AdamW's or LAMB's, the same tree) and the step count. Unlike the
+JAX pytree it is updated in place: ``apply_gradients`` changes the
+parameters and returns the same object.
 :meth:`TrainState.state_dict` and :meth:`TrainState.load_state_dict` give
 the tree that checkpoints and host stashes hold.
 """
@@ -35,7 +36,12 @@ class TrainState:
 
     def apply_gradients(self, grads: Dict[str, Optional[torch.Tensor]],
                         tx: AdamW) -> "TrainState":
-        tx.update_(self.params, grads, self.opt_state)
+        """The optimizer's update in place (on this rank's slices of a
+        tensor-parallel module: ``parallel.tp``)."""
+        from simxns_tpu_torch.parallel.tp import tensor_parallel_of
+
+        tx.update_(self.params, grads, self.opt_state,
+                   tp=tensor_parallel_of(self.module))
         self.step += 1
         return self
 

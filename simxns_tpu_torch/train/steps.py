@@ -42,8 +42,18 @@ reference's detach-remote contract) and ``positive_idx`` stays a global
 flat index. Without a group (``mesh=None`` or ``Mesh(group=None)``) every
 step is the single-device step, the counterpart of JAX's 1x1 mesh.
 
-Not ported (ROADMAP.md item 9b): slice scope (``negatives_scope``) and
-tensor-parallel state layouts.
+On a multislice mesh (``create_multislice_mesh``) the gradients are
+summed over every slice, and ``negatives_scope="slice"`` gathers the
+in-batch negatives over the data axis of the rank's slice only (the
+global ``positive_idx`` shifted into the slice's rows). Tensor
+parallelism (a mesh with a ``model`` axis): the state's module is split
+by ``parallel.tp.shard_params`` and the step factory takes
+``auto_state=True`` (JAX's name: the step keeps the state's layout); the
+update runs on each rank's slice. The gradients are summed over the
+data-parallel group only: a split parameter's slices are never summed
+across model ranks, and a whole one gets the same gradient on every model
+rank by construction. A split state without ``auto_state`` raises (the
+reranker step, which has no ``auto_state`` in JAX, runs replicated).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from simxns_tpu_torch.parallel.collectives import (all_reduce_grads,
                                                    gather_in_batch_negatives,
                                                    sum_metrics)
 from simxns_tpu_torch.parallel.mesh import Mesh, dp_size, mesh_device
+from simxns_tpu_torch.parallel.tp import tensor_parallel_of
 from simxns_tpu_torch.train.optim import AdamW
 from simxns_tpu_torch.train.state import TrainState
 
@@ -77,26 +88,44 @@ def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _check_on(module: nn.Module, device: torch.device) -> None:
+def _check_on(module: nn.Module, device: torch.device,
+              auto_state: bool = False) -> None:
     p = next(module.parameters())
     if p.device.type != device.type:
         raise ValueError(f"the model's parameters are on {p.device}, the step "
                          f"runs on {device}: move the model first")
+    if tensor_parallel_of(module) is not None and not auto_state:
+        raise ValueError("the state holds tensor-parallel parameters "
+                         "(parallel.tp.shard_params): build the step with "
+                         "auto_state=True")
+
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: every input bit reaches every output bit."""
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
 
 
 def dropout_generator(dropout: bool, seed: int, step: int, rank: int = 0
                       ) -> Optional[torch.Generator]:
     """The step's dropout generator: None in eval mode, else a CPU
     generator that is a function of ``(seed, step, rank)`` alone (the models
-    draw one seed per layer from it); rank 0's is the single-device one."""
+    draw one seed per layer from it); rank 0's is the single-device one.
+
+    The CPU generator keeps only the low 32 bits of its seed, so seed, step
+    and rank are mixed into all 64 bits and the halves folded together:
+    each of the three changes the masks (JAX: ``fold_in(PRNGKey(seed),
+    step)``, then ``fold_in(key, axis_index)``)."""
     if not dropout:
         return None
-    base = (seed << 32) + step
+    base = _mix64((_mix64(seed & _MASK64) + step) & _MASK64)
     if rank:
-        # the CPU generator keeps the low 32 bits of its seed: mix the rank
-        # into all 64
-        base ^= (rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    return torch.Generator().manual_seed(base)
+        base = _mix64(base ^ ((rank * 0x9E3779B97F4A7C15) & _MASK64))
+    return torch.Generator().manual_seed((base ^ (base >> 32)) & 0xFFFFFFFF)
 
 
 def _share(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -109,15 +138,24 @@ def _share(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 def biencoder_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
                    score_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None,
-                   mesh: Optional[Mesh] = None, grad_mode: str = "full"
+                   mesh: Optional[Mesh] = None, grad_mode: str = "full",
+                   negatives_scope: str = "global"
                    ) -> Tuple[torch.Tensor, Metrics]:
     """``generator``: train mode (dropout), None for eval mode. Under a
     group: this rank's share of the global loss over the gathered contexts
-    (``grad_mode``) and its local ``correct``."""
+    (``grad_mode``; over its slice's under ``negatives_scope="slice"`` on
+    a multislice mesh) and its local ``correct``."""
     q_emb, ctx_emb = model(batch["q_ids"], batch["q_mask"], batch["ctx_ids"],
                            batch["ctx_mask"], generator=generator)
-    ctx_emb = gather_in_batch_negatives(ctx_emb, mesh, grad_mode)
-    loss, correct = in_batch_nll(q_emb, ctx_emb, batch["positive_idx"],
+    pos = batch["positive_idx"]
+    over = mesh
+    if negatives_scope == "slice" and mesh is not None and mesh.multislice:
+        # the gathered rows span this slice only: the global index shifts
+        # down by the slice's first row (rows are replica-major)
+        over = mesh.within_slice
+        pos = pos - mesh.replica_index * ctx_emb.shape[0] * mesh.n_data
+    ctx_emb = gather_in_batch_negatives(ctx_emb, over, grad_mode)
+    loss, correct = in_batch_nll(q_emb, ctx_emb, pos,
                                  score_scale=score_scale)
     return _share(loss, mesh), {"correct": correct}
 
@@ -252,20 +290,27 @@ def with_grad_accum(loss_fn: Callable, micro_steps: int) -> Callable:
 def make_biencoder_step(tx: AdamW, device=None, score_scale: float = 1.0,
                         dropout: bool = False,
                         dropout_seed: int = 0, mesh: Optional[Mesh] = None,
-                        grad_mode: str = "full") -> Callable:
+                        grad_mode: str = "full", auto_state: bool = False,
+                        negatives_scope: str = "global") -> Callable:
     """In-batch contrastive step of a ``BiEncoder`` state; the scores are
     multiplied by ``score_scale`` before the softmax. Under a group the
-    contexts are gathered (``grad_mode`` ``"full"`` or ``"local"``)."""
+    contexts are gathered (``grad_mode`` ``"full"`` or ``"local"``), over
+    every data-parallel rank (``negatives_scope="global"``: the math of
+    one big slice) or, on a multislice mesh, over the rank's slice
+    (``"slice"``). ``auto_state``: the state is tensor-parallel."""
+    if negatives_scope not in ("global", "slice"):
+        raise ValueError(f"bad negatives_scope {negatives_scope!r}")
     if grad_mode not in ("full", "local"):
         raise ValueError(f"bad grad_mode {grad_mode!r}")
     dev = mesh_device(mesh, device)
 
     def step(state: TrainState, batch: dict):
-        _check_on(state.module, dev)
+        _check_on(state.module, dev, auto_state)
         gen = dropout_generator(dropout, dropout_seed, state.step,
                                 0 if mesh is None else mesh.rank)
         loss, aux = biencoder_loss(state.module, to_device(batch, dev),
-                                   score_scale, gen, mesh, grad_mode)
+                                   score_scale, gen, mesh, grad_mode,
+                                   negatives_scope)
         return _apply(state, loss, aux, tx, mesh)
 
     return step
@@ -294,7 +339,8 @@ def make_ar2_retriever_step(tx: AdamW, temperature: float = 1.0,
                             adv_world_size: Optional[int] = None,
                             device=None, dropout: bool = False,
                             dropout_seed: int = 2,
-                            mesh: Optional[Mesh] = None) -> Callable:
+                            mesh: Optional[Mesh] = None,
+                            auto_state: bool = False) -> Callable:
     """AR2 retriever step: KL to a frozen reranker plus the adversarial
     reward. ``step(de_state, teacher, batch)``; ``teacher`` is the live
     ``CrossEncoder`` or its ``int8_view``. With ``dropout`` the retriever
@@ -302,12 +348,13 @@ def make_ar2_retriever_step(tx: AdamW, temperature: float = 1.0,
     reference's ``model.train(); reranker_model.eval()``.
     ``adv_world_size`` defaults to the group's world size (JAX's
     ``dp_size(mesh)``; 1 without a group); pass 8 to pin the reference's
-    8-GPU scale on another world."""
+    8-GPU scale on another world. ``auto_state``: the retriever state is
+    tensor-parallel (the teacher may be split or whole)."""
     dev = mesh_device(mesh, device)
     world = dp_size(mesh) if adv_world_size is None else adv_world_size
 
     def step(de_state: TrainState, teacher: nn.Module, batch: dict):
-        _check_on(de_state.module, dev)
+        _check_on(de_state.module, dev, auto_state)
         gen = dropout_generator(dropout, dropout_seed, de_state.step,
                                 0 if mesh is None else mesh.rank)
         loss, aux = retriever_loss(de_state.module, teacher,

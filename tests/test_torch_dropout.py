@@ -284,6 +284,33 @@ def test_step_masks_come_from_seed_and_step():
     assert steps.dropout_generator(False, 5, 1) is None
 
 
+def test_dropout_seed_step_and_rank_each_change_the_masks():
+    """The step's generator depends on the seed (ROADMAP.md Queue 3 item 6:
+    the CPU generator keeps only the low 32 bits of its seed, and
+    ``(seed << 32) + step`` lost the seed): the step kinds' seeds (0, 1,
+    2) draw different masks at one step, and seed, step and rank each
+    change them; rank 0 draws the single-device masks."""
+    def draw(seed, step, rank=0):
+        return tuple(torch.rand(16, generator=steps.dropout_generator(
+            True, seed, step, rank)).tolist())
+
+    assert len({draw(seed, 7) for seed in (0, 1, 2)}) == 3
+    base = draw(5, 3)
+    for other in (draw(6, 3), draw(5 + (1 << 32), 3), draw(5, 4),
+                  draw(5, 3, 1)):
+        assert other != base
+    assert draw(5, 3, 0) == base == draw(5, 3)
+    # through a model: two seeds, one step, different train-mode outputs
+    _, _, port = crossencoder_pair(jax_bert(dtype=F32, **DROP), seed=36)
+    b = steps.to_device(_batch(4), "cpu")
+    n, m, lj = b["joint_ids"].shape
+    out = [port(b["joint_ids"].reshape(n * m, lj),
+                b["joint_mask"].reshape(n * m, lj),
+                generator=steps.dropout_generator(True, seed, 0))["logits"]
+           for seed in (1, 2)]
+    assert not torch.equal(out[0], out[1])
+
+
 def test_attention_kernels_run_where_jax_runs_them(monkeypatch):
     """Train mode with attention dropout takes the plain attention (flash
     never materialises p); with hidden dropout alone, and in eval mode,

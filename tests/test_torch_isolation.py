@@ -23,7 +23,8 @@ print(len(names))
 for name in ("run", "config", "evals.qa_match", "evals._unicode_ranges",
              "evals.metrics", "io.logging",
              "io.checkpoint", "data.sampling", "data.mined", "data.datasets",
-             "train.driver", "parallel.offload"):
+             "train.driver", "parallel.offload", "parallel.tp",
+             "train.kd", "train.pipeline", "data.division"):
     assert "simxns_tpu_torch." + name in names, name
 print("imported:" + ",".join(bad))
 """
@@ -35,5 +36,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split("\n")[:2]
-    assert int(count) >= 40          # every subpackage and module walked
+    assert int(count) >= 51          # every subpackage and module walked
     assert bad == "imported:", f"the port {bad}"

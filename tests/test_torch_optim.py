@@ -1,5 +1,5 @@
-"""The port's AdamW, schedule and decay mask against the JAX package (optax),
-fed identical gradients."""
+"""The port's AdamW, LAMB, schedule and decay mask against the JAX package
+(optax), fed identical gradients."""
 
 import functools
 
@@ -12,8 +12,10 @@ import torch
 from simxns_tpu.train.optim import _decay_mask as jdecay_mask
 from simxns_tpu.train.optim import linear_warmup_schedule as jschedule
 from simxns_tpu.train.optim import make_adamw as jmake_adamw
+from simxns_tpu.train.optim import make_lamb as jmake_lamb
 from simxns_tpu_torch.models import params_from_jax
-from simxns_tpu_torch.train import linear_warmup_schedule, make_adamw
+from simxns_tpu_torch.train import (linear_warmup_schedule, make_adamw,
+                                    make_lamb)
 from simxns_tpu_torch.train.optim import _decay_mask
 from torch_parity import biencoder_pair, crossencoder_pair, jax_bert
 from torch_parity import one_torch_thread  # noqa: F401
@@ -116,3 +118,42 @@ def test_missing_gradient_is_zero():
                                params[name] * (1 - 1e-2 * 0.5), rtol=1e-6)
     bias = "enc.layers.0.attention.query.bias"
     assert np.array_equal(tparams[bias].numpy(), params[bias])
+
+
+@pytest.mark.parametrize("warmup,total,grad_scale", [(0, 0, 0.1),
+                                                     (1, 6, 3.0)])
+def test_lamb_matches_optax(warmup, total, grad_scale):
+    """Three updates of ``make_lamb`` from the same gradients (rtol 1e-5,
+    atol 1e-7): the clipping, ``optax.lamb``'s eps and trust ratio, the
+    decay mask, and a leaf whose parameter and gradient are zero (both
+    norms 0: trust ratio 1, it stays 0)."""
+    params = _tree()
+    params["enc.layers.0.attention.key.bias"] = np.zeros(6, np.float32)
+    rng = np.random.default_rng(2)
+    grads = [{n: (rng.normal(size=p.shape) * grad_scale).astype(np.float32)
+              for n, p in params.items()} for _ in range(3)]
+    for g in grads:
+        g["enc.layers.0.attention.key.bias"][:] = 0.0
+    jtx = jmake_lamb(2e-2, warmup_steps=warmup, total_steps=total,
+                     weight_decay=0.1)
+    jparams = _nest({n: jnp.asarray(p) for n, p in params.items()})
+    jstate = jtx.init(jparams)
+    tx = make_lamb(2e-2, warmup_steps=warmup, total_steps=total,
+                   weight_decay=0.1)
+    tparams = {n: torch.from_numpy(p.copy()) for n, p in params.items()}
+    tstate = tx.init(tparams)
+    for i, g in enumerate(grads):
+        upd, jstate = jtx.update(
+            _nest({n: jnp.asarray(x) for n, x in g.items()}), jstate, jparams)
+        jparams = jax.tree.map(jnp.add, jparams, upd)
+        tx.update_(tparams, {n: torch.from_numpy(x) for n, x in g.items()},
+                   tstate)
+        for n in params:
+            want = functools.reduce(lambda t, k: t[k], n.split("."), jparams)
+            np.testing.assert_allclose(tparams[n].numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {i} {n}")
+    assert not tparams["enc.layers.0.attention.key.bias"].any()
+    moved = [n for n in params if not np.array_equal(tparams[n].numpy(),
+                                                     params[n])]
+    assert len(moved) == len(params) - 1

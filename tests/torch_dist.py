@@ -370,3 +370,290 @@ def run_launcher(mesh, argv, die_after=None):
     finally:
         driver.AR2CoTrainer.run = real
     return None
+
+
+# --- the rest of the mesh: tensor parallelism, multislice, serving ---------
+
+_MESHES = {}
+
+
+def _mesh_of(kind, *sizes):
+    """The ``create_mesh(n_data, n_model)`` (``kind="tp"``) or
+    ``create_multislice_mesh(n_slices, ...)`` (``"slices"``) of the pool's
+    whole world, built once per worker (every rank makes the same
+    subgroups in the same order)."""
+    from simxns_tpu_torch.parallel import create_mesh, create_multislice_mesh
+
+    key = (kind, sizes)
+    if key not in _MESHES:
+        if kind == "tp":
+            n_data, n_model = sizes
+            _MESHES[key] = create_mesh("cpu", n_data=n_data, n_model=n_model)
+        else:
+            _MESHES[key] = create_multislice_mesh(*sizes, device="cpu")
+    return _MESHES[key]
+
+
+def _split(cfg, state, mesh):
+    from simxns_tpu_torch.parallel.tp import shard_params
+
+    return shard_params(_model(cfg, state), mesh)
+
+
+def tp_layout(mesh, cfg, state, n_data, n_model):
+    """{name: split dim} of the module on this rank of (n_data, n_model),
+    after checking that its split keeps 1 / n_model of each split dim."""
+    from simxns_tpu_torch.parallel.tp import tp_param_shardings
+
+    tp = _mesh_of("tp", n_data, n_model)
+    model = _model(cfg, state)
+    dims = tp_param_shardings(model, tp)
+    full = {n: p.shape for n, p in model.named_parameters()}
+    for name, p in _split(cfg, state, tp).named_parameters():
+        want = list(full[name])
+        if dims[name] is not None:
+            want[dims[name]] //= n_model
+        assert list(p.shape) == want, name
+    return dims
+
+
+def tp_train_steps(mesh, kind, cfg, state, batches, tx_kw, n_data, n_model,
+                   teacher=None):
+    """``biencoder`` or ``retriever`` steps with ``auto_state=True`` on a
+    module split over the model axis (the teacher split too), this rank's
+    rows of each global batch. -> (metrics per step, the full parameters
+    gathered over the model group (rank 0), this rank's local shapes, the
+    largest difference across model ranks of a whole parameter's gradient
+    on the first batch)."""
+    import torch
+
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.parallel.tp import (_all_gather, full_state_dict,
+                                              tensor_parallel_of)
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_ar2_retriever_step,
+                                        make_biencoder_step, steps)
+
+    tp = _mesh_of("tp", n_data, n_model)
+    model = _split(cfg, state, tp)
+    tx = make_adamw(**tx_kw)
+    if kind == "biencoder":
+        step = make_biencoder_step(tx, device="cpu", mesh=tp,
+                                   auto_state=True)
+        extra = ()
+    else:
+        step = make_ar2_retriever_step(tx, temperature=1.0, adv_lambda=0.5,
+                                       device="cpu", mesh=tp,
+                                       auto_state=True)
+        extra = (_split(*teacher, tp),)
+    ts = TrainState.create(model, tx)
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, *extra, shard_batch(b, tp))
+        metrics.append({k: float(v) for k, v in m.items()})
+    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    full = full_state_dict(ts)["params"]
+    # a whole parameter's gradient is the same on every model rank
+    b = steps.to_device(shard_batch(batches[0], tp), torch.device("cpu"))
+    if kind == "biencoder":
+        loss, _ = steps.biencoder_loss(model, b, mesh=tp)
+    else:
+        loss, _ = steps.retriever_loss(model, extra[0], b, 1.0, 0.5,
+                                       adv_world_size=tp.world_size, mesh=tp)
+    grads = steps.gradients(model, loss)
+    split = tensor_parallel_of(model)[1]
+    worst = 0.0
+    for n, g in grads.items():
+        if n in split or g is None:
+            continue
+        parts = _all_gather(g[None], tp.model_mesh, 0)
+        worst = max(worst, float((parts - parts[0]).abs().max()))
+    full = ({n: t.numpy() for n, t in full.items()}
+            if tp.rank == 0 and tp.model_mesh.rank == 0 else None)
+    return metrics, full, local, worst
+
+
+def tp_paths(mesh, case, cfg, state, batch, n_model):
+    """One forward and backward of the split module against the same
+    module whole on this rank: ``attention`` (heads not divisible by the
+    model size: q, k, v gathered), ``ffn_knob`` (the fused FFN on the
+    gathered weights), ``int8_view`` (the fused-int8 encode view, no
+    gradient) and ``mlm`` (an untied MLM head split over the vocabulary).
+    -> (largest output difference, the output's largest magnitude,
+    largest gradient difference, the largest gradient's magnitude)."""
+    import torch
+
+    from simxns_tpu_torch.models import BertEncoder, MLMHead
+    from simxns_tpu_torch.models.dual_encoder import int8_view
+    from simxns_tpu_torch.parallel.tp import _all_gather, _split_dim
+
+    tp = _mesh_of("tp", mesh.world_size // n_model, n_model)
+    ids = torch.from_numpy(batch["q_ids"]).long()
+    mask = torch.from_numpy(batch["q_mask"]).long()
+    if case == "mlm":
+        bert = cfg
+
+        def build():
+            enc, head = BertEncoder(bert), MLMHead(bert, tied=False)
+            enc.load_state_dict({k[4:]: torch.from_numpy(v)
+                                 for k, v in state.items()
+                                 if k.startswith("enc.")})
+            head.load_state_dict({k[5:]: torch.from_numpy(v)
+                                  for k, v in state.items()
+                                  if k.startswith("head.")})
+            return torch.nn.ModuleDict({"enc": enc, "head": head})
+
+        def run(m):
+            return m["head"](m["enc"](ids, mask).last_hidden_state)
+
+        whole, split = build(), build()
+    else:
+        whole, split = _model(cfg, state), _model(cfg, state)
+
+        def run(m):
+            if case == "int8_view":
+                with torch.no_grad():
+                    return int8_view(m).encode_query(ids, mask)
+            return m.encode_query(ids, mask)
+
+    from simxns_tpu_torch.parallel.tp import shard_params
+
+    shard_params(split, tp)
+    want, got = run(whole), run(split)
+    out_err = float((got - want).detach().abs().max())
+    grad_err = grad_scale = 0.0
+    if case != "int8_view":
+        w = torch.linspace(-1, 1, want.numel()).reshape(want.shape)
+        (want * w).sum().backward()
+        (got * w).sum().backward()
+        for (n, pw), (_, ps) in zip(whole.named_parameters(),
+                                    split.named_parameters()):
+            gs = ps.grad
+            if gs is None and pw.grad is None:
+                continue                 # the other tower
+            dim = _split_dim(n, ps.ndim)
+            if dim is not None:
+                gs = _all_gather(gs, tp.model_mesh, dim)
+            grad_err = max(grad_err, float((gs - pw.grad).abs().max()))
+            grad_scale = max(grad_scale, float(pw.grad.abs().max()))
+    return out_err, float(want.detach().abs().max()), grad_err, grad_scale
+
+
+def tp_checkpoint(mesh, cfg, state, batch, tx_kw, directory, n_data, n_model):
+    """One split step, then its full state written by rank 0; every rank
+    loads it back into a fresh split state (``load_full_state``). ->
+    (global loss, whether the reloaded slices and moments equal the live
+    ones bit for bit)."""
+    import torch
+
+    from simxns_tpu_torch.io import restore_checkpoint, save_checkpoint
+    from simxns_tpu_torch.parallel.collectives import barrier
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.parallel.tp import full_state_dict, load_full_state
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_biencoder_step)
+
+    tp = _mesh_of("tp", n_data, n_model)
+    tx = make_adamw(**tx_kw)
+    ts = TrainState.create(_split(cfg, state, tp), tx)
+    ts, m = make_biencoder_step(tx, device="cpu", mesh=tp, auto_state=True)(
+        ts, shard_batch(batch, tp))
+    tree = full_state_dict(ts)
+    if tp.rank == 0 and tp.model_mesh.rank == 0:
+        save_checkpoint(directory, tree, 1, name="tp_state")
+    barrier(mesh)
+    fresh = TrainState.create(_split(cfg, state, tp), tx)
+    load_full_state(fresh, restore_checkpoint(directory, None, 1,
+                                              name="tp_state"))
+    a, b = ts.state_dict(), fresh.state_dict()
+    same = (all(torch.equal(a["params"][n], b["params"][n])
+                for n in a["params"])
+            and all(torch.equal(a["opt_state"][k][n], b["opt_state"][k][n])
+                    for k in ("mu", "nu") for n in a["params"])
+            and b["step"] == 1 and b["opt_state"]["count"] == 1)
+    return float(m["loss"]), same
+
+
+def multislice_facts(mesh):
+    """The (2, W/2, 1) mesh's axes, sizes and place of this rank, and the
+    error of a slice count the world does not divide by."""
+    from simxns_tpu_torch.parallel import (create_multislice_mesh, dp_axes,
+                                           dp_size)
+
+    ms = _mesh_of("slices", 2)
+    try:
+        create_multislice_mesh(3, device="cpu")
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return {"axis_names": ms.axis_names, "shape": ms.shape,
+            "dp_axes": dp_axes(ms), "dp_size": dp_size(ms),
+            "rank": ms.rank, "replica": ms.replica_index,
+            "slice_rank": ms.within_slice.rank,
+            "slice_size": ms.within_slice.world_size, "error": err}
+
+
+def multislice_steps(mesh, cfg, state, batches, tx_kw, step_kw, flat):
+    """Bi-encoder steps on the flat mesh of the pool's world (``flat``) or
+    on 2 slices. -> (metrics per step, the parameters after the last)."""
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_biencoder_step)
+
+    ms = mesh if flat else _mesh_of("slices", 2)
+    model = _model(cfg, state)
+    tx = make_adamw(**tx_kw)
+    step = make_biencoder_step(tx, device="cpu", mesh=ms, **step_kw)
+    ts = TrainState.create(model, tx)
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, shard_batch(b, ms))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, _flat_params(model)
+
+
+def multislice_index(mesh, corpus, queries, k, block_size):
+    """The exact f32 index on 2 slices: -> ((scores, ids), this rank's
+    shard rows, its first global row)."""
+    import torch
+
+    from simxns_tpu_torch.index import MIPSIndex
+
+    idx = MIPSIndex("cpu", block_size=block_size, mode="exact",
+                    store_dtype=torch.float32, mesh=_mesh_of("slices", 2))
+    idx.build(corpus)
+    return idx.search(queries, k), idx.embeddings.shape[0], idx.shard_start
+
+
+def sharded_retriever(mesh, cfg, state, passages, queries, k, block_size):
+    """``DenseRetriever(mesh=...)`` over the pool's group of this task:
+    index the passages, search the queries. -> hits as (id, score)."""
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.serve import DenseRetriever
+
+    r = DenseRetriever(_model(cfg, state), HashTokenizer(vocab_size=1024),
+                       mesh=mesh, max_q_length=16, max_ctx_length=24,
+                       index_mode="exact", block_size=block_size,
+                       encode_chunk=8, query_batch=4)
+    r.index_corpus(passages)
+    return [[(h.passage_id, h.score) for h in hits]
+            for hits in r.search(queries, k=k)], r.index.embeddings.shape[0]
+
+
+def kd_steps(mesh, teacher_type, cfg, state, teachers, batches, tx_kw, kw):
+    """``make_kd_step`` steps on this rank's rows of each global batch;
+    ``teachers`` {name: (cfg, state)}. -> (metrics per step, the
+    parameters after the last)."""
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.train import TrainState, make_adamw, make_kd_step
+
+    model = _model(cfg, state)
+    tx = make_adamw(**tx_kw)
+    step = make_kd_step(tx, teacher_type, device="cpu", mesh=mesh, **kw)
+    frozen = {k: _model(*v) for k, v in teachers.items()}
+    ts = TrainState.create(model, tx)
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, frozen, shard_batch(b, mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, _flat_params(model)
