@@ -182,7 +182,34 @@ non-zero and prints no result):
    oracle, and ``DenseRetriever(mesh=...)`` over 65,536 passages answering
    8 requests with the world-1 retriever's ids. Two ranks on one card
    check correctness, not scaling;
-20. the ``kernels`` line (K1-K14, launches of every path); then the last
+20. the repairs (ROADMAP.md Queue 3 items 7 and 8): (a)
+   ``layer_impl="fused_int8"`` at the tiny config (H=64, d=16: off the
+   128 grid, ``layer_reference`` bitwise with no launch of K1-K3) and at
+   H=128 with 8 heads (d=16:
+   K1-K3 against the plain int8 composition); (b) K5/K6 at S=160 and K7/K8
+   at S=512 at head widths 16, 80, 96 and 24 (the 32 instance over
+   zero-padded heads) against the plain pair, phase 4's and 6's limits;
+   (c) f32 q, k, v at S=160 and 512 through the dispatch: the plain
+   attention, no launch; (d) a tiny ``run_ar2 --fast-encode
+   --fast-teacher`` and a tiny ``run_lead --freeze-teachers
+   --fast-teacher`` run to their end;
+21. LEAD at full width: ``run_lead`` in ``lead_ms_distill`` (6-layer
+   BERT-base student with shared towers, 12-layer BERT-base CE on K5/K6;
+   32 / 128 / 160 tokens, 8 queries x 2 passages a step): 12 joint steps
+   (the re-draw and its states at 10), a relaunch that resumes to 16, then
+   ``--freeze-teachers --fast-teacher`` for 8 (the frozen CE's int8 view:
+   K1-K3 in the joint steps, no K6); per run the step ms, the peak memory,
+   the losses and the launches (those inside the joint steps apart); then
+   the first joint step's student and CE gradients on K5/K6 against the
+   plain versions (beside two plain versions' cosine), one
+   ``make_colbert_step`` and one ``make_kd_step(teacher_type="colbert")``
+   with a BERT-base ColBERT (dim 128);
+22. MASTER at full width: ``run_pretrain`` in ``master_pretrain``
+   (BERT-base, seq 128, 2 head layers, 32 sequences a step): 6 steps, then
+   a relaunch to 8; the exported encoder loaded into a ``BiEncoder`` and
+   run; one ELECTRA step; the collator's host ms a batch on its native and
+   numpy paths. No Pallas kernel is on this path;
+23. the ``kernels`` line (K1-K14, launches of every path); then the last
    line, ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --data-parallel-rank steps|co_training|mesh DIR``
@@ -1221,6 +1248,19 @@ def _flat_gradients(torch, steps, model, batch):
     return float(loss.detach()), flat
 
 
+def _softmax_probs(q, k, mask, scale=None):
+    """The plain pair's p through ``torch.softmax``: the same f32 function
+    as its explicit exp / sum, rounded otherwise (the second plain version
+    the gradient checks set their floor by); stands in for
+    ``flash_attention._probs``."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    s = torch.where(mask[:, None, None, :] > 0, s, -1e9)
+    return torch.softmax(s, dim=-1), scale
+
+
 def _cosine(torch, a, b):
     return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
 
@@ -1252,21 +1292,13 @@ def phase_training(torch, smi, records):
     def ce_gradients():
         return _flat_gradients(torch, steps, ce, b0)
 
-    def softmax_probs(q, k, mask):
-        # p through torch.softmax: the same f32 function as the plain
-        # pair's explicit exp / sum, rounded otherwise
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        s = (q.float() @ k.float().transpose(-1, -2)) * scale
-        s = torch.where(mask[:, None, None, :] > 0, s, -1e9)
-        return torch.softmax(s, dim=-1), scale
-
     loss_k, grad_k = ce_gradients()
     kernels = fa.group_attention_fwd, fa.group_attention_bwd, fa._probs
     fa.group_attention_fwd = fa._group_fwd_plain
     fa.group_attention_bwd = fa._group_bwd_plain
     try:
         loss_p, grad_p = ce_gradients()
-        fa._probs = softmax_probs
+        fa._probs = _softmax_probs
         loss_f, grad_f = ce_gradients()
     finally:
         fa.group_attention_fwd, fa.group_attention_bwd, fa._probs = kernels
@@ -1562,18 +1594,27 @@ STEP_FACTORIES = {"make_biencoder_step": "biencoder",
                   "make_ar2_retriever_step": "retriever"}
 
 
-def _timed_factory(torch, factory, kind, step_ms):
+def _timed_factory(torch, factory, kind, step_ms, launches=None):
     """``factory`` whose steps append their ms (host clock to a synchronise)
-    to ``step_ms[kind]``."""
+    to ``step_ms[kind]`` and, given ``launches``, add the kernel launches
+    made inside them to ``launches[kind]``."""
+    from simxns_tpu_torch import ops
+
     def make(*a, **kw):
         step = factory(*a, **kw)
 
         def timed_step(*args):
+            before = ops.launches() if launches is not None else None
             t0 = time.perf_counter()
             out = step(*args)
             torch.cuda.synchronize()
             step_ms.setdefault(kind, []).append(
                 (time.perf_counter() - t0) * 1e3)
+            if launches is not None:
+                into = launches.setdefault(kind, {})
+                for name, n in ops.launches().items():
+                    if n - before[name]:
+                        into[name] = into.get(name, 0) + n - before[name]
             return out
 
         return timed_step
@@ -3700,12 +3741,6 @@ def _kd_full_width(torch, smi):
             p.grad = None
         return float(loss.detach()), flat
 
-    def softmax_probs(q, k, mask):
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        s = (q.float() @ k.float().transpose(-1, -2)) * scale
-        s = torch.where(mask[:, None, None, :] > 0, s, -1e9)
-        return torch.softmax(s, dim=-1), scale
-
     ops.reset_launches()
     loss_k, grad_k = grads()
     launched = ops.launches()
@@ -3716,7 +3751,7 @@ def _kd_full_width(torch, smi):
                                                 fa._group_bwd_plain)
     try:
         loss_p, grad_p = grads()
-        fa._probs = softmax_probs
+        fa._probs = _softmax_probs
         loss_f, grad_f = grads()
     finally:
         fa.bh_attention_fwd, fa.bh_attention_bwd, fa._probs = kernels
@@ -4355,6 +4390,625 @@ def phase_mesh(torch, smi, records):
     _launch_totals(records, "mesh", totals)
 
 
+# --- phase 20: the repairs (ROADMAP.md Queue 3 items 7 and 8) ----------------
+
+# head widths the attention kernels take besides 32, 64 and 128: the
+# template instances 16, 80 and 96, and 24 (the 32 instance over
+# zero-padded heads); K5/K6 at the joint length, K7/K8 at msdoc's
+REPAIR_WIDTHS = (16, 80, 96, 24)
+REPAIR_HEADS = 8
+# the tiny launcher runs on the card: --tiny-models (H=64, 4 heads, d=16),
+# whose int8 views take the JAX package's layer_reference
+TINY_RUNS = {
+    "nq_ar2_simans": ["--synthetic", "--steps", "12", "--batch", "8",
+                      "--corpus-size", "64", "--num-queries", "24",
+                      "--topk", "8", "--fast-encode", "--fast-teacher"],
+    "lead_ms_distill": ["--synthetic", "--steps", "8", "--batch", "8",
+                        "--corpus-size", "48", "--num-queries", "16",
+                        "--freeze-teachers", "--fast-teacher"]}
+LAYER_KERNELS = ("int8_linear", "row_quant", "small_s_attention")
+
+
+def _params_like(torch, module, seed):
+    """Random weights for ``module`` on the card: normal(0, 0.05), the
+    LayerNorm scales about 1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                    * 0.05 + ("layer_norm.weight" in name))
+
+
+def _repair_layer(torch):
+    """(a) ``layer_impl="fused_int8"`` at the tiny config (H=64, d=16: off
+    the 128 grid, ``layer_reference``, bitwise, no launch of K1-K3), then
+    H=128 with 8 heads (d=16: K1-K3, against the plain int8 composition,
+    phase 2's limits)."""
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import BertConfig
+    from simxns_tpu_torch.models.bert import BertLayer
+    from simxns_tpu_torch.ops import fused_layer as fl
+
+    dev = torch.device("cuda")
+    rec = {}
+    for h, heads in ((64, 4), (128, 8)):
+        layer = BertLayer(BertConfig(
+            vocab_size=64, hidden_size=h, num_layers=1, num_heads=heads,
+            intermediate_size=4 * h, max_position_embeddings=128,
+            dtype=torch.bfloat16, layer_impl="fused_int8")).to(dev)
+        _params_like(torch, layer, h)
+        gen = torch.Generator(device="cuda").manual_seed(h)
+        x = torch.randn(32, 128, h, device=dev, generator=gen).to(
+            torch.bfloat16)
+        mask = torch.ones(32, 128, dtype=torch.int32, device=dev)
+        mask[::3, 90:] = 0
+        ops.reset_launches()
+        with torch.no_grad():
+            got, _ = layer(x, mask)
+        torch.cuda.synchronize()
+        launched = {k: ops.launches()[k] for k in LAYER_KERNELS}
+        on_kernels = fl.reaches_kernels(128, h, 4 * h)
+        if on_kernels:
+            with torch.no_grad():
+                want = fl.layer_int8_plain(x, mask, layer.quantized(),
+                                           num_heads=heads)
+            d = (got.float() - want.float()).abs()
+            check(launched == {"int8_linear": 4, "row_quant": 5,
+                               "small_s_attention": 1}
+                  and float(d.max()) <= 0.0625 and float(d.mean()) <= 1e-3,
+                  f"fused_int8 H={h} d=16: launches {launched}, max "
+                  f"{float(d.max())}, mean {float(d.mean())}")
+        else:
+            with torch.no_grad():
+                want = fl.layer_reference(x, mask, layer.kernel_params(),
+                                          num_heads=heads)
+            d = (got.float() - want.float()).abs()
+            check(not any(launched.values()) and torch.equal(got, want),
+                  f"fused_int8 H={h}: launches {launched}, not "
+                  "layer_reference")
+        rec[f"H{h}_heads{heads}"] = {
+            "reaches_kernels": on_kernels,
+            "route": "K1-K3" if on_kernels else "layer_reference",
+            "launches": launched, "max_abs_err": float(d.max()),
+            "mean_abs_err": float(d.mean())}
+    return rec
+
+
+def _repair_attention(torch):
+    """(b) K5/K6 at S=160 (64 rows) and K7/K8 at S=512 (16 rows), 8 heads,
+    at each of ``REPAIR_WIDTHS``, against the plain pair under phase 4's
+    and phase 6's limits, with their times; (c) f32 q, k, v at both S
+    through the dispatch: the plain attention, no launch. -> (the widths'
+    records, the f32 records, the launches (b) made, read from the
+    counts)."""
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.ops.attention import multi_head_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rec = {}
+    ops.reset_launches()
+    for pair, s, b in (("K5/K6", LJ, 64), ("K7/K8", MS_S, 16)):
+        fwd, bwd = ((fa.group_attention_fwd, fa.group_attention_bwd)
+                    if pair == "K5/K6" else
+                    (fa.bh_attention_fwd, fa.bh_attention_bwd))
+        mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+        lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen)
+        mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
+        for d in REPAIR_WIDTHS:
+            q, k, v, do = (torch.randn(b, s, REPAIR_HEADS * d, device=dev,
+                                       generator=gen).to(torch.bfloat16)
+                           .view(b, s, REPAIR_HEADS, d).transpose(1, 2)
+                           for _ in range(4))
+            before = fwd.launches, bwd.launches
+            got = fwd(q, k, v, mask)
+            want = fa._group_fwd_plain(q, k, v, mask)
+            err_f = float((got.float() - want.float()).abs().max())
+            tol_f = 2.0 ** -8 * float(v.float().abs().max())
+            grads = bwd(q, k, v, mask, do)
+            refs = fa._group_bwd_plain(q, k, v, mask, do)
+            err_b, cos_b = 0.0, 1.0
+            for g, r in zip(grads, refs):
+                e = float((g.float() - r.float()).abs().max()
+                          / r.float().abs().max())
+                c = float(torch.nn.functional.cosine_similarity(
+                    g.float().flatten(), r.float().flatten(), dim=0))
+                err_b, cos_b = max(err_b, e), min(cos_b, c)
+            torch.cuda.synchronize()
+            check(err_f <= tol_f and err_b <= 2.0 ** -7 and cos_b >= 0.9999
+                  and (fwd.launches, bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+                  and got.shape == q.shape,
+                  f"{pair} d={d}: fwd err {err_f} (limit {tol_f}), bwd "
+                  f"err {err_b} of the largest, cosine {cos_b}")
+            rec[f"{pair} d={d}"] = {
+                "shape": [b, REPAIR_HEADS, s, d],
+                "instance": fa.kernel_head_width(d),
+                "fwd_max_abs_err": err_f, "fwd_tolerance": tol_f,
+                "bwd_max_err_of_largest": err_b, "bwd_min_cosine": cos_b,
+                "fwd_ms": timed(torch, lambda: fwd(q, k, v, mask), 5),
+                "bwd_ms": timed(torch, lambda: bwd(q, k, v, mask, do), 5)}
+            del q, k, v, do, got, want, grads, refs
+    widths_launched = ops.launches()
+    f32 = {}
+    for s, b in ((LJ, 16), (MS_S, 4)):
+        q, k, v = (torch.randn(b, REPAIR_HEADS, s, 64, device=dev,
+                               generator=gen) for _ in range(3))
+        mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+        mask[1:, s // 3:] = 0
+        ops.reset_launches()
+        got = multi_head_attention(q, k, v, mask, impl="flash",
+                                   small_s_impl="group")[0]
+        want = multi_head_attention(q, k, v, mask)[0]
+        launched = {k: n for k, n in ops.launches().items() if n}
+        check(got.dtype == torch.float32 and torch.equal(got, want)
+              and not launched,
+              f"f32 attention S={s}: launches {launched}")
+        f32[f"S={s}"] = {"route": "plain attention (multi_head_attention)",
+                         "launches": launched, "equal_to_plain": True,
+                         "ms": timed(torch, lambda: multi_head_attention(
+                             q, k, v, mask, impl="flash",
+                             small_s_impl="group")[0], 5)}
+    return rec, f32, widths_launched
+
+
+def phase_repairs(torch, smi, records):
+    """Phase 20: ROADMAP.md Queue 3 items 7 and 8 on the card. (a) the
+    fused-int8 layer's JAX dispatch; (b) K5/K6 and K7/K8 at head widths
+    16, 80, 96 and 24; (c) f32 attention on the plain route; (d) a tiny ``run_ar2
+    --fast-encode --fast-teacher`` and a tiny ``run_lead --freeze-teachers
+    --fast-teacher`` (H=64: their int8 views take layer_reference) run to
+    their end."""
+    import shutil
+    import tempfile
+
+    from simxns_tpu_torch import ops, run
+
+    t0 = time.perf_counter()
+    totals = {name: 0 for name in ops.KERNELS}
+    layer = _repair_layer(torch)
+    widths, f32, launched = _repair_attention(torch)
+    for name, n in launched.items():
+        totals[name] += n
+    root = tempfile.mkdtemp(prefix="chip_smoke_repairs_")
+    tiny = {}
+    try:
+        for recipe, argv in TINY_RUNS.items():
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            out = run.main(["--recipe", recipe, *argv, "--output-dir",
+                            f"{root}/{recipe}"])
+            torch.cuda.synchronize()
+            launched = ops.launches()
+            for name, n in launched.items():
+                totals[name] += n
+            check(math.isfinite(out["top1"]) and all(
+                launched[k] == 0 for k in LAYER_KERNELS),
+                f"tiny {recipe}: {out}, launches {launched}")
+            tiny[recipe] = {"flags": argv, "wall_s": time.perf_counter() - t1,
+                            "top1": out["top1"],
+                            "launches": {k: n for k, n in launched.items()
+                                         if n}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in LAYER_KERNELS:
+        totals[name] += layer["H128_heads8"]["launches"][name]
+    emit("repairs", nvidia_smi=smi, fused_int8_layer=layer,
+         attention_widths=widths, f32_attention=f32, tiny_runs=tiny,
+         seconds=time.perf_counter() - t0)
+    fresh_peak(torch)
+    _launch_totals(records, "repairs", totals)
+
+
+# --- phase 21: LEAD at full width -------------------------------------------
+
+# lead_ms_distill at full width: a 6-layer BERT-base student (shared
+# towers) and a 12-layer BERT-base CE (small_s_attn="group": K5/K6 at the
+# joint rows of 160), 32 / 128 / 160 tokens, 8 queries x 2 passages a step
+# (the recipe's 64 over 8 GPUs; 1 negative), 20,480 synthetic passages
+# (above 20,000 they keep the recipe's lengths), 16 queries (two batches an
+# epoch, one warm-up epoch of each model); 12 joint steps (the re-draw and
+# its states at 10), a relaunch that resumes to 16, then the frozen CE
+# behind its int8 view (K1-K3) for 8
+LEAD_FLAGS = ["--synthetic", "--full-size", "--batch", "8",
+              "--corpus-size", "20480", "--num-queries", "16"]
+LEAD_RUNS = (("run", (), 12), ("resume", (), 16),
+             ("frozen", ("--freeze-teachers", "--fast-teacher"), 8))
+LEAD_N, LEAD_M = N_Q, 2
+# the first joint step's gradients (student and CE) with K5/K6 against
+# the plain versions, beside two plain versions that round p otherwise,
+# as phase 18's rule: the loss within LEAD_LOSS_FACTOR x the two plain
+# versions' gap (or LEAD_LOSS_REL), each model's gradient cosine within
+# LEAD_FLOOR_GAP of theirs. Readings (PERF.md, section 6, LEAD): loss
+# 3.5e-4 relative against two plain versions' 8.5e-4; cosine student
+# 0.99743 (two plain 0.99832), CE 0.99041 (0.99267): gaps 0.0009 and
+# 0.0023, the limit about twice the larger
+LEAD_LOSS_REL, LEAD_LOSS_FACTOR, LEAD_FLOOR_GAP = 1e-2, 2.5, 0.005
+
+
+def _lead_batch(np, seed):
+    """One LEAD batch: phase 5's 8 queries with their first 2 passages (the
+    positive and one negative), 32 / 128 / 160 tokens."""
+    b = _train_batch(np, seed)
+    n, m = LEAD_N, LEAD_M
+    return {"q_ids": b["q_ids"], "q_mask": b["q_mask"],
+            "ctx_ids": b["ctx_ids"].reshape(n, N_P, LC)[:, :m].reshape(
+                n * m, LC),
+            "ctx_mask": b["ctx_mask"].reshape(n, N_P, LC)[:, :m].reshape(
+                n * m, LC),
+            "positive_idx": (np.arange(n) * m).astype(np.int32),
+            "joint_ids": b["joint_ids"][:, :m], "joint_mask":
+                b["joint_mask"][:, :m]}
+
+
+def _lead_full_width(torch, smi):
+    """The first joint step's gradients on K5/K6 against the plain pair
+    (the recipe's LeadConfig, both models trained, 3 of the layers); then
+    one ``make_colbert_step`` and one ``make_kd_step(teacher_type=
+    "colbert")`` with a BERT-base ColBERT (dim 128)."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
+                                         BiEncoderConfig, ColBERT,
+                                         ColBERTConfig, CrossEncoder,
+                                         CrossEncoderConfig)
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.train import (LeadConfig, TrainState, make_adamw,
+                                        make_colbert_step, make_kd_step,
+                                        make_lead_step)
+
+    dev = torch.device("cuda")
+    fresh_peak(torch)
+    base = BertConfig(vocab_size=30522, dtype=torch.bfloat16)
+    db = BiEncoder(BiEncoderConfig(bert=base.replace(num_layers=6),
+                                   share_weight=True),
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    ce = CrossEncoder(CrossEncoderConfig(
+        bert=base.replace(small_s_attn="group"), per_layer_logits=True),
+        generator=torch.Generator().manual_seed(1)).to(dev)
+    tx = make_adamw(5e-5, total_steps=0)
+    step = make_lead_step(
+        {"db": db, "ce": ce}, {"db": tx, "ce": tx},
+        LeadConfig(distill_db=True, distill_ce=True, train_db=True,
+                   train_ce=True, layer_score=True, layer_temperature=10.0))
+    states = {"db": TrainState.create(db, tx), "ce": TrainState.create(ce, tx)}
+    batch = _lead_batch(np, 0)
+    sel = ([1, 3, 5], [2, 6, 11])
+
+    def grads():
+        loss, _ = step.loss(states, batch, *sel)
+        for m in (db, ce):
+            for p in m.parameters():
+                p.grad = None
+        loss.backward()
+        flat = [torch.cat([p.grad.float().flatten() for p in m.parameters()
+                           if p.grad is not None]) for m in (db, ce)]
+        for m in (db, ce):
+            for p in m.parameters():
+                p.grad = None
+        return float(loss.detach()), flat
+
+    ops.reset_launches()
+    loss_k, grad_k = grads()
+    launched = ops.launches()
+    check(launched["group_attention_fwd"] > 0
+          and launched["group_attention_bwd"] > 0,
+          f"K5/K6 not launched in the joint step: {launched}")
+    kernels = fa.group_attention_fwd, fa.group_attention_bwd, fa._probs
+    fa.group_attention_fwd, fa.group_attention_bwd = (fa._group_fwd_plain,
+                                                      fa._group_bwd_plain)
+    try:
+        loss_p, grad_p = grads()
+        fa._probs = _softmax_probs
+        loss_f, grad_f = grads()
+    finally:
+        fa.group_attention_fwd, fa.group_attention_bwd, fa._probs = kernels
+    cos = [_cosine(torch, a, b) for a, b in zip(grad_k, grad_p)]
+    floor = [_cosine(torch, a, b) for a, b in zip(grad_p, grad_f)]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    floor_rel = abs(loss_f - loss_p) / abs(loss_p)
+    del grad_k, grad_p, grad_f
+    check(loss_rel <= max(LEAD_LOSS_REL, LEAD_LOSS_FACTOR * floor_rel)
+          and all(c >= f - LEAD_FLOOR_GAP for c, f in zip(cos, floor)),
+          f"LEAD joint step, K5/K6 vs plain: loss rel {loss_rel} (two plain "
+          f"versions: {floor_rel}), gradient cosines (student, CE) {cos} "
+          f"(two plain versions: {floor})")
+    rec = {"kernel_vs_plain": {
+        "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_plain_softmax": loss_f, "loss_rel": loss_rel,
+        "loss_rel_two_plain": floor_rel,
+        "gradient_cosine_student": cos[0], "gradient_cosine_ce": cos[1],
+        "gradient_cosine_two_plain_student": floor[0],
+        "gradient_cosine_two_plain_ce": floor[1]},
+        "limits": {"loss_rel": LEAD_LOSS_REL,
+                   "loss_factor_over_two_plain": LEAD_LOSS_FACTOR,
+                   "floor_gap": LEAD_FLOOR_GAP}}
+    launches = {name: 0 for name in ops.KERNELS}
+    for name, n in launched.items():
+        launches[name] += n
+    ms = []
+    for _ in range(3):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, m = step(states, batch, *sel)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for name, n in ops.launches().items():
+            launches[name] += n
+    check(math.isfinite(float(m["loss"])), f"LEAD joint step: {m}")
+    rec["joint_step_ms"] = ms
+    del states, step
+
+    # ColBERT: one in-batch MaxSim step, then as the KD teacher
+    col = ColBERT(ColBERTConfig(bert=base, dim=128),
+                  generator=torch.Generator().manual_seed(3)).to(dev)
+    tx = make_adamw(5e-5, total_steps=0)
+    cstep = make_colbert_step(tx, group_size=LEAD_M)
+    cstate = TrainState.create(col, tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cstate, cm = cstep(cstate, batch)
+    torch.cuda.synchronize()
+    col_ms = (time.perf_counter() - t0) * 1e3
+    tx = make_adamw(5e-5, total_steps=0)
+    kstep = make_kd_step(tx, "colbert", kd_type="KD_softmax",
+                         ce_weight=1.0, kd_weight=1.0)
+    kstate = TrainState.create(db, tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kstate, km = kstep(kstate, {"colbert": col.eval()}, batch)
+    torch.cuda.synchronize()
+    kd_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(float(cm["loss"])) and math.isfinite(
+        float(km["loss"])), f"ColBERT steps: {cm}, {km}")
+    rec["colbert_step"] = {"loss": float(cm["loss"]),
+                           "correct": int(cm["correct"]), "step_ms": col_ms}
+    rec["kd_colbert_step"] = {k: float(v) for k, v in km.items()}
+    rec["kd_colbert_step"]["step_ms"] = kd_ms
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del db, ce, col, cstate, kstate
+    return rec, launches
+
+
+def _run_losses(out_dir, phase):
+    with open(f"{out_dir}/metrics.jsonl", encoding="utf-8") as f:
+        return [(r["step"], r["loss"]) for r in map(json.loads, f)
+                if r.get("phase") == phase]
+
+
+def phase_lead(torch, smi, records):
+    """Phase 21: LEAD at full width. ``run_lead`` in ``lead_ms_distill``:
+    12 joint steps, a relaunch that resumes to 16, then
+    ``--freeze-teachers --fast-teacher`` for 8; per run the step ms, the
+    peak memory, the losses and the launches (zeroed just before each run,
+    and those inside the joint steps apart); then the first joint step's
+    gradients on the kernels against the plain versions and the ColBERT
+    steps."""
+    import shutil
+    import tempfile
+
+    from simxns_tpu_torch import ops, run
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lead_")
+    names = ("make_lead_step", "make_biencoder_step", "make_reranker_step")
+    factories = {name: getattr(run, name) for name in names}
+    totals = {name: 0 for name in ops.KERNELS}
+    t_phase = time.perf_counter()
+    try:
+        for label, extra, steps_to in LEAD_RUNS:
+            out_dir = f"{root}/{'frozen' if extra else 'joint'}"
+            step_ms, in_steps = {}, {}
+            for name, kind in zip(names, ("lead", "warm_db", "warm_ce")):
+                setattr(run, name, _timed_factory(
+                    torch, factories[name], kind, step_ms, in_steps))
+            fresh_peak(torch)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = run.main(["--recipe", "lead_ms_distill", *LEAD_FLAGS,
+                            "--steps", str(steps_to), *extra,
+                            "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            launched = ops.launches()
+            for name, n in launched.items():
+                totals[name] += n
+            joint = in_steps.get("lead", {})
+            check(out["steps"] == steps_to
+                  and math.isfinite(out["final_loss"]),
+                  f"lead {label}: {out}")
+            if extra:
+                check(all(joint.get(k, 0) > 0 for k in LAYER_KERNELS)
+                      and not joint.get("group_attention_bwd"),
+                      f"lead {label}: the joint steps launched {joint}")
+            else:
+                check(joint.get("group_attention_fwd", 0) > 0
+                      and joint.get("group_attention_bwd", 0) > 0,
+                      f"lead {label}: the joint steps launched {joint}")
+            losses = _run_losses(out_dir, "lead")
+            first = 11 if label == "resume" else 1
+            check([s for s, _ in losses][-(steps_to - first + 1):]
+                  == list(range(first, steps_to + 1))
+                  and all(math.isfinite(x) for _, x in losses),
+                  f"lead {label}: losses {losses}")
+            files = set(os.listdir(out_dir))
+            want = {f"student-{steps_to}", f"teacher_ce-{steps_to}",
+                    "eval.json"}
+            if label == "run":
+                want |= {"lead_db_state-10", "lead_ce_state-10"}
+            check(want <= files, f"lead {label}: {sorted(files)}")
+            lead_ms = step_ms.get("lead", [])
+            emit("lead", nvidia_smi=smi, run=label,
+                 flags=LEAD_FLAGS + list(extra), steps=steps_to,
+                 wall_s=time.perf_counter() - t0, losses=losses,
+                 step_ms=step_ms,
+                 steady_joint_step_ms=(float(sum(lead_ms[1:])
+                                             / (len(lead_ms) - 1))
+                                       if len(lead_ms) > 1 else None),
+                 top1=out["top1"], phase_times_s=out["phase_times_s"],
+                 max_memory_gb=out["max_memory_gb"],
+                 launches={k: n for k, n in launched.items() if n},
+                 launches_in_joint_steps=joint)
+            if label == "frozen":
+                shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        for name, fn in factories.items():
+            setattr(run, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    rec, launches = _lead_full_width(torch, smi)
+    for name, n in launches.items():
+        totals[name] += n
+    emit("lead_steps", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         **rec)
+    fresh_peak(torch)
+    _launch_totals(records, "lead", totals)
+
+
+# --- phase 22: MASTER at full width -----------------------------------------
+
+# master_pretrain at full width: BERT-base, seq 128, 2 head layers; 32
+# sequences a step (the recipe's 128 a GPU, cut to keep the phase in the
+# script's budget), 6 steps, then a relaunch to 8
+MASTER_FLAGS = ["--synthetic", "--full-size", "--batch", "32"]
+MASTER_STEPS, MASTER_RESUME_STEPS, MASTER_SEQ = 6, 8, 128
+
+
+def _master_examples(np, rng, n):
+    """``run_pretrain``'s synthetic examples at seq 128."""
+    return [{"text": rng.integers(5, 2000, size=int(
+                 rng.integers(24, MASTER_SEQ - 4))).tolist(),
+             "queries": [rng.integers(5, 2000, size=6).tolist()],
+             "next": [rng.integers(5, 2000, size=20).tolist()]}
+            for _ in range(n)]
+
+
+def phase_master(torch, smi, records):
+    """Phase 22: MASTER pre-training at full width. ``run_pretrain`` in
+    ``master_pretrain`` (6 steps, then a relaunch to 8), the exported
+    encoder loaded into a ``BiEncoder`` and run, one ELECTRA step, and the
+    collator's host ms a batch on each path. No Pallas kernel is on this
+    path (the Condenser's towers run the plain attention at S=128, as JAX
+    runs XLA's), so no kernel launches here."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops, run
+    from simxns_tpu_torch.data import (CondenserCollator, HashTokenizer,
+                                       TokenMeta)
+    from simxns_tpu_torch.io import encoder_into, restore_checkpoint
+    from simxns_tpu_torch.models import (BertConfig, BiEncoder,
+                                         BiEncoderConfig, Condenser,
+                                         CondenserConfig)
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_electra_step)
+
+    dev = torch.device("cuda")
+    base = BertConfig(vocab_size=30522, dtype=torch.bfloat16)
+    root = tempfile.mkdtemp(prefix="chip_smoke_master_")
+    factory = run.make_condenser_step
+    totals = {name: 0 for name in ops.KERNELS}
+    t_phase = time.perf_counter()
+    rec = {}
+    try:
+        step_ms = {}
+        run.make_condenser_step = _timed_factory(torch, factory, "pretrain",
+                                                 step_ms)
+        for label, steps_to in (("run", MASTER_STEPS),
+                                ("resume", MASTER_RESUME_STEPS)):
+            fresh_peak(torch)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = run.main(["--recipe", "master_pretrain", *MASTER_FLAGS,
+                            "--steps", str(steps_to), "--output-dir", root])
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in ops.launches().items() if n}
+            check(out["steps"] == steps_to and math.isfinite(
+                out["final_loss"]) and not launched,
+                f"master {label}: {out}, launches {launched}")
+            rec[label] = {"wall_s": time.perf_counter() - t0,
+                          "final_loss": out["final_loss"],
+                          "collator_path": out["collator_path"],
+                          "phase_times_s": out["phase_times_s"],
+                          "max_memory_gb": out["max_memory_gb"],
+                          "launches": launched}
+        losses = _run_losses(root, "pretrain")
+        check([s for s, _ in losses] == list(range(1, MASTER_RESUME_STEPS
+                                                   + 1))
+              and all(math.isfinite(x) for _, x in losses),
+              f"master: losses {losses}")
+        files = set(os.listdir(root))
+        check({f"encoder-{MASTER_RESUME_STEPS}",
+               f"pretrain_state-{MASTER_STEPS}", "eval.json"} <= files,
+              f"master: {sorted(files)}")
+        # the exported encoder in a BiEncoder tower
+        params = restore_checkpoint(root, None, MASTER_RESUME_STEPS,
+                                    name="encoder")["params"]
+        bi = BiEncoder(BiEncoderConfig(bert=base))
+        encoder_into(params, bi.question_model)
+        bi = bi.to(dev)
+        rng = np.random.default_rng(22)
+        ids = torch.from_numpy(rng.integers(5, 2000, (8, MASTER_SEQ))).to(dev)
+        with torch.no_grad():
+            emb = bi.encode_query(ids, torch.ones_like(ids))
+        check(emb.shape == (8, 768) and bool(torch.isfinite(emb).all()),
+              "the exported encoder's embeddings")
+        del bi, params, emb
+    finally:
+        run.make_condenser_step = factory
+        shutil.rmtree(root, ignore_errors=True)
+    # the collator on each path at the step's 32 examples and at 512 (the
+    # JAX package's measured batch), then one ELECTRA step
+    meta = TokenMeta.for_hash_tokenizer(HashTokenizer(vocab_size=2048))
+    rng = np.random.default_rng(3)
+    batches = [_master_examples(np, rng, 32) for _ in range(5)]
+    big = _master_examples(np, rng, 512)
+    host = {}
+    for use_native in (True, False):
+        coll = CondenserCollator(meta, max_seq_length=MASTER_SEQ, seed=0,
+                                 use_native=use_native)
+        coll(batches[0])
+        t0 = time.perf_counter()
+        for b in batches:
+            coll(b)
+        t1 = time.perf_counter()
+        coll(big)
+        host[coll.path] = {"32": (t1 - t0) * 1e3 / len(batches),
+                           "512": (time.perf_counter() - t1) * 1e3}
+    check(set(host) == {"native", "numpy"},
+          f"the collator's paths on this machine: {sorted(host)}")
+    fresh_peak(torch)
+    model = Condenser(CondenserConfig(bert=base, n_head_layers=2),
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    tx = make_adamw(3e-4, total_steps=0)
+    estep = make_electra_step(tx, meta.mask_id)
+    state = TrainState.create(model, tx)
+    batch = CondenserCollator(meta, max_seq_length=MASTER_SEQ, seed=1)(
+        batches[1])
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = estep(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(math.isfinite(float(m["loss"])), f"ELECTRA step: {m}")
+    steady = step_ms["pretrain"][1:MASTER_STEPS]
+    emit("master", nvidia_smi=smi, flags=MASTER_FLAGS, losses=losses,
+         step_ms=step_ms, steady_step_ms=float(sum(steady) / len(steady)),
+         collator_host_ms_per_batch=host, electra_step_ms=ms,
+         electra_loss=float(m["loss"]),
+         electra_max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         kernels_on_path="none (the Condenser's towers run the plain "
+                         "attention at S=128, as JAX runs XLA's)",
+         seconds=time.perf_counter() - t_phase, **rec)
+    del model, state
+    fresh_peak(torch)
+    _launch_totals(records, "master", totals)
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -4426,6 +5080,9 @@ def main():
     phase_data_parallel(torch, smi, records, co_training)
     phase_prod_kd(torch, smi, records)
     phase_mesh(torch, smi, records)
+    phase_repairs(torch, smi, records)
+    phase_lead(torch, smi, records)
+    phase_master(torch, smi, records)
     kernels = []
     for name, rec in records.items():
         route, source, replaces = SOURCES[name]

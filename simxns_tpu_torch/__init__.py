@@ -10,9 +10,10 @@ build a device-resident MIPS index (bf16/f32 or int8 store), and search it
 with the fused bucket top-k kernel (:class:`serve.DenseRetriever`); and the
 AR2 training steps (:mod:`train`: DE warm-up, the cross-encoder reranker
 on the grouped attention kernels, the AR2 retriever step with the int8
-teacher view, AdamW), the co-training run, and data parallelism over
-``torch.distributed`` (:mod:`parallel`: one process per GPU under
-``torchrun``).
+teacher view, AdamW), the co-training run, data and tensor parallelism
+over ``torch.distributed`` (:mod:`parallel`: one process per GPU under
+``torchrun``), PROD and LEAD distillation, and MASTER pre-training
+(:mod:`run`: ``run_kd``, ``run_lead``, ``run_pretrain``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Every kernel wrapper launches its kernel for a CUDA tensor and takes its

@@ -281,7 +281,8 @@ static_assert(2 * key_pass_smem<128>() <= 232448 &&
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
 // with strides (ob, oh, os). Every row start must be 16-byte aligned (the
-// wrapper checks). d in {32, 64, 128}, 1 <= S <= 1024, heads and B at most
+// wrapper checks). d on the 16 grid up to 128 (the wrapper pads
+// other widths), 1 <= S <= 1024, heads and B at most
 // 65535. Returns cudaGetLastError() after the launch.
 extern "C" int sx_bh_attention_fwd(
     const void* q, const void* k, const void* v, long long sb, long long sh,
@@ -303,9 +304,8 @@ extern "C" int sx_bh_attention_fwd(
                                   st>>>(qv, kv, vv, mask, ov, S,              \
                                         scale * ring::kLog2e);                \
     return static_cast<int>(cudaGetLastError());
-    SX_CASE(32)
-    SX_CASE(64)
-    SX_CASE(128)
+    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
+    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
 #undef SX_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -346,9 +346,8 @@ extern "C" int sx_bh_attention_bwd(
         <<<grid, ring::kThreads, key_pass_smem<DD>(), st>>>(                  \
             qv, kv, vv, dov, mask, dkv, dvv, stats, S, scale, scale2);        \
     return static_cast<int>(cudaGetLastError());
-    SX_CASE(32)
-    SX_CASE(64)
-    SX_CASE(128)
+    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
+    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
 #undef SX_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -188,7 +188,8 @@ static_assert(smem_bytes<128>(kMaxS) <= 232448, "K6 shared memory");
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
 // with strides (ob, oh, os). Every row start must be 16-byte aligned (the
-// wrapper checks). d in {32, 64, 128}, 1 <= S <= 255. Returns
+// wrapper checks). d on the 16 grid up to 128 (the wrapper pads
+// other widths), 1 <= S <= 255. Returns
 // cudaGetLastError() after the launch.
 extern "C" int sx_group_attention_fwd(
     const void* q, const void* k, const void* v, long long sb, long long sh,
@@ -212,9 +213,8 @@ extern "C" int sx_group_attention_fwd(
                                      st>>>(qv, kv, vv, mask, ov, S,           \
                                            scale * ring::kLog2e);             \
     return static_cast<int>(cudaGetLastError());
-    SX_CASE(32)
-    SX_CASE(64)
-    SX_CASE(128)
+    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
+    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
 #undef SX_CASE
   }
   return static_cast<int>(err);
@@ -248,9 +248,8 @@ extern "C" int sx_group_attention_bwd(
         qv, kv, vv, dov, mask, dqv, dkv, dvv, S, scale,                       \
         scale * sx::ring::kLog2e);                                            \
     return static_cast<int>(cudaGetLastError());
-    SX_CASE(32)
-    SX_CASE(64)
-    SX_CASE(128)
+    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
+    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
 #undef SX_CASE
   }
   return static_cast<int>(err);

@@ -1,5 +1,5 @@
 // K3 small_s_attention: softmax(q k^T / sqrt(d) + bias) v for every
-// (sequence, head), S <= 512, one block per 64 query rows.
+// (sequence, head), S <= 1024, one block per 64 query rows.
 //
 // Replaces the attention core of the TPU whole-layer kernel
 // (simxns_tpu/ops/fused_layer.py:_layer_kernel :115-138): q, k, v bf16;
@@ -13,7 +13,7 @@
 // Bound on the card: bytes at S=128 (4 S^2 d of products per head against
 // 3 S d * 2 bytes read and S d * 4 written), the tensor cores' rate past
 // S ~ 300. The design (attention_ring.cuh): the grid is (query tiles of 64,
-// heads, sequences), so a block's shared memory does not grow with S (47
+// heads, sequences), so a block's shared memory does not grow with S (49
 // KB at d=64: four blocks an SM at every S) and the S/64 blocks of one head
 // run side by side, reading its k and v from L2. A block lands its q tile
 // once and streams 64-key tiles of k, then of k and v, through a two-stage
@@ -36,7 +36,7 @@ using namespace sx::ring;
 
 namespace {
 
-constexpr int kMaxS = 512;
+constexpr int kMaxS = 1024;   // the key bias row in shared memory
 
 template <int D>
 constexpr int smem_bytes() {
@@ -182,7 +182,8 @@ cudaError_t launch(const void* qkv, const int* mask, float* ctx, int B, int S,
 }  // namespace
 
 // qkv [B*S, 3H] bf16 (q | k | v), mask [B, S] int32 (1 = real key),
-// ctx [B*S, H] f32. d = H / heads in {32, 64, 128}; S <= 512; B <= 65535.
+// ctx [B*S, H] f32. d = H / heads on the 16 grid up to 128 (the wrapper
+// pads other widths); S <= 1024; B <= 65535.
 // Rows of qkv and the head offsets must be 16-byte aligned (H % 8 == 0,
 // checked by the wrapper). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported d or S).
@@ -192,9 +193,11 @@ extern "C" int sx_small_s_attention(const void* qkv, const int* mask,
   if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<32>(qkv, mask, ctx, B, S, H, scale, s);
-    case 64: return launch<64>(qkv, mask, ctx, B, S, H, scale, s);
-    case 128: return launch<128>(qkv, mask, ctx, B, S, H, scale, s);
+#define SX_CASE(DD) \
+    case DD: return launch<DD>(qkv, mask, ctx, B, S, H, scale, s);
+    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
+    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
+#undef SX_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

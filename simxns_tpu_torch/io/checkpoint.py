@@ -75,3 +75,32 @@ def latest_step(directory: str, name: str = "checkpoint") -> Optional[int]:
     steps = [int(m.group(1)) for f in os.listdir(directory)
              if (m := pat.match(f))]
     return max(steps) if steps else None
+
+
+def export_encoder_only(state: dict, drop_prefixes: Optional[tuple] = None
+                        ) -> dict:
+    """MASTER's artifact: a Condenser state_dict (flat ``name -> tensor``,
+    or a ``{"params": ...}`` tree) without the decoder heads, so the
+    released checkpoint is the plain BERT encoder and its MLM head
+    (``save_pretrained`` deleting the heads, ``MASTER/pretrain/modeling.py:
+    199-207``). The default prefixes are the Condenser's ``HEAD_NAMES``,
+    so a new head never ships in the artifact. The ``encoder.`` entries
+    load into a ``BiEncoder`` tower (:func:`encoder_into`)."""
+    if drop_prefixes is None:
+        from simxns_tpu_torch.models.condenser import HEAD_NAMES
+        drop_prefixes = HEAD_NAMES
+    if "params" in state and isinstance(state["params"], dict):
+        state = state["params"]
+    return {k: v for k, v in state.items()
+            if not any(k.split(".", 1)[0].startswith(p)
+                       for p in drop_prefixes)}
+
+
+def encoder_into(exported: dict, tower: Any) -> None:
+    """Load an exported encoder's ``encoder.*`` weights into ``tower``'s
+    ``encoder`` (a ``BiEncoder`` tower, a ``CrossEncoder``, a
+    ``ColBERT``), strictly: every encoder weight must be present."""
+    prefix = "encoder."
+    tower.encoder.load_state_dict(
+        {k[len(prefix):]: v for k, v in exported.items()
+         if k.startswith(prefix)})

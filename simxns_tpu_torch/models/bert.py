@@ -26,7 +26,11 @@ parameter changes, so an encode-only view that shares a training model's
 ``Parameter`` objects (:func:`share_parameters`, the ``int8_view`` of
 either model) follows every optimizer update. In train mode, and for a
 call that asks for attention maps, ``fused_int8`` gives way to the
-standard composition, as in JAX.
+standard composition, as in JAX. On the card a layer whose shape the JAX
+TPU kernel does not take (``fused_layer.reaches_kernels``: H or F off the
+128 grid, or one sequence past its stack budget) computes the unquantized
+f32 ``layer_reference``, as JAX does there; on the CPU the quantized
+composition runs at every shape, as JAX's interpreted kernel does.
 
 Train mode is a call with a ``torch.Generator`` (None is eval mode): dropout
 (``hidden_dropout`` after the embeddings' LayerNorm and on the attention
@@ -74,7 +78,8 @@ from simxns_tpu_torch.ops import fused_ffn
 from simxns_tpu_torch.ops.attention import multi_head_attention
 from simxns_tpu_torch.ops.fused_layer import (QuantizedLayer,
                                               fused_encoder_layer_int8,
-                                              quantize_layer)
+                                              layer_reference,
+                                              quantize_layer, reaches_kernels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -423,6 +428,14 @@ class BertLayer(nn.Module):
         if fused_layer:
             _guard_quantized_under_grad(self, hidden,
                                         "layer_impl='fused_int8'")
+            if hidden.is_cuda and not reaches_kernels(
+                    hidden.shape[1], hidden.shape[2], cfg.intermediate_size):
+                # the JAX package's TPU dispatch (fused_layer.py:170-189):
+                # off the 128 grid or past the stack budget, the f32 layer
+                return layer_reference(
+                    hidden.to(dt), attention_mask, self.kernel_params(),
+                    num_heads=cfg.num_heads,
+                    layer_norm_eps=cfg.layer_norm_eps), None
             return fused_encoder_layer_int8(
                 hidden.to(dt), attention_mask, quantized=self.quantized(),
                 num_heads=cfg.num_heads,

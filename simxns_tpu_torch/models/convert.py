@@ -2,7 +2,9 @@
 
 The port's modules keep the flax names, so the map is mechanical:
 
-- module ``layer_{i}`` -> ``layers.{i}``; every other module name stays;
+- module ``layer_{i}`` -> ``layers.{i}``, and a Condenser head's layer
+  ``<name>_head_{i}`` -> ``<name>_head.{i}``; every other module name
+  stays;
 - leaf ``kernel`` [in, out] -> ``weight`` [out, in] (``nn.Linear``);
 - leaf ``embedding`` (``nn.Embed``) and ``scale`` (``nn.LayerNorm``) ->
   ``weight``; ``bias`` stays.
@@ -11,8 +13,11 @@ Works for a ``BiEncoder`` tree (``question_model``/``ctx_model``; with
 ``share_weight`` only ``question_model``), a ``CrossEncoder`` tree
 (``encoder``, ``qa_classifier``, ``binary_classifier``), a bare
 ``BertEncoder`` (whole, or cut by ``truncate_layers``: the layers it
-keeps) and an ``MLMHead`` (``transform``, ``transform_layer_norm``, and the
-tied head's ``bias`` leaf or the untied ``decoder``).
+keeps), an ``MLMHead`` (``transform``, ``transform_layer_norm``, and the
+tied head's ``bias`` leaf or the untied ``decoder``), a ``ColBERT``
+(``encoder``, the bias-free ``linear`` and ``doc_linear`` heads, and
+``doc_encoder`` without ``share_weight``) and a ``Condenser``
+(``encoder``, ``mlm`` and the five heads' layers).
 The same state_dict serves every ``layer_impl``, as the flax trees do.
 """
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"layer_(\d+)")
+_HEAD_LAYER = re.compile(r"(\w+_head)_(\d+)")
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
          "bias": "bias"}
 
@@ -40,7 +46,9 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for key, val in node.items():
             if isinstance(val, Mapping):
                 m = _LAYER.fullmatch(key)
-                name = f"layers.{m.group(1)}" if m else key
+                head = _HEAD_LAYER.fullmatch(key)
+                name = (f"layers.{m.group(1)}" if m else
+                        f"{head.group(1)}.{head.group(2)}" if head else key)
                 walk(val, f"{prefix}{name}.")
                 continue
             if key not in _LEAF:

@@ -57,11 +57,15 @@ class _Tower(nn.Module):
                     dtype=bert.param_dtype)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                output_hidden_states: bool = False):
+        """-> the embedding, or ``(embedding, encoder output)`` with
+        ``output_hidden_states`` (every layer's hiddens, LEAD)."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         out = self.encoder(input_ids, attention_mask, token_type_ids,
-                           generator=generator)
+                           generator=generator,
+                           output_hidden_states=output_hidden_states)
         emb = _pool(out, attention_mask, self.cfg.pooling)
         if self.cfg.projection_dim is not None:
             bert = self.cfg.bert
@@ -69,7 +73,7 @@ class _Tower(nn.Module):
             if self.cfg.project_layer_norm:
                 emb = layer_norm(self.project_layer_norm, emb, bert.dtype,
                                  bert.layer_norm_eps)
-        return emb
+        return (emb, out) if output_hidden_states else emb
 
 
 class BiEncoder(nn.Module):
@@ -95,17 +99,23 @@ class BiEncoder(nn.Module):
 
     def encode_query(self, input_ids, attention_mask=None,
                      token_type_ids=None, *,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     output_hidden_states: bool = False):
+        """-> q embeddings, or ``(emb, EncoderOutput)`` with
+        ``output_hidden_states`` (the JAX ``encode_query``)."""
         return self.question_model(input_ids, attention_mask, token_type_ids,
-                                   generator=generator)
+                                   generator=generator,
+                                   output_hidden_states=output_hidden_states)
 
     def encode_passage(self, input_ids, attention_mask=None,
                        token_type_ids=None, *,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       output_hidden_states: bool = False):
+        """-> passage embeddings, or ``(emb, EncoderOutput)`` with
+        ``output_hidden_states``."""
         return self._ctx_tower()(input_ids, attention_mask, token_type_ids,
-                                 generator=generator)
+                                 generator=generator,
+                                 output_hidden_states=output_hidden_states)
 
     def forward(self, q_ids, q_mask, ctx_ids, ctx_mask, q_type_ids=None,
                 ctx_type_ids=None, *,

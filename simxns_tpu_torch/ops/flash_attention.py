@@ -36,6 +36,18 @@ Their plain versions are the grouped pair's (the same function). K6 and
 K8 share one backward design (``csrc/attention_bwd.cuh``): one walk over
 the keys folds each query row's log-sum-exp and rowsum(dP p), and every
 later walk gets p = 2^(s log2(e) - lse) with one ``ex2`` a score.
+
+The JAX kernels cast to f32 inside and block whole (S, d) heads, so they
+take any dtype and any d. On the card the four kernels have an instance
+for every head width on the 16 grid up to 128 (:func:`kernel_head_width`);
+a d off that grid runs the next instance over q, k, v (and dO) zero-padded
+along d, with the scale 1/sqrt(d) of the true width, and the results are
+sliced back: zero columns add exact zeros to every product, so it is the
+same function. d > 128 is refused (a warp's fragments of a 16-row tile
+would outgrow its registers). The kernels are bf16 tensor-core designs:
+:func:`flash_attention` sends any other dtype on the card to the plain
+attention (``multi_head_attention``), which computes JAX's f32 function,
+before any launch; their launch counts show the route.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ _NEG = -1e9
 SMALL_S_IMPL = "xla"          # :49
 _MAX_GROUP_S = 255            # csrc/group_attention.cu kMaxS
 _MAX_BH_S = 1024              # csrc/bh_attention.cu kMaxS
+_MAX_KERNEL_D = 128           # the widest template instance of the kernels
 
 _VIEW = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong]
@@ -69,21 +82,22 @@ _BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
 
 # --- the plain versions ------------------------------------------------------
 
-def _probs(q, k, mask):
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _probs(q, k, mask, scale=None):
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     s = torch.where(mask[:, None, None, :] > 0, s, _NEG)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True), scale
 
 
-def _group_fwd_plain(q, k, v, mask):
-    p, _ = _probs(q, k, mask)
+def _group_fwd_plain(q, k, v, mask, scale=None):
+    p, _ = _probs(q, k, mask, scale)
     return (p @ v.float()).to(q.dtype)
 
 
-def _group_bwd_plain(q, k, v, mask, do):
-    p, scale = _probs(q, k, mask)
+def _group_bwd_plain(q, k, v, mask, do, scale=None):
+    p, scale = _probs(q, k, mask, scale)
     dof = do.float()
     dv = p.transpose(-1, -2) @ dof
     dp = dof @ v.float().transpose(-1, -2)
@@ -91,6 +105,39 @@ def _group_bwd_plain(q, k, v, mask, do):
     dq = (ds @ k.float()) * scale
     dk = (ds.transpose(-1, -2) @ q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- head widths -------------------------------------------------------------
+
+def kernel_head_width(d: int, what: str = "attention") -> int:
+    """The head width of the kernel instance that takes heads of width
+    ``d``: d rounded up to the 16 grid (one m16n8k16 k-step a 16 columns),
+    for 1 <= d <= 128."""
+    if not 1 <= d <= _MAX_KERNEL_D:
+        raise ValueError(
+            f"{what} takes head widths 1 .. {_MAX_KERNEL_D} (got d={d}): a "
+            f"warp holds its 16 rows' q fragments and d/8 accumulator tiles "
+            f"in registers")
+    return -(-d // 16) * 16
+
+
+def _at_kernel_width(fn, q, k, v, mask, *rest):
+    """``fn(q, k, v, mask, *rest, scale=...)`` over tensors zero-padded
+    along d to :func:`kernel_head_width`, with the scale of the true d,
+    and its result(s) sliced back to d."""
+    d = q.shape[-1]
+    dp = kernel_head_width(d)
+    scale = 1.0 / math.sqrt(d)
+    if dp == d:
+        return fn(q, k, v, mask, *rest, scale=scale)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, dp - d))
+
+    out = fn(pad(q), pad(k), pad(v), mask, *map(pad, rest), scale=scale)
+    if isinstance(out, tuple):
+        return tuple(o[..., :d] for o in out)
+    return out[..., :d]
 
 
 # --- K5 / K6 -----------------------------------------------------------------
@@ -113,11 +160,10 @@ def _check_shapes(q, k, v, mask, max_s=_MAX_GROUP_S, what="group_attention"):
         raise ValueError(f"{what}: q, k, v shapes differ "
                          f"({tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)})")
-    if (d not in (32, 64, 128) or not 1 <= s <= max_s or b > 65535
-            or h > 65535):
-        raise ValueError(f"{what} takes d in (32, 64, 128), 1 <= S <= "
-                         f"{max_s} and B, heads <= 65535 (got d={d}, S={s}, "
-                         f"B={b}, heads={h})")
+    kernel_head_width(d, what)
+    if not 1 <= s <= max_s or b > 65535 or h > 65535:
+        raise ValueError(f"{what} takes 1 <= S <= {max_s} and B, heads <= "
+                         f"65535 (got S={s}, B={b}, heads={h})")
     if tuple(mask.shape) != (b, s):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} is not "
                          f"[{b}, {s}]")
@@ -142,30 +188,67 @@ def _view_args(t):
     return [_native.ptr(t), *t.stride()[:3]]
 
 
+def _fwd_launch(lib, symbol, wrapper):
+    """The forward launcher of ``lib`` at a kernel head width."""
+    def launch(q, k, v, mask, scale):
+        q, k, v = _qkv(q, k, v)
+        b, h, s, d = q.shape
+        mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+        o = _out(q)
+        fn = _native.function(lib, symbol, _FWD_ARGS)
+        code = _native.launch(
+                fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+                *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h,
+                s, d, scale)
+        _native.check(lib, code, wrapper.__name__)
+        wrapper.launches += 1
+        return o
+    return launch
+
+
+def _bwd_launch(lib, symbol, args, wrapper, stats=False):
+    """The backward launcher of ``lib`` (``stats``: K8's f32 scratch of
+    row statistics [2, B, heads, S] rides after dv's strides)."""
+    def launch(q, k, v, mask, do, scale):
+        q, k, v = _qkv(q, k, v)
+        do = _kernel_view(do, "do")
+        b, h, s, d = q.shape
+        mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
+        dq, dk, dv = _out(q), _out(q), _out(q)
+        # K8's scratch, held until the launch is enqueued
+        scratch = (torch.empty(2, b, h, s, dtype=torch.float32,
+                               device=q.device) if stats else None)
+        extra = [_native.ptr(scratch)] if stats else []
+        fn = _native.function(lib, symbol, args)
+        code = _native.launch(
+                fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
+                *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
+                _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
+                *dq.stride()[:3], *extra, b, h, s, d, scale)
+        _native.check(lib, code, wrapper.__name__)
+        wrapper.launches += 1
+        return dq, dk, dv
+    return launch
+
+
+def _check_do(q, do, what):
+    if do.shape != q.shape:
+        raise ValueError(f"{what}: do {tuple(do.shape)} is not "
+                         f"{tuple(q.shape)}")
+
+
 def group_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """K5: softmax attention of each (batch, head), S <= 255, in f32.
 
-    q, k, v [B, heads, S, d] (bf16 on the card; any strides with d
-    contiguous), mask [B, S] int32 1/0 key mask. -> o [B, heads, S, d] in
-    q's dtype (on the card a view of a [B, S, heads, d] tensor).
+    q, k, v [B, heads, S, d] (bf16 on the card, d <= 128; any strides with
+    d contiguous), mask [B, S] int32 1/0 key mask. -> o [B, heads, S, d]
+    in q's dtype (on the card a view of a [B, S, heads, d] tensor).
     """
     if not q.is_cuda:
         return _group_fwd_plain(q, k, v, mask)
     _check_shapes(q, k, v, mask)
-    q, k, v = _qkv(q, k, v)
-    b, h, s, d = q.shape
-    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
-    o = _out(q)
-    fn = _native.function("group_attention", "sx_group_attention_fwd",
-                          _FWD_ARGS)
-    code = _native.launch(
-            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-            *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s, d,
-            1.0 / math.sqrt(d))
-    _native.check("group_attention", code, "group_attention_fwd")
-    group_attention_fwd.launches += 1
-    return o
+    return _at_kernel_width(_K5, q, k, v, mask)
 
 
 group_attention_fwd.launches = 0
@@ -179,24 +262,8 @@ def group_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return _group_bwd_plain(q, k, v, mask, do)
     _check_shapes(q, k, v, mask)
-    if do.shape != q.shape:
-        raise ValueError(f"group_attention_bwd: do {tuple(do.shape)} is not "
-                         f"{tuple(q.shape)}")
-    q, k, v = _qkv(q, k, v)
-    do = _kernel_view(do, "do")
-    b, h, s, d = q.shape
-    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
-    dq, dk, dv = _out(q), _out(q), _out(q)
-    fn = _native.function("group_attention", "sx_group_attention_bwd",
-                          _BWD_ARGS)
-    code = _native.launch(
-            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-            *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
-            _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
-            *dq.stride()[:3], b, h, s, d, 1.0 / math.sqrt(d))
-    _native.check("group_attention", code, "group_attention_bwd")
-    group_attention_bwd.launches += 1
-    return dq, dk, dv
+    _check_do(q, do, "group_attention_bwd")
+    return _at_kernel_width(_K6, q, k, v, mask, do)
 
 
 group_attention_bwd.launches = 0
@@ -212,18 +279,7 @@ def bh_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return _group_fwd_plain(q, k, v, mask)
     _check_shapes(q, k, v, mask, _MAX_BH_S, "bh_attention")
-    q, k, v = _qkv(q, k, v)
-    b, h, s, d = q.shape
-    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
-    o = _out(q)
-    fn = _native.function("bh_attention", "sx_bh_attention_fwd", _FWD_ARGS)
-    code = _native.launch(
-            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-            *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h, s, d,
-            1.0 / math.sqrt(d))
-    _native.check("bh_attention", code, "bh_attention_fwd")
-    bh_attention_fwd.launches += 1
-    return o
+    return _at_kernel_width(_K7, q, k, v, mask)
 
 
 bh_attention_fwd.launches = 0
@@ -239,29 +295,19 @@ def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return _group_bwd_plain(q, k, v, mask, do)
     _check_shapes(q, k, v, mask, _MAX_BH_S, "bh_attention")
-    if do.shape != q.shape:
-        raise ValueError(f"bh_attention_bwd: do {tuple(do.shape)} is not "
-                         f"{tuple(q.shape)}")
-    q, k, v = _qkv(q, k, v)
-    do = _kernel_view(do, "do")
-    b, h, s, d = q.shape
-    mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
-    dq, dk, dv = _out(q), _out(q), _out(q)
-    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device)
-    fn = _native.function("bh_attention", "sx_bh_attention_bwd",
-                          _BH_BWD_ARGS)
-    code = _native.launch(
-            fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-            *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
-            _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
-            *dq.stride()[:3], _native.ptr(stats), b, h, s, d,
-            1.0 / math.sqrt(d))
-    _native.check("bh_attention", code, "bh_attention_bwd")
-    bh_attention_bwd.launches += 1
-    return dq, dk, dv
+    _check_do(q, do, "bh_attention_bwd")
+    return _at_kernel_width(_K8, q, k, v, mask, do)
 
 
 bh_attention_bwd.launches = 0
+
+_K5 = _fwd_launch("group_attention", "sx_group_attention_fwd",
+                  group_attention_fwd)
+_K6 = _bwd_launch("group_attention", "sx_group_attention_bwd", _BWD_ARGS,
+                  group_attention_bwd)
+_K7 = _fwd_launch("bh_attention", "sx_bh_attention_fwd", bh_attention_fwd)
+_K8 = _bwd_launch("bh_attention", "sx_bh_attention_bwd", _BH_BWD_ARGS,
+                  bh_attention_bwd, stats=True)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -286,9 +332,12 @@ class _FusedAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None,
                     small_s_impl: Optional[str] = None) -> torch.Tensor:
-    """Fused attention over [B, heads, S, d]; BERT [B, S] 1/0 key mask."""
+    """Fused attention over [B, heads, S, d]; BERT [B, S] 1/0 key mask.
+    On the card a dtype other than bf16 takes the plain attention (the
+    kernels are bf16 tensor-core designs; JAX's f32 attention is f32
+    throughout)."""
     b, h, s, d = q.shape
-    if s > _MAX_FUSED_SEQ:
+    if s > _MAX_FUSED_SEQ or (q.is_cuda and q.dtype != torch.bfloat16):
         return multi_head_attention(q, k, v, attention_mask)[0]
     if attention_mask is None:
         attention_mask = torch.ones(b, s, dtype=torch.int32, device=q.device)

@@ -150,17 +150,18 @@ def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return a8.to(dt) @ w8.to(dt).T
 
 
-def linear_dt(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              dt: torch.dtype) -> torch.Tensor:
+def linear_dt(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dt)`` with an ``nn.Linear`` weight: operands cast
     to ``dt``, f32 accumulation, result rounded to ``dt``, then the ``dt``
-    bias added. On the card a ``dt`` GEMM with f32 accumulation; on the CPU
-    the operands are upcast and the result rounded, the same values."""
+    bias added (None: ``use_bias=False``). On the card a ``dt`` GEMM with
+    f32 accumulation; on the CPU the operands are upcast and the result
+    rounded, the same values."""
     if x.is_cuda:
         y = torch.matmul(x.to(dt), weight.to(dt).T)
     else:
         y = torch.matmul(x.to(dt).float(), weight.to(dt).float().T).to(dt)
-    return y + bias.to(dt)
+    return y if bias is None else y + bias.to(dt)
 
 
 def ffn_reference(x, w1, b1, w2, b2):

@@ -27,6 +27,14 @@ counts its launches in ``<wrapper>.launches``. :func:`layer_int8_plain` is
 the same composition over the plain versions (the card checks hold the
 kernels against it), and :func:`layer_reference` the unquantized f32 layer.
 
+:func:`reaches_kernels` is the JAX package's TPU dispatch
+(``fused_layer.py:170-189``): a layer with H or F off the 128 grid, or
+whose single sequence exceeds the TPU kernel's stack budget, computes
+:func:`layer_reference` there. On the card the caller (``BertLayer``,
+which holds the f32 weights) takes that route before any launch; on the
+CPU the quantized composition runs at every shape, as JAX's interpreted
+kernel does.
+
 Parameters use the JAX kernel's names (``wq``/``bq`` ... ``ln2_bias``)
 with weights in ``nn.Linear`` layout [out, in]. Quantizing the weights is
 done once per :class:`QuantizedLayer` (:func:`quantize_layer`).
@@ -40,8 +48,28 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from simxns_tpu_torch.ops import _native
+from simxns_tpu_torch.ops.flash_attention import kernel_head_width
 from simxns_tpu_torch.ops.fused_ffn import (gelu_exact, int8_matmul,
                                             quant_rows, quantize_weight)
+
+
+# --- the JAX dispatch -------------------------------------------------------
+
+# simxns_tpu/ops/fused_layer.py:43: the TPU kernel's scoped-VMEM budget
+_STACK_BUDGET_BYTES = 48_000_000
+
+
+def reaches_kernels(s: int, h: int, f: int) -> bool:
+    """Whether the JAX package runs its layer kernel at sequence length
+    ``s``, hidden width ``h`` and FFN width ``f`` on the TPU (else it
+    returns ``layer_reference``): H and F on the 128 grid, and one
+    sequence's stack (the resident int8 weights, 4H^2 + 2HF bytes, plus
+    s(4H + 6F) of intermediates) within the budget (``_pick_seqs_per_tile``
+    not 0). The batch does not decide: the tile shrinks to one sequence
+    first."""
+    if h % 128 or f % 128:
+        return False
+    return 4 * h * h + 2 * h * f + s * (4 * h + 6 * f) <= _STACK_BUDGET_BYTES
 
 
 # --- K1: int8_linear ---------------------------------------------------------
@@ -227,6 +255,7 @@ row_quant.launches = 0
 
 # --- K3: small_s_attention ---------------------------------------------------
 
+_MAX_SMALL_S = 1024          # csrc/small_s_attention.cu kMaxS
 _ATTN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
@@ -248,10 +277,14 @@ def _small_s_attention_plain(qkv, mask, num_heads):
 
 def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
                       num_heads: int) -> torch.Tensor:
-    """Softmax attention of each (sequence, head), S <= 512.
+    """Softmax attention of each (sequence, head), S <= 1024.
 
     qkv [B*S, 3H] bf16 holds q | k | v (head ``i`` at columns ``i*d``);
-    mask [B, S] is the 1/0 key mask. -> context [B*S, H] f32.
+    mask [B, S] is the 1/0 key mask. -> context [B*S, H] f32. The kernel
+    has an instance for every head width d on the 16 grid up to 128; a d
+    off it runs the next instance over heads zero-padded to that width
+    (zero columns add exact zeros to every score), the scale staying
+    1/sqrt(d), and the context is sliced back.
     """
     if not qkv.is_cuda:
         return _small_s_attention_plain(qkv, mask, num_heads)
@@ -260,23 +293,32 @@ def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
     h = h3 // 3
     d = h // num_heads
     _native.check_tensor(qkv, torch.bfloat16, (b * s, h3), "qkv")
-    if h3 % 3 or d * num_heads != h or d not in (32, 64, 128):
-        raise ValueError(f"small_s_attention: head width {d} (H={h}, "
-                         f"{num_heads} heads) must be 32, 64 or 128")
-    if not 1 <= s <= 512 or b > 65535:
-        raise ValueError(f"small_s_attention takes 1 <= S <= 512 and at most "
-                         f"65535 sequences per call (got S={s}, B={b})")
+    if h3 % 3 or d * num_heads != h:
+        raise ValueError(f"small_s_attention: H={h} does not split into "
+                         f"{num_heads} heads")
+    dp = kernel_head_width(d, "small_s_attention")
+    if not 1 <= s <= _MAX_SMALL_S or b > 65535:
+        raise ValueError(
+            f"small_s_attention takes 1 <= S <= {_MAX_SMALL_S} (its key "
+            f"bias row lives in shared memory) and at most 65535 sequences "
+            f"per call (got S={s}, B={b})")
+    if dp != d:
+        qkv = torch.nn.functional.pad(
+            qkv.view(m, 3, num_heads, d), (0, dp - d)).reshape(m, -1)
     mask32 = mask.to(device=qkv.device, dtype=torch.int32).contiguous()
-    ctx = torch.empty(m, h, dtype=torch.float32, device=qkv.device)
+    ctx = torch.empty(m, num_heads * dp, dtype=torch.float32,
+                      device=qkv.device)
     if b == 0:
-        return ctx
+        return ctx[:, :h]
     fn = _native.function("small_s_attention", "sx_small_s_attention",
                           _ATTN_ARGS)
     code = _native.launch(
             fn, qkv.device, _native.ptr(qkv), _native.ptr(mask32),
-            _native.ptr(ctx), b, s, h, d, 1.0 / math.sqrt(d))
+            _native.ptr(ctx), b, s, num_heads * dp, dp, 1.0 / math.sqrt(d))
     _native.check("small_s_attention", code, "small_s_attention")
     small_s_attention.launches += 1
+    if dp != d:
+        ctx = ctx.view(m, num_heads, dp)[..., :d].reshape(m, h)
     return ctx
 
 

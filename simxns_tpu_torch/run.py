@@ -1,5 +1,5 @@
-"""Command-line launcher of the AR2 co-training and PROD distillation runs
-(port of ``simxns_tpu/run.py``).
+"""Command-line launcher of the AR2 co-training, PROD and LEAD distillation
+and MASTER pre-training runs (port of ``simxns_tpu/run.py``).
 
     python -m simxns_tpu_torch.run --recipe nq_ar2_simans --synthetic
     python -m simxns_tpu_torch.run --recipe nq_ar2_simans --synthetic \\
@@ -45,8 +45,29 @@ teacher's fused-int8 view). Outputs: ``kd_teacher_state-0``,
 continues from, with the warmed teacher restored), the final ``student``
 parameters and ``eval.json``; under ``torchrun`` as ``run_ar2``.
 
-The AR2 and KD recipes run here; the other runners and
-``--init-checkpoint`` raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+:func:`run_lead` runs LEAD joint distillation (``lead_ms_distill``): the
+6-layer student dual encoder and the 12-layer CE teacher warm up on
+single-model steps, then train together under the joint step with a layer
+re-draw every ``save_steps``; ``--freeze-teachers`` trains the student
+alone and, with ``--fast-teacher``, runs the frozen CE through its
+fused-int8 view. Outputs: ``lead_db_state``/``lead_ce_state`` at each
+re-draw (what ``--resume auto`` continues from), the final ``student`` and
+``teacher_ce`` and ``eval.json`` (the student's retrieval eval).
+
+:func:`run_pretrain` runs MASTER pre-training (``master_pretrain``): the
+8-stream masking collator (its native path when ``g++`` builds
+``native/fast_collator.cc``) feeds the Condenser's multi-decoder
+objective. Outputs: ``pretrain_state`` every ``steps // 5``, the
+``encoder`` export (the Condenser without its heads) and ``eval.json``.
+Both run under ``torchrun`` as ``run_ar2``.
+
+    python -m simxns_tpu_torch.run --recipe lead_ms_distill --synthetic \
+        --device cpu --steps 8 --batch 8 --corpus-size 48 --num-queries 16
+    python -m simxns_tpu_torch.run --recipe master_pretrain --synthetic \
+        --device cpu --steps 4 --batch 8
+
+The CAPSTONE and ALLIES runners and ``--init-checkpoint`` raise
+``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -62,14 +83,19 @@ import time
 import numpy as np
 import torch
 
-from simxns_tpu_torch.config import AR2RecipeConfig, KDRecipeConfig, RECIPES
-from simxns_tpu_torch.data import HashTokenizer, from_mining_result
+from simxns_tpu_torch.config import (AR2RecipeConfig, KDRecipeConfig,
+                                     LeadRecipeConfig, MasterPretrainConfig,
+                                     RECIPES)
+from simxns_tpu_torch.data import (CondenserCollator, HashTokenizer,
+                                   TokenMeta, from_mining_result)
 from simxns_tpu_torch.data.datasets import (load_id_text, load_passages_tsv,
                                             load_qrels)
 from simxns_tpu_torch.index import CorpusEncoder, MIPSIndex, RetrievalEngine
-from simxns_tpu_torch.io import (MetricLogger, latest_step,
-                                 restore_checkpoint, save_checkpoint)
+from simxns_tpu_torch.io import (MetricLogger, export_encoder_only,
+                                 latest_step, restore_checkpoint,
+                                 save_checkpoint)
 from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
+                                     Condenser, CondenserConfig,
                                      CrossEncoder, CrossEncoderConfig)
 from simxns_tpu_torch.models import cross_encoder, dual_encoder
 from simxns_tpu_torch.parallel.collectives import (all_gather_rows, barrier,
@@ -79,10 +105,12 @@ from simxns_tpu_torch.parallel.mesh import (create_mesh, local_batch_size,
 from simxns_tpu_torch.parallel.offload import HostStash, host_copy, ready_event
 from simxns_tpu_torch.parallel.sync import force_sync
 from simxns_tpu_torch.parallel.watchdog import retry_on_stall
-from simxns_tpu_torch.train import (TrainState, make_adamw,
+from simxns_tpu_torch.losses.lead import select_layers
+from simxns_tpu_torch.train import (LeadConfig, TrainState, make_adamw,
                                     make_ar2_retriever_step,
                                     make_biencoder_step, make_kd_step,
-                                    make_lamb, make_reranker_step)
+                                    make_condenser_step, make_lamb,
+                                    make_lead_step, make_reranker_step)
 from simxns_tpu_torch.train.driver import (AR2Config, AR2CoTrainer,
                                            RecallGuard, check_teacher_warmth)
 
@@ -90,13 +118,13 @@ from simxns_tpu_torch.train.driver import (AR2Config, AR2CoTrainer,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m simxns_tpu_torch.run",
-        description="Run a SimXNS AR2/SimANS co-training or PROD "
-                    "distillation recipe on a CUDA card (or the CPU with "
-                    "--device cpu).")
+        description="Run a SimXNS AR2/SimANS co-training, PROD or LEAD "
+                    "distillation or MASTER pre-training recipe on a CUDA "
+                    "card (or the CPU with --device cpu).")
     ap.add_argument("--recipe", required=True, choices=sorted(RECIPES),
                     help="named configuration from simxns_tpu_torch.config."
-                         "RECIPES (the AR2 and PROD KD recipes run in this "
-                         "port)")
+                         "RECIPES (the AR2, PROD KD, LEAD and MASTER "
+                         "pre-training recipes run in this port)")
     ap.add_argument("--corpus", default=None,
                     help="packed corpus .npz from scripts/prepare_data.py")
     ap.add_argument("--queries", default=None,
@@ -174,6 +202,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the frozen reranker's forward (the AR2 "
                          "retriever step's teacher, the KD teacher) through "
                          "the fused int8 view of its parameters")
+    ap.add_argument("--freeze-teachers", action="store_true",
+                    help="LEAD: freeze the CE teacher (train only the "
+                         "student, LEAD/run_LEAD.py:65-73); combine with "
+                         "--fast-teacher for the int8 teacher view")
     ap.add_argument("--remat", choices=["recipe", "de", "ce", "both", "none"],
                     default="recipe",
                     help="activation checkpointing per model: 'ce' "
@@ -1057,6 +1089,300 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     return out
 
 
+def init_condenser(cfg: CondenserConfig, seed: int) -> Condenser:
+    """The initial Condenser, with the JAX package's initializers drawn
+    from a ``torch.Generator`` seeded ``seed``."""
+    return Condenser(cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def run_pretrain(name: str, cfg: MasterPretrainConfig, args) -> dict:
+    """MASTER bottlenecked-MAE pre-training (``MASTER/pretrain``): the
+    8-stream masking collator -> the Condenser's multi-decoder objective ->
+    the encoder-only export."""
+    t_start = time.time()
+    mesh = create_mesh(args.device, backend=args.dist_backend,
+                       timeout_s=_stall_timeout(args))
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    if args.corpus or args.queries:
+        print("WARNING: master_pretrain trains on generated synthetic "
+              "token streams; --corpus/--queries are ignored by this "
+              "recipe (the reference pretrains from its own preprocessed "
+              "MASTER corpus format).", file=sys.stderr)
+    if args.init_checkpoint:
+        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
+                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    tiny = not args.full_size      # the synthetic config is tiny already
+    logger = MetricLogger(args.output_dir, rank=mesh.rank)
+    steps = args.steps if args.steps is not None else (
+        50 if tiny else cfg.optim.total_steps)
+    batch_size = args.batch if args.batch is not None else cfg.global_batch
+    if tiny and args.batch is None:
+        batch_size = min(batch_size, 16)   # never clamp an explicit --batch
+    local_batch_size(batch_size, mesh)     # raises unless W divides it
+
+    meta = TokenMeta.for_hash_tokenizer(HashTokenizer(vocab_size=2048))
+    seq = min(cfg.max_seq_length, 64 if tiny else cfg.max_seq_length)
+    coll = CondenserCollator(meta, max_seq_length=seq,
+                             mlm_probability=cfg.mlm_probability,
+                             decoder_mlm_probability=(
+                                 cfg.decoder_mlm_probability),
+                             seed=args.seed)
+    say(f"[{name}] collator: the {coll.path} path")
+    rng = np.random.default_rng(args.seed)
+
+    def examples(n):
+        return [{"text": rng.integers(5, 2000, size=int(
+                     rng.integers(24, seq - 4))).tolist(),
+                 "queries": [rng.integers(5, 2000, size=6).tolist()],
+                 "next": [rng.integers(5, 2000, size=20).tolist()]}
+                for _ in range(n)]
+
+    bert = _bert_cfg(cfg.bert, tiny, 2048)
+    if tiny:
+        bert = bert.replace(max_position_embeddings=max(seq, 64))
+    model = init_condenser(CondenserConfig(
+        bert=bert, n_head_layers=cfg.n_head_layers), args.seed).to(device)
+    # the JAX launcher initializes from one collated batch of 2 examples:
+    # drawn here too, so both streams stay in step with its run
+    coll(examples(2))
+    pt_lr = args.lr if args.lr is not None else (1e-3 if tiny else None)
+    tx = _make_optim(cfg.optim, pt_lr, steps)
+    state = TrainState.create(model, tx)
+    step = _on_shard(make_condenser_step(tx, device, mesh=mesh), mesh)
+    writer = bool(args.output_dir) and lead
+    group = mesh if mesh.distributed else None
+
+    start = 0
+    resume_step = _resume_step(args, "pretrain_state", mesh)
+    if resume_step is not None:
+        # the state resumes; the synthetic example stream is reseeded, not
+        # replayed (HF Trainer's resume without its batch-skip replay)
+        restore_checkpoint(args.output_dir, state, resume_step,
+                           name="pretrain_state")
+        start = resume_step
+        rng = np.random.default_rng(args.seed + resume_step)
+        say(f"[{name}] resumed at step {resume_step}")
+    save_every = max(1, steps // 5)
+    last = float("nan")
+    with logger.timed("pretrain"):
+        for i in range(start, steps):
+            state, m = step(state, coll(examples(batch_size)))
+            last = float(m["loss"])
+            if (i + 1) % max(1, steps // 10) == 0:
+                logger.log(i + 1, {"loss": last}, phase="pretrain")
+            if (i + 1) % save_every == 0 and args.output_dir:
+                save_checkpoint(args.output_dir,
+                                host_copy(state.state_dict(), device)
+                                if writer else None, i + 1,
+                                name="pretrain_state", mesh=group)
+    out = {"recipe": name, "steps": steps, "final_loss": last,
+           "collator_path": coll.path, "total_s": time.time() - t_start,
+           "phase_times_s": dict(logger.phase_times),
+           "world_size": mesh.world_size}
+    if device.type == "cuda":
+        out["max_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    if args.output_dir:
+        tree = None
+        if writer:
+            tree = {"params": export_encoder_only(
+                host_copy(state.state_dict(), device)["params"])}
+        save_checkpoint(args.output_dir, tree, steps, name="encoder",
+                        mesh=group)
+        if writer:
+            with open(os.path.join(args.output_dir, "eval.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(out, f, indent=1)
+    logger.close()
+    say(f"[{name}] pretrained {steps} steps, loss={last:.4f}")
+    return out
+
+
+def run_lead(name: str, cfg: LeadRecipeConfig, args) -> dict:
+    """LEAD joint distillation: the student DE and the CE teacher warm up
+    on single-model steps, then train together under the joint step with
+    layer-score reweighting and a layer re-draw every ``save_steps``
+    (``LEAD/run_LEAD.py:43-276`` with the ``distill_from_12ce_to_6de.sh:
+    40-71`` flags); ``--freeze-teachers`` trains the student alone, and with
+    ``--fast-teacher`` the frozen CE runs through its fused-int8 view."""
+    t_start = time.time()
+    mesh = create_mesh(args.device, backend=args.dist_backend,
+                       timeout_s=_stall_timeout(args))
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    data = _get_corpus(args, cfg.data)
+    tiny = args.tiny_models or (
+        not args.full_size and not (args.corpus and not args.synthetic))
+    logger = MetricLogger(args.output_dir, rank=mesh.rank)
+    steps = args.steps if args.steps is not None else (
+        30 if tiny else cfg.max_steps)
+    batch_size = min(args.batch or cfg.global_batch, len(data.query_ids))
+    local_batch_size(batch_size, mesh)      # raises unless W divides it
+    negs = min(cfg.data.num_negatives, len(data.corpus_ids) - 1)
+    m = 1 + negs
+    lj = min(cfg.data.max_joint_length,
+             data.query_ids.shape[1] + data.corpus_ids.shape[1] + 1)
+
+    db_cfg = _bert_cfg(cfg.student.bert, tiny, data.vocab_size)
+    ce_cfg = _bert_cfg(cfg.teacher_ce.bert, tiny, data.vocab_size,
+                       joint=True)
+    if args.remat != "recipe":
+        db_cfg = db_cfg.replace(remat=args.remat in ("de", "both"))
+        ce_cfg = ce_cfg.replace(remat=args.remat in ("ce", "both"))
+    if args.init_checkpoint:
+        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
+                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    # the student at seed, the CE at seed + 1, as the JAX launcher
+    db, ce = init_models(
+        BiEncoderConfig(bert=db_cfg, share_weight=cfg.student.share_weight),
+        CrossEncoderConfig(bert=ce_cfg, per_layer_logits=True), args.seed)
+    db, ce = db.to(device), ce.to(device)
+    lr = args.lr if args.lr is not None else (
+        1e-3 if tiny else cfg.optim.learning_rate)
+
+    # the gold warm dataset (the reference starts both models from trained
+    # single-model checkpoints, run_LEAD.py DISTILL_CE_PATH/DISTILL_DB_PATH)
+    nq = len(data.query_ids)
+    ds = from_mining_result(data.corpus_ids, data.query_ids,
+                            _gold_warm(data, m), num_negatives=negs,
+                            max_joint_length=lj, sep_id=data.sep_id,
+                            seed=args.seed, simans_mode=None)
+    resume_step = _resume_step(args, "lead_db_state", mesh)
+    writer = bool(args.output_dir) and lead
+    group = mesh if mesh.distributed else None
+
+    def save(st: TrainState, step: int, ckpt: str, params_only=False):
+        if not args.output_dir:
+            return
+        tree = None
+        if writer:
+            tree = host_copy(st.state_dict(), device)
+            if params_only:
+                tree = {"params": tree["params"]}
+        save_checkpoint(args.output_dir, tree, step, name=ckpt, mesh=group)
+
+    tx_warm = make_adamw(lr, total_steps=0)
+    if resume_step is None:
+        db_state = TrainState.create(db, tx_warm)
+        ce_state = TrainState.create(ce, tx_warm)
+        warm_db = _on_shard(make_biencoder_step(tx_warm, device, mesh=mesh),
+                            mesh)
+        warm_ce = _on_shard(make_reranker_step(tx_warm, device, mesh=mesh),
+                            mesh)
+        warm_epochs = 30 if tiny else max(1, steps // 10)
+        with logger.timed("warmup"):
+            for _ in range(warm_epochs):
+                for b in ds.batches(batch_size=batch_size, with_joint=False):
+                    db_state, _ = warm_db(db_state, b)
+            for _ in range(warm_epochs):
+                for b in ds.batches(batch_size=batch_size):
+                    ce_state, _ = warm_ce(ce_state, {
+                        "joint_ids": b["joint_ids"],
+                        "joint_mask": b["joint_mask"]})
+            force_sync(device)
+
+    # the joint phase: fresh optimizers per model on the recipe schedule
+    warmup = int(cfg.warmup_ratio * steps)
+    tx_db = make_adamw(lr * (0.1 if tiny else 1.0), warmup_steps=warmup,
+                       total_steps=steps)
+    tx_ce = make_adamw(lr * (0.1 if tiny else 1.0), warmup_steps=warmup,
+                       total_steps=steps)
+    states = {"db": TrainState.create(db, tx_db),
+              "ce": TrainState.create(ce, tx_ce)}
+    if resume_step is not None:
+        for key in ("db", "ce"):
+            restore_checkpoint(args.output_dir, states[key], resume_step,
+                               name=f"lead_{key}_state")
+        say(f"[{name}] resumed at step {resume_step}")
+    train_ce = cfg.train_ce and not args.freeze_teachers
+    lead_cfg = LeadConfig(
+        distill_db=True, distill_ce=True, train_db=True, train_ce=train_ce,
+        layer_score=True, reweight=cfg.reweight,
+        temperature=cfg.temperature,
+        layer_temperature=cfg.layer_temperature)
+    k = min(cfg.num_distill_layers, db_cfg.num_layers, ce_cfg.num_layers)
+    # --fast-teacher on a FROZEN CE: its forwards run through the fused-int8
+    # view of the live (warmed) Parameters, every layer's logit included
+    frozen_views = None
+    if args.fast_teacher and not train_ce:
+        view = _int8_view(ce, cross_encoder.int8_view)
+        if view is not ce:
+            frozen_views = {"ce": view}
+    step = make_lead_step({"db": db, "ce": ce}, {"db": tx_db, "ce": tx_ce},
+                          lead_cfg, frozen_views=frozen_views, device=device,
+                          mesh=mesh)
+    rng = np.random.default_rng(args.seed)
+
+    def draw():
+        return select_layers(rng, db_cfg.num_layers, ce_cfg.num_layers, k,
+                             cfg.layer_selection)
+
+    sel_s, sel_t = draw()
+    done, last = 0, float("nan")
+    if resume_step is not None:
+        # replay the draws the dead run consumed, so the selection stream
+        # continues as an uninterrupted run's (re-drawn every save_steps)
+        for _ in range(resume_step // cfg.save_steps):
+            sel_s, sel_t = draw()
+        done = resume_step
+    with logger.timed("lead"):
+        while done < steps:
+            for b in ds.batches(batch_size=batch_size):
+                if (done % cfg.save_steps == 0 and done > 0
+                        and done != resume_step):
+                    # the re-draw (run_LEAD.py:260), and the states it
+                    # resumes from; the resume boundary's draw was replayed
+                    sel_s, sel_t = draw()
+                    save(states["db"], done, "lead_db_state")
+                    save(states["ce"], done, "lead_ce_state")
+                states, metrics = step(states, shard_batch(b, mesh)
+                                       if mesh.distributed else b,
+                                       sel_s, sel_t)
+                done += 1
+                last = float(metrics["loss"])
+                if done % max(1, steps // 10) == 0:
+                    logger.log(done, {"loss": last}, phase="lead")
+                if done >= steps:
+                    break
+        force_sync(device)
+
+    # the final retrieval eval with the distilled student
+    index = MIPSIndex(device,
+                      block_size=min(8192, max(32, len(data.corpus_ids) // 4)),
+                      mesh=mesh, **_index_kwargs(args, device))
+    engine = RetrievalEngine(index, data.passages, logger=logger)
+    q_enc = CorpusEncoder(db.encode_query, device,
+                          chunk_size=min(1024, max(64, nq)),
+                          stall_timeout_s=_stall_timeout(args), mesh=mesh)
+    with logger.timed("eval"):
+        _build_index(index, db.encode_passage, data.corpus_ids,
+                     data.corpus_mask, data.vocab_size, args)
+        res = engine.mine(q_enc(data.query_ids, data.query_mask),
+                          data.questions, data.answers,
+                          k=min(args.topk or 10, len(data.corpus_ids)),
+                          positive_ids=data.positive_rows)
+    out = {"recipe": name, "steps": done, "final_loss": last,
+           "top1": res.top_k_hits[0],
+           "mrr10": res.metrics.get("MRR_n@_10", 0.0),
+           "total_s": time.time() - t_start,
+           "phase_times_s": dict(logger.phase_times),
+           "world_size": mesh.world_size}
+    if device.type == "cuda":
+        out["max_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    save(states["db"], done, "student", params_only=True)
+    save(states["ce"], done, "teacher_ce", params_only=True)
+    if writer:
+        with open(os.path.join(args.output_dir, "eval.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(out, f, indent=1)
+    logger.close()
+    say(f"[{name}] joint-distilled {done} steps, loss={last:.4f} "
+        f"top1={out['top1']:.3f}")
+    return out
+
+
 def _on_shard(step, mesh):
     """``step`` called with this rank's rows of each global batch (its last
     argument); ``step`` itself without a group."""
@@ -1069,11 +1395,12 @@ def _on_shard(step, mesh):
     return sharded
 
 
+# the runner of each recipe config the port runs
+_RUNNERS = {AR2RecipeConfig: run_ar2, KDRecipeConfig: run_kd,
+            LeadRecipeConfig: run_lead, MasterPretrainConfig: run_pretrain}
 # the JAX package's other runners and the ROADMAP.md Queue 1 items that
 # bring them to the port
 _NOT_PORTED = {
-    "MasterPretrainConfig": ("run_pretrain (MASTER pre-training)", 13),
-    "LeadRecipeConfig": ("run_lead (LEAD joint distillation)", 12),
     "CapstoneRecipeConfig": ("run_capstone (CAPSTONE curriculum)", 15),
     "AlliesRecipeConfig": ("run_allies (ALLIES beam-search QA)", 16),
 }
@@ -1082,7 +1409,8 @@ _NOT_PORTED = {
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     cfg = RECIPES[args.recipe]
-    if not isinstance(cfg, (AR2RecipeConfig, KDRecipeConfig)):
+    runner = _RUNNERS.get(type(cfg))
+    if runner is None:
         what, item = _NOT_PORTED[type(cfg).__name__]
         raise NotImplementedError(f"recipe {args.recipe}: {what} is not "
                                   f"ported yet (ROADMAP.md Queue 1, item "
@@ -1092,7 +1420,6 @@ def main(argv=None) -> dict:
     import torch.distributed as dist
 
     ours = not (dist.is_available() and dist.is_initialized())
-    runner = run_kd if isinstance(cfg, KDRecipeConfig) else run_ar2
     try:
         return runner(args.recipe, cfg, args)
     finally:

@@ -12,13 +12,13 @@ One step factory covers the teacher modes of
   (``:84-86, 294-306``);
 - ``double``: the DE and the CE teachers; the larger loss wins
   (``:227-234``), and the picked teacher's metrics are reported;
-- ``colbert`` needs the ColBERT model (ROADMAP.md Queue 1 item 12) and
-  raises until it is ported.
+- ``colbert``: a ColBERT teacher's full-cross MaxSim [Q, C] scores
+  (``ColBERTKDLoss``), the student on the global in-batch matrix.
 
 :func:`make_ce_kd_step` is the CE -> CE stage (``Cross2CrossKDLoss``).
 A step is ``step(state, teachers, batch) -> (state, metrics)``: the
-teachers are modules (``{"de", "ce", "student_init"}``; the CE one may be
-an ``int8_view``), run under ``no_grad`` in eval mode. The batch is the
+teachers are modules (``{"de", "ce", "colbert", "student_init"}``; the CE
+one may be an ``int8_view``), run under ``no_grad`` in eval mode. The batch is the
 ``MinedDataset`` layout (``q_*``, ``ctx_*``, ``positive_idx`` a global
 flat index, ``joint_*`` [N, M, Lj]).
 
@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.losses.contrastive import in_batch_nll
-from simxns_tpu_torch.losses.distill import (bi_logit_loss, dkd_loss,
+from simxns_tpu_torch.losses.distill import (bi_logit_loss,
+                                             colbert_teacher_scores, dkd_loss,
                                              kd_logit_mse_loss,
                                              kd_softmax_loss, prob_loss)
 from simxns_tpu_torch.parallel.collectives import (all_gather_full_grad,
@@ -97,13 +98,10 @@ def make_kd_step(tx, teacher_type: str, kd_type: str = "KD_softmax",
                  device=None, mesh: Optional[Mesh] = None) -> Callable:
     """``step(student_state, teachers, batch) -> (student_state,
     metrics)`` for a ``BiEncoder`` student; ``teachers`` holds frozen
-    modules among ``"de"``, ``"ce"`` and ``"student_init"``."""
+    modules among ``"de"``, ``"ce"``, ``"colbert"`` and
+    ``"student_init"``."""
     if teacher_type not in TEACHER_TYPES:
         raise ValueError(f"unknown teacher_type {teacher_type!r}")
-    if teacher_type == "colbert":
-        raise NotImplementedError(
-            "teacher_type='colbert' needs models/colbert.py, which is not "
-            "ported yet (ROADMAP.md Queue 1, item 12)")
     dev = mesh_device(mesh, device)
 
     def soft(s, t, target):
@@ -144,11 +142,26 @@ def make_kd_step(tx, teacher_type: str, kd_type: str = "KD_softmax",
             lwf = soft(s_scores, o_scores, zeros)
         return hard, soft(s_scores, t_scores, zeros), lwf, correct
 
+    def colbert_branch(q, ctx, teachers, batch):
+        g_ctx = all_gather_full_grad(ctx, mesh)
+        s_scores = q.float() @ g_ctx.float().T
+        hard, correct = in_batch_nll(q, g_ctx, batch["positive_idx"])
+        with torch.no_grad():
+            t = teachers["colbert"]
+            t_q = t.encode_query(batch["q_ids"], batch["q_mask"])
+            t_ctx = t.encode_doc(batch["ctx_ids"], batch["ctx_mask"])
+            t_scores = colbert_teacher_scores(
+                t_q, all_gather_rows(t_ctx, mesh),
+                all_gather_rows(batch["ctx_mask"], mesh))
+        return hard, soft(s_scores, t_scores, batch["positive_idx"]), correct
+
     def loss_fn(module, teachers, batch) -> Tuple[torch.Tensor, Metrics]:
         q, ctx = module(batch["q_ids"], batch["q_mask"], batch["ctx_ids"],
                         batch["ctx_mask"])
-        if teacher_type == "dual_encoder":
-            hard, soft_l, correct = de_branch(q, ctx, teachers, batch)
+        if teacher_type in ("dual_encoder", "colbert"):
+            branch = de_branch if teacher_type == "dual_encoder" else (
+                colbert_branch)
+            hard, soft_l, correct = branch(q, ctx, teachers, batch)
             loss = ce_weight * hard + kd_weight * soft_l
             return loss, {"hard_loss": hard, "soft_loss": soft_l,
                           "correct": correct}

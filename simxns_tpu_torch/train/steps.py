@@ -13,7 +13,10 @@ numpy arrays or tensors:
   positive at column 0;
 - :func:`make_ar2_retriever_step`: both, with M passages per query in
   ``ctx_*``; the teacher (the live reranker or its ``int8_view``) runs
-  under ``no_grad``.
+  under ``no_grad``;
+- :func:`make_colbert_step`: ``q_*`` and ``ctx_*`` of a ``ColBERT`` state,
+  MaxSim scores of every query against every document, the positive of
+  query i at ``i * group_size`` (LEAD's single-model trainer).
 
 ``dropout=True`` trains the model in train mode (the JAX factories'
 ``dropout``; ``run_ar2`` never turns it on): the step's generator is
@@ -65,7 +68,8 @@ from torch import nn
 
 from simxns_tpu_torch.losses.contrastive import grouped_nll, in_batch_nll
 from simxns_tpu_torch.losses.distill import ar2_retriever_loss
-from simxns_tpu_torch.parallel.collectives import (all_reduce_grads,
+from simxns_tpu_torch.parallel.collectives import (all_gather_full_grad,
+                                                   all_reduce_grads,
                                                    gather_in_batch_negatives,
                                                    sum_metrics)
 from simxns_tpu_torch.parallel.mesh import Mesh, dp_size, mesh_device
@@ -363,5 +367,42 @@ def make_ar2_retriever_step(tx: AdamW, temperature: float = 1.0,
                                    mesh)
         return _apply(de_state, loss, aux, tx, mesh,
                       mean_metrics=("normal_loss",))
+
+    return step
+
+
+def colbert_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
+                 group_size: int = 1, mesh: Optional[Mesh] = None
+                 ) -> Tuple[torch.Tensor, Metrics]:
+    """In-batch MaxSim NLL (``get_loss_dual``, ``LEAD/util.py:416-451``).
+    Under a group the document tokens are gathered (gradients to every
+    shard) and the targets shifted into the gathered rows: this rank's
+    share of the global mean and its local ``correct``."""
+    from simxns_tpu_torch.models.colbert import maxsim_score
+
+    q_tok, d_tok = model(batch["q_ids"], batch["q_mask"], batch["ctx_ids"],
+                         batch["ctx_mask"])
+    scores = maxsim_score(q_tok, all_gather_full_grad(d_tok, mesh))  # [Q, D]
+    n = scores.shape[0]
+    rank = 0 if mesh is None or not mesh.distributed else mesh.rank
+    target = (torch.arange(n, device=scores.device) + rank * n) * group_size
+    logp = torch.log_softmax(scores.float(), dim=1)
+    loss = -logp.gather(1, target[:, None]).mean()
+    correct = (scores.argmax(dim=1) == target).sum().to(torch.int32)
+    return _share(loss, mesh), {"correct": correct}
+
+
+def make_colbert_step(tx: AdamW, device=None, group_size: int = 1,
+                      mesh: Optional[Mesh] = None) -> Callable:
+    """ColBERT in-batch contrastive step (the JAX ``make_colbert_step``):
+    ``step(state, batch) -> (state, metrics)``. Masked document tokens are
+    zero vectors (cosine mode), the effect of the reference's -1e4 fill."""
+    dev = mesh_device(mesh, device)
+
+    def step(state: TrainState, batch: dict):
+        _check_on(state.module, dev)
+        loss, aux = colbert_loss(state.module, to_device(batch, dev),
+                                 group_size, mesh)
+        return _apply(state, loss, aux, tx, mesh)
 
     return step

@@ -91,11 +91,12 @@ def test_int8_linear_and_row_quant_match_plain(dev, m, n, k):
         before[0] + len(epilogues), before[1] + 1)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("s", [1, 32, 128, 160, 300, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128, 24])
+@pytest.mark.parametrize("s", [1, 32, 128, 160, 300, 512, 1024])
 def test_small_s_attention_matches_plain(dev, s, d):
-    """Every query-tile count K3 meets (S = 1 .. 512: one to eight tiles of
-    64 rows, ragged last tiles), every head width, one sequence fully
+    """Every query-tile count K3 meets (S = 1 .. 1024: one to sixteen tiles
+    of 64 rows, ragged last tiles), head widths on the 16 grid and one off
+    it (24: the 32 instance over zero-padded heads), one sequence fully
     masked and one cut short. p is rounded to bf16 on both sides; the
     context may move by one bf16 step of p times |v| (<= 2^-7 max|v|)."""
     b, heads = 3, 2
@@ -110,9 +111,9 @@ def test_small_s_attention_matches_plain(dev, s, d):
     tol = 2.0 ** -7 * float(qkv[:, 2 * h:].float().abs().max())
     assert float((got - want).abs().max()) <= tol
     assert fl.small_s_attention.launches == before + 1
-    with pytest.raises(ValueError, match="S <= 512"):
-        fl.small_s_attention(qkv.new_zeros(600, 3 * h),
-                             mask.new_ones(1, 600), heads)
+    with pytest.raises(ValueError, match="S <= 1024"):
+        fl.small_s_attention(qkv.new_zeros(1100, 3 * h),
+                             mask.new_ones(1, 1100), heads)
 
 
 def test_stable_finalize_on_duplicate_rows(dev):
@@ -743,9 +744,15 @@ GROUP_EDGES = [(3, 2, s, d)
                for d in (32, 64, 128)]
 
 
+# the head widths the JAX kernels take besides 32, 64 and 128: the other
+# instances on the 16 grid and, off it, the next instance over zero pads
+GROUP_WIDTHS = [(2, 3, 160, d) for d in (16, 48, 80, 96, 112, 8, 24, 72)]
+
+
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 1, 64), (3, 2, 17, 32),
                                          (2, 4, 160, 64), (1, 2, 255, 128),
-                                         (5, 3, 40, 128)] + GROUP_EDGES)
+                                         (5, 3, 40, 128)] + GROUP_EDGES
+                         + GROUP_WIDTHS)
 def test_group_attention_matches_plain(dev, b, heads, s, d):
     """K5 against its plain version: the f32 results round to bf16 on both
     sides (one bf16 step, <= 2^-8 max|v| at |o| <= max|v| / 2); K6's
@@ -803,10 +810,13 @@ def test_group_attention_autograd_on_head_views(dev):
 BH_EDGES = [(2, 2, s, d) for s in (257, 320, 1023) for d in (32, 64, 128)]
 
 
+BH_WIDTHS = [(2, 3, 512, d) for d in (16, 48, 80, 96, 112, 8, 24, 72)]
+
+
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 256, 64), (2, 2, 288, 32),
                                          (2, 3, 512, 128), (1, 2, 1024, 64),
                                          (3, 2, 300, 128), (2, 2, 17, 32)]
-                         + BH_EDGES)
+                         + BH_EDGES + BH_WIDTHS)
 def test_bh_attention_matches_plain(dev, b, heads, s, d):
     """K7/K8 against their plain versions, with the tolerances of K5/K6;
     batch row 0 has every key masked (the uniform softmax over S keys)."""
@@ -863,3 +873,73 @@ def test_bh_attention_autograd_on_head_views(dev):
     for got, ref in zip(x, refs):
         err = float((got.grad.float() - ref.grad.float()).abs().max())
         assert err <= 2.0 ** -7 * float(ref.grad.float().abs().max()), err
+
+
+@pytest.mark.parametrize("s", [160, 512])
+def test_f32_attention_takes_the_plain_route(dev, s):
+    """f32 q, k, v on the card (the JAX kernels' f32 function): the
+    dispatch takes the plain attention before any launch, with or without
+    ``small_s_impl="group"``, and the kernel wrappers refuse f32."""
+    q, k, v, _, mask = _attention_inputs(dev, 2, 3, s, 64, seed=s)
+    q, k, v = (t.float().requires_grad_() for t in (q, k, v))
+    counts = [w.launches for w in (fa.group_attention_fwd,
+                                   fa.group_attention_bwd,
+                                   fa.bh_attention_fwd, fa.bh_attention_bwd)]
+    out, _ = multi_head_attention(q, k, v, mask, impl="flash",
+                                  small_s_impl="group")
+    out.square().sum().backward()
+    want = multi_head_attention(q.detach(), k.detach(), v.detach(), mask)[0]
+    assert out.dtype == torch.float32
+    assert torch.equal(out.detach(), want)
+    assert [w.launches for w in (fa.group_attention_fwd,
+                                 fa.group_attention_bwd, fa.bh_attention_fwd,
+                                 fa.bh_attention_bwd)] == counts
+    fwd = fa.bh_attention_fwd if s >= 256 else fa.group_attention_fwd
+    with pytest.raises(ValueError, match="bf16"):
+        fwd(q.detach(), k.detach(), v.detach(), mask)
+    with pytest.raises(ValueError, match="head widths 1 .. 128"):
+        fwd(*(torch.zeros(1, 1, s, 144, dtype=torch.bfloat16, device=dev)
+              for _ in range(3)), mask[:1])
+
+
+def test_fused_int8_layer_follows_the_jax_dispatch(dev):
+    """``layer_impl="fused_int8"`` on the card: the tiny config (H=64, off
+    the 128 grid) computes ``layer_reference`` with no launch of K1-K3;
+    H=128 with 8 heads (d=16) runs K1-K3 and agrees with the plain int8
+    composition (the context of K3 may move by one bf16 step of p)."""
+    from simxns_tpu_torch.models import BertConfig
+    from simxns_tpu_torch.models.bert import BertLayer
+
+    for h, heads, on_kernels in ((64, 4, False), (128, 8, True)):
+        cfg = BertConfig(vocab_size=64, hidden_size=h, num_layers=1,
+                         num_heads=heads, intermediate_size=2 * h,
+                         max_position_embeddings=64, dtype=torch.bfloat16,
+                         layer_impl="fused_int8")
+        layer = BertLayer(cfg).to(dev)
+        with torch.no_grad():
+            for i, (name, p) in enumerate(layer.named_parameters()):
+                p.copy_(_randn(dev, *p.shape, scale=0.05, seed=i))
+                if "layer_norm.weight" in name:
+                    p.add_(1.0)
+        x = _randn(dev, 3, 40, h, seed=h).to(torch.bfloat16)
+        mask = torch.ones(3, 40, dtype=torch.int32, device=dev)
+        mask[1, 25:] = 0
+        counts = [fl.int8_linear.launches, fl.row_quant.launches,
+                  fl.small_s_attention.launches]
+        with torch.no_grad():
+            got, _ = layer(x, mask)
+        after = [fl.int8_linear.launches, fl.row_quant.launches,
+                 fl.small_s_attention.launches]
+        assert fl.reaches_kernels(40, h, 2 * h) == on_kernels
+        if on_kernels:
+            assert [a - b for a, b in zip(after, counts)] == [4, 5, 1]
+            want = fl.layer_int8_plain(x, mask, layer.quantized(),
+                                       num_heads=heads)
+            # a flipped int8 code moves an output by about one step
+            d = (got.float() - want.float()).abs()
+            assert float(d.max()) <= 0.0625 and float(d.mean()) <= 1e-3
+        else:
+            assert after == counts
+            want = fl.layer_reference(x, mask, layer.kernel_params(),
+                                      num_heads=heads)
+            assert torch.equal(got, want)

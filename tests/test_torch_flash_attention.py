@@ -327,3 +327,63 @@ def test_forward_algorithm_matches_interpreted_kernel(kernel, s, tile):
     uniform = v[2].mean(axis=1)                      # [heads, d]
     assert np.abs(got[2] - uniform[:, None, :]).max() <= 1e-5 * np.abs(
         want).max()
+
+
+# head widths off the kernels' 16 grid (up to 128), which run the next
+# instance over zero-padded heads on the card
+OFF_GRID = [8, 24, 40, 72, 100, 120]
+
+
+@pytest.mark.parametrize("d", OFF_GRID)
+def test_pad_and_slice_equals_unpadded(d):
+    """The card's route for a d off the 16 grid: q, k, v (and dO)
+    zero-padded along d to ``kernel_head_width(d)``, the scale 1/sqrt(d)
+    of the true width, the results sliced back. Over the plain versions it
+    is the unpadded function: forward and gradients within 1e-6 of the
+    largest value (f32; zero columns add exact zeros, only the order of
+    the sums differs)."""
+    q, k, v, do, mask = (torch.from_numpy(x) for x in
+                         _inputs(3, 2, 40, d, seed=d))
+    assert fa.kernel_head_width(d) % 16 == 0
+    assert 0 < fa.kernel_head_width(d) - d < 16
+    got = fa._at_kernel_width(fa._group_fwd_plain, q, k, v, mask)
+    want = fa._group_fwd_plain(q, k, v, mask)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    grads = fa._at_kernel_width(fa._group_bwd_plain, q, k, v, mask, do)
+    refs = fa._group_bwd_plain(q, k, v, mask, do)
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape == q.shape
+        assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+
+
+def test_pad_and_slice_matches_the_interpreted_kernel():
+    """At d=24 the padded route against the JAX Pallas pair run whole at
+    d=24 (the JAX kernels take any d): the f32 tolerances of
+    ``test_group_pair_matches_interpreted_kernel``."""
+    q, k, v, do, mask = _inputs(3, 2, 17, 24, seed=11)
+    want = _jax_group(q, k, v, do, mask, jnp.float32)
+    t = [torch.from_numpy(x) for x in (q, k, v, mask, do)]
+    out = fa._at_kernel_width(fa._group_fwd_plain, *t[:4])
+    grads = fa._at_kernel_width(fa._group_bwd_plain, *t)
+    assert np.abs(out.numpy() - want[0]).max() <= 1e-5
+    for g, w in zip(grads, want[1:]):
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("pair", ["group", "bh"])
+def test_kernels_take_every_head_width_up_to_128(pair):
+    """The JAX kernels block whole (S, d) heads and take any d; the port's
+    wrappers accept every d from 1 to 128 (``_check_shapes``) and refuse
+    wider heads with the reason."""
+    max_s, what = ((fa._MAX_GROUP_S, "group_attention") if pair == "group"
+                   else (fa._MAX_BH_S, "bh_attention"))
+    mask = torch.ones(2, 20, dtype=torch.int32)
+    for d in range(1, 129):
+        q = torch.empty(2, 3, 20, d, device="meta")
+        fa._check_shapes(q, q, q, mask, max_s, what)
+        assert fa.kernel_head_width(d, what) == -(-d // 16) * 16
+    for d in (129, 144, 256):
+        q = torch.empty(2, 3, 20, d, device="meta")
+        with pytest.raises(ValueError, match="head widths 1 .. 128"):
+            fa._check_shapes(q, q, q, mask, max_s, what)

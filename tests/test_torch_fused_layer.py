@@ -151,3 +151,44 @@ def test_int8_linear_plain_exact_accumulator():
                       * jnp.asarray(ws) + jnp.asarray(b))
     got = tfl.int8_linear(*(torch.from_numpy(t) for t in (a, xs, w, ws, b)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h", [64, 96, 128, 768, 1024, 2048, 4096])
+def test_int8_layer_dispatch_follows_jax(h):
+    """``reaches_kernels`` against the JAX package's TPU rule
+    (``fused_encoder_layer_int8``: H and F on the 128 grid, and
+    ``_pick_seqs_per_tile`` not 0) over F and S, at several batch sizes."""
+    for f in (128, 200, 256, 3072, 4096, 8192, 16384):
+        for s in (1, 32, 128, 160, 512, 1024, 4096, 16384):
+            for b in (1, 8, 96):
+                want = (not (h % 128 or f % 128)
+                        and jfl._pick_seqs_per_tile(b, s, h, f, 8) > 0)
+                assert tfl.reaches_kernels(s, h, f) is want, (b, s, h, f)
+
+
+def test_int8_layer_on_cpu_runs_the_quantized_composition():
+    """On the CPU the dispatch is not consulted: a tiny layer (H=64, off
+    the 128 grid) under ``layer_impl="fused_int8"`` computes the quantized
+    composition, as JAX's interpreted kernel does there, not the f32
+    ``layer_reference``."""
+    from simxns_tpu_torch.models import BertConfig
+    from simxns_tpu_torch.models.bert import BertLayer
+
+    cfg = BertConfig.tiny(vocab_size=64, layer_impl="fused_int8")
+    assert not tfl.reaches_kernels(12, cfg.hidden_size,
+                                   cfg.intermediate_size)
+    layer = BertLayer(cfg)
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0, 0.05)
+        x = torch.randn(2, 12, cfg.hidden_size)
+        mask = torch.ones(2, 12, dtype=torch.int32)
+        mask[1, 7:] = 0
+        got, _ = layer(x, mask)
+        want = tfl.layer_int8_plain(x, mask, layer.quantized(),
+                                    num_heads=cfg.num_heads)
+        ref = tfl.layer_reference(x, mask, layer.kernel_params(),
+                                  num_heads=cfg.num_heads)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, ref)

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``simxns_tpu_torch``
-(the launcher, the mine, the data path, the driver and the checkpoints
-included) pulls in neither JAX, flax, the JAX package, nor a package the
+(the launcher, the mine, the data path, the driver, the checkpoints, LEAD
+and MASTER included) pulls in neither JAX, flax, the JAX package, nor a package the
 card's machine lacks (``regex``, ``orbax``, ``safetensors``)."""
 
 import os
@@ -24,7 +24,10 @@ for name in ("run", "config", "evals.qa_match", "evals._unicode_ranges",
              "evals.metrics", "io.logging",
              "io.checkpoint", "data.sampling", "data.mined", "data.datasets",
              "train.driver", "parallel.offload", "parallel.tp",
-             "train.kd", "train.pipeline", "data.division"):
+             "train.kd", "train.pipeline", "data.division",
+             "losses.lead", "models.colbert", "models.condenser",
+             "train.lead", "train.pretrain", "data.collator",
+             "data.native"):
     assert "simxns_tpu_torch." + name in names, name
 print("imported:" + ",".join(bad))
 """
@@ -36,5 +39,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split("\n")[:2]
-    assert int(count) >= 51          # every subpackage and module walked
+    assert int(count) >= 58          # every subpackage and module walked
     assert bad == "imported:", f"the port {bad}"

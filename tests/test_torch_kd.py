@@ -1,6 +1,6 @@
 """The port's PROD distillation steps against the JAX package's
-(``simxns_tpu/train/kd.py``), on the cases of ``tests/test_kd.py`` but the
-ColBERT teacher (ROADMAP.md Queue 1 item 12): the same weights
+(``simxns_tpu/train/kd.py``), on the cases of ``tests/test_kd.py``, the
+ColBERT teacher's included: the same weights
 (``params_from_jax``) and numpy batches through both, 2 steps each, the
 metrics within 1e-4 relative and the parameters within 1e-5 after the
 steps. AdamW runs at eps=1e-3, as ``test_torch_train.py`` explains (at
@@ -173,10 +173,45 @@ def test_double_teacher_takes_max_matches_jax():
 
 
 def test_colbert_teacher_waits_for_lead():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_kd_step(make_adamw(**TX), "colbert", device="cpu")
+    """LEAD's ColBERT is ported (ROADMAP.md Queue 1 item 12): the
+    ``colbert`` teacher type builds a step; an unknown type still
+    raises."""
+    assert callable(make_kd_step(make_adamw(**TX), "colbert", device="cpu"))
     with pytest.raises(ValueError, match="teacher_type"):
         make_kd_step(make_adamw(**TX), "triple", device="cpu")
+
+
+@pytest.mark.parametrize("kd_type", ["KD_softmax", "DKD"])
+def test_colbert_teacher_kd_step_matches_jax(kd_type):
+    """``tests/test_kd.py:131``: a 2-layer ColBERT teacher (dim 16): its
+    full-cross MaxSim scores over the in-batch [Q, C] matrix, the hard
+    in-batch NLL beside the soft KD; the passage padding of one batch at
+    -9999 in the teacher's scores."""
+    from simxns_tpu.models import ColBERT as JColBERT
+    from simxns_tpu.models import ColBERTConfig as JColBERTConfig
+    from simxns_tpu_torch.models import ColBERT, ColBERTConfig
+    from torch_parity import port_bert
+
+    (jmodel, params, port), _, _ = _models(110)
+    bert = jax_bert(dtype=F32)
+    jcol = JColBERT(JColBERTConfig(bert=bert, dim=16))
+    d = np.ones((2, 8), np.int32)
+    c_params = jcol.init(jax.random.PRNGKey(4), d, d, d, d)
+    col = ColBERT(ColBERTConfig(bert=port_bert(bert), dim=16))
+    col.load_state_dict(params_from_jax(jax.device_get(c_params)))
+    kw = dict(kd_type=kd_type, ce_weight=1.0, kd_weight=1.0,
+              temperature=2.0)
+    jstep = jmake_kd(jmodel, jmake_adamw(**TX), create_mesh(n_data=1),
+                     "colbert", colbert_teacher_model=jcol, **kw)
+    step = make_kd_step(make_adamw(**TX), "colbert", device="cpu", **kw)
+    batches = [{k: v for k, v in _batch(s).items()
+                if not k.startswith("joint")} for s in (11, 12)]
+    batches[1]["ctx_mask"][:, 9:] = 0
+    metrics, jmetrics, jp = _steps(jstep, step, params, port,
+                                   {"colbert": c_params},
+                                   {"colbert": col.eval()}, batches)
+    _check(metrics, jmetrics)
+    _check_params(port, jp)
 
 
 def test_ce_to_ce_distillation_matches_jax():

@@ -102,8 +102,7 @@ def test_ar2_recipes_run(tmp_path, recipe):
         assert prefix in names
 
 
-@pytest.mark.parametrize("recipe", ["master_pretrain", "lead_ms_distill",
-                                    "capstone_curriculum", "allies_qa"])
+@pytest.mark.parametrize("recipe", ["capstone_curriculum", "allies_qa"])
 def test_other_runners_are_not_ported(recipe):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prun.main(["--recipe", recipe, "--synthetic", "--device", "cpu"])

@@ -206,10 +206,12 @@ def _model(kind_cfg, state):
     import torch
 
     from simxns_tpu_torch.models import (BiEncoder, BiEncoderConfig,
-                                         CrossEncoder, CrossEncoderConfig)
+                                         ColBERT, ColBERTConfig, Condenser,
+                                         CondenserConfig, CrossEncoder,
+                                         CrossEncoderConfig)
 
-    cls = BiEncoder if isinstance(kind_cfg, BiEncoderConfig) else CrossEncoder
-    assert isinstance(kind_cfg, (BiEncoderConfig, CrossEncoderConfig))
+    cls = {BiEncoderConfig: BiEncoder, CrossEncoderConfig: CrossEncoder,
+           ColBERTConfig: ColBERT, CondenserConfig: Condenser}[type(kind_cfg)]
     model = cls(kind_cfg)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model.eval()
@@ -655,5 +657,49 @@ def kd_steps(mesh, teacher_type, cfg, state, teachers, batches, tx_kw, kw):
     metrics = []
     for b in batches:
         ts, m = step(ts, frozen, shard_batch(b, mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, _flat_params(model)
+
+
+def lead_steps(mesh, models, batches, sels, tx_kw, cfg_kw):
+    """``make_lead_step`` steps on this rank's rows of each global batch;
+    ``models`` {name: (cfg, state)}, every model's AdamW at ``tx_kw``.
+    -> (metrics per step, {"<name>.<param>": the parameters after the
+    last})."""
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.train import (LeadConfig, TrainState, make_adamw,
+                                        make_lead_step)
+
+    built = {k: _model(*v) for k, v in models.items()}
+    tx = make_adamw(**tx_kw)
+    step = make_lead_step(built, {k: tx for k in built},
+                          LeadConfig(**cfg_kw), device="cpu", mesh=mesh)
+    states = {k: TrainState.create(m, tx) for k, m in built.items()}
+    metrics = []
+    for b, (sel_s, sel_t) in zip(batches, sels):
+        states, m = step(states, shard_batch(b, mesh), sel_s, sel_t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {f"{k}.{n}": p for k, m in built.items()
+                     for n, p in _flat_params(m).items()}
+
+
+def pretrain_steps(mesh, cfg, state, batches, tx_kw, electra_mask_id=None):
+    """``make_condenser_step`` (or, with a mask id, ``make_electra_step``)
+    steps on this rank's rows of each global batch. -> (metrics per step,
+    the parameters after the last)."""
+    from simxns_tpu_torch.parallel.mesh import shard_batch
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_condenser_step,
+                                        make_electra_step)
+
+    model = _model(cfg, state)
+    tx = make_adamw(**tx_kw)
+    step = (make_condenser_step(tx, device="cpu", mesh=mesh)
+            if electra_mask_id is None else
+            make_electra_step(tx, electra_mask_id, device="cpu", mesh=mesh))
+    ts = TrainState.create(model, tx)
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, shard_batch(b, mesh))
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, _flat_params(model)
