@@ -189,10 +189,11 @@ non-zero and prints no result):
    K1-K3 against the plain int8 composition); (b) K5/K6 at S=160 and K7/K8
    at S=512 at head widths 16, 80, 96 and 24 (the 32 instance over
    zero-padded heads) against the plain pair, phase 4's and 6's limits;
-   (c) f32 q, k, v at S=160 and 512 through the dispatch: the plain
-   attention, no launch; (d) a tiny ``run_ar2 --fast-encode
-   --fast-teacher`` and a tiny ``run_lead --freeze-teachers
-   --fast-teacher`` run to their end;
+   (c) f32 q, k, v at S=160 and 512 through the dispatch under autograd:
+   the f32 instances of K5/K6 and K7/K8 launch (read from the counts) and
+   agree with an f64 evaluation within phase 23's limits; (d) a tiny
+   ``run_ar2 --fast-encode --fast-teacher`` and a tiny ``run_lead
+   --freeze-teachers --fast-teacher`` run to their end;
 21. LEAD at full width: ``run_lead`` in ``lead_ms_distill`` (6-layer
    BERT-base student with shared towers, 12-layer BERT-base CE on K5/K6;
    32 / 128 / 160 tokens, 8 queries x 2 passages a step): 12 joint steps
@@ -209,8 +210,33 @@ non-zero and prints no result):
    a relaunch to 8; the exported encoder loaded into a ``BiEncoder`` and
    run; one ELECTRA step; the collator's host ms a batch on its native and
    numpy paths. No Pallas kernel is on this path;
-23. the ``kernels`` line (K1-K14, launches of every path); then the last
-   line, ``{"ok": true, "device": {...}}``.
+23. f32 attention (ROADMAP.md Queue 3 item 8b): the f32 instances of K5/K6
+   at [64, 8, 160, d] and K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24,
+   against an f64 evaluation (``F32_*`` limits), beside the plain f32
+   version (TF32 off) and the bf16 instance on the inputs cast to bf16
+   (which they must beat 16-fold), with the times of the kernels, the
+   plain versions and SDPA in f32 at d = 64; then 3 ``make_biencoder_step``
+   steps of an f32 ``BertConfig.tiny`` DE on passages of 512 tokens (K7/K8
+   f32), the first step against the same step on the plain pair;
+24. ``--init-checkpoint`` at full width, from artifacts written here under
+   HF's key names with random weights: (a) ``run_ar2`` in
+   ``msdoc_ar2_simans`` from RoBERTa-base (``--fast-encode --fast-teacher
+   --int8-index``; 20,480 passages, 16 queries, one window of 4 steps):
+   both DE towers the artifact's at the graft, K7/K8 in the DE and CE
+   steps, K1-K4 in the mine and the teacher, step ms and peak memory; (b)
+   ``DenseRetriever.from_checkpoint`` on its step-4 DE state, 4,096 of the
+   run's passages indexed and 8 requests answered on K1-K4, the hits equal to
+   the same retriever over the trained DE in memory; (c) ``run_lead`` from
+   DistilBERT-base (4 joint steps, K5/K6) and ``run_pretrain`` from a
+   BERT-base MLM artifact (2 steps, the MLM head grafted too);
+25. the reader and ALLIES: a BERT-base ``Reader`` over 2 questions x 8
+   passages x 256 tokens in bf16 (K7/K8), its first step's gradients
+   against the plain pair beside two plain versions, 3 AdamW steps of
+   ``reader_loss``; then ``run_allies`` in ``allies_qa`` with
+   ``--int8-index`` over 2,048 synthetic passages to its end (K4);
+26. the ``kernels`` line (K1-K14 and the f32 instances of K5-K8 apart,
+   launches of every path); then the last line, ``{"ok": true, "device":
+   {...}}``.
 
 ``python3 chip_smoke.py --data-parallel-rank steps|co_training|mesh DIR``
 is a rank of phase 17 or 19 (started by ``torchrun``, not by hand).
@@ -227,6 +253,7 @@ import time
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s
 PEAK_INT8 = 1979e12           # dense int8 tensor-core ops/s
 PEAK_BF16 = 989e12            # dense bf16 tensor-core flop/s
+PEAK_TF32 = 495e12            # dense TF32 tensor-core flop/s (f32 inputs)
 INDEX_ROWS = 8_847_360        # the MS MARCO passage working point
 H, F, HEADS = 768, 3072, 12
 # the AR2 reranker (ERNIE-large shape) and one GPU's share of the recipe
@@ -4478,9 +4505,10 @@ def _repair_attention(torch):
     """(b) K5/K6 at S=160 (64 rows) and K7/K8 at S=512 (16 rows), 8 heads,
     at each of ``REPAIR_WIDTHS``, against the plain pair under phase 4's
     and phase 6's limits, with their times; (c) f32 q, k, v at both S
-    through the dispatch: the plain attention, no launch. -> (the widths'
-    records, the f32 records, the launches (b) made, read from the
-    counts)."""
+    through the dispatch under autograd (head views, d=64): the f32
+    instances launch, once forward and once backward (read from the
+    counts), within the F32_* limits of an f64 evaluation. -> (the widths'
+    records, the f32 records, the launches (b) and (c) made)."""
     from simxns_tpu_torch import ops
     from simxns_tpu_torch.ops import flash_attention as fa
     from simxns_tpu_torch.ops.attention import multi_head_attention
@@ -4533,30 +4561,49 @@ def _repair_attention(torch):
     widths_launched = ops.launches()
     f32 = {}
     for s, b in ((LJ, 16), (MS_S, 4)):
-        q, k, v = (torch.randn(b, REPAIR_HEADS, s, 64, device=dev,
-                               generator=gen) for _ in range(3))
+        fwd, bwd = ((fa.group_attention_fwd, fa.group_attention_bwd)
+                    if s < 256 else (fa.bh_attention_fwd, fa.bh_attention_bwd))
+        x = [torch.randn(b, s, REPAIR_HEADS * 64, device=dev, generator=gen)
+             .requires_grad_() for _ in range(3)]
+        q, k, v = (t.view(b, s, REPAIR_HEADS, 64).transpose(1, 2) for t in x)
+        do = torch.randn(b, REPAIR_HEADS, s, 64, device=dev, generator=gen)
         mask = torch.ones(b, s, dtype=torch.int32, device=dev)
         mask[1:, s // 3:] = 0
         ops.reset_launches()
         got = multi_head_attention(q, k, v, mask, impl="flash",
                                    small_s_impl="group")[0]
-        want = multi_head_attention(q, k, v, mask)[0]
+        got.backward(do)
+        torch.cuda.synchronize()
         launched = {k: n for k, n in ops.launches().items() if n}
-        check(got.dtype == torch.float32 and torch.equal(got, want)
-              and not launched,
-              f"f32 attention S={s}: launches {launched}")
-        f32[f"S={s}"] = {"route": "plain attention (multi_head_attention)",
-                         "launches": launched, "equal_to_plain": True,
+        for name, n in launched.items():
+            widths_launched[name] += n
+        o64, g64 = fa.attention_f64(q.detach(), k.detach(), v.detach(),
+                                    mask, do)
+        err_o = float((got.detach().double() - o64).abs().max()
+                      / v.detach().abs().max())
+        grads = [t.grad.view(b, s, REPAIR_HEADS, 64).transpose(1, 2)
+                 for t in x]
+        err_g = fa.errors_of_largest(grads, g64)
+        want = {f"{fwd.__name__}_f32": 1, f"{bwd.__name__}_f32": 1}
+        check(got.dtype == torch.float32 and launched == want
+              and err_o <= fa.F32_FWD_TOL and max(err_g) <= fa.F32_BWD_TOL,
+              f"f32 attention S={s}: launches {launched} (want {want}), "
+              f"errors against f64 {err_o}, {err_g}")
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        f32[f"S={s}"] = {"route": "the f32 instances", "launches": launched,
+                         "fwd_err_of_max_v_vs_f64": err_o,
+                         "bwd_err_of_largest_vs_f64": err_g,
                          "ms": timed(torch, lambda: multi_head_attention(
-                             q, k, v, mask, impl="flash",
+                             qd, kd, vd, mask, impl="flash",
                              small_s_impl="group")[0], 5)}
+        del x, q, k, v, got, grads
     return rec, f32, widths_launched
 
 
 def phase_repairs(torch, smi, records):
     """Phase 20: ROADMAP.md Queue 3 items 7 and 8 on the card. (a) the
     fused-int8 layer's JAX dispatch; (b) K5/K6 and K7/K8 at head widths
-    16, 80, 96 and 24; (c) f32 attention on the plain route; (d) a tiny ``run_ar2
+    16, 80, 96 and 24; (c) f32 attention on the f32 instances; (d) a tiny ``run_ar2
     --fast-encode --fast-teacher`` and a tiny ``run_lead --freeze-teachers
     --fast-teacher`` (H=64: their int8 views take layer_reference) run to
     their end."""
@@ -5009,6 +5056,708 @@ def phase_master(torch, smi, records):
     _launch_totals(records, "master", totals)
 
 
+# --- phase 23: f32 attention on the kernels ---------------------------------
+
+# The f32 instances of K5-K8 (ROADMAP.md Queue 3 item 8b): each f32 operand
+# as hi + lo bf16 halves, three bf16 products into f32 (lo lo dropped). They
+# are held to an f64 evaluation of the same function within the limits of
+# simxns_tpu_torch/ops/flash_attention.py (F32_FWD_TOL, F32_BWD_TOL,
+# F32_VS_BF16; tests/test_torch_cuda.py holds them to the same ones). The
+# plain f32 version runs with TF32 off (cuBLAS and cuDNN), a full f32
+# product. Their bound counts the model's own products (2 forward, 5
+# backward) at the TF32 peak, the highest rate for f32 inputs; the split's
+# three bf16 products for each are reported apart as impl_ops_ms.
+F32_KERNELS = ("group_attention_fwd_f32", "group_attention_bwd_f32",
+               "bh_attention_fwd_f32", "bh_attention_bwd_f32")
+F32_WIDTHS = (64, 16, 128, 24)       # the first is the records' shape
+F32_HEADS = 8
+# the f32 DE of the step check: BertConfig.tiny at 512 positions (H=64, 4
+# heads, d=16), 8 queries of 32 tokens x 2 passages of 512 (K7/K8 f32 on
+# the passages); the first step against the same step on the plain pair:
+# the loss within F32_STEP_LOSS_REL, every gradient within F32_STEP_GRAD of
+# the largest (the CPU twin reads 1.1e-7 and 2.8e-7)
+F32_STEP_LOSS_REL, F32_STEP_GRAD = 1e-4, 1e-4
+
+
+def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
+    """One f32 instance pair (``fwd``, ``bwd``) on head views of [b, s, 8d]
+    f32 projections (key lengths s/2..s, one row all masked): against f64,
+    the plain f32 version and the bf16 instance; with ``timing`` the times
+    of the kernels, the plain versions and SDPA in f32 (additive -1e9 key
+    bias) and the bounds."""
+    from simxns_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+
+    def head_view(t):
+        return t.view(b, s, F32_HEADS, d).transpose(1, 2)
+
+    q, k, v = (head_view(torch.randn(b, s, F32_HEADS * d, device=dev,
+                                     generator=gen)) for _ in range(3))
+    do = torch.randn(b, F32_HEADS, s, d, device=dev, generator=gen)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen)
+    mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
+    mask[-1] = 0
+    o64, g64 = fa.attention_f64(q, k, v, mask, do)
+    vmax = float(v.abs().max())
+    o = fwd(q, k, v, mask)
+    grads = bwd(q, k, v, mask, do)
+    plain_o = fa._group_fwd_plain(q, k, v, mask)
+    plain_g = fa._group_bwd_plain(q, k, v, mask, do)
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    ob = fwd(qb, kb, vb, mask)
+    gb = bwd(qb, kb, vb, mask, dob)
+    torch.cuda.synchronize()
+    err_o = float((o.double() - o64).abs().max()) / vmax
+    err_ob = float((ob.double() - o64).abs().max()) / vmax
+    err_po = float((plain_o.double() - o64).abs().max()) / vmax
+    err_g, err_gb, err_pg = (fa.errors_of_largest(x, g64)
+                             for x in (grads, gb, plain_g))
+    check(o.dtype == torch.float32 and all(g.dtype == torch.float32
+                                           for g in grads),
+          "f32 instances: results not f32")
+    check(err_o <= fa.F32_FWD_TOL and max(err_g) <= fa.F32_BWD_TOL,
+          f"f32 {fwd.__name__} S={s} d={d}: errors against f64 {err_o}, "
+          f"{err_g} (limits {fa.F32_FWD_TOL}, {fa.F32_BWD_TOL})")
+    check(err_ob >= fa.F32_VS_BF16 * err_o and all(
+        e16 >= fa.F32_VS_BF16 * e32 for e16, e32 in zip(err_gb, err_g)),
+        f"f32 {fwd.__name__} S={s} d={d}: not {fa.F32_VS_BF16}x closer to "
+        f"f64 than the bf16 instance ({err_o} vs {err_ob}; {err_g} vs "
+        f"{err_gb})")
+    rec = dict(shape=[b, F32_HEADS, s, d], key_lengths=[s // 2, s],
+               fwd_err_of_max_v_vs_f64=err_o, bf16_fwd_err_vs_f64=err_ob,
+               plain_fwd_err_vs_f64=err_po,
+               bwd_err_of_largest_vs_f64=err_g, bf16_bwd_err_vs_f64=err_gb,
+               plain_bwd_err_vs_f64=err_pg,
+               fwd_max_abs_err=float((o - plain_o).abs().max()),
+               bwd_max_abs_err=max(float((g - r).abs().max())
+                                   for g, r in zip(grads, plain_g)))
+    del ob, gb, qb, kb, vb, dob, plain_o, plain_g, o64, g64
+    if not timing:
+        return rec
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg, attn_mask=bias)
+    elems = b * F32_HEADS * s * d
+    product = 2.0 * b * F32_HEADS * s * s * d
+    # the model's products (2 forward, 5 backward) at the TF32 peak; the
+    # split's three bf16 products for each at the bf16 peak apart
+    bms_f, by_f = bound(4 * elems * 4 + mask.numel() * 4, 2 * product,
+                        PEAK_TF32)
+    bms_b, by_b = bound(7 * elems * 4 + mask.numel() * 4, 5 * product,
+                        PEAK_TF32)
+    rec.update(
+        ms=timed(torch, lambda: fwd(q, k, v, mask), 5),
+        plain_ms=timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2),
+        library_ms=timed(torch, lambda: sdpa(q, k, v, attn_mask=bias), 5),
+        bound_ms=bms_f, bound_by=by_f,
+        impl_ops_ms=3 * 2 * product / PEAK_BF16 * 1e3,
+        bwd_ms=timed(torch, lambda: bwd(q, k, v, mask, do), 5),
+        bwd_plain_ms=timed(torch, lambda: fa._group_bwd_plain(
+            q, k, v, mask, do), 2),
+        bwd_library_ms=timed(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 5),
+        bwd_bound_ms=bms_b, bwd_bound_by=by_b,
+        bwd_impl_ops_ms=3 * 5 * product / PEAK_BF16 * 1e3)
+    return rec
+
+
+def _f32_de_step(torch, np):
+    """Three ``make_biencoder_step`` steps of an f32 tiny DE on passages
+    of 512 tokens (K7/K8 f32), the first step's gradients against the same
+    step on the plain pair. -> (record, launches of the three steps)."""
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import BertConfig, BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.train import (TrainState, make_adamw,
+                                        make_biencoder_step, steps)
+
+    dev = torch.device("cuda")
+    model = BiEncoder(BiEncoderConfig(bert=BertConfig.tiny(
+        max_position_embeddings=MS_S)),
+        generator=torch.Generator().manual_seed(23)).to(dev)
+    rng = np.random.default_rng(23)
+    n, m = N_Q, 2
+
+    def batch(seed):
+        r = np.random.default_rng(seed)
+        lens = r.integers(MS_S // 2, MS_S + 1, n * m)
+        cm = (np.arange(MS_S)[None, :] < lens[:, None]).astype(np.int64)
+        return steps.to_device({
+            "q_ids": r.integers(4, 1024, (n, LQ)),
+            "q_mask": np.ones((n, LQ), np.int64),
+            "ctx_ids": r.integers(4, 1024, (n * m, MS_S)) * cm,
+            "ctx_mask": cm,
+            "positive_idx": np.arange(n) * m}, dev)
+
+    batches = [batch(int(rng.integers(1 << 30))) for _ in range(3)]
+
+    def gradients():
+        loss, _ = steps.biencoder_loss(model, batches[0])
+        grads = steps.gradients(model, loss)
+        flat = torch.cat([g.flatten() for g in grads.values()
+                          if g is not None])
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), flat
+
+    loss_k, grad_k = gradients()
+    kernels = fa.bh_attention_fwd, fa.bh_attention_bwd
+    fa.bh_attention_fwd, fa.bh_attention_bwd = (fa._group_fwd_plain,
+                                                fa._group_bwd_plain)
+    try:
+        loss_p, grad_p = gradients()
+    finally:
+        fa.bh_attention_fwd, fa.bh_attention_bwd = kernels
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_err = float((grad_k - grad_p).abs().max() / grad_p.abs().max())
+    check(loss_rel <= F32_STEP_LOSS_REL and grad_err <= F32_STEP_GRAD,
+          f"f32 DE step, K7/K8 f32 vs plain: loss rel {loss_rel}, gradient "
+          f"err {grad_err} of the largest")
+    tx = make_adamw(1e-4, total_steps=0)
+    state = TrainState.create(model, tx)
+    step = make_biencoder_step(tx)
+    fresh_peak(torch)
+    ops.reset_launches()
+    ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launched = {k: v for k, v in ops.launches().items() if v}
+    check(launched.get("bh_attention_fwd_f32", 0) >= 3
+          and launched.get("bh_attention_bwd_f32", 0) >= 3
+          and not launched.get("bh_attention_fwd")
+          and all(math.isfinite(x) for x in losses),
+          f"f32 DE steps: launches {launched}, losses {losses}")
+    return dict(config="BertConfig.tiny(max_position_embeddings=512), f32",
+                batch=f"{n} queries x {LQ} tokens, {n * m} passages x "
+                      f"{MS_S}", loss_rel_vs_plain=loss_rel,
+                grad_err_of_largest_vs_plain=grad_err, step_ms=ms,
+                losses=losses, launches=launched,
+                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9), \
+        launched
+
+
+def phase_f32_attention(torch, smi, records):
+    """Phase 23: the f32 instances of K5-K8. K5/K6 at [64, 8, 160, d] and
+    K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24, against f64, the plain
+    f32 version (TF32 off) and the bf16 instance; the times of the kernel,
+    the plain version and SDPA in f32 at d = 64; then an f32 DE's steps on
+    K7/K8 f32 against the plain pair."""
+    import numpy as np
+
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    totals = {name: 0 for name in ops.KERNELS}
+    ops.reset_launches()
+    by_pair = {}
+    for label, fwd, bwd, b, s in (
+            ("K5/K6", fa.group_attention_fwd, fa.group_attention_bwd, 64, LJ),
+            ("K7/K8", fa.bh_attention_fwd, fa.bh_attention_bwd, 16, MS_S)):
+        shapes = [_check_f32_pair(torch, gen, fwd, bwd, b, s, d,
+                                  timing=d == F32_WIDTHS[0])
+                  for d in F32_WIDTHS]
+        by_pair[label] = shapes
+        main = shapes[0]
+        common = dict(shape=main["shape"], widths=list(F32_WIDTHS),
+                      shapes=shapes,
+                      err_vs_f64=max(r["fwd_err_of_max_v_vs_f64"]
+                                     for r in shapes),
+                      library="scaled_dot_product_attention in f32, additive "
+                              "-1e9 key bias")
+        records[f"{fwd.__name__}_f32"].update(
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], impl_ops_ms=main["impl_ops_ms"],
+            max_abs_err=max(r["fwd_max_abs_err"] for r in shapes),
+            tolerance=f"against f64: {fa.F32_FWD_TOL} x max|v|, and "
+                      f"{fa.F32_VS_BF16}x closer than the bf16 instance; "
+                      "max_abs_err is against the plain f32 version",
+            **common)
+        records[f"{bwd.__name__}_f32"].update(
+            ms=main["bwd_ms"], plain_ms=main["bwd_plain_ms"],
+            library_ms=main["bwd_library_ms"], bound_ms=main["bwd_bound_ms"],
+            bound_by=main["bwd_bound_by"],
+            impl_ops_ms=main["bwd_impl_ops_ms"],
+            max_abs_err=max(r["bwd_max_abs_err"] for r in shapes),
+            tolerance=f"against f64: {fa.F32_BWD_TOL} x each gradient's "
+                      f"largest, and {fa.F32_VS_BF16}x closer than the bf16 "
+                      "instance; max_abs_err is against the plain f32 "
+                      "version",
+            **{**common, "err_vs_f64": max(max(r["bwd_err_of_largest_vs_f64"])
+                                           for r in shapes)})
+    launched = ops.launches()
+    for name, n in launched.items():
+        totals[name] += n
+    step, step_launches = _f32_de_step(torch, np)
+    for name, n in step_launches.items():
+        totals[name] += n
+    for name in F32_KERNELS:
+        emit("kernel", name=name, nvidia_smi=smi,
+             **{k: v for k, v in records[name].items() if k != "shapes"})
+    emit("f32_attention", nvidia_smi=smi, pairs=by_pair, de_steps=step,
+         seconds=time.perf_counter() - t0)
+    fresh_peak(torch)
+    _launch_totals(records, "f32_attention", totals)
+
+
+# --- phase 24: --init-checkpoint and from_checkpoint at full width ----------
+
+# artifacts under HF's key names, written here (no transformers on this
+# machine), random weights: (family, layers, H, heads, F, vocab, positions,
+# token types, MLM head)
+HF_ARTIFACTS = {
+    "roberta": ("roberta", 12, 768, 12, 3072, 50265, 514, 1, False),
+    "distilbert": ("distilbert", 6, 768, 12, 3072, 30522, 512, 0, False),
+    "bert_mlm": ("bert", 12, 768, 12, 3072, 30522, 512, 2, True),
+}
+# (a) msdoc_ar2_simans from the RoBERTa-base artifact: 20,480 passages (above
+# 20,000 the synthetic corpus keeps the recipe's 512 tokens), 16 queries,
+# one window of 4 steps, 8 queries a step; (b) serves the first
+# INIT_SERVE_PASSAGES of them
+INIT_MSDOC_FLAGS = ["--synthetic", "--full-size", "--fast-encode",
+                    "--fast-teacher", "--int8-index", "--batch", str(N_Q),
+                    "--steps", "4", "--warm-epochs", "1", "--corpus-size",
+                    "20480", "--num-queries", "16"]
+INIT_LEAD_STEPS, INIT_MASTER_STEPS = 4, 2
+INIT_REQUESTS, INIT_SERVE_PASSAGES = 8, 4096
+
+
+def _hf_artifact(torch, root, name, seed):
+    """Write ``HF_ARTIFACTS[name]`` as ``<root>/<name>/pytorch_model.bin``
+    (f32, normal(0, 0.02), LayerNorm scales about 1). -> its directory."""
+    family, layers, h, heads, f, vocab, positions, types, mlm = \
+        HF_ARTIFACTS[name]
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def rnd(*shape, mean=0.0):
+        return torch.randn(*shape, generator=gen) * 0.02 + mean
+
+    def lin(key, o, i):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = rnd(o, i), rnd(o)
+
+    def ln(key):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = rnd(h, mean=1.0), rnd(h)
+
+    pre = f"{family}."
+    sd[pre + "embeddings.word_embeddings.weight"] = rnd(vocab, h)
+    sd[pre + "embeddings.position_embeddings.weight"] = rnd(positions, h)
+    if types:
+        sd[pre + "embeddings.token_type_embeddings.weight"] = rnd(types, h)
+    ln(pre + "embeddings.LayerNorm")
+    for i in range(layers):
+        if family == "distilbert":
+            base = f"{pre}transformer.layer.{i}."
+            for part in ("q_lin", "k_lin", "v_lin", "out_lin"):
+                lin(base + "attention." + part, h, h)
+            ln(base + "sa_layer_norm")
+            lin(base + "ffn.lin1", f, h)
+            lin(base + "ffn.lin2", h, f)
+            ln(base + "output_layer_norm")
+        else:
+            base = f"{pre}encoder.layer.{i}."
+            for part in ("query", "key", "value"):
+                lin(base + "attention.self." + part, h, h)
+            lin(base + "attention.output.dense", h, h)
+            ln(base + "attention.output.LayerNorm")
+            lin(base + "intermediate.dense", f, h)
+            lin(base + "output.dense", h, f)
+            ln(base + "output.LayerNorm")
+    if mlm:
+        lin("cls.predictions.transform.dense", h, h)
+        ln("cls.predictions.transform.LayerNorm")
+        sd["cls.predictions.bias"] = rnd(vocab)
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    torch.save(sd, os.path.join(out, "pytorch_model.bin"))
+    return out
+
+
+def _graft_spy(torch, run, grafts):
+    """``run._graft_encoder`` that checks, right after each graft, that
+    every grafted encoder holds the artifact's first layers bitwise, and
+    records (prefixes, layers, family, the model, the artifact)."""
+    real = run._graft_encoder
+
+    def spy(model, init, prefixes, num_layers):
+        real(model, init, prefixes, num_layers)
+        want = run.truncate_layers(init["encoder"], num_layers)
+        sd = model.state_dict()
+        for prefix in prefixes:
+            got = {k[len(prefix) + 1:]: v for k, v in sd.items()
+                   if k.startswith(prefix + ".")}
+            check(sorted(got) == sorted(want) and all(
+                torch.equal(got[k].cpu(), want[k]) for k in want),
+                f"graft of {prefix}: not the artifact's weights")
+        grafts.append({"prefixes": list(prefixes), "layers": num_layers,
+                       "family": init["family"], "model": model,
+                       "init": init})
+
+    return real, spy
+
+
+def _request_hits(retriever, queries):
+    """ids and scores of ``INIT_REQUESTS`` requests of 8 queries, k=10."""
+    out = []
+    for r in range(INIT_REQUESTS):
+        out.extend((h.passage_id, h.score) for hits in retriever.search(
+            queries[8 * r:8 * r + 8], k=10) for h in hits)
+    return out
+
+
+def phase_init_checkpoint(torch, smi, records):
+    """Phase 24: ``--init-checkpoint`` at full width. (a) ``run_ar2`` in
+    ``msdoc_ar2_simans`` from a RoBERTa-base artifact (both DE towers
+    grafted, checked bitwise at the graft), K7/K8 in the DE and CE steps,
+    K1-K4 in the mine and the teacher; (b) ``DenseRetriever.
+    from_checkpoint`` on its step-4 DE state: 4,096 of the run's passages
+    indexed, 8 requests, K1-K4 launched, hits equal to the same retriever
+    over the trained DE in memory; (c) ``run_lead`` from a DistilBERT-base artifact
+    (4 joint steps, K5/K6) and ``run_pretrain`` from a BERT-base MLM
+    artifact (2 steps; the encoder and the MLM head grafted)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops, run
+    from simxns_tpu_torch.config import RECIPES
+    from simxns_tpu_torch.data import HashTokenizer
+    from simxns_tpu_torch.models import BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.models import dual_encoder
+    from simxns_tpu_torch.serve import DenseRetriever
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_init_")
+    totals = {name: 0 for name in ops.KERNELS}
+    grafts = []
+    real_graft, spy = _graft_spy(torch, run, grafts)
+    real_condenser = run.init_condenser
+    factories = {name: getattr(run, name) for name in STEP_FACTORIES}
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        arts = {name: _hf_artifact(torch, root, name, seed)
+                for seed, name in enumerate(HF_ARTIFACTS)}
+        rec["artifacts_s"] = time.perf_counter() - t0
+        run._graft_encoder = spy
+
+        # (a) msdoc from RoBERTa-base
+        step_ms, in_steps = {}, {}
+        for name, kind in STEP_FACTORIES.items():
+            setattr(run, name, _timed_factory(torch, factories[name], kind,
+                                              step_ms, in_steps))
+        out_dir = os.path.join(root, "msdoc")
+        argv = INIT_MSDOC_FLAGS + ["--init-checkpoint", arts["roberta"],
+                                   "--output-dir", out_dir]
+        fresh_peak(torch)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = _co_training_run(run, "msdoc_ar2_simans", argv)
+        torch.cuda.synchronize()
+        launched = ops.launches()
+        for name, n in launched.items():
+            totals[name] += n
+        for name, fn in factories.items():
+            setattr(run, name, fn)
+        graft = grafts[-1]
+        check(graft["family"] == "roberta" and graft["prefixes"] == [
+            "question_model.encoder", "ctx_model.encoder"]
+            and graft["layers"] == 12, f"msdoc graft: {graft['prefixes']}")
+        for kind in ("biencoder", "reranker", "retriever"):
+            got = in_steps.get(kind, {})
+            check(got.get("bh_attention_fwd", 0) > 0
+                  and got.get("bh_attention_bwd", 0) > 0,
+                  f"msdoc from RoBERTa: the {kind} steps launched {got}")
+        check(all(in_steps.get("retriever", {}).get(k, 0) > 0
+                  for k in LAYER_KERNELS)
+              and launched["mips_bucket_candidates"] > 0
+              and all(launched[k] > in_steps["retriever"].get(k, 0)
+                      for k in LAYER_KERNELS),
+              f"msdoc from RoBERTa: K1-K4 in the mine and the teacher: "
+              f"{launched}")
+        check(math.isfinite(out["top1"]) and len(
+            _co_training_losses(out_dir)) == 4,
+            f"msdoc from RoBERTa: {out}")
+        rec["msdoc_roberta"] = dict(
+            flags=argv[:-2], wall_s=time.perf_counter() - t0,
+            top1=out["top1"], losses=_co_training_losses(out_dir),
+            step_ms=dict(step_ms), phase_times_s=out["phase_times_s"],
+            max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            grafted=graft["prefixes"],
+            launches={k: n for k, n in launched.items() if n},
+            launches_in_steps=in_steps)
+
+        # (b) from_checkpoint on the run's step-4 DE state
+        t0 = time.perf_counter()
+        args = run.build_parser().parse_args(
+            ["--recipe", "msdoc_ar2_simans", *INIT_MSDOC_FLAGS])
+        cfg = RECIPES["msdoc_ar2_simans"]
+        corpus = run._synthesize_vectorized(args, cfg.data)
+        bert = run._init_bert_cfg(graft["init"], run._bert_cfg(
+            cfg.retriever.bert, False, corpus.vocab_size), corpus.vocab_size)
+        serve_cfg = BiEncoderConfig(
+            bert=bert.replace(layer_impl="fused_int8"),
+            share_weight=cfg.retriever.share_weight,
+            pooling=cfg.retriever.pooling,
+            projection_dim=cfg.retriever.projection_dim)
+        passages = {i: (f"document {i}", f"title{i}")
+                    for i in range(INIT_SERVE_PASSAGES)}
+        tokens = corpus.corpus_ids[:INIT_SERVE_PASSAGES]
+        queries = [f"document {i} fact{i}"
+                   for i in range(8 * INIT_REQUESTS)]
+        kw = dict(store_dtype=torch.int8, index_mode="fused",
+                  max_ctx_length=MS_S, max_q_length=LQ, block_size=2048)
+        tok = HashTokenizer(vocab_size=corpus.vocab_size)
+        ops.reset_launches()
+        # the boundary's TrainState, else the final parameters
+        ckpt = ("retriever_state" if os.path.isdir(os.path.join(
+            out_dir, "retriever_state-4")) else "retriever")
+        served = DenseRetriever.from_checkpoint(
+            out_dir, 4, BiEncoder(serve_cfg), tok, name=ckpt,
+            device="cuda", **kw)
+        served.index_corpus(passages, precomputed_tokens=tokens)
+        got = _request_hits(served, queries)
+        torch.cuda.synchronize()
+        launched = ops.launches()
+        for name, n in launched.items():
+            totals[name] += n
+        check(all(launched[k] > 0 for k in LAYER_KERNELS)
+              and launched["mips_bucket_candidates"] > 0,
+              f"from_checkpoint: launches {launched}")
+        memory = DenseRetriever(dual_encoder.int8_view(graft["model"]), tok,
+                                device="cuda", **kw)
+        memory.index_corpus(passages, precomputed_tokens=tokens)
+        want = _request_hits(memory, queries)
+        check(got == want, "from_checkpoint: hits differ from the same "
+              "retriever over the trained DE in memory")
+        rec["from_checkpoint"] = dict(
+            checkpoint=f"{ckpt}-4", passages=len(passages),
+            requests=INIT_REQUESTS, k=10,
+            hits_equal_to_memory=True, wall_s=time.perf_counter() - t0,
+            launches={k: n for k, n in launched.items() if n})
+        del served, memory, corpus, tokens, graft
+        grafts.clear()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+        # (c) LEAD from DistilBERT-base, MASTER from a BERT-base MLM
+        heads = {}
+
+        def condenser(cfg, seed):
+            model = real_condenser(cfg, seed)
+            load = model.mlm.load_state_dict
+
+            def checked(sd, *a, **kw):
+                result = load(sd, *a, **kw)
+                own = model.mlm.state_dict()
+                heads["equal"] = sorted(own) == sorted(sd) and all(
+                    torch.equal(own[k].cpu(), sd[k]) for k in sd)
+                return result
+
+            model.mlm.load_state_dict = checked
+            return model
+
+        run.init_condenser = condenser
+        for label, argv, kernels in (
+                ("lead_distilbert", ["--recipe", "lead_ms_distill",
+                                     *LEAD_FLAGS, "--steps",
+                                     str(INIT_LEAD_STEPS),
+                                     "--init-checkpoint",
+                                     arts["distilbert"]],
+                 ("group_attention_fwd", "group_attention_bwd")),
+                ("master_bert_mlm", ["--recipe", "master_pretrain",
+                                     *MASTER_FLAGS, "--steps",
+                                     str(INIT_MASTER_STEPS),
+                                     "--init-checkpoint", arts["bert_mlm"]],
+                 ())):
+            fresh_peak(torch)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = run.main(argv + ["--output-dir",
+                                   os.path.join(root, label)])
+            torch.cuda.synchronize()
+            launched = ops.launches()
+            for name, n in launched.items():
+                totals[name] += n
+            graft = grafts[-1]
+            check(math.isfinite(out["final_loss"]) and all(
+                launched[k] > 0 for k in kernels),
+                f"{label}: {out}, launches {launched}")
+            rec[label] = dict(
+                flags=argv[2:-2], wall_s=time.perf_counter() - t0,
+                final_loss=out["final_loss"], grafted=graft["prefixes"],
+                grafted_layers=graft["layers"], family=graft["family"],
+                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches={k: n for k, n in launched.items() if n})
+            grafts.clear()
+        check(heads.get("equal") is True,
+              "master: the MLM head is not the artifact's")
+        rec["master_bert_mlm"]["mlm_head_grafted"] = True
+        check(rec["lead_distilbert"]["family"] == "distilbert"
+              and rec["master_bert_mlm"]["family"] == "bert",
+              f"families: {rec['lead_distilbert']['family']}, "
+              f"{rec['master_bert_mlm']['family']}")
+    finally:
+        run._graft_encoder = real_graft
+        run.init_condenser = real_condenser
+        for name, fn in factories.items():
+            setattr(run, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    emit("init_checkpoint", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase, **rec)
+    fresh_peak(torch)
+    _launch_totals(records, "init_checkpoint", totals)
+
+
+# --- phase 25: the reader and ALLIES ------------------------------------------
+
+# the reader: BERT-base over 2 questions x 8 passages x 256 tokens (K7/K8),
+# bf16, 3 AdamW steps of reader_loss; the first step's gradients with
+# K7/K8 against the plain pair beside two plain versions (phase 5's rule)
+READER_N, READER_M, READER_L = 2, 8, 256
+ALLIES_FLAGS = ["--synthetic", "--int8-index", "--corpus-size", "2048",
+                "--num-queries", "16"]
+
+
+def _reader_batch(np, seed):
+    rng = np.random.default_rng(seed)
+    n, m, l = READER_N, READER_M, READER_L
+    lens = rng.integers(l // 2, l + 1, (n, m))
+    mask = (np.arange(l)[None, None, :] < lens[..., None]).astype(np.int64)
+    ids = rng.integers(1000, 30522, (n, m, l)) * mask
+    sp = np.full((n, m, 2), l, np.int64)
+    sp[:, 0, 0] = rng.integers(1, l // 2, n)
+    ep = sp.copy()
+    ep[:, 0, 0] += 3
+    am = np.zeros((n, m, 2), np.int64)
+    am[:, 0, 0] = 1
+    return ids, mask, sp, ep, am
+
+
+def phase_reader_allies(torch, smi, records):
+    """Phase 25: a BERT-base ``Reader`` (2 x 8 x 256 tokens, bf16: K7/K8),
+    its first step's gradients against the plain pair, 3 AdamW steps of
+    ``reader_loss``; then ``run_allies`` in ``allies_qa`` with
+    ``--int8-index`` to its end (K4)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops, run
+    from simxns_tpu_torch.models import (BertConfig, Reader, ReaderConfig,
+                                         reader_loss)
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.train import TrainState, make_adamw
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in ops.KERNELS}
+    fresh_peak(torch)
+    model = Reader(ReaderConfig(bert=BertConfig(dtype=torch.bfloat16)),
+                   generator=torch.Generator().manual_seed(25)).to(dev)
+    batches = [[torch.from_numpy(x).to(dev) for x in _reader_batch(np, s)]
+               for s in range(3)]
+
+    def loss_of(b):
+        start, end, rank = model(b[0], b[1])
+        return reader_loss(start, end, rank, *b[2:])[0]
+
+    def gradients():
+        loss = loss_of(batches[0])
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        return float(loss.detach()), torch.cat(
+            [g.float().flatten() for g in grads if g is not None])
+
+    loss_k, grad_k = gradients()
+    kernels = fa.bh_attention_fwd, fa.bh_attention_bwd, fa._probs
+    fa.bh_attention_fwd, fa.bh_attention_bwd = (fa._group_fwd_plain,
+                                                fa._group_bwd_plain)
+    try:
+        loss_p, grad_p = gradients()
+        fa._probs = _softmax_probs
+        loss_f, grad_f = gradients()
+    finally:
+        fa.bh_attention_fwd, fa.bh_attention_bwd, fa._probs = kernels
+    cos, floor = _cosine(torch, grad_k, grad_p), _cosine(torch, grad_p,
+                                                         grad_f)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    floor_rel = abs(loss_f - loss_p) / abs(loss_p)
+    check(loss_rel <= max(1e-2, 2.5 * floor_rel) and cos >= 0.99
+          and cos >= floor - 0.005,
+          f"reader step, K7/K8 vs plain: loss rel {loss_rel} (two plain "
+          f"{floor_rel}), gradient cosine {cos} (two plain {floor})")
+    del grad_k, grad_p, grad_f
+    tx = make_adamw(3e-5, total_steps=0)
+    state = TrainState.create(model, tx)
+    names = [n for n, _ in model.named_parameters()]
+    ops.reset_launches()
+    ms, losses = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_of(b)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        state.apply_gradients(dict(zip(names, grads)), tx)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    launched = ops.launches()
+    for name, n in launched.items():
+        totals[name] += n
+    check(launched["bh_attention_fwd"] >= 3 * 12
+          and launched["bh_attention_bwd"] >= 3 * 12
+          and all(math.isfinite(x) for x in losses),
+          f"reader steps: launches {launched}, losses {losses}")
+    reader = dict(shape=[READER_N, READER_M, READER_L],
+                  loss_rel_vs_plain=loss_rel, two_plain_loss_rel=floor_rel,
+                  gradient_cosine_vs_plain=cos, two_plain_cosine=floor,
+                  step_ms=ms, losses=losses,
+                  max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  launches={k: n for k, n in launched.items() if n})
+    del model, state, batches
+    fresh_peak(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_allies_")
+    try:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = run.main(["--recipe", "allies_qa", *ALLIES_FLAGS,
+                        "--output-dir", root])
+        torch.cuda.synchronize()
+        launched = ops.launches()
+        for name, n in launched.items():
+            totals[name] += n
+        check(launched["mips_bucket_candidates"] > 0 and out["questions"] > 0
+              and 0.0 <= out["em"] <= 1.0 and out["retrievals_per_q"] >= 1
+              and os.path.exists(os.path.join(root, "eval.json")),
+              f"allies: {out}, launches {launched}")
+        allies = dict(flags=ALLIES_FLAGS, wall_s=time.perf_counter() - t0,
+                      **{k: out[k] for k in ("questions", "em", "f1",
+                                             "api_calls_per_q",
+                                             "retrievals_per_q")},
+                      launches={k: n for k, n in launched.items() if n})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("reader_allies", nvidia_smi=smi, reader=reader, allies=allies,
+         seconds=time.perf_counter() - t_phase)
+    fresh_peak(torch)
+    _launch_totals(records, "reader_allies", totals)
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -5039,6 +5788,17 @@ SOURCES = {
                    "simxns_tpu/ops/fused_ffn.py:222"),
     "int8_ffn": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
                  "simxns_tpu/ops/fused_ffn.py:160"),
+    # the f32 instances of K5-K8 (K6's is K8's two passes)
+    "group_attention_fwd_f32": ("cuda",
+                                "simxns_tpu_torch/csrc/group_attention.cu",
+                                "simxns_tpu/ops/flash_attention.py:113"),
+    "group_attention_bwd_f32": ("cuda",
+                                "simxns_tpu_torch/csrc/bh_attention.cu",
+                                "simxns_tpu/ops/flash_attention.py:125"),
+    "bh_attention_fwd_f32": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+                             "simxns_tpu/ops/flash_attention.py:67"),
+    "bh_attention_bwd_f32": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+                             "simxns_tpu/ops/flash_attention.py:80"),
 }
 
 
@@ -5064,6 +5824,10 @@ def main():
     smi = phase_device(torch)
     records = phase_kernels(torch, smi)
     phase_end_to_end(torch, smi, records)
+    # the f32 instances of K5-K8: off the serving path; counted from here,
+    # measured in phase 23
+    for name in F32_KERNELS:
+        records[name] = {}
     phase_train_kernels(torch, smi, records)
     xla = phase_training(torch, smi, records)
     phase_msdoc_kernels(torch, smi, records)
@@ -5083,8 +5847,14 @@ def main():
     phase_repairs(torch, smi, records)
     phase_lead(torch, smi, records)
     phase_master(torch, smi, records)
+    phase_f32_attention(torch, smi, records)
+    phase_init_checkpoint(torch, smi, records)
+    phase_reader_allies(torch, smi, records)
     kernels = []
-    for name, rec in records.items():
+    # K1-K14, then the f32 instances of K5-K8 apart
+    for name in [n for n in records if n not in F32_KERNELS] + list(
+            F32_KERNELS):
+        rec = records[name]
         route, source, replaces = SOURCES[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec})

@@ -18,6 +18,8 @@
 //   key walk (dkv_tile) gets p^T and dS^T from k q^T and v dO^T, already in
 //   the A layout of dV += p^T dO and dK += dS^T q.
 // p and dS enter their products as hi + lo bf16 halves (p_v_tile_split).
+// The *_split functions are the f32 instances' (attention_ring.cuh): every
+// operand split, A operands read from their shared tiles.
 //
 // A key's fill says how its score is made: kRealKey = the scaled product,
 // else a constant: the mask's -1e9 (as -1e9 log2(e)) or -inf past S (the
@@ -69,19 +71,17 @@ __device__ __forceinline__ float score(float prod, float fill,
   return fill == kRealKey ? prod * scale2 : fill;
 }
 
-// One key tile of the statistics walk for the warp's 16 query rows:
-// qa, da the A fragments of q and dO; ks, vs the tile's k and v rows;
-// fill the tile's key fills. mx is quad-reduced (every thread of a row
-// holds the row's max); sum and dotu are the thread's partial sums.
-template <int D, int NT>
-__device__ __forceinline__ void stats_tile(
-    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
-    float scale2, float (&mx)[2], float (&sum)[2], float (&dotu)[2]) {
+// The statistics walk's fold of one key tile's scores sc (q k^T) and dP
+// (dO v^T) into the running max, sum and row dot; fill the tile's key
+// fills. mx is quad-reduced (every thread of a row holds the row's max);
+// sum and dotu are the thread's partial sums.
+template <int NT>
+__device__ __forceinline__ void fold_stats(float (&sc)[NT][4],
+                                           const float (&dp)[NT][4],
+                                           const float* fill, float scale2,
+                                           float (&mx)[2], float (&sum)[2],
+                                           float (&dotu)[2]) {
   const int t = threadIdx.x & 3;
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile<D>(sc, qa, ks);
-  ring::q_k_tile<D>(dp, da, vs);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -107,6 +107,34 @@ __device__ __forceinline__ void stats_tile(
     }
 }
 
+// One key tile of the statistics walk for the warp's 16 query rows:
+// qa, da the A fragments of q and dO; ks, vs the tile's k and v rows;
+// fill the tile's key fills (fold_stats).
+template <int D, int NT>
+__device__ __forceinline__ void stats_tile(
+    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
+    float scale2, float (&mx)[2], float (&sum)[2], float (&dotu)[2]) {
+  float sc[NT][4], dp[NT][4];
+  ring::q_k_tile<D>(sc, qa, ks);
+  ring::q_k_tile<D>(dp, da, vs);
+  fold_stats(sc, dp, fill, scale2, mx, sum, dotu);
+}
+
+// stats_tile of an f32 instance: q, dO, k, v split (attention_ring.cuh),
+// q and dO the warp's rows of the shared tiles qs, dos
+template <int D, int NT>
+__device__ __forceinline__ void stats_tile_split(
+    const __nv_bfloat16* qs, const __nv_bfloat16* dos,
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs, int lo,
+    const float* fill, float scale2, float (&mx)[2], float (&sum)[2],
+    float (&dotu)[2]) {
+  float sc[NT][4], dp[NT][4];
+  ring::q_k_tile_split<D>(sc, qs, ks, lo);
+  ring::q_k_tile_split<D>(dp, dos, vs, lo);
+  fold_stats(sc, dp, fill, scale2, mx, sum, dotu);
+}
+
 __device__ __forceinline__ void finish_stats(const float (&mx)[2],
                                              float (&sum)[2],
                                              float (&dotu)[2],
@@ -121,17 +149,15 @@ __device__ __forceinline__ void finish_stats(const float (&mx)[2],
   }
 }
 
-// One key tile of the dQ walk: acc += dS k over the tile's keys.
-template <int D, int NT>
-__device__ __forceinline__ void dq_tile(
-    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
-    float scale2, const float (&lse)[2], const float (&dot)[2],
-    float (&acc)[D / 8][4]) {
+// dS = p (dP - rowsum(dP p)) of one key tile into sc, from its scores sc
+// and dP, with p = 2^(s - lse)
+template <int NT>
+__device__ __forceinline__ void ds_rows(float (&sc)[NT][4],
+                                        const float (&dp)[NT][4],
+                                        const float* fill, float scale2,
+                                        const float (&lse)[2],
+                                        const float (&dot)[2]) {
   const int t = threadIdx.x & 3;
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile<D>(sc, qa, ks);
-  ring::q_k_tile<D>(dp, da, vs);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -141,23 +167,46 @@ __device__ __forceinline__ void dq_tile(
       const float p = ring::ex2(s - lse[e >> 1]);
       sc[nt][e] = p * (dp[nt][e] - dot[e >> 1]);
     }
+}
+
+// One key tile of the dQ walk: acc += dS k over the tile's keys.
+template <int D, int NT>
+__device__ __forceinline__ void dq_tile(
+    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
+    float scale2, const float (&lse)[2], const float (&dot)[2],
+    float (&acc)[D / 8][4]) {
+  float sc[NT][4], dp[NT][4];
+  ring::q_k_tile<D>(sc, qa, ks);
+  ring::q_k_tile<D>(dp, da, vs);
+  ds_rows(sc, dp, fill, scale2, lse, dot);
   ring::p_v_tile_split<D>(acc, sc, ks);
 }
 
-// One query tile of the key walk for the warp's 16 keys: ka, va the A
-// fragments of k and v; fill the two key rows' fills (rows g, g + 8);
-// qs, dos the tile's q and dO rows; lse, dot the tile's query statistics.
-// dva += p^T dO, dka += dS^T q.
+// dq_tile of an f32 instance (stats_tile_split's operands)
 template <int D, int NT>
-__device__ __forceinline__ void dkv_tile(
-    const uint32_t (&ka)[D / 16][4], const uint32_t (&va)[D / 16][4],
-    const float (&fill)[2], const __nv_bfloat16* qs,
-    const __nv_bfloat16* dos, const float* lse, const float* dot,
-    float scale2, float (&dka)[D / 8][4], float (&dva)[D / 8][4]) {
+__device__ __forceinline__ void dq_tile_split(
+    const __nv_bfloat16* qs, const __nv_bfloat16* dos,
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs, int lo,
+    const float* fill, float scale2, const float (&lse)[2],
+    const float (&dot)[2], float (&acc)[D / 8][4]) {
+  float sc[NT][4], dp[NT][4];
+  ring::q_k_tile_split<D>(sc, qs, ks, lo);
+  ring::q_k_tile_split<D>(dp, dos, vs, lo);
+  ds_rows(sc, dp, fill, scale2, lse, dot);
+  ring::p_v_tile_split3<D>(acc, sc, ks, lo);
+}
+
+// p^T and dS^T of one query tile for the warp's 16 keys, from k q^T (pt)
+// and v dO^T (dst): fill the two key rows' fills (rows g, g + 8); lse, dot
+// the tile's query statistics
+template <int NT>
+__device__ __forceinline__ void p_ds_cols(float (&pt)[NT][4],
+                                          float (&dst)[NT][4],
+                                          const float (&fill)[2],
+                                          const float* lse, const float* dot,
+                                          float scale2) {
   const int t = threadIdx.x & 3;
-  float pt[NT][4], dst[NT][4];
-  ring::q_k_tile<D>(pt, ka, qs);    // k_j . q_i
-  ring::q_k_tile<D>(dst, va, dos);  // v_j . dO_i = dP[i][j]
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -168,8 +217,39 @@ __device__ __forceinline__ void dkv_tile(
       pt[nt][e] = p;
       dst[nt][e] = p * (dst[nt][e] - dot[i]);
     }
+}
+
+// One query tile of the key walk for the warp's 16 keys: ka, va the A
+// fragments of k and v; qs, dos the tile's q and dO rows (p_ds_cols).
+// dva += p^T dO, dka += dS^T q.
+template <int D, int NT>
+__device__ __forceinline__ void dkv_tile(
+    const uint32_t (&ka)[D / 16][4], const uint32_t (&va)[D / 16][4],
+    const float (&fill)[2], const __nv_bfloat16* qs,
+    const __nv_bfloat16* dos, const float* lse, const float* dot,
+    float scale2, float (&dka)[D / 8][4], float (&dva)[D / 8][4]) {
+  float pt[NT][4], dst[NT][4];
+  ring::q_k_tile<D>(pt, ka, qs);    // k_j . q_i
+  ring::q_k_tile<D>(dst, va, dos);  // v_j . dO_i = dP[i][j]
+  p_ds_cols(pt, dst, fill, lse, dot, scale2);
   ring::p_v_tile_split<D>(dva, pt, dos);
   ring::p_v_tile_split<D>(dka, dst, qs);
+}
+
+// dkv_tile of an f32 instance: k and v the warp's rows of the shared tiles
+// ks, vs; all four operands split
+template <int D, int NT>
+__device__ __forceinline__ void dkv_tile_split(
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float (&fill)[2],
+    const __nv_bfloat16* qs, const __nv_bfloat16* dos, int lo,
+    const float* lse, const float* dot, float scale2,
+    float (&dka)[D / 8][4], float (&dva)[D / 8][4]) {
+  float pt[NT][4], dst[NT][4];
+  ring::q_k_tile_split<D>(pt, ks, qs, lo);
+  ring::q_k_tile_split<D>(dst, vs, dos, lo);
+  p_ds_cols(pt, dst, fill, lse, dot, scale2);
+  ring::p_v_tile_split3<D>(dva, pt, dos, lo);
+  ring::p_v_tile_split3<D>(dka, dst, qs, lo);
 }
 
 }  // namespace bwd

@@ -11,10 +11,25 @@ from simxns_tpu_torch.models.cross_encoder import (CrossEncoder,
                                                    CrossEncoderConfig,
                                                    int8_view)
 from simxns_tpu_torch.models.dual_encoder import BiEncoder, BiEncoderConfig
+from simxns_tpu_torch.models.hf_import import (as_biencoder_params,
+                                               config_from_hf_params,
+                                               convert_hf_auto,
+                                               convert_hf_bert,
+                                               convert_hf_distilbert,
+                                               convert_hf_electra,
+                                               convert_hf_roberta,
+                                               load_hf_bert_encoder,
+                                               robertadot_projection,
+                                               sniff_hf_family)
+from simxns_tpu_torch.models.reader import Reader, ReaderConfig, reader_loss
 
 __all__ = ["BertConfig", "BertEncoder", "BiEncoder", "BiEncoderConfig",
            "ColBERT", "ColBERTConfig", "Condenser", "CondenserConfig",
            "CrossEncoder", "CrossEncoderConfig", "MLMHead",
            "cocondenser_span_loss", "int8_view", "maxsim_score",
            "maxsim_score_paired", "mlm_loss_from_logits", "params_from_jax",
-           "truncate_layers"]
+           "Reader", "ReaderConfig", "as_biencoder_params",
+           "config_from_hf_params", "convert_hf_auto", "convert_hf_bert",
+           "convert_hf_distilbert", "convert_hf_electra",
+           "convert_hf_roberta", "load_hf_bert_encoder", "reader_loss",
+           "robertadot_projection", "sniff_hf_family", "truncate_layers"]

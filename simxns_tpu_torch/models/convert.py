@@ -17,7 +17,8 @@ keeps), an ``MLMHead`` (``transform``, ``transform_layer_norm``, and the
 tied head's ``bias`` leaf or the untied ``decoder``), a ``ColBERT``
 (``encoder``, the bias-free ``linear`` and ``doc_linear`` heads, and
 ``doc_encoder`` without ``share_weight``) and a ``Condenser``
-(``encoder``, ``mlm`` and the five heads' layers).
+(``encoder``, ``mlm`` and the five heads' layers) and a ``Reader``
+(``encoder``, ``qa_outputs``, ``qa_classifier``).
 The same state_dict serves every ``layer_impl``, as the flax trees do.
 """
 

@@ -1,7 +1,8 @@
 """Ops of the port: plain PyTorch compositions and the hand-written kernels.
 
-Every kernel wrapper counts its launches in ``<wrapper>.launches``;
-:data:`KERNELS` lists them by name.
+Every kernel wrapper counts its launches in ``<wrapper>.launches``, and
+the f32 instances of K5-K8 in ``<wrapper>.f32.launches``; :data:`KERNELS`
+lists them by name (the f32 instances as ``<wrapper>_f32``).
 """
 
 from simxns_tpu_torch.ops.flash_attention import (bh_attention_bwd,
@@ -24,6 +25,10 @@ KERNELS = {
     "group_attention_bwd": group_attention_bwd,
     "bh_attention_fwd": bh_attention_fwd,
     "bh_attention_bwd": bh_attention_bwd,
+    "group_attention_fwd_f32": group_attention_fwd.f32,
+    "group_attention_bwd_f32": group_attention_bwd.f32,
+    "bh_attention_fwd_f32": bh_attention_fwd.f32,
+    "bh_attention_bwd_f32": bh_attention_bwd.f32,
     "ffn_train_fwd": ffn_train_fwd,
     "ffn_bwd_dx": ffn_bwd_dx,
     "ffn_bwd_dw": ffn_bwd_dw,

@@ -44,10 +44,19 @@ a d off that grid runs the next instance over q, k, v (and dO) zero-padded
 along d, with the scale 1/sqrt(d) of the true width, and the results are
 sliced back: zero columns add exact zeros to every product, so it is the
 same function. d > 128 is refused (a warp's fragments of a 16-row tile
-would outgrow its registers). The kernels are bf16 tensor-core designs:
-:func:`flash_attention` sends any other dtype on the card to the plain
-attention (``multi_head_attention``), which computes JAX's f32 function,
-before any launch; their launch counts show the route.
+would outgrow its registers).
+
+Each kernel has a bf16 and an f32 instance, chosen by the inputs' dtype
+before any launch. The f32 instance runs a split pass first (each f32
+operand as hi = bf16(x) and lo = bf16(x - hi), written to a bf16 scratch),
+then the kernel with every product as three bf16 tensor-core products
+(hi hi + hi lo + lo hi) into f32 accumulators, and stores its results in
+f32: an f32-class function (about 16 bits of each operand; not bitwise an
+f32 product). K6's f32 instance is K8's two passes (its resident tiles,
+doubled, overflow a block's shared memory past d = 96). Its launches count
+apart, in ``<wrapper>.f32.launches``. :func:`flash_attention` sends any
+other dtype (f16: no recipe runs f16 attention) to the plain attention
+(``multi_head_attention``), which computes JAX's f32 function.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ _MAX_GROUP_S = 255            # csrc/group_attention.cu kMaxS
 _MAX_BH_S = 1024              # csrc/bh_attention.cu kMaxS
 _MAX_KERNEL_D = 128           # the widest template instance of the kernels
 
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
 _VIEW = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong]
 _FWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + [ctypes.c_void_p] + _VIEW
@@ -78,6 +89,18 @@ _BWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + _VIEW + [ctypes.c_void_p] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 # K8 takes one more pointer, its f32 scratch of row statistics
 _BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
+# the f32 instances take one more, the split pass's bf16 scratch
+_FWD_F32_ARGS = _FWD_ARGS[:11] + [ctypes.c_void_p] + _FWD_ARGS[11:]
+_BWD_F32_ARGS = _BH_BWD_ARGS[:18] + [ctypes.c_void_p] + _BH_BWD_ARGS[18:]
+
+
+class F32Instance:
+    """The launch count of a wrapper's f32 instance, which ``ops.KERNELS``
+    lists apart as ``<wrapper>_f32``."""
+
+    def __init__(self, wrapper):
+        self.__name__ = f"{wrapper.__name__}_f32"
+        self.launches = 0
 
 
 # --- the plain versions ------------------------------------------------------
@@ -105,6 +128,38 @@ def _group_bwd_plain(q, k, v, mask, do, scale=None):
     dq = (ds @ k.float()) * scale
     dk = (ds.transpose(-1, -2) @ q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- the f32 instances' limits -----------------------------------------------
+
+# The f32 instances against an f64 evaluation of the same function
+# (attention_f64): the forward within F32_FWD_TOL of max|v| (o is a mean of
+# v rows), each gradient within F32_BWD_TOL of its largest value, and at
+# least F32_VS_BF16 times closer to f64 than the bf16 instance on the inputs
+# cast to bf16, which is what shows that they compute in f32. The split
+# keeps about 16 bits of each operand (2^-17 a term over d terms). On an
+# NVIDIA H100 80GB HBM3 at 700.00 W the worst readings were 4.0e-6 forward
+# and 2.1e-5 backward (chip_smoke.py phase 23): the limit leaves about 11x.
+F32_FWD_TOL, F32_BWD_TOL, F32_VS_BF16 = 2.0 ** -12, 2.0 ** -12, 16.0
+
+
+def attention_f64(q, k, v, mask, do):
+    """o and (dq, dk, dv) of the kernels' function, evaluated in f64."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q @ k.transpose(-1, -2)) * scale
+    s = torch.where(mask[:, None, None, :] > 0, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return p @ v, ((ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale,
+                   p.transpose(-1, -2) @ do)
+
+
+def errors_of_largest(got, want):
+    """max |got - want| over max |want|, for each pair of tensors."""
+    return [float((g.double() - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
 
 
 # --- head widths -------------------------------------------------------------
@@ -143,12 +198,13 @@ def _at_kernel_width(fn, q, k, v, mask, *rest):
 # --- K5 / K6 -----------------------------------------------------------------
 
 def _kernel_view(t: torch.Tensor, name: str) -> torch.Tensor:
-    """``t`` itself if the kernel can read it (bf16 on the card, d
+    """``t`` itself if a kernel can read it (bf16 or f32 on the card, d
     contiguous, 16-byte rows), else a contiguous copy."""
-    if t.dtype != torch.bfloat16 or not t.is_cuda:
-        raise ValueError(f"group_attention: {name} must be a bf16 CUDA tensor "
-                         f"(got {t.dtype} on {t.device})")
-    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
+    if t.dtype not in _KERNEL_DTYPES or not t.is_cuda:
+        raise ValueError(f"attention kernels: {name} must be a bf16 or f32 "
+                         f"CUDA tensor (got {t.dtype} on {t.device})")
+    per_16 = 16 // t.element_size()
+    if (t.stride(-1) != 1 or any(s % per_16 for s in t.stride()[:3])
             or t.data_ptr() % 16):
         t = t.contiguous()
     return t
@@ -171,6 +227,9 @@ def _check_shapes(q, k, v, mask, max_s=_MAX_GROUP_S, what="group_attention"):
 
 def _qkv(q, k, v):
     q, k, v = (_kernel_view(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"attention kernels: q, k, v dtypes differ "
+                         f"({q.dtype}, {k.dtype}, {v.dtype})")
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v
@@ -188,45 +247,71 @@ def _view_args(t):
     return [_native.ptr(t), *t.stride()[:3]]
 
 
-def _fwd_launch(lib, symbol, wrapper):
-    """The forward launcher of ``lib`` at a kernel head width."""
+def _fwd_launch(bf16, f32, wrapper):
+    """The forward launcher of a kernel: ``bf16`` and ``f32`` are the
+    (library, C function) of its two instances."""
     def launch(q, k, v, mask, scale):
         q, k, v = _qkv(q, k, v)
         b, h, s, d = q.shape
         mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
         o = _out(q)
-        fn = _native.function(lib, symbol, _FWD_ARGS)
+        if q.dtype == torch.float32:
+            # the split pass's hi and lo halves of q, k, v
+            work = torch.empty(3, 2, b, h, s, d, dtype=torch.bfloat16,
+                               device=q.device)
+            (lib, symbol), args, extra = f32, _FWD_F32_ARGS, [_native.ptr(work)]
+            counter = wrapper.f32
+        else:
+            (lib, symbol), args, extra = bf16, _FWD_ARGS, []
+            counter = wrapper
+        fn = _native.function(lib, symbol, args)
         code = _native.launch(
                 fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-                *q.stride()[:3], _native.ptr(mask32), *_view_args(o), b, h,
-                s, d, scale)
-        _native.check(lib, code, wrapper.__name__)
-        wrapper.launches += 1
+                *q.stride()[:3], _native.ptr(mask32), *_view_args(o), *extra,
+                b, h, s, d, scale)
+        _native.check(lib, code, counter.__name__)
+        counter.launches += 1
         return o
     return launch
 
 
-def _bwd_launch(lib, symbol, args, wrapper, stats=False):
-    """The backward launcher of ``lib`` (``stats``: K8's f32 scratch of
-    row statistics [2, B, heads, S] rides after dv's strides)."""
+def _bwd_launch(bf16, f32, wrapper):
+    """The backward launcher of a kernel: ``bf16`` is the (library, C
+    function, whether it takes K8's f32 scratch of row statistics [2, B,
+    heads, S]) of its bf16 instance, ``f32`` the (library, C function) of
+    its f32 instance, which is K8's and takes the statistics and the split
+    pass's scratch."""
     def launch(q, k, v, mask, do, scale):
         q, k, v = _qkv(q, k, v)
         do = _kernel_view(do, "do")
+        if do.dtype != q.dtype:
+            raise ValueError(f"attention kernels: do is {do.dtype}, q "
+                             f"{q.dtype}")
         b, h, s, d = q.shape
         mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
         dq, dk, dv = _out(q), _out(q), _out(q)
-        # K8's scratch, held until the launch is enqueued
+        if q.dtype == torch.float32:
+            (lib, symbol), args, stats = f32, _BWD_F32_ARGS, True
+            # the split pass's hi and lo halves of q, k, v and dO
+            work = torch.empty(4, 2, b, h, s, d, dtype=torch.bfloat16,
+                               device=q.device)
+            counter = wrapper.f32
+        else:
+            lib, symbol, stats = bf16
+            args = _BH_BWD_ARGS if stats else _BWD_ARGS
+            work, counter = None, wrapper
+        # scratch, held until the launch is enqueued
         scratch = (torch.empty(2, b, h, s, dtype=torch.float32,
                                device=q.device) if stats else None)
-        extra = [_native.ptr(scratch)] if stats else []
+        extra = [_native.ptr(t) for t in (scratch, work) if t is not None]
         fn = _native.function(lib, symbol, args)
         code = _native.launch(
                 fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
                 *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
                 _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
                 *dq.stride()[:3], *extra, b, h, s, d, scale)
-        _native.check(lib, code, wrapper.__name__)
-        wrapper.launches += 1
+        _native.check(lib, code, counter.__name__)
+        counter.launches += 1
         return dq, dk, dv
     return launch
 
@@ -241,9 +326,10 @@ def group_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """K5: softmax attention of each (batch, head), S <= 255, in f32.
 
-    q, k, v [B, heads, S, d] (bf16 on the card, d <= 128; any strides with
-    d contiguous), mask [B, S] int32 1/0 key mask. -> o [B, heads, S, d]
-    in q's dtype (on the card a view of a [B, S, heads, d] tensor).
+    q, k, v [B, heads, S, d] (bf16 or f32 on the card: the kernel's two
+    instances; d <= 128; any strides with d contiguous), mask [B, S] int32
+    1/0 key mask. -> o [B, heads, S, d] in q's dtype (on the card a view of
+    a [B, S, heads, d] tensor).
     """
     if not q.is_cuda:
         return _group_fwd_plain(q, k, v, mask)
@@ -301,13 +387,22 @@ def bh_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 bh_attention_bwd.launches = 0
 
-_K5 = _fwd_launch("group_attention", "sx_group_attention_fwd",
+for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
+                 bh_attention_bwd):
+    _wrapper.f32 = F32Instance(_wrapper)
+
+_K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"),
+                  ("group_attention", "sx_group_attention_fwd_f32"),
                   group_attention_fwd)
-_K6 = _bwd_launch("group_attention", "sx_group_attention_bwd", _BWD_ARGS,
+_K6 = _bwd_launch(("group_attention", "sx_group_attention_bwd", False),
+                  ("bh_attention", "sx_bh_attention_bwd_f32"),
                   group_attention_bwd)
-_K7 = _fwd_launch("bh_attention", "sx_bh_attention_fwd", bh_attention_fwd)
-_K8 = _bwd_launch("bh_attention", "sx_bh_attention_bwd", _BH_BWD_ARGS,
-                  bh_attention_bwd, stats=True)
+_K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"),
+                  ("bh_attention", "sx_bh_attention_fwd_f32"),
+                  bh_attention_fwd)
+_K8 = _bwd_launch(("bh_attention", "sx_bh_attention_bwd", True),
+                  ("bh_attention", "sx_bh_attention_bwd_f32"),
+                  bh_attention_bwd)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -333,11 +428,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None,
                     small_s_impl: Optional[str] = None) -> torch.Tensor:
     """Fused attention over [B, heads, S, d]; BERT [B, S] 1/0 key mask.
-    On the card a dtype other than bf16 takes the plain attention (the
-    kernels are bf16 tensor-core designs; JAX's f32 attention is f32
-    throughout)."""
+    On the card bf16 and f32 take the kernels (each its own instance); any
+    other dtype takes the plain attention, which computes JAX's f32
+    function."""
     b, h, s, d = q.shape
-    if s > _MAX_FUSED_SEQ or (q.is_cuda and q.dtype != torch.bfloat16):
+    if s > _MAX_FUSED_SEQ or (q.is_cuda and q.dtype not in _KERNEL_DTYPES):
         return multi_head_attention(q, k, v, attention_mask)[0]
     if attention_mask is None:
         attention_mask = torch.ones(b, s, dtype=torch.int32, device=q.device)

@@ -66,8 +66,18 @@ Both run under ``torchrun`` as ``run_ar2``.
     python -m simxns_tpu_torch.run --recipe master_pretrain --synthetic \
         --device cpu --steps 4 --batch 8
 
-The CAPSTONE and ALLIES runners and ``--init-checkpoint`` raise
-``NotImplementedError`` (ROADMAP.md Queue 1).
+:func:`run_allies` runs ALLIES beam-search QA (``allies_qa``) over a tiny
+dual encoder warmed on the synthetic corpus's gold pairs and a scripted
+LLM; it writes ``eval.json`` (EM, F1, API calls and retrievals a
+question).
+
+    python -m simxns_tpu_torch.run --recipe allies_qa --synthetic \
+        --device cpu --corpus-size 64 --num-queries 16
+
+``--init-checkpoint`` warm-starts the AR2 retriever's towers, the KD and
+LEAD students and the MASTER encoder (with its MLM head) from a HF
+checkpoint (``hf_import``; BERT, RoBERTa, ELECTRA, DistilBERT). The
+CAPSTONE runner raises ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -83,9 +93,9 @@ import time
 import numpy as np
 import torch
 
-from simxns_tpu_torch.config import (AR2RecipeConfig, KDRecipeConfig,
-                                     LeadRecipeConfig, MasterPretrainConfig,
-                                     RECIPES)
+from simxns_tpu_torch.config import (AlliesRecipeConfig, AR2RecipeConfig,
+                                     KDRecipeConfig, LeadRecipeConfig,
+                                     MasterPretrainConfig, RECIPES)
 from simxns_tpu_torch.data import (CondenserCollator, HashTokenizer,
                                    TokenMeta, from_mining_result)
 from simxns_tpu_torch.data.datasets import (load_id_text, load_passages_tsv,
@@ -96,7 +106,8 @@ from simxns_tpu_torch.io import (MetricLogger, export_encoder_only,
                                  save_checkpoint)
 from simxns_tpu_torch.models import (BertConfig, BiEncoder, BiEncoderConfig,
                                      Condenser, CondenserConfig,
-                                     CrossEncoder, CrossEncoderConfig)
+                                     CrossEncoder, CrossEncoderConfig,
+                                     truncate_layers)
 from simxns_tpu_torch.models import cross_encoder, dual_encoder
 from simxns_tpu_torch.parallel.collectives import (all_gather_rows, barrier,
                                                    broadcast_int)
@@ -218,8 +229,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="auto: continue from the highest *_state checkpoint "
                          "in --output-dir; never: start fresh")
     ap.add_argument("--init-checkpoint", default=None,
-                    help="HF checkpoint to warm-start the encoders from "
-                         "(not ported yet)")
+                    help="HF PyTorch checkpoint (a pytorch_model.bin or its "
+                         "directory) to warm-start the encoders from: the "
+                         "AR2 retriever, the KD and LEAD students, the "
+                         "MASTER encoder (and its MLM head)")
     return ap
 
 
@@ -271,15 +284,92 @@ def _bert_cfg(recipe_bert: BertConfig, tiny: bool, vocab: int,
     return cfg
 
 
+def _load_init_checkpoint(args):
+    """``--init-checkpoint``: load a HF PyTorch checkpoint once (a
+    directory means its ``pytorch_model.bin``; tensors only, on the CPU)
+    and convert it to the port's names. The reference warm-starts every
+    published config from such an artifact (ERNIE-2.0/BERT, RoBERTa,
+    ELECTRA, DistilBERT); the family is read from the keys. -> None
+    without the flag, else ``{"family", "encoder", "mlm", "sd"}``."""
+    if not args.init_checkpoint:
+        return None
+    from simxns_tpu_torch.models.hf_import import (convert_hf_auto,
+                                                   sniff_hf_family)
+
+    path = args.init_checkpoint
+    if os.path.isdir(path):
+        path = os.path.join(path, "pytorch_model.bin")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if sniff_hf_family(sd) == "t5":
+        # the docT5query generator: no encoder warm start
+        print("init-checkpoint: t5 (doc2query generator)", file=sys.stderr)
+        return {"family": "t5", "encoder": None, "mlm": None, "sd": sd}
+    family, enc, mlm = convert_hf_auto(sd)
+    n = len({k.split(".")[1] for k in enc if k.startswith("layers.")})
+    print(f"init-checkpoint: {family} encoder, {n} layers", file=sys.stderr)
+    return {"family": family, "encoder": enc, "mlm": mlm, "sd": sd}
+
+
+def _init_bert_cfg(init, base_cfg: BertConfig, data_vocab: int) -> BertConfig:
+    """A recipe's BertConfig reshaped around the warm-start artifact: every
+    shape from the checkpoint, except the recipe's depth where it is the
+    shallower (the PROD student takes a deeper model's first layers)."""
+    from simxns_tpu_torch.models.hf_import import config_from_hf_params
+
+    if init["family"] == "t5":
+        raise SystemExit(
+            "--init-checkpoint is a T5 (doc2query generator) artifact — "
+            "it cannot warm-start a BERT-family encoder. Only "
+            "capstone_curriculum consumes T5 checkpoints (to generate "
+            "the expansion query TSV).")
+    new = config_from_hf_params(init["encoder"], init["family"],
+                                base=base_cfg)
+    if base_cfg.num_layers < new.num_layers:
+        new = new.replace(num_layers=base_cfg.num_layers)
+    if new.hidden_size % new.num_heads:
+        raise SystemExit(
+            f"--init-checkpoint hidden_size {new.hidden_size} is not "
+            f"divisible by the recipe's num_heads {new.num_heads}")
+    if data_vocab > new.vocab_size:
+        raise SystemExit(
+            f"--init-checkpoint vocab ({new.vocab_size}) is smaller than "
+            f"the corpus vocab ({data_vocab}) — the data was packed with a "
+            "different tokenizer than the checkpoint's")
+    return new
+
+
+def _graft_encoder(model: torch.nn.Module, init, prefixes,
+                   num_layers: int) -> None:
+    """Copy the artifact's encoder (its first ``num_layers`` layers) into
+    each encoder of ``model`` named by ``prefixes`` (e.g.
+    ``"question_model.encoder"``), in place; the names must match
+    exactly."""
+    enc = truncate_layers(init["encoder"], num_layers)
+    own = model.state_dict()
+    graft = {}
+    for prefix in prefixes:
+        have = {k[len(prefix) + 1:] for k in own
+                if k.startswith(prefix + ".")}
+        if have != set(enc):
+            raise ValueError(
+                f"--init-checkpoint: {prefix} has parameters "
+                f"{sorted(have ^ set(enc))[:4]} that the artifact does not "
+                "match")
+        graft.update({f"{prefix}.{k}": v for k, v in enc.items()})
+    model.load_state_dict(graft, strict=False)
+
+
 class _Corpus:
     """Token arrays and QA labels, from prepared .npz files or synthesized.
 
     ``positive_rows`` (optional) carries per-query gold row ids (qrels
-    labeling); ``passages`` maps corpus row -> (text, title).
+    labeling); ``passages`` maps corpus row -> (text, title);
+    ``tokenizer`` (synthetic text corpora only) encodes new text the way
+    the corpus was encoded (ALLIES's expanded questions).
     """
 
     def __init__(self, corpus_ids, query_ids, questions, answers, passages,
-                 vocab_size, sep_id, positive_rows=None):
+                 vocab_size, sep_id, positive_rows=None, tokenizer=None):
         self.corpus_ids = corpus_ids
         self.query_ids = query_ids
         self.questions = questions
@@ -288,6 +378,7 @@ class _Corpus:
         self.vocab_size = vocab_size
         self.sep_id = sep_id
         self.positive_rows = positive_rows
+        self.tokenizer = tokenizer
 
     @property
     def corpus_mask(self):
@@ -467,7 +558,7 @@ def _synthesize(args, data_cfg) -> _Corpus:
         enc = tok.encode(text, max_length=lq)
         query_ids[i, : len(enc)] = enc
     return _Corpus(corpus_ids, query_ids, questions, answers, passages,
-                   vocab_size=2048, sep_id=tok.sep_token_id)
+                   vocab_size=2048, sep_id=tok.sep_token_id, tokenizer=tok)
 
 
 def _get_corpus(args, data_cfg) -> _Corpus:
@@ -570,12 +661,18 @@ def run_kd(name: str, cfg: KDRecipeConfig, args) -> dict:
     if args.remat != "recipe":
         s_bert = s_bert.replace(remat=args.remat in ("de", "both"))
         t_bert = t_bert.replace(remat=args.remat in ("ce", "both"))
-    if args.init_checkpoint:
-        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
-                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    # --init-checkpoint: the PROD student init, the first layers of a
+    # deeper HF checkpoint (ERNIE-2.0, ProD_KD/model/models.py:33-60)
+    init = _load_init_checkpoint(args)
+    if init is not None:
+        s_bert = _init_bert_cfg(init, s_bert, data.vocab_size)
     # the student at seed, the teacher at seed + 1, as the JAX launcher
     student, teacher = init_models(BiEncoderConfig(bert=s_bert),
                                    CrossEncoderConfig(bert=t_bert), args.seed)
+    if init is not None:
+        _graft_encoder(student, init, ("question_model.encoder",
+                                       "ctx_model.encoder"),
+                       s_bert.num_layers)
     student, teacher = student.to(device), teacher.to(device)
     kd_lr = args.lr if args.lr is not None else (1e-3 if tiny else None)
     tx = _make_optim(cfg.optim, kd_lr, steps)
@@ -701,9 +798,12 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
     if args.remat != "recipe":
         de_bert = de_bert.replace(remat=args.remat in ("de", "both"))
         ce_bert = ce_bert.replace(remat=args.remat in ("ce", "both"))
-    if args.init_checkpoint:
-        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
-                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    # --init-checkpoint warms the retriever's towers (the reference's DE
+    # warm starts: ERNIE/BERT for wiki and MARCO, RoBERTa for MS-Doc); the
+    # reranker keeps the recipe's config (its warm start is a trained CE)
+    init = _load_init_checkpoint(args)
+    if init is not None:
+        de_bert = _init_bert_cfg(init, de_bert, data.vocab_size)
     # the RobertaDot projection head only for full-size runs: an extra
     # random layer stalls the tiny from-scratch warm-up
     proj = None if tiny else cfg.retriever.projection_dim
@@ -713,6 +813,11 @@ def run_ar2(name: str, cfg: AR2RecipeConfig, args) -> dict:
         CrossEncoderConfig(bert=ce_bert,
                            binary_head=cfg.reranker.binary_head),
         args.seed)
+    if init is not None:
+        _graft_encoder(de, init, ("question_model.encoder",) if
+                       cfg.retriever.share_weight else
+                       ("question_model.encoder", "ctx_model.encoder"),
+                       de_bert.num_layers)
     de, ce = de.to(device), ce.to(device)
     lj = min(cfg.data.max_joint_length,
              data.query_ids.shape[1] + data.corpus_ids.shape[1] + 1)
@@ -1110,9 +1215,6 @@ def run_pretrain(name: str, cfg: MasterPretrainConfig, args) -> dict:
               "token streams; --corpus/--queries are ignored by this "
               "recipe (the reference pretrains from its own preprocessed "
               "MASTER corpus format).", file=sys.stderr)
-    if args.init_checkpoint:
-        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
-                                  "ported yet (ROADMAP.md Queue 1, item 14)")
     tiny = not args.full_size      # the synthetic config is tiny already
     logger = MetricLogger(args.output_dir, rank=mesh.rank)
     steps = args.steps if args.steps is not None else (
@@ -1142,8 +1244,19 @@ def run_pretrain(name: str, cfg: MasterPretrainConfig, args) -> dict:
     bert = _bert_cfg(cfg.bert, tiny, 2048)
     if tiny:
         bert = bert.replace(max_position_embeddings=max(seq, 64))
+    # --init-checkpoint: MASTER pretrains from bert-base-uncased
+    # (MASTER/README.md --model_name_or_path): the encoder, and the MLM
+    # head when the artifact has one
+    init = _load_init_checkpoint(args)
+    if init is not None:
+        bert = _init_bert_cfg(init, bert, 2048)
     model = init_condenser(CondenserConfig(
-        bert=bert, n_head_layers=cfg.n_head_layers), args.seed).to(device)
+        bert=bert, n_head_layers=cfg.n_head_layers), args.seed)
+    if init is not None:
+        _graft_encoder(model, init, ("encoder",), bert.num_layers)
+        if init["mlm"] is not None:
+            model.mlm.load_state_dict(init["mlm"])
+    model = model.to(device)
     # the JAX launcher initializes from one collated batch of 2 examples:
     # drawn here too, so both streams stay in step with its run
     coll(examples(2))
@@ -1231,13 +1344,20 @@ def run_lead(name: str, cfg: LeadRecipeConfig, args) -> dict:
     if args.remat != "recipe":
         db_cfg = db_cfg.replace(remat=args.remat in ("de", "both"))
         ce_cfg = ce_cfg.replace(remat=args.remat in ("ce", "both"))
-    if args.init_checkpoint:
-        raise NotImplementedError("--init-checkpoint (HF warm starts) is not "
-                                  "ported yet (ROADMAP.md Queue 1, item 14)")
+    # --init-checkpoint: the LEAD student's warm start (DistilBERT,
+    # LEAD/modeling_distilbert.py, distill_from_12ce_to_6de.sh)
+    init = _load_init_checkpoint(args)
+    if init is not None:
+        db_cfg = _init_bert_cfg(init, db_cfg, data.vocab_size)
     # the student at seed, the CE at seed + 1, as the JAX launcher
     db, ce = init_models(
         BiEncoderConfig(bert=db_cfg, share_weight=cfg.student.share_weight),
         CrossEncoderConfig(bert=ce_cfg, per_layer_logits=True), args.seed)
+    if init is not None:
+        _graft_encoder(db, init, ("question_model.encoder",) if
+                       cfg.student.share_weight else
+                       ("question_model.encoder", "ctx_model.encoder"),
+                       db_cfg.num_layers)
     db, ce = db.to(device), ce.to(device)
     lr = args.lr if args.lr is not None else (
         1e-3 if tiny else cfg.optim.learning_rate)
@@ -1383,6 +1503,102 @@ def run_lead(name: str, cfg: LeadRecipeConfig, args) -> dict:
     return out
 
 
+def run_allies(name: str, cfg: AlliesRecipeConfig, args) -> dict:
+    """ALLIES beam-search QA over a trained retriever and a scripted LLM
+    (``ALLIES/main.py:11-160``): per question, the beam search of
+    :func:`simxns_tpu_torch.allies.allies_answer` with retrieval-grounded
+    answers, scored by EM and F1. The LLM is the deterministic
+    :class:`~simxns_tpu_torch.allies.EvidenceLLM` (the run is offline); a
+    real client takes its place in production. The retriever is a tiny
+    dual encoder warmed for 30 epochs on the gold pairs (the reference
+    loads a fine-tuned DPR and its precomputed embeddings), behind the
+    launcher's index (``--int8-index``: int8 rows)."""
+    from simxns_tpu_torch.allies import (ALLIESConfig, EvidenceLLM,
+                                         allies_answer, exact_match,
+                                         f1_score)
+    from simxns_tpu_torch.config import DataConfig
+
+    t_start = time.time()
+    device = create_mesh(args.device, backend=args.dist_backend,
+                         timeout_s=_stall_timeout(args)).device
+    data = _get_corpus(args, DataConfig())
+    if data.tokenizer is None:
+        raise SystemExit("allies_qa needs a text corpus with a tokenizer; "
+                         "run --synthetic at demo scale (<= 20000 passages)")
+    tok = data.tokenizer
+    logger = MetricLogger(args.output_dir)
+    lq = data.query_ids.shape[1]
+
+    model = BiEncoder(BiEncoderConfig(bert=_bert_cfg(None, True,
+                                                     data.vocab_size)),
+                      generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    tx = make_adamw(3e-3, total_steps=0)
+    state = TrainState.create(model, tx)
+    step = make_biencoder_step(tx, device, grad_mode="full")
+    ds = from_mining_result(data.corpus_ids, data.query_ids,
+                            _gold_warm(data, 2), num_negatives=1,
+                            sep_id=data.sep_id, seed=args.seed,
+                            simans_mode=None)
+    batch_size = min(args.batch or 16, len(data.query_ids))
+    with logger.timed("warmup"):
+        for _ in range(30):
+            for b in ds.batches(batch_size=batch_size, with_joint=False):
+                state, _ = step(state, b)
+
+    store = (torch.int8 if args.int8_index
+             else torch.bfloat16 if device.type == "cuda" else torch.float32)
+    index = MIPSIndex(device,
+                      block_size=min(8192, max(32, len(data.corpus_ids) // 4)),
+                      store_dtype=store, **_index_kwargs(args, device))
+    model.eval()
+    with logger.timed("encode_corpus"), torch.no_grad():
+        _build_index(index, model.encode_passage, data.corpus_ids,
+                     data.corpus_mask, data.vocab_size, args)
+
+    def retrieve(question: str, k: int):
+        enc = tok.encode(question, max_length=lq)
+        ids = np.zeros((1, lq), np.int32)
+        ids[0, : len(enc)] = enc
+        with torch.inference_mode():
+            emb = model.encode_query(
+                torch.from_numpy(ids).to(device),
+                torch.from_numpy((ids != 0).astype(np.int32)).to(device))
+        _, top = index.search(emb.float().cpu().numpy(),
+                              min(k, len(data.corpus_ids)), query_batch=8)
+        return [data.passages.get(int(p), ("", ""))[0] for p in top[0]]
+
+    llm = EvidenceLLM()
+    allies_cfg = ALLIESConfig(
+        beam_size=cfg.beam_size, beam_depth=cfg.beam_depth,
+        threshold=cfg.threshold, top_k=cfg.topk,
+        retrieval_type=cfg.retrieval_type, summarize=cfg.summarize)
+    n_eval = min(len(data.questions),
+                 args.steps if args.steps is not None else 16)
+    ems, f1s, api_calls, retrievals = [], [], 0, 0
+    with logger.timed("allies"):
+        for qi in range(n_eval):
+            answer, _, counters = allies_answer(
+                data.questions[qi], llm, allies_cfg, retrieve)
+            ems.append(exact_match(answer, data.answers[qi]))
+            f1s.append(f1_score(answer, data.answers[qi]))
+            api_calls += counters["api_calls"]
+            retrievals += counters["retrievals"]
+    out = {"recipe": name, "questions": n_eval,
+           "em": float(np.mean(ems)), "f1": float(np.mean(f1s)),
+           "api_calls_per_q": api_calls / max(n_eval, 1),
+           "retrievals_per_q": retrievals / max(n_eval, 1),
+           "wall_s": time.time() - t_start}
+    if args.output_dir:
+        with open(os.path.join(args.output_dir, "eval.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    logger.log(n_eval, {"em": out["em"], "f1": out["f1"]}, phase="allies")
+    logger.close()
+    print(f"[{name}] {n_eval} questions: EM={out['em']:.3f} "
+          f"F1={out['f1']:.3f}")
+    return out
+
+
 def _on_shard(step, mesh):
     """``step`` called with this rank's rows of each global batch (its last
     argument); ``step`` itself without a group."""
@@ -1397,12 +1613,12 @@ def _on_shard(step, mesh):
 
 # the runner of each recipe config the port runs
 _RUNNERS = {AR2RecipeConfig: run_ar2, KDRecipeConfig: run_kd,
-            LeadRecipeConfig: run_lead, MasterPretrainConfig: run_pretrain}
-# the JAX package's other runners and the ROADMAP.md Queue 1 items that
-# bring them to the port
+            LeadRecipeConfig: run_lead, MasterPretrainConfig: run_pretrain,
+            AlliesRecipeConfig: run_allies}
+# the JAX package's other runner and the ROADMAP.md Queue 1 item that
+# brings it to the port
 _NOT_PORTED = {
     "CapstoneRecipeConfig": ("run_capstone (CAPSTONE curriculum)", 15),
-    "AlliesRecipeConfig": ("run_allies (ALLIES beam-search QA)", 16),
 }
 
 

@@ -16,7 +16,11 @@ over the ranks of ``torchrun``): the index is row-split over the data axis
 of the mesh, the passage encoder's chunk is ``encode_chunk`` times the
 mesh's ranks (JAX: times its chips) split over that axis, and every rank
 calls every method with the same arguments and returns the same hits.
-``from_checkpoint`` waits for ROADMAP.md Queue 1 item 14.
+
+``from_checkpoint`` builds one from a launcher checkpoint (a
+``retriever_state-<step>`` or the final ``retriever-<step>``, written by
+:mod:`simxns_tpu_torch.io.checkpoint`): the parameters are loaded into
+the model on the CPU, then the model moves to the serving device.
 """
 
 from __future__ import annotations
@@ -133,3 +137,18 @@ class DenseRetriever:
                                       text, title))
             out.append(hits)
         return out
+
+    @staticmethod
+    def from_checkpoint(ckpt_dir: str, step: int, model, tokenizer,
+                        name: str = "checkpoint", device=None,
+                        mesh: Optional[Mesh] = None,
+                        **kw) -> "DenseRetriever":
+        """A retriever over ``model`` with the parameters of the checkpoint
+        ``<ckpt_dir>/<name>-<step>`` (a ``TrainState`` tree or a params-only
+        one); ``device``, ``mesh`` and ``kw`` as the constructor's."""
+        from simxns_tpu_torch.io.checkpoint import restore_checkpoint
+
+        tree = restore_checkpoint(ckpt_dir, None, step, name=name)
+        model.load_state_dict(tree["params"] if "params" in tree else tree)
+        return DenseRetriever(model, tokenizer, device=device, mesh=mesh,
+                              **kw)

@@ -23,12 +23,15 @@ expressions; K4, the MIPS bucket candidates, bitwise (int8) at every
 bucket, at query counts across both tiles, at blocks off the 128 grid
 and through the gcd merge of a bucket off 128, with the fused search at
 the launcher's block for 8,000 rows; what a kernel does not take raises
-instead of running a plain version on the card.
+instead of running a plain version on the card. The f32 instances of
+K5-K8 are held against an f64 evaluation (and against the bf16 instance,
+which they must beat 16-fold).
 """
 
 import pytest
 import torch
 
+from simxns_tpu_torch import ops
 from simxns_tpu_torch.ops import flash_attention as fa
 from simxns_tpu_torch.ops import fused_ffn
 from simxns_tpu_torch.ops import fused_layer as fl
@@ -875,31 +878,103 @@ def test_bh_attention_autograd_on_head_views(dev):
         assert err <= 2.0 ** -7 * float(ref.grad.float().abs().max()), err
 
 
+# The f32 instances of K5-K8 against an f64 evaluation (fa.attention_f64)
+# within the module's limits (fa.F32_*), the ones chip_smoke.py holds them to
+
+
+@pytest.mark.parametrize("b,heads,s,d", [(2, 4, 160, 64), (1, 2, 255, 128),
+                                         (3, 2, 17, 32), (3, 2, 65, 64)]
+                         + GROUP_WIDTHS)
+def test_group_attention_f32_matches_f64(dev, b, heads, s, d):
+    """K5/K6's f32 instances (K6's is K8's two passes) on f32 inputs: within
+    the f32 limits of an f64 evaluation, fa.F32_VS_BF16 times closer than the
+    bf16 instance, outputs in f32, launches on the f32 counters only."""
+    _check_f32_instances(dev, fa.group_attention_fwd, fa.group_attention_bwd,
+                         b, heads, s, d)
+
+
+@pytest.mark.parametrize("b,heads,s,d", [(2, 3, 512, 64), (2, 2, 288, 32),
+                                         (1, 2, 1024, 128), (2, 2, 257, 128)]
+                         + BH_WIDTHS)
+def test_bh_attention_f32_matches_f64(dev, b, heads, s, d):
+    """K7/K8's f32 instances, as K5/K6's."""
+    _check_f32_instances(dev, fa.bh_attention_fwd, fa.bh_attention_bwd,
+                         b, heads, s, d)
+
+
+def _check_f32_instances(dev, fwd, bwd, b, heads, s, d):
+    q, k, v, do = (_randn(dev, b, heads, s, d, seed=s + d + i)
+                   for i in range(4))
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[0, s // 2 + 1:] = 0
+    if b > 2:
+        mask[-1] = 0          # every key masked: the uniform softmax
+    o64, g64 = fa.attention_f64(q, k, v, mask, do)
+    counts = (fwd.launches, bwd.launches, fwd.f32.launches, bwd.f32.launches)
+    o = fwd(q, k, v, mask)
+    grads = bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, fwd.f32.launches,
+            bwd.f32.launches) == (counts[0], counts[1], counts[2] + 1,
+                                  counts[3] + 1)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert all(g.dtype == torch.float32 and g.shape == q.shape
+               for g in grads)
+    # the forward's error relative to max|v| (o is a mean of v rows)
+    err_o = float((o.double() - o64).abs().max()) / float(v.abs().max())
+    err_g = fa.errors_of_largest(grads, g64)
+    assert err_o <= fa.F32_FWD_TOL, err_o
+    assert max(err_g) <= fa.F32_BWD_TOL, err_g
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    ob = fwd(qb, kb, vb, mask)
+    gb = bwd(qb, kb, vb, mask, dob)
+    err_ob = float((ob.double() - o64).abs().max()) / float(v.abs().max())
+    assert err_ob >= fa.F32_VS_BF16 * err_o, (err_ob, err_o)
+    for e32, e16 in zip(err_g, fa.errors_of_largest(gb, g64)):
+        assert e16 >= fa.F32_VS_BF16 * e32, (e16, e32)
+
+
 @pytest.mark.parametrize("s", [160, 512])
-def test_f32_attention_takes_the_plain_route(dev, s):
-    """f32 q, k, v on the card (the JAX kernels' f32 function): the
-    dispatch takes the plain attention before any launch, with or without
-    ``small_s_impl="group"``, and the kernel wrappers refuse f32."""
-    q, k, v, _, mask = _attention_inputs(dev, 2, 3, s, 64, seed=s)
-    q, k, v = (t.float().requires_grad_() for t in (q, k, v))
-    counts = [w.launches for w in (fa.group_attention_fwd,
-                                   fa.group_attention_bwd,
-                                   fa.bh_attention_fwd, fa.bh_attention_bwd)]
+def test_f32_attention_takes_the_kernels(dev, s):
+    """f32 q, k, v on the card through the dispatch (small_s_impl="group"
+    below 256) under autograd, on head views: the f32 instances launch
+    (K5/K6 or K7/K8), the bf16 counters stay, and the result and the
+    gradients are the f32 function's (F32_* limits against f64); f16
+    takes the plain attention with no launch."""
+    b, heads, d = 2, 3, 64
+    x = [_randn(dev, b, s, heads * d, seed=i).requires_grad_()
+         for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, s // 3:] = 0
+    fwd, bwd = ((fa.bh_attention_fwd, fa.bh_attention_bwd) if s >= 256 else
+                (fa.group_attention_fwd, fa.group_attention_bwd))
+    counts = (fwd.launches, bwd.launches, fwd.f32.launches, bwd.f32.launches)
     out, _ = multi_head_attention(q, k, v, mask, impl="flash",
                                   small_s_impl="group")
-    out.square().sum().backward()
-    want = multi_head_attention(q.detach(), k.detach(), v.detach(), mask)[0]
+    do = _randn(dev, *out.shape, seed=9)
+    out.backward(do)
     assert out.dtype == torch.float32
-    assert torch.equal(out.detach(), want)
-    assert [w.launches for w in (fa.group_attention_fwd,
-                                 fa.group_attention_bwd, fa.bh_attention_fwd,
-                                 fa.bh_attention_bwd)] == counts
-    fwd = fa.bh_attention_fwd if s >= 256 else fa.group_attention_fwd
-    with pytest.raises(ValueError, match="bf16"):
-        fwd(q.detach(), k.detach(), v.detach(), mask)
+    assert (fwd.launches, bwd.launches, fwd.f32.launches,
+            bwd.f32.launches) == (counts[0], counts[1], counts[2] + 1,
+                                  counts[3] + 1)
+    o64, g64 = fa.attention_f64(q.detach(), k.detach(), v.detach(), mask, do)
+    err_o = float((out.detach().double() - o64).abs().max()
+                  / v.detach().abs().max())
+    assert err_o <= fa.F32_FWD_TOL, err_o
+    grads = [t.grad.view(b, s, heads, d).transpose(1, 2) for t in x]
+    assert max(fa.errors_of_largest(grads, g64)) <= fa.F32_BWD_TOL
+    h = [t.detach().half() for t in (q, k, v)]
+    before = ops.launches()
+    got = multi_head_attention(*h, mask, impl="flash",
+                               small_s_impl="group")[0]
+    assert got.dtype == torch.float16 and ops.launches() == before
+    assert torch.equal(got, multi_head_attention(*h, mask)[0])
     with pytest.raises(ValueError, match="head widths 1 .. 128"):
-        fwd(*(torch.zeros(1, 1, s, 144, dtype=torch.bfloat16, device=dev)
-              for _ in range(3)), mask[:1])
+        fwd(*(torch.zeros(1, 1, s, 144, device=dev) for _ in range(3)),
+            mask[:1])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fwd(*h, mask)
 
 
 def test_fused_int8_layer_follows_the_jax_dispatch(dev):

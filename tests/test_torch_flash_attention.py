@@ -387,3 +387,85 @@ def test_kernels_take_every_head_width_up_to_128(pair):
         q = torch.empty(2, 3, 20, d, device="meta")
         with pytest.raises(ValueError, match="head widths 1 .. 128"):
             fa._check_shapes(q, q, q, mask, max_s, what)
+
+
+# --- the f32 instances (K5-K8 on f32 q, k, v) --------------------------------
+
+@pytest.mark.parametrize("small_s_impl,shape", [
+    ("group", (3, 2, 160, 64)), ("group", (2, 2, 17, 24)),
+    (None, (3, 2, 300, 32)), (None, (2, 1, 512, 16))])
+def test_f32_flash_attention_matches_interpreted_kernel(small_s_impl, shape):
+    """f32 q, k, v through ``flash_attention`` (the route the card sends to
+    the f32 instances; the plain versions here) against JAX's
+    ``flash_attention`` with its Pallas kernels interpreted, forward and
+    gradients under autograd: 1e-5 absolute forward, 1e-5 of the largest
+    gradient (the f32 function on both sides, summed in another order)."""
+    q, k, v, do, mask = _inputs(*shape, seed=sum(shape) + 1)
+    mask[-1] = 0
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, jnp.asarray(mask), small_s_impl=small_s_impl), *jargs)
+    want = [np.asarray(x, np.float32)
+            for x in (out, *vjp(jnp.asarray(do)))]
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = fa.flash_attention(*ts, torch.from_numpy(mask),
+                             small_s_impl=small_s_impl)
+    got.backward(torch.from_numpy(do))
+    assert got.dtype == torch.float32
+    assert np.abs(got.detach().numpy() - want[0]).max() <= 1e-5
+    for t, w in zip(ts, want[1:]):
+        assert np.abs(t.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+def _split(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm3(a, b):
+    """a @ b as the f32 instances form it: both operands as hi + lo bf16
+    halves, hi hi + hi lo + lo hi in f32 (lo lo dropped)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _split_attention(q, k, v, do, mask):
+    """The f32 instances' arithmetic in f32 PyTorch: every product of the
+    forward and the backward through :func:`_mm3`."""
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = _mm3(q, k.transpose(-1, -2)) * scale
+    s = torch.where(torch.from_numpy(mask)[:, None, None, :] > 0, s, -1e9)
+    p = torch.softmax(s, dim=-1)
+    dp = _mm3(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return [x.numpy() for x in (
+        _mm3(p, v), _mm3(ds, k) * scale,
+        _mm3(ds.transpose(-1, -2), q) * scale, _mm3(p.transpose(-1, -2), do))]
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 160, 64), (2, 2, 300, 128),
+                                   (2, 2, 64, 16)])
+def test_f32_split_products_are_f32_class(shape):
+    """The CPU twin of the f32 instances' arithmetic (``_mm3``): against
+    JAX's interpreted f32 kernels within the card's limits (``fa.F32_*``:
+    2^-12 of max|v| forward, of the largest gradient backward), and at
+    least ``fa.F32_VS_BF16`` (16) times closer to an f64 evaluation than the
+    same function on the inputs cast to bf16 (what the bf16 instances
+    see)."""
+    q, k, v, do, mask = _inputs(*shape, seed=sum(shape) + 2)
+    want = _jax_bh(q, k, v, do, mask, jnp.float32)
+    got = _split_attention(q, k, v, do, mask)
+    o64, g64 = fa.attention_f64(*(torch.from_numpy(x)
+                                  for x in (q, k, v, mask, do)))
+    ref = [x.numpy() for x in (o64, *g64)]
+    bf = [np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+          for x in (q, k, v, do)]
+    bf16 = _jax_bh(*bf, mask, jnp.bfloat16)
+    scale = [np.abs(v).max()] + [np.abs(r).max() for r in ref[1:]]
+    tol = [fa.F32_FWD_TOL] + [fa.F32_BWD_TOL] * 3
+    for g, w, r, b, m, t in zip(got, want, ref, bf16, scale, tol):
+        assert np.abs(g - w).max() <= t * m
+        err, err_bf16 = np.abs(g - r).max() / m, np.abs(b - r).max() / m
+        assert err_bf16 >= fa.F32_VS_BF16 * err, (err_bf16, err)

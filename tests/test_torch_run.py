@@ -102,16 +102,10 @@ def test_ar2_recipes_run(tmp_path, recipe):
         assert prefix in names
 
 
-@pytest.mark.parametrize("recipe", ["capstone_curriculum", "allies_qa"])
+@pytest.mark.parametrize("recipe", ["capstone_curriculum"])
 def test_other_runners_are_not_ported(recipe):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prun.main(["--recipe", recipe, "--synthetic", "--device", "cpu"])
-
-
-def test_init_checkpoint_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prun.main(["--recipe", "nq_ar2_simans", *RUN_TINY, "--device", "cpu",
-                   "--init-checkpoint", str(tmp_path / "model.bin")])
 
 
 def _prepare_data(argv):

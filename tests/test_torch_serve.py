@@ -116,3 +116,67 @@ def test_search_before_index_raises():
     r = DenseRetriever(port, HashTokenizer(vocab_size=1024), device="cpu")
     with pytest.raises(RuntimeError, match="index not built"):
         r.search(["anything"], k=3)
+
+
+def test_from_checkpoint_roundtrip(tmp_path):
+    """``tests/test_serve.py:70`` on both packages: the tiny shared-tower
+    BiEncoder's TrainState (JAX PRNGKey(3) weights, the same in both) saved
+    at step 7, ``from_checkpoint`` into a zeroed model, 20 passages, exact
+    f32 search: the port's hits equal the same retriever built from the
+    weights in memory (ids and scores bitwise) and the JAX retriever's
+    (ids; scores within 1e-4 relative: f32 encoders, summation order)."""
+    import jax
+
+    from simxns_tpu.io import save_checkpoint as jax_save
+    from simxns_tpu.train import TrainState as JaxTrainState
+    from simxns_tpu.train import make_adamw as jax_adamw
+    from simxns_tpu_torch.io import save_checkpoint
+    from simxns_tpu_torch.models import BiEncoder, BiEncoderConfig
+    from simxns_tpu_torch.train import TrainState, make_adamw
+
+    from simxns_tpu.models import BertConfig as JaxBertConfig
+    from simxns_tpu.models import BiEncoder as JaxBiEncoder
+    from simxns_tpu.models import BiEncoderConfig as JaxBiEncoderConfig
+    from simxns_tpu_torch.models import params_from_jax
+    from torch_parity import port_bert
+
+    bert = JaxBertConfig.tiny(vocab_size=512)
+    jmodel = JaxBiEncoder(JaxBiEncoderConfig(bert=bert, share_weight=True))
+    dummy = np.ones((2, 8), np.int32)
+    params = jmodel.init(jax.random.PRNGKey(3), dummy, dummy, dummy, dummy)
+    port = BiEncoder(BiEncoderConfig(bert=port_bert(bert), share_weight=True))
+    port.load_state_dict(params_from_jax(jax.device_get(params)))
+    jtx = jax_adamw(1e-3, total_steps=0)
+    jax_save(str(tmp_path / "jax"), JaxTrainState.create(params, jtx), 7)
+    save_checkpoint(str(tmp_path / "port"),
+                    TrainState.create(port, make_adamw(1e-3)).state_dict(),
+                    7, name="retriever_state")
+    kw = dict(max_q_length=12, max_ctx_length=24, block_size=16,
+              encode_chunk=16, index_mode="exact")
+    zero = JaxTrainState.create(jax.tree.map(jnp.zeros_like, params), jtx)
+    jr = JaxDenseRetriever.from_checkpoint(
+        str(tmp_path / "jax"), 7, jmodel, JaxHashTokenizer(vocab_size=512),
+        zero, mesh=create_mesh(n_data=1), **kw)
+    jr.index.store_dtype = jnp.float32
+    fresh = BiEncoder(BiEncoderConfig(bert=port.cfg.bert, share_weight=True))
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.zero_()
+    tok = HashTokenizer(vocab_size=512)
+    tr = DenseRetriever.from_checkpoint(
+        str(tmp_path / "port"), 7, fresh, tok, name="retriever_state",
+        device="cpu", store_dtype=torch.float32, **kw)
+    mem = DenseRetriever(port, tok, device="cpu", store_dtype=torch.float32,
+                         **kw)
+    passages = {i: (f"body token{i}", f"t{i}") for i in range(20)}
+    for r in (jr, tr, mem):
+        r.index_corpus(passages)
+    queries = ["t 4 body token4", "t 11 body token11"]
+    want, got, ref = (r.search(queries, k=3) for r in (jr, tr, mem))
+    assert got[0][0].passage_id == 4
+    for g, w, m in zip(got, want, ref):
+        assert [h.passage_id for h in g] == [h.passage_id for h in m]
+        assert [h.score for h in g] == [h.score for h in m]
+        assert [h.passage_id for h in g] == [h.passage_id for h in w]
+        for a, b in zip(g, w):
+            assert abs(a.score - b.score) <= 1e-4 * abs(b.score)
