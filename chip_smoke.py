@@ -234,7 +234,23 @@ non-zero and prints no result):
    against the plain pair beside two plain versions, 3 AdamW steps of
    ``reader_loss``; then ``run_allies`` in ``allies_qa`` with
    ``--int8-index`` over 2,048 synthetic passages to its end (K4);
-26. the ``kernels`` line (K1-K14 and the f32 instances of K5-K8 apart,
+26. CAPSTONE: (a) a T5-base v1.0 artifact written here under HF's names
+   (random weights, tied), loaded through ``--init-checkpoint``'s sniff,
+   ``convert_hf_t5`` and ``t5_config_from_state_dict``, generates 3
+   queries for each of 1,024 synthetic passages of 512 tokens
+   (``doc2query_tsv``: 64 target tokens, top-10, 32 passages a batch, f32,
+   TF32 off, a word-level tokenizer built here) at passages/s, with one
+   batch's teacher-forcing logits against the CPU, the incremental
+   decoder's step logits (eager and graphed) against the re-run decoder,
+   every sampled token
+   in its step's top-10 and PAD after EOS; (b) ``run_capstone`` in
+   ``capstone_curriculum`` over that TSV (``--synthetic --full-size
+   --int8-index``, 1,024 passages, 16 queries, 8 a step x 32 passages):
+   10 steps, then a relaunch that resumes to 12; step ms and host ms a step
+   apart, peak memory, losses and buckets, K4 in the eval, its top-10
+   equal to the plain version of the same search (ids) and, as a
+   reading, against the exact search of the same state;
+27. the ``kernels`` line (K1-K14 and the f32 instances of K5-K8 apart,
    launches of every path); then the last line, ``{"ok": true, "device":
    {...}}``.
 
@@ -5758,6 +5774,374 @@ def phase_reader_allies(torch, smi, records):
     _launch_totals(records, "reader_allies", totals)
 
 
+# --- phase 26: CAPSTONE -----------------------------------------------------
+
+# (a) doc2query at docT5query's width: a T5-base v1.0 artifact (vocab,
+# d_model, layers a stack, heads, d_kv, d_ff, buckets; tied) written here
+# under T5ForConditionalGeneration's names, 3 queries (the recipe's
+# total_part) for each of 1,024 synthetic passages of 512 tokens, 64
+# target tokens, top-10, 32 passages a batch, f32 with TF32 off
+T5_BASE = (32128, 768, 12, 12, 64, 3072, 32)
+D2Q_PASSAGES, D2Q_SRC, D2Q_TGT, D2Q_BATCH, D2Q_TOP_K = 1024, 512, 64, 32, 10
+# the teacher-forcing logits on the card against the CPU, and the
+# incremental decoder's step logits, eager and graphed, against the re-run
+# decoder, each of the largest |logit| (f32 products in another order:
+# ~1e-6 expected)
+D2Q_TOL = 1e-4
+# (b) run_capstone at full width over (a)'s TSV: BERT-base DE, 1,024
+# synthetic passages (32 tokens: the synthetic text corpus's cap), 16
+# queries, 8 a step x 32 passages (1 + 31 negatives), 10 steps (the
+# launcher's checkpoint every steps // 5 = 2: 5 of 2.6 GB), then a
+# relaunch that resumes to 12; the eval's top-10 ids (K4, int8) equal to
+# the plain version's of the same search (K4-int8 is exact against it) and,
+# as a reading, overlapping the exact search of the same state (the JAX
+# package's geometry at 1,024 rows: 64 buckets of 16 rows, one candidate
+# each, so two of the true top-10 in one bucket lose one)
+CAPSTONE_FLAGS = ["--synthetic", "--full-size", "--int8-index",
+                  "--corpus-size", "1024", "--num-queries", "16",
+                  "--batch", "8"]
+CAPSTONE_RUNS = (("run", 10), ("resume", 12))
+
+
+def _t5_artifact(torch, root, seed, shape):
+    """Write a T5 v1.0 ``T5ForConditionalGeneration`` state_dict (``shape``
+    as ``T5_BASE``, tied) as ``<root>/t5/pytorch_model.bin``: HF's
+    initializer scales, unit RMS scales; ``lm_head`` and each stack's
+    ``embed_tokens`` are the shared table, as HF's ``state_dict`` lists
+    them. -> its directory."""
+    vocab, d, layers, heads, dkv, dff, buckets = shape
+    inner = heads * dkv
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(std, *size):
+        return torch.randn(*size, generator=gen) * std
+
+    sd = {"shared.weight": rnd(1.0, vocab, d)}
+    for stack in ("encoder", "decoder"):
+        for i in range(layers):
+            b = f"{stack}.block.{i}.layer"
+            parts = [("0.SelfAttention", "0")]
+            if stack == "decoder":
+                parts.append(("1.EncDecAttention", "1"))
+            for att, norm in parts:
+                sd[f"{b}.{att}.q.weight"] = rnd((d * dkv) ** -0.5, inner, d)
+                sd[f"{b}.{att}.k.weight"] = rnd(d ** -0.5, inner, d)
+                sd[f"{b}.{att}.v.weight"] = rnd(d ** -0.5, inner, d)
+                sd[f"{b}.{att}.o.weight"] = rnd(inner ** -0.5, d, inner)
+                sd[f"{b}.{norm}.layer_norm.weight"] = torch.ones(d)
+            ffn = len(parts)
+            sd[f"{b}.{ffn}.DenseReluDense.wi.weight"] = rnd(d ** -0.5, dff, d)
+            sd[f"{b}.{ffn}.DenseReluDense.wo.weight"] = rnd(dff ** -0.5, d,
+                                                            dff)
+            sd[f"{b}.{ffn}.layer_norm.weight"] = torch.ones(d)
+        sd[f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias"
+           ".weight"] = rnd(d ** -0.5, buckets, heads)
+        sd[f"{stack}.final_layer_norm.weight"] = torch.ones(d)
+        sd[f"{stack}.embed_tokens.weight"] = sd["shared.weight"]
+    sd["lm_head.weight"] = sd["shared.weight"]
+    out = os.path.join(root, "t5")
+    os.makedirs(out)
+    torch.save(sd, os.path.join(out, "pytorch_model.bin"))
+    return out
+
+
+class _WordTokenizer:
+    """A decodable word-level tokenizer (``tests/test_t5.py:135-145``'s
+    idea): word ``w<i>`` is id i; PAD (0) and EOS (1) decode to nothing."""
+
+    def encode(self, text, max_length=None, truncation=None):
+        ids = [int(w[1:]) for w in text.split()]
+        return ids[:max_length] if max_length else ids
+
+    def decode(self, ids):
+        return " ".join(f"w{i}" for i in ids if i > 1)
+
+
+def _d2q_passages(np, n, length, vocab, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(2, vocab, (n, length))
+    return [(i, " ".join(f"w{t}" for t in row)) for i, row in enumerate(ids)]
+
+
+def _pad_after_eos(flat):
+    """Rows that emitted EOS (1), and whether every token after it is PAD."""
+    ended, ok = 0, True
+    for row in flat.tolist():
+        if 1 in row[1:]:
+            ended += 1
+            ok = ok and all(t == 0 for t in row[row.index(1, 1) + 1:])
+    return ended, ok
+
+
+def _d2q_checks(torch, np, model, passages, tok):
+    """On the first batch: its tokens (the same seed as ``doc2query_tsv``'s
+    batch 0), the teacher-forcing logits of two of its rows on the card
+    against the CPU, the incremental decoder's step logits, eager and as
+    the CUDA graph that ``generate`` replays, against the re-run decoder
+    over the whole batch, every sampled token inside its
+    step's top-k, PAD after EOS; then one batch with EOS made likely (its
+    row of the tied table along the decoder's mean output), PAD after it.
+    -> (record, the batch's tokens [B, 3, T])."""
+    import copy
+
+    from simxns_tpu_torch.models.t5 import _graphed_step, generate
+
+    dev, n, cfg = torch.device("cuda"), 3, model.cfg
+    enc = np.zeros((D2Q_BATCH, D2Q_SRC), np.int64)
+    for r, (_, text) in enumerate(passages[:D2Q_BATCH]):
+        ids = tok.encode(text, max_length=D2Q_SRC)
+        enc[r, :len(ids)] = ids
+    mask = (enc != 0).astype(np.int64)
+    toks = generate(model, enc, mask, 0, max_length=D2Q_TGT,
+                    top_k=D2Q_TOP_K, num_return_sequences=n)
+    flat = toks.reshape(-1, D2Q_TGT)
+    enc_t, mask_t = (torch.from_numpy(x).to(dev) for x in (enc, mask))
+    rec = {}
+    with torch.no_grad():
+        # two rows (passages 0 and 1) on the card and on the CPU
+        rows = [0, n]
+        cpu = copy.deepcopy(model).cpu()
+        dec = flat[rows].long()
+        args = (enc_t[:2], mask_t[:2], dec, torch.ones_like(dec))
+        want = cpu(*(a.cpu() for a in args))
+        got = model(*args).cpu()
+        rec["logits_vs_cpu"] = float((got - want).abs().max()
+                                     / want.abs().max())
+        del cpu
+        # the incremental decoder against the re-run, step by step
+        hidden = model.encode(enc_t, mask_t)
+        full = model.decode(flat.long(), torch.ones_like(flat),
+                            hidden.repeat_interleave(n, 0),
+                            mask_t.repeat_interleave(n, 0))
+        cache = model.start_decode(hidden, mask_t, D2Q_TGT, repeat=n)
+        graphed = _graphed_step(model, model.start_decode(
+            hidden, mask_t, D2Q_TGT, repeat=n), flat.shape[0])
+        worst, worst_graph, outside = 0.0, 0.0, 0
+        done = torch.zeros(flat.shape[0], dtype=torch.bool, device=dev)
+        for t in range(D2Q_TGT - 1):
+            scale = full[:, t].abs().max()
+            step = model.decode_step(flat[:, t], t, cache)
+            worst = max(worst, float((step - full[:, t]).abs().max()
+                                     / scale))
+            worst_graph = max(worst_graph, float(
+                (graphed(flat[:, t], t) - full[:, t]).abs().max() / scale))
+            kth = torch.topk(step, D2Q_TOP_K, dim=-1).values[:, -1]
+            nxt = flat[:, t + 1].long()
+            picked = step.gather(1, nxt[:, None])[:, 0]
+            outside += int(((picked < kth) & ~done).sum())
+            done |= nxt == cfg.eos_id
+        rec["step_vs_rerun"] = worst
+        rec["graphed_step_vs_rerun"] = worst_graph
+        rec["sampled_outside_top_k"] = outside
+        ended, pad_ok = _pad_after_eos(flat)
+        # EOS made likely on a copy of the table row, then restored
+        table = model.shared_embed.weight
+        saved = table[cfg.eos_id].clone()
+        seen = []
+        hook = model.dec_final_norm.register_forward_hook(
+            lambda mod, a, out: seen.append(out[:, :8].mean((0, 1))))
+        model.decode(flat[:, :8].long(), torch.ones_like(flat[:, :8]),
+                     hidden.repeat_interleave(n, 0),
+                     mask_t.repeat_interleave(n, 0))
+        hook.remove()
+        mean = seen[0]
+        table[cfg.eos_id] = mean / mean.norm() * table.norm(dim=1).mean() * 2
+        boosted = generate(model, enc, mask, 1, max_length=D2Q_TGT,
+                           top_k=D2Q_TOP_K, num_return_sequences=n)
+        table[cfg.eos_id] = saved
+        eos_ended, eos_ok = _pad_after_eos(boosted.reshape(-1, D2Q_TGT))
+        del full, cache, graphed, hidden
+    rec.update(rows_ended=ended, pad_after_eos=pad_ok,
+               eos_batch_rows_ended=eos_ended, eos_batch_pad_after_eos=eos_ok)
+    check(max(rec["logits_vs_cpu"], worst, worst_graph) <= D2Q_TOL
+          and outside == 0 and pad_ok and eos_ok and eos_ended > 0,
+          f"doc2query checks: {rec}")
+    return rec, toks.cpu().numpy()
+
+
+def _capstone_losses(out_dir):
+    with open(os.path.join(out_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [(r["step"], r["loss"], r["bucket"]) for r in map(json.loads, f)
+                if r.get("phase") == "curriculum"]
+
+
+def phase_capstone(torch, smi, records):
+    """Phase 26: (a) doc2query with a T5-base artifact written here, loaded
+    through ``_load_init_checkpoint``'s sniff, ``convert_hf_t5`` and
+    ``t5_config_from_state_dict``: 3 queries for each of 1,024 passages
+    (``doc2query_tsv``), passages/s and peak memory, and the checks of
+    ``_d2q_checks``; (b) ``run_capstone`` over its TSV, 10 steps then a
+    resume to 12: step ms and host ms a step apart, peak memory, losses and
+    buckets, K4 in the eval and its top-10 against the plain version (and,
+    a reading, the exact search)."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from simxns_tpu_torch import ops, run
+    from simxns_tpu_torch.index import MIPSIndex, RetrievalEngine
+    from simxns_tpu_torch.models.bert import from_state_dict
+    from simxns_tpu_torch.models.hf_import import (convert_hf_t5,
+                                                   t5_config_from_state_dict)
+    from simxns_tpu_torch.models.t5 import T5, doc2query_tsv
+    from simxns_tpu_torch.ops.topk import blocked_mips_topk
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in ops.KERNELS}
+    root = tempfile.mkdtemp(prefix="chip_smoke_capstone_")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    factory = run.make_biencoder_step
+    real_build, real_mine = run._build_index, RetrievalEngine.mine
+    try:
+        # (a) doc2query
+        t0 = time.perf_counter()
+        ckpt = _t5_artifact(torch, root, 26, T5_BASE)
+        artifact_s = time.perf_counter() - t0
+        init = run._load_init_checkpoint(
+            argparse.Namespace(init_checkpoint=ckpt))
+        check(init["family"] == "t5", f"sniffed {init['family']}")
+        cfg = t5_config_from_state_dict(init["sd"])
+        vocab, d, layers, heads, dkv, dff, buckets = T5_BASE
+        check((cfg.vocab_size, cfg.d_model, cfg.num_layers, cfg.n_dec,
+               cfg.num_heads, cfg.d_kv, cfg.d_ff,
+               cfg.relative_attention_num_buckets,
+               cfg.relative_attention_max_distance, cfg.tie_word_embeddings)
+              == (vocab, d, layers, layers, heads, dkv, dff, buckets, 128,
+                  True), f"T5 config {cfg}")
+        model = from_state_dict(T5, cfg, convert_hf_t5(init["sd"]))
+        del init
+        model = model.to("cuda").eval()
+        tok = _WordTokenizer()
+        passages = _d2q_passages(np, D2Q_PASSAGES, D2Q_SRC, vocab, 26)
+        fresh_peak(torch)
+        tsv = os.path.join(root, "doc2query.tsv")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        doc2query_tsv(model, tok, passages, tsv, num_queries=3,
+                      max_src_length=D2Q_SRC, max_length=D2Q_TGT,
+                      top_k=D2Q_TOP_K, batch_size=D2Q_BATCH, seed=0)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_gb = torch.cuda.max_memory_allocated() / 1e9
+        rec, toks = _d2q_checks(torch, np, model, passages, tok)
+        rows = open(tsv, encoding="utf-8").read().splitlines()
+        check(len(rows) == D2Q_PASSAGES and all(
+            len(r.split("\t")) == 4 for r in rows), "doc2query TSV rows")
+        first = []
+        for s in range(3):
+            row = toks[0, s]
+            end = np.nonzero(row == cfg.eos_id)[0]
+            row = row[1:int(end[0])] if len(end) else row[1:]
+            first.append(tok.decode(row.tolist()))
+        check(rows[0].split("\t")[1:] == first,
+              "the TSV's first row is not batch 0's tokens decoded")
+        del model
+        emit("doc2query", nvidia_smi=smi, shape=dict(zip(
+            ("vocab", "d_model", "layers", "heads", "d_kv", "d_ff",
+             "buckets"), T5_BASE)), passages=D2Q_PASSAGES,
+             source_tokens=D2Q_SRC, target_tokens=D2Q_TGT, returns=3,
+             top_k=D2Q_TOP_K, batch=D2Q_BATCH, artifact_s=artifact_s,
+             generate_s=gen_s, passages_per_s=D2Q_PASSAGES / gen_s,
+             max_memory_gb=gen_gb, **rec)
+        fresh_peak(torch)
+
+        # (b) run_capstone over the TSV, and a resume
+        seen = {}
+
+        def spy_build(index, encode_fn, token_ids, mask, vocab_size, args):
+            seen["build"] = (encode_fn, token_ids, mask, vocab_size, args)
+            return real_build(index, encode_fn, token_ids, mask, vocab_size,
+                              args)
+
+        def spy_mine(self, query_embeddings, *a, **kw):
+            res = real_mine(self, query_embeddings, *a, **kw)
+            seen["mine"] = (self.index, np.asarray(query_embeddings),
+                            np.asarray(res.topk_ids))
+            return res
+
+        run._build_index, RetrievalEngine.mine = spy_build, spy_mine
+        out_dir = os.path.join(root, "run")
+        for label, steps_to in CAPSTONE_RUNS:
+            step_ms = {}
+            run.make_biencoder_step = _timed_factory(torch, factory,
+                                                     "curriculum", step_ms)
+            fresh_peak(torch)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = run.main(["--recipe", "capstone_curriculum",
+                            *CAPSTONE_FLAGS, "--query-tsv", tsv, "--steps",
+                            str(steps_to), "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = ops.launches()
+            for name, n in launched.items():
+                totals[name] += n
+            losses = _capstone_losses(out_dir)
+            first_step = 1 if label == "run" else CAPSTONE_RUNS[0][1] + 1
+            ran = steps_to - first_step + 1
+            check(out["steps"] == steps_to
+                  and math.isfinite(out["final_loss"])
+                  and [s for s, _, _ in losses][-ran:]
+                  == list(range(first_step, steps_to + 1))
+                  and all(math.isfinite(x) for _, x, _ in losses)
+                  and launched["mips_bucket_candidates"] > 0
+                  and len(step_ms.get("curriculum", [])) == ran,
+                  f"capstone {label}: {out}, losses {losses}, launches "
+                  f"{launched}")
+            # the run's top-10 (K4) against the plain version of the same
+            # fused search on the CPU, and against the exact search of the
+            # same state (a reading: the bucket reduction is approximate)
+            encode_fn, tokens, mask, vocab_size, args = seen["build"]
+            index, queries, fused_ids = seen["mine"]
+            q16 = torch.from_numpy(queries).to(torch.bfloat16)
+            _, plain_ids = blocked_mips_topk(
+                q16, index.embeddings.cpu(), fused_ids.shape[1],
+                block_size=index.block_size, valid_n=index.shard_valid,
+                mode="fused", row_scales=index.row_scales.cpu())
+            exact = MIPSIndex("cuda", block_size=index.block_size,
+                              store_dtype=index.store_dtype, mode="exact")
+            real_build(exact, encode_fn, tokens, mask, vocab_size, args)
+            _, exact_ids = exact.search(queries, fused_ids.shape[1])
+            overlap = {name: float(np.mean([
+                len(set(a[:10]) & set(b[:10])) / 10
+                for a, b in zip(fused_ids.tolist(), other.tolist())]))
+                for name, other in (("plain", plain_ids.numpy()),
+                                    ("exact", exact_ids))}
+            check(np.array_equal(fused_ids, plain_ids.numpy()),
+                  f"capstone {label}: K4's ids differ from its plain "
+                  f"version's (top-10 overlap {overlap})")
+            del exact, index, seen["build"], seen["mine"]
+            files = set(os.listdir(out_dir))
+            check({f"curriculum_state-{steps_to}", f"retriever-{steps_to}",
+                   "eval.json"} <= files, f"capstone {label}: {files}")
+            ms = step_ms["curriculum"]
+            emit("capstone", nvidia_smi=smi, run=label,
+                 flags=CAPSTONE_FLAGS, steps=steps_to, wall_s=wall,
+                 losses=[[s, x] for s, x, _ in losses],
+                 buckets=[[s, b] for s, _, b in losses], step_ms=ms,
+                 steady_step_ms=(float(sum(ms[1:]) / (len(ms) - 1))
+                                 if len(ms) > 1 else None),
+                 host_ms_per_step=out["phase_times_s"]["expand"] / ran * 1e3,
+                 top1=out["top1"], mrr10=out["mrr10"],
+                 top10_overlap_vs_plain=overlap["plain"],
+                 top10_overlap_vs_exact=overlap["exact"],
+                 phase_times_s=out["phase_times_s"],
+                 max_memory_gb=out["max_memory_gb"],
+                 launches={k: n for k, n in launched.items() if n})
+    finally:
+        run.make_biencoder_step = factory
+        run._build_index, RetrievalEngine.mine = real_build, real_mine
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(root, ignore_errors=True)
+    emit("capstone_phase", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    fresh_peak(torch)
+    _launch_totals(records, "capstone", totals)
+
+
 SOURCES = {
     "int8_linear": ("cuda", "simxns_tpu_torch/csrc/int8_linear.cu",
                     "simxns_tpu/ops/fused_layer.py:87"),
@@ -5850,6 +6234,7 @@ def main():
     phase_f32_attention(torch, smi, records)
     phase_init_checkpoint(torch, smi, records)
     phase_reader_allies(torch, smi, records)
+    phase_capstone(torch, smi, records)
     kernels = []
     # K1-K14, then the f32 instances of K5-K8 apart
     for name in [n for n in records if n not in F32_KERNELS] + list(

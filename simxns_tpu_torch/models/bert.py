@@ -62,6 +62,7 @@ onto them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import re
@@ -664,11 +665,35 @@ def share_parameters(view: nn.Module, model: nn.Module) -> nn.Module:
     return view
 
 
+def skip_init(on: bool = True):
+    """The context a model builds its layers in when every parameter is
+    filled afterwards, drawn by :func:`init_weights` or loaded by
+    :func:`from_state_dict`: the meta device, so PyTorch's own initializers,
+    whose values would be overwritten, do not run (half the construction
+    time of BERT-base). With ``on`` false, no context."""
+    return torch.device("meta") if on else contextlib.nullcontext()
+
+
+def from_state_dict(cls, cfg, state_dict: dict) -> nn.Module:
+    """``cls(cfg)`` built under :func:`skip_init` and holding
+    ``state_dict``'s tensors (strict names; a tied table once)."""
+    with skip_init():
+        model = cls(cfg)
+    model.load_state_dict(state_dict, assign=True)
+    return model
+
+
 def init_weights(module: nn.Module, std: float,
                  generator: torch.Generator) -> None:
     """The JAX package's initializers: normal(std) for dense kernels and
-    embedding tables, zero biases, unit LayerNorm scales."""
+    embedding tables, zero biases, unit LayerNorm scales. A module built on
+    the meta device (:func:`skip_init`) gets its CPU storage here, every
+    parameter zero before the draws (the MLM head's own bias is zero)."""
     with torch.no_grad():
+        if any(p.is_meta for p in module.parameters()):
+            module.to_empty(device="cpu")
+            for p in module.parameters():
+                p.zero_()
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 m.weight.normal_(0.0, std, generator=generator)

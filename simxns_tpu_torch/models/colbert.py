@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
-                                          init_weights)
+                                          init_weights, skip_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,13 +48,14 @@ class ColBERT(nn.Module):
         super().__init__()
         self.cfg = cfg
         bert = cfg.bert
-        self.encoder = BertEncoder(bert)
-        self.linear = nn.Linear(bert.hidden_size, cfg.dim, bias=False,
-                                dtype=bert.param_dtype)
-        self.doc_linear = nn.Linear(bert.hidden_size, cfg.dim, bias=False,
+        with skip_init(generator is not None):
+            self.encoder = BertEncoder(bert)
+            self.linear = nn.Linear(bert.hidden_size, cfg.dim, bias=False,
                                     dtype=bert.param_dtype)
-        if not cfg.share_weight:
-            self.doc_encoder = BertEncoder(bert)
+            self.doc_linear = nn.Linear(bert.hidden_size, cfg.dim, bias=False,
+                                        dtype=bert.param_dtype)
+            if not cfg.share_weight:
+                self.doc_encoder = BertEncoder(bert)
         if generator is not None:
             init_weights(self, bert.initializer_range, generator)
 

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, BertLayer,
-                                          MLMHead, init_weights)
+                                          MLMHead, init_weights, skip_init)
 from simxns_tpu_torch.ops import dropout as drop
 
 HEAD_NAMES = ("c_head", "query_head", "gpt_head", "next_head",
@@ -70,11 +70,12 @@ class Condenser(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = BertEncoder(cfg.bert)
-        self.mlm = MLMHead(cfg.bert, tied=cfg.tie_embeddings)
-        for name in HEAD_NAMES:
-            setattr(self, name, nn.ModuleList(
-                BertLayer(cfg.bert) for _ in range(cfg.n_head_layers)))
+        with skip_init(generator is not None):
+            self.encoder = BertEncoder(cfg.bert)
+            self.mlm = MLMHead(cfg.bert, tied=cfg.tie_embeddings)
+            for name in HEAD_NAMES:
+                setattr(self, name, nn.ModuleList(
+                    BertLayer(cfg.bert) for _ in range(cfg.n_head_layers)))
         if generator is not None:
             init_weights(self, cfg.bert.initializer_range, generator)
 

@@ -2,12 +2,15 @@
 
 The port's modules keep the flax names, so the map is mechanical:
 
-- module ``layer_{i}`` -> ``layers.{i}``, and a Condenser head's layer
-  ``<name>_head_{i}`` -> ``<name>_head.{i}``; every other module name
-  stays;
+- module ``layer_{i}`` -> ``layers.{i}``, a Condenser head's layer
+  ``<name>_head_{i}`` -> ``<name>_head.{i}``, a T5 block
+  ``enc_blocks_{i}`` / ``dec_blocks_{i}`` -> ``enc_blocks.{i}`` /
+  ``dec_blocks.{i}`` and a Seq2Seq layer ``enc_layer_{i}`` /
+  ``dec_layer_{i}`` -> ``enc_layers.{i}`` / ``dec_layers.{i}``; every
+  other module name stays;
 - leaf ``kernel`` [in, out] -> ``weight`` [out, in] (``nn.Linear``);
 - leaf ``embedding`` (``nn.Embed``) and ``scale`` (``nn.LayerNorm``) ->
-  ``weight``; ``bias`` stays.
+  ``weight``; ``bias`` and ``weight`` (T5's RMS norm) stay.
 
 Works for a ``BiEncoder`` tree (``question_model``/``ctx_model``; with
 ``share_weight`` only ``question_model``), a ``CrossEncoder`` tree
@@ -18,7 +21,8 @@ tied head's ``bias`` leaf or the untied ``decoder``), a ``ColBERT``
 (``encoder``, the bias-free ``linear`` and ``doc_linear`` heads, and
 ``doc_encoder`` without ``share_weight``) and a ``Condenser``
 (``encoder``, ``mlm`` and the five heads' layers) and a ``Reader``
-(``encoder``, ``qa_outputs``, ``qa_classifier``).
+(``encoder``, ``qa_outputs``, ``qa_classifier``), a ``T5`` (tied or with
+its ``lm_head``) and a ``Seq2Seq``.
 The same state_dict serves every ``layer_impl``, as the flax trees do.
 """
 
@@ -32,8 +36,10 @@ import torch
 
 _LAYER = re.compile(r"layer_(\d+)")
 _HEAD_LAYER = re.compile(r"(\w+_head)_(\d+)")
+_STACK = re.compile(r"(enc|dec)_(blocks|layer)_(\d+)")
+_STACK_NAME = {"blocks": "blocks", "layer": "layers"}
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
-         "bias": "bias"}
+         "bias": "bias", "weight": "weight"}
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -48,8 +54,11 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(val, Mapping):
                 m = _LAYER.fullmatch(key)
                 head = _HEAD_LAYER.fullmatch(key)
+                stack = _STACK.fullmatch(key)
                 name = (f"layers.{m.group(1)}" if m else
-                        f"{head.group(1)}.{head.group(2)}" if head else key)
+                        f"{head.group(1)}.{head.group(2)}" if head else
+                        f"{stack.group(1)}_{_STACK_NAME[stack.group(2)]}."
+                        f"{stack.group(3)}" if stack else key)
                 walk(val, f"{prefix}{name}.")
                 continue
             if key not in _LEAF:

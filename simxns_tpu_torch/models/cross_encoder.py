@@ -24,7 +24,8 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
-                                          init_weights, share_parameters)
+                                          init_weights, share_parameters,
+                                          skip_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,12 +44,13 @@ class CrossEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         bert = cfg.bert
-        self.encoder = BertEncoder(bert)
-        self.qa_classifier = nn.Linear(bert.hidden_size, 1,
-                                       dtype=bert.param_dtype)
-        if cfg.binary_head:
-            self.binary_classifier = nn.Linear(bert.hidden_size, 2,
-                                               dtype=bert.param_dtype)
+        with skip_init(generator is not None):
+            self.encoder = BertEncoder(bert)
+            self.qa_classifier = nn.Linear(bert.hidden_size, 1,
+                                           dtype=bert.param_dtype)
+            if cfg.binary_head:
+                self.binary_classifier = nn.Linear(bert.hidden_size, 2,
+                                                   dtype=bert.param_dtype)
         if generator is not None:
             init_weights(self, bert.initializer_range, generator)
 

@@ -18,7 +18,7 @@ from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
                                           init_weights, layer_norm,
-                                          share_parameters)
+                                          share_parameters, skip_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,9 +88,10 @@ class BiEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        self.question_model = _Tower(cfg)
-        if not cfg.share_weight:
-            self.ctx_model = _Tower(cfg)
+        with skip_init(generator is not None):
+            self.question_model = _Tower(cfg)
+            if not cfg.share_weight:
+                self.ctx_model = _Tower(cfg)
         if generator is not None:
             init_weights(self, cfg.bert.initializer_range, generator)
 

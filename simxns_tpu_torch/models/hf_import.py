@@ -1,5 +1,5 @@
 """HF checkpoint import (port of ``simxns_tpu/models/hf_import.py``): BERT,
-RoBERTa, ELECTRA, DistilBERT.
+RoBERTa, ELECTRA, DistilBERT and T5.
 
 The reference starts every model from a HF checkpoint: BERT and ERNIE-2.0
 (the BERT layout; the PROD student), RoBERTa (``RobertaDot``, the MS-Doc
@@ -16,8 +16,11 @@ The HF pooler is dropped (the reference retrieves with ``seq[:, 0]``).
 Pair each family with its :class:`BertConfig` knobs
 (:func:`config_from_hf_params` derives them): RoBERTa
 ``position_style="roberta", pad_token_id=1``; DistilBERT
-``type_vocab_size=0``; ELECTRA-small ``embedding_size``. T5 artifacts are
-refused here: their converter goes with the port's T5 module.
+``type_vocab_size=0``; ELECTRA-small ``embedding_size``. A T5 artifact
+is the docT5query generator, not an encoder warm start:
+:func:`convert_hf_auto` refuses it, and :func:`convert_hf_t5` with
+:func:`t5_config_from_state_dict` load it into
+:class:`~simxns_tpu_torch.models.t5.T5`.
 """
 
 from __future__ import annotations
@@ -202,6 +205,85 @@ def convert_hf_distilbert(state_dict, num_layers: Optional[int] = None
                     sd[f"transformer.layer.{i}.{theirs}.{leaf}"])
         i += 1
     return out, None
+
+
+def convert_hf_t5(state_dict) -> StateDict:
+    """HF ``T5ForConditionalGeneration`` / ``T5Model`` state_dict -> a
+    :class:`~simxns_tpu_torch.models.t5.T5` state_dict (the docT5query warm
+    start, ``castorini/doc2query-t5-base-msmarco``): the shared table, each
+    stack's relative-bias table (HF keeps it in block 0), every block's
+    attention, cross-attention and ReLU FFN with their RMS norms, both
+    final norms, and the LM head when it is untied (a tied checkpoint's
+    head is the shared table, scaled by the model). Pair with
+    :func:`t5_config_from_state_dict`."""
+    sd = state_dict
+    rel = ".block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    out = {"shared_embed.weight": _t(sd["shared.weight"]),
+           "enc_rel_bias.weight": _t(sd["encoder" + rel]),
+           "dec_rel_bias.weight": _t(sd["decoder" + rel]),
+           "enc_final_norm.weight": _t(sd["encoder.final_layer_norm.weight"]),
+           "dec_final_norm.weight": _t(sd["decoder.final_layer_norm.weight"])}
+
+    def attn(ours: str, theirs: str) -> None:
+        for proj in ("q", "k", "v", "o"):
+            out[f"{ours}.{proj}.weight"] = _t(sd[f"{theirs}.{proj}.weight"])
+
+    for stack, ours in (("encoder", "enc_blocks"), ("decoder", "dec_blocks")):
+        i = 0
+        while f"{stack}.block.{i}.layer.0.SelfAttention.q.weight" in sd:
+            b, o = f"{stack}.block.{i}.layer", f"{ours}.{i}"
+            attn(f"{o}.self_attention", f"{b}.0.SelfAttention")
+            out[f"{o}.self_norm.weight"] = _t(sd[f"{b}.0.layer_norm.weight"])
+            ffn = 1
+            if stack == "decoder":
+                attn(f"{o}.cross_attention", f"{b}.1.EncDecAttention")
+                out[f"{o}.cross_norm.weight"] = _t(
+                    sd[f"{b}.1.layer_norm.weight"])
+                ffn = 2
+            for w in ("wi", "wo"):
+                out[f"{o}.{w}.weight"] = _t(
+                    sd[f"{b}.{ffn}.DenseReluDense.{w}.weight"])
+            out[f"{o}.ffn_norm.weight"] = _t(
+                sd[f"{b}.{ffn}.layer_norm.weight"])
+            i += 1
+    if not _t5_tied(sd):
+        out["lm_head.weight"] = _t(sd["lm_head.weight"])
+    return out
+
+
+def _t5_tied(sd) -> bool:
+    """A T5 checkpoint ties its head when it has none or it equals the
+    shared table."""
+    return "lm_head.weight" not in sd or torch.equal(
+        _t(sd["lm_head.weight"]), _t(sd["shared.weight"]))
+
+
+def t5_config_from_state_dict(state_dict, base=None):
+    """The :class:`~simxns_tpu_torch.models.t5.T5Config` a checkpoint needs:
+    vocab, ``d_model``, ``d_ff`` and the depths from the weights' shapes,
+    heads and buckets from the relative-bias table, ``d_kv`` = inner /
+    heads, the tie from the head's equality with the shared table. The
+    bucketing's ``relative_attention_max_distance`` leaves no trace in any
+    shape: it comes from ``base`` (default ``T5Config()``: 128, what every
+    published T5 and docT5query checkpoint uses)."""
+    from simxns_tpu_torch.models.t5 import T5Config
+
+    base = base or T5Config()
+    sd = state_dict
+    vocab, d_model = sd["shared.weight"].shape
+    buckets, heads = sd["encoder.block.0.layer.0.SelfAttention"
+                        ".relative_attention_bias.weight"].shape
+    inner = sd["encoder.block.0.layer.0.SelfAttention.q.weight"].shape[0]
+    d_ff = sd["encoder.block.0.layer.1.DenseReluDense.wi.weight"].shape[0]
+    depth = {stack: sum(1 for k in sd if k.startswith(stack + ".")
+                        and k.endswith(".SelfAttention.q.weight"))
+             for stack in ("encoder", "decoder")}
+    return base.replace(
+        vocab_size=int(vocab), d_model=int(d_model), d_ff=int(d_ff),
+        d_kv=int(inner) // int(heads), num_heads=int(heads),
+        num_layers=depth["encoder"], num_decoder_layers=depth["decoder"],
+        relative_attention_num_buckets=int(buckets),
+        tie_word_embeddings=_t5_tied(sd))
 
 
 _FAMILY_MARKERS = (

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from simxns_tpu_torch.models.bert import (BertConfig, BertEncoder, dense,
-                                          init_weights)
+                                          init_weights, skip_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +43,12 @@ class Reader(nn.Module):
         super().__init__()
         self.cfg = cfg
         bert = cfg.bert
-        self.encoder = BertEncoder(bert)
-        self.qa_outputs = nn.Linear(bert.hidden_size, 2,
-                                    dtype=bert.param_dtype)
-        self.qa_classifier = nn.Linear(bert.hidden_size, 1,
-                                       dtype=bert.param_dtype)
+        with skip_init(generator is not None):
+            self.encoder = BertEncoder(bert)
+            self.qa_outputs = nn.Linear(bert.hidden_size, 2,
+                                        dtype=bert.param_dtype)
+            self.qa_classifier = nn.Linear(bert.hidden_size, 1,
+                                           dtype=bert.param_dtype)
         if generator is not None:
             init_weights(self, bert.initializer_range, generator)
 

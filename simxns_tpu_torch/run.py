@@ -75,9 +75,23 @@ question).
         --device cpu --corpus-size 64 --num-queries 16
 
 ``--init-checkpoint`` warm-starts the AR2 retriever's towers, the KD and
-LEAD students and the MASTER encoder (with its MLM head) from a HF
-checkpoint (``hf_import``; BERT, RoBERTa, ELECTRA, DistilBERT). The
-CAPSTONE runner raises ``NotImplementedError`` (ROADMAP.md Queue 1).
+LEAD students, the MASTER encoder (with its MLM head) and the CAPSTONE
+dual encoder from a HF checkpoint (``hf_import``; BERT, RoBERTa, ELECTRA,
+DistilBERT).
+
+:func:`run_capstone` runs CAPSTONE's curriculum (``capstone_curriculum``):
+a dual encoder trained on passages expanded with one doc2query query each,
+chosen by the gradual curriculum, then evaluated over the corpus expanded
+with its top-k queries. The queries come from ``--query-tsv``, from a T5
+``--init-checkpoint`` with ``--t5-tokenizer`` (generated inline by
+``models.t5``; the tokenizer loads through ``transformers``), or, on the
+synthetic corpus, three made-up queries a passage. Outputs:
+``curriculum_state-<step>`` every ``steps // 5``, the final ``retriever``
+and ``eval.json`` (with ``--qrels`` the TREC metrics too).
+
+    python -m simxns_tpu_torch.run --recipe capstone_curriculum \
+        --synthetic --device cpu --steps 8 --batch 8 --corpus-size 48 \
+        --num-queries 16 --query-tsv doc2query.tsv
 """
 
 from __future__ import annotations
@@ -94,8 +108,9 @@ import numpy as np
 import torch
 
 from simxns_tpu_torch.config import (AlliesRecipeConfig, AR2RecipeConfig,
-                                     KDRecipeConfig, LeadRecipeConfig,
-                                     MasterPretrainConfig, RECIPES)
+                                     CapstoneRecipeConfig, KDRecipeConfig,
+                                     LeadRecipeConfig, MasterPretrainConfig,
+                                     RECIPES)
 from simxns_tpu_torch.data import (CondenserCollator, HashTokenizer,
                                    TokenMeta, from_mining_result)
 from simxns_tpu_torch.data.datasets import (load_id_text, load_passages_tsv,
@@ -129,13 +144,13 @@ from simxns_tpu_torch.train.driver import (AR2Config, AR2CoTrainer,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m simxns_tpu_torch.run",
-        description="Run a SimXNS AR2/SimANS co-training, PROD or LEAD "
-                    "distillation or MASTER pre-training recipe on a CUDA "
-                    "card (or the CPU with --device cpu).")
+        description="Run a SimXNS recipe (AR2/SimANS co-training, PROD and "
+                    "LEAD distillation, MASTER pre-training, CAPSTONE, "
+                    "ALLIES) on a CUDA card (or the CPU with --device "
+                    "cpu).")
     ap.add_argument("--recipe", required=True, choices=sorted(RECIPES),
                     help="named configuration from simxns_tpu_torch.config."
-                         "RECIPES (the AR2, PROD KD, LEAD and MASTER "
-                         "pre-training recipes run in this port)")
+                         "RECIPES")
     ap.add_argument("--corpus", default=None,
                     help="packed corpus .npz from scripts/prepare_data.py")
     ap.add_argument("--queries", default=None,
@@ -150,6 +165,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--qrels", default=None,
                     help="qrels file (qid\\tpid or TREC 4-col): label mined "
                          "hits by gold ids instead of string match")
+    ap.add_argument("--query-tsv", default=None,
+                    help="doc2query TSV (psg_id\\tq1\\tq2...) for the "
+                         "capstone_curriculum recipe (what models.t5."
+                         "doc2query_tsv writes)")
     ap.add_argument("--synthetic", action="store_true",
                     help="force the synthetic corpus even if --corpus given")
     ap.add_argument("--output-dir", default=None,
@@ -232,7 +251,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HF PyTorch checkpoint (a pytorch_model.bin or its "
                          "directory) to warm-start the encoders from: the "
                          "AR2 retriever, the KD and LEAD students, the "
-                         "MASTER encoder (and its MLM head)")
+                         "MASTER encoder (and its MLM head), the CAPSTONE "
+                         "dual encoder; a T5 artifact is CAPSTONE's "
+                         "doc2query generator")
+    ap.add_argument("--t5-tokenizer", default=None,
+                    help="local HF T5 tokenizer directory that decodes the "
+                         "doc2query generations (capstone_curriculum with a "
+                         "T5 --init-checkpoint; needs transformers)")
     return ap
 
 
@@ -1599,6 +1624,280 @@ def run_allies(name: str, cfg: AlliesRecipeConfig, args) -> dict:
     return out
 
 
+def load_t5_tokenizer(path: str):
+    """``--t5-tokenizer``: a HF tokenizer from a local directory, offline
+    (``transformers``' ``AutoTokenizer``; nothing is downloaded)."""
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as err:
+        raise SystemExit(
+            "--t5-tokenizer loads the tokenizer through the transformers "
+            "package, which is not installed here; pass --query-tsv with "
+            "a generated TSV instead") from err
+    return AutoTokenizer.from_pretrained(path)
+
+
+def _doc2query_generate(t5_init, data: _Corpus, args, cfg, device,
+                        mesh) -> str:
+    """The docT5query expansion TSV from a T5 artifact, generated inline
+    (the reference's stage ``CAPSTONE/models/generate_query.py:115-235``):
+    ``cfg.total_part`` queries a passage, written to
+    ``<output-dir>/doc2query.tsv``. The generated ids are decoded by the
+    T5 tokenizer (``--t5-tokenizer``; the corpus's tokenizer cannot decode
+    T5 ids). Under a group rank 0 generates and the others wait."""
+    from simxns_tpu_torch.models.bert import from_state_dict
+    from simxns_tpu_torch.models.hf_import import (convert_hf_t5,
+                                                   t5_config_from_state_dict)
+    from simxns_tpu_torch.models.t5 import T5, doc2query_tsv
+
+    if not args.t5_tokenizer:
+        raise SystemExit(
+            "--init-checkpoint is a T5 (doc2query) artifact; pass "
+            "--t5-tokenizer <local dir> so generated ids can be decoded")
+    out = os.path.join(args.output_dir or ".", "doc2query.tsv")
+    n = len(data.corpus_ids)
+    failed = None
+    if mesh.rank == 0:
+        try:
+            tok = load_t5_tokenizer(args.t5_tokenizer)
+            model = from_state_dict(
+                T5, t5_config_from_state_dict(t5_init["sd"]),
+                convert_hf_t5(t5_init["sd"]))
+            doc2query_tsv(
+                model.to(device).eval(), tok,
+                ((i, data.passages.get(i, ("", ""))[0]) for i in range(n)),
+                out, num_queries=cfg.total_part, seed=args.seed)
+            del model
+        except BaseException as e:  # every rank raises below
+            failed = e
+    barrier(mesh, failed is not None, "doc2query generation")
+    if failed is not None:
+        raise failed
+    if mesh.rank == 0:
+        print(f"[capstone] doc2query TSV written: {out} ({n} passages x "
+              f"{cfg.total_part} queries)", file=sys.stderr)
+    return out
+
+
+def init_dual_encoder(cfg: BiEncoderConfig, seed: int) -> BiEncoder:
+    """CAPSTONE's initial dual encoder, with the JAX package's initializers
+    drawn from a ``torch.Generator`` seeded ``seed``."""
+    return BiEncoder(cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def run_capstone(name: str, cfg: CapstoneRecipeConfig, args) -> dict:
+    """CAPSTONE curriculum training of a dual encoder over doc2query-expanded
+    passages (``CAPSTONE/models/run_de_model_ernie.py:56-396``): every
+    positive and negative passage is expanded with one generated query,
+    chosen by the gradual curriculum (least to most gold-similar as
+    training progresses); the eval searches the corpus expanded with its
+    top-k queries. The queries come from ``--query-tsv``, from a T5
+    ``--init-checkpoint`` (generated inline), or, on the synthetic corpus,
+    three made-up queries a passage. A coCondenser or BERT artifact
+    warm-starts the towers. Outputs: ``curriculum_state`` every ``steps //
+    5`` (what ``--resume auto`` continues from, the sampling stream
+    reseeded at ``seed + step``), the final ``retriever`` and
+    ``eval.json``; under ``torchrun`` as ``run_ar2``."""
+    from simxns_tpu_torch.data.curriculum import (QueryExpander,
+                                                  gradual_bucket)
+
+    t_start = time.time()
+    mesh = create_mesh(args.device, backend=args.dist_backend,
+                       timeout_s=_stall_timeout(args))
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)
+    data = _get_corpus(args, cfg.data)
+    if data.tokenizer is None:
+        raise SystemExit(
+            "capstone_curriculum re-tokenizes expanded passage text per "
+            "batch; prepared token-only corpora are not supported — run "
+            "--synthetic at demo scale (<= 20000 passages; larger synthetic "
+            "corpora are vectorized token-only), or extend _load_prepared "
+            "with a text corpus + tokenizer")
+    tok = data.tokenizer
+    tiny = not args.full_size
+    logger = MetricLogger(args.output_dir, rank=mesh.rank)
+    steps = args.steps if args.steps is not None else (
+        40 if tiny else cfg.max_steps)
+    batch_size = min(args.batch or cfg.global_batch, len(data.query_ids))
+    local_batch_size(batch_size, mesh)      # raises unless W divides it
+    n_corpus = len(data.corpus_ids)
+    negs = min(cfg.data.num_negatives, 3 if tiny else 10 ** 9, n_corpus - 1)
+    m = 1 + negs
+    lc = data.corpus_ids.shape[1]
+
+    # --init-checkpoint: CAPSTONE starts the DE from coCondenser
+    # (run_de_model_ernie.sh --model_name_or_path co-condenser-marco); a
+    # T5 artifact is the docT5query generator of the expansion queries
+    init = _load_init_checkpoint(args)
+    t5_init = None
+    if init is not None and init["family"] == "t5":
+        t5_init, init = init, None
+
+    delim = " [SEP] " if cfg.delimiter == "sep" else " "
+    if args.query_tsv:
+        expander = QueryExpander.from_tsv(
+            args.query_tsv, total_part=cfg.total_part, delimiter=delim)
+    elif t5_init is not None:
+        with logger.timed("doc2query"):
+            tsv = _doc2query_generate(t5_init, data, args, cfg, device,
+                                      mesh)
+        expander = QueryExpander.from_tsv(
+            tsv, total_part=cfg.total_part, delimiter=delim)
+    else:
+        # made-up doc2query output: queries of varying gold similarity, so
+        # the curriculum has something to order
+        queries = {i: [f"document {i} fact{i}",           # near the gold
+                       f"what does document {i} say",     # midway
+                       f"unrelated noise {i * 7 % 97}"]   # far
+                   for i in range(n_corpus)}
+        expander = QueryExpander(queries=queries, total_part=cfg.total_part,
+                                 delimiter=delim)
+
+    bert = _bert_cfg(cfg.retriever.bert, tiny, data.vocab_size)
+    if init is not None:
+        bert = _init_bert_cfg(init, bert, data.vocab_size)
+    model = init_dual_encoder(BiEncoderConfig(
+        bert=bert, share_weight=cfg.retriever.share_weight,
+        pooling=cfg.retriever.pooling), args.seed)
+    if init is not None:
+        _graft_encoder(model, init, ("question_model.encoder",) if
+                       cfg.retriever.share_weight else
+                       ("question_model.encoder", "ctx_model.encoder"),
+                       bert.num_layers)
+    model = model.to(device)
+    lr = args.lr if args.lr is not None else (
+        3e-3 if tiny else cfg.optim.learning_rate)
+    tx = make_adamw(lr, warmup_steps=min(cfg.optim.warmup_steps, steps // 4),
+                    total_steps=steps)
+    state = TrainState.create(model, tx)
+    step = _on_shard(make_biencoder_step(tx, device, mesh=mesh,
+                                         grad_mode="full"), mesh)
+    writer = bool(args.output_dir) and lead
+    group = mesh if mesh.distributed else None
+
+    def save(tree_of, step_no: int, ckpt: str) -> None:
+        if args.output_dir:
+            save_checkpoint(args.output_dir, tree_of() if writer else None,
+                            step_no, name=ckpt, mesh=group)
+
+    rng = np.random.default_rng(args.seed)
+    nq = len(data.query_ids)
+    start = 0
+    resume_step = _resume_step(args, "curriculum_state", mesh)
+    if resume_step is not None:
+        # the bucket is a function of the step, so a resumed run re-enters
+        # the same bucket; the sampling stream is reseeded (fresh draws,
+        # the same distribution)
+        restore_checkpoint(args.output_dir, state, resume_step,
+                           name="curriculum_state")
+        start = resume_step
+        rng = np.random.default_rng(args.seed + resume_step)
+        say(f"[{name}] resumed at step {resume_step}")
+    save_every = max(1, steps // 5)
+
+    def expanded_ctx_row(row: int, question: str, bucket: int,
+                         gold_prob: float) -> np.ndarray:
+        text, title = data.passages.get(row, ("", ""))
+        mode = f"{max(bucket, 1)}-part" if bucket > 0 else "first"
+        q_sel = (question if bucket == 0
+                 else expander.select_query(row, question, mode, rng,
+                                            gold_query_prob=gold_prob))
+        body = expander.expand_passage(text, q_sel)
+        enc = tok.encode(title, text_pair=body, max_length=lc)
+        out = np.zeros((lc,), np.int32)
+        out[: len(enc)] = enc
+        return out
+
+    last = float("nan")
+    for it in range(start, steps):
+        with logger.timed("expand"):
+            bucket, gold_prob = gradual_bucket(
+                it, steps, cfg.total_part, cfg.select_generated_query)
+            # batch_size <= nq (clamped above): no replacement is safe
+            q_idx = rng.choice(nq, size=batch_size, replace=False)
+            ctx_ids = np.zeros((batch_size * m, lc), np.int32)
+            for bi, qi in enumerate(q_idx):
+                neg_rows = [(int(qi) + 1 + int(r)) % n_corpus
+                            for r in rng.choice(n_corpus - 1, size=negs,
+                                                replace=False)]
+                for j, row in enumerate([int(qi)] + neg_rows):
+                    ctx_ids[bi * m + j] = expanded_ctx_row(
+                        row, data.questions[qi], bucket, gold_prob)
+            q = data.query_ids[q_idx]
+            batch = {"q_ids": q, "q_mask": (q != 0).astype(np.int32),
+                     "ctx_ids": ctx_ids,
+                     "ctx_mask": (ctx_ids != 0).astype(np.int32),
+                     "positive_idx": (np.arange(batch_size) * m).astype(
+                         np.int32)}
+        with logger.timed("curriculum"):
+            state, metrics = step(state, batch)
+            last = float(metrics["loss"])
+        if (it + 1) % max(1, steps // 10) == 0:
+            logger.log(it + 1, {"loss": last, "bucket": bucket},
+                       phase="curriculum")
+        if (it + 1) % save_every == 0:
+            save(lambda: host_copy(state.state_dict(), device), it + 1,
+                 "curriculum_state")
+
+    # the eval over the corpus expanded with its top-k queries
+    # (run_de_model_expand_corpus_cocondenser.sh:44-60 --top_k_query)
+    exp_corpus = np.zeros_like(data.corpus_ids)
+    for i in range(n_corpus):
+        text, title = data.passages.get(i, ("", ""))
+        body = expander.expand_corpus_entry(i, text, cfg.top_k_query)
+        enc = tok.encode(title, text_pair=body, max_length=lc)
+        exp_corpus[i, : len(enc)] = enc
+    store = (torch.int8 if args.int8_index
+             else torch.bfloat16 if device.type == "cuda" else torch.float32)
+    index = MIPSIndex(device, block_size=min(8192, max(32, n_corpus // 4)),
+                      store_dtype=store, mesh=mesh,
+                      **_index_kwargs(args, device))
+    engine = RetrievalEngine(index, data.passages, logger=logger)
+    q_enc = CorpusEncoder(model.encode_query, device,
+                          chunk_size=min(1024, max(64, nq)),
+                          stall_timeout_s=_stall_timeout(args), mesh=mesh)
+    with logger.timed("eval"):
+        _build_index(index, model.encode_passage, exp_corpus,
+                     (exp_corpus != 0).astype(np.int32), data.vocab_size,
+                     args)
+        res = engine.mine(q_enc(data.query_ids, data.query_mask),
+                          data.questions, data.answers,
+                          k=min(args.topk or 10, n_corpus),
+                          positive_ids=data.positive_rows)
+    out = {"recipe": name, "steps": steps, "final_loss": last,
+           "top1": res.top_k_hits[0],
+           "mrr10": res.metrics.get("MRR_n@_10", 0.0)}
+    if args.qrels:
+        # the reference's TREC surface: nDCG@10, map_cut_10, recip_rank and
+        # recall_N from graded qrels (CAPSTONE/utils/evaluate_trec.py:72-107)
+        from simxns_tpu_torch.data import load_trec_qrels
+        from simxns_tpu_torch.evals import trec_eval_all
+
+        topk_ids = np.asarray(res.topk_ids)
+        ranked = {str(i): [int(p) for p in topk_ids[i]]
+                  for i in range(nq)}
+        out["trec"] = trec_eval_all(ranked, load_trec_qrels(args.qrels),
+                                    k=10, recall_k=topk_ids.shape[1])
+    out.update(total_s=time.time() - t_start,
+               phase_times_s=dict(logger.phase_times),
+               world_size=mesh.world_size)
+    if device.type == "cuda":
+        out["max_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    save(lambda: {"params": host_copy(state.state_dict(), device)["params"]},
+         steps, "retriever")
+    if writer:
+        with open(os.path.join(args.output_dir, "eval.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(out, f, indent=1)
+    logger.close()
+    say(f"[{name}] curriculum-trained {steps} steps, top1={out['top1']:.3f}")
+    return out
+
+
 def _on_shard(step, mesh):
     """``step`` called with this rank's rows of each global batch (its last
     argument); ``step`` itself without a group."""
@@ -1611,26 +1910,17 @@ def _on_shard(step, mesh):
     return sharded
 
 
-# the runner of each recipe config the port runs
+# the runner of each recipe config
 _RUNNERS = {AR2RecipeConfig: run_ar2, KDRecipeConfig: run_kd,
             LeadRecipeConfig: run_lead, MasterPretrainConfig: run_pretrain,
-            AlliesRecipeConfig: run_allies}
-# the JAX package's other runner and the ROADMAP.md Queue 1 item that
-# brings it to the port
-_NOT_PORTED = {
-    "CapstoneRecipeConfig": ("run_capstone (CAPSTONE curriculum)", 15),
-}
+            AlliesRecipeConfig: run_allies,
+            CapstoneRecipeConfig: run_capstone}
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     cfg = RECIPES[args.recipe]
-    runner = _RUNNERS.get(type(cfg))
-    if runner is None:
-        what, item = _NOT_PORTED[type(cfg).__name__]
-        raise NotImplementedError(f"recipe {args.recipe}: {what} is not "
-                                  f"ported yet (ROADMAP.md Queue 1, item "
-                                  f"{item})")
+    runner = _RUNNERS[type(cfg)]
     if args.output_dir:
         os.makedirs(args.output_dir, exist_ok=True)
     import torch.distributed as dist

@@ -167,14 +167,18 @@ def _logged(directory, phase):
     ("lead_ms_distill", "lead", ["--steps", "8", "--batch", "8",
                                  "--corpus-size", "48", "--num-queries",
                                  "16"], 5e-3),
-    ("master_pretrain", "pretrain", ["--steps", "4", "--batch", "8"], 1e-5)])
+    ("master_pretrain", "pretrain", ["--steps", "4", "--batch", "8"], 1e-5),
+    ("capstone_curriculum", "curriculum", [
+        "--steps", "6", "--batch", "8", "--corpus-size", "48",
+        "--num-queries", "16"], 1e-5)])
 def test_w2_launcher_matches_w1(pool, tmp_path, recipe, phase, extra, rtol):
-    """``run_lead`` and ``run_pretrain`` on two ranks (each steps on its half
-    of the same global batches) against the same run at world 1: every
-    logged loss within ``rtol`` (LEAD: after 60 warm-up steps of f32 AdamW
-    at eps=1e-8, whose noise-level updates the joint losses inherit, as in
-    ``test_torch_run_lead.py``: 1.9e-3 measured on the CPU; MASTER: the
-    same batches, exact shares)."""
+    """``run_lead``, ``run_pretrain`` and ``run_capstone`` on two ranks
+    (each steps on its half of the same global batches) against the same
+    run at world 1: every logged loss within ``rtol`` (LEAD: after 60
+    warm-up steps of f32 AdamW at eps=1e-8, whose noise-level updates the
+    joint losses inherit, as in ``test_torch_run_lead.py``: 1.9e-3
+    measured on the CPU; MASTER and CAPSTONE: the same batches, exact
+    shares; CAPSTONE 1.2e-6 measured)."""
     from simxns_tpu_torch import run as prun
 
     argv = ["--recipe", recipe, "--synthetic", *extra, "--device", "cpu"]

@@ -1,7 +1,7 @@
 """The port's launcher end to end on the CPU: its own resume, offload and
 stream-build equivalences (the twins of tests/test_run.py:280, :374 and
-:400), every AR2 recipe through ``main``, real-data hit labeling, and what
-is not ported. The trajectory against the JAX launcher is in
+:400), every AR2 recipe through ``main``, real-data hit labeling, and a
+runner for every recipe. The trajectory against the JAX launcher is in
 tests/test_torch_run_trajectory.py."""
 
 import json
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from simxns_tpu_torch import run as prun
+from simxns_tpu_torch.config import RECIPES
 from simxns_tpu_torch.train import driver as pdriver
 from torch_parity import RUN_TINY, run_losses
 from torch_parity import one_torch_thread  # noqa: F401
@@ -102,10 +103,23 @@ def test_ar2_recipes_run(tmp_path, recipe):
         assert prefix in names
 
 
-@pytest.mark.parametrize("recipe", ["capstone_curriculum"])
-def test_other_runners_are_not_ported(recipe):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prun.main(["--recipe", recipe, "--synthetic", "--device", "cpu"])
+# the JAX launcher's dispatch by config type (simxns_tpu/run.py:1979-1991)
+JAX_RUNNERS = {"AR2RecipeConfig": "run_ar2", "KDRecipeConfig": "run_kd",
+               "MasterPretrainConfig": "run_pretrain",
+               "LeadRecipeConfig": "run_lead",
+               "CapstoneRecipeConfig": "run_capstone",
+               "AlliesRecipeConfig": "run_allies"}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_every_recipe_has_a_runner(recipe):
+    """Every recipe of the port's config tree has a runner, the one the
+    JAX launcher dispatches its config type to (nothing is left
+    unported)."""
+    kind = type(RECIPES[recipe])
+    runner = prun._RUNNERS[kind]
+    assert callable(runner) and runner.__name__ == JAX_RUNNERS[kind.__name__]
+    assert getattr(prun, runner.__name__) is runner
 
 
 def _prepare_data(argv):
