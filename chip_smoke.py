@@ -214,8 +214,11 @@ non-zero and prints no result):
    at [64, 8, 160, d] and K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24,
    against an f64 evaluation (``F32_*`` limits), beside the plain f32
    version (TF32 off) and the bf16 instance on the inputs cast to bf16
-   (which they must beat 16-fold), with the times of the kernels, the
-   plain versions and SDPA in f32 at d = 64; then 3 ``make_biencoder_step``
+   (which they must beat 16-fold), two backward calls bitwise equal, with
+   the times of the kernels, the plain versions and SDPA in f32 at d = 64;
+   the same checks at S = 1024, d = 128 (K7/K8) and S = 255 (K5/K6; the
+   f32 backward of both is ``csrc/attention_bwd_f32.cu``, on ``wgmma``);
+   then 3 ``make_biencoder_step``
    steps of an f32 ``BertConfig.tiny`` DE on passages of 512 tokens (K7/K8
    f32), the first step against the same step on the plain pair;
 24. ``--init-checkpoint`` at full width, from artifacts written here under
@@ -356,6 +359,29 @@ def device_split(torch, fn, reps=5):
             split.setdefault(name.split("(")[0][:120], []).append(
                 ev.time_range.elapsed_us())
     return {k: sum(v) / len(v) / 1e3 for k, v in split.items()}
+
+
+def device_call_ms(torch, fn, reps=5):
+    """Device ms of one call of ``fn`` over every kernel it launches, from
+    torch.profiler: each kernel's mean ms a launch times its launches a
+    call (those recorded over ``reps`` calls, rounded; a session late in a
+    process may drop some). None when the session recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    if not us:
+        return None
+    return sum(sum(v) / len(v) * max(1, round(len(v) / reps))
+               for v in us.values()) / 1e3
 
 
 def call_peak_gb(torch, fn):
@@ -5098,9 +5124,9 @@ F32_STEP_LOSS_REL, F32_STEP_GRAD = 1e-4, 1e-4
 def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     """One f32 instance pair (``fwd``, ``bwd``) on head views of [b, s, 8d]
     f32 projections (key lengths s/2..s, one row all masked): against f64,
-    the plain f32 version and the bf16 instance; with ``timing`` the times
-    of the kernels, the plain versions and SDPA in f32 (additive -1e9 key
-    bias) and the bounds."""
+    the plain f32 version and the bf16 instance, two backward calls
+    bitwise equal; with ``timing`` the times of the kernels, the plain
+    versions and SDPA in f32 (additive -1e9 key bias) and the bounds."""
     from simxns_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -5119,6 +5145,7 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     vmax = float(v.abs().max())
     o = fwd(q, k, v, mask)
     grads = bwd(q, k, v, mask, do)
+    again = bwd(q, k, v, mask, do)
     plain_o = fa._group_fwd_plain(q, k, v, mask)
     plain_g = fa._group_bwd_plain(q, k, v, mask, do)
     qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
@@ -5133,6 +5160,8 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     check(o.dtype == torch.float32 and all(g.dtype == torch.float32
                                            for g in grads),
           "f32 instances: results not f32")
+    check(all(torch.equal(g, a) for g, a in zip(grads, again)),
+          f"f32 {bwd.__name__} S={s} d={d}: two calls differ")
     check(err_o <= fa.F32_FWD_TOL and max(err_g) <= fa.F32_BWD_TOL,
           f"f32 {fwd.__name__} S={s} d={d}: errors against f64 {err_o}, "
           f"{err_g} (limits {fa.F32_FWD_TOL}, {fa.F32_BWD_TOL})")
@@ -5149,7 +5178,7 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
                fwd_max_abs_err=float((o - plain_o).abs().max()),
                bwd_max_abs_err=max(float((g - r).abs().max())
                                    for g, r in zip(grads, plain_g)))
-    del ob, gb, qb, kb, vb, dob, plain_o, plain_g, o64, g64
+    del ob, gb, qb, kb, vb, dob, plain_o, plain_g, o64, g64, again
     if not timing:
         return rec
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -5170,7 +5199,10 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
         library_ms=timed(torch, lambda: sdpa(q, k, v, attn_mask=bias), 5),
         bound_ms=bms_f, bound_by=by_f,
         impl_ops_ms=3 * 2 * product / PEAK_BF16 * 1e3,
-        bwd_ms=timed(torch, lambda: bwd(q, k, v, mask, do), 5),
+        bwd_ms=timed(torch, lambda: bwd(q, k, v, mask, do), 20),
+        # the profiler's device ms a call (the event time of a small call
+        # holds the host's launch gaps)
+        bwd_device_ms=device_call_ms(torch, lambda: bwd(q, k, v, mask, do)),
         bwd_plain_ms=timed(torch, lambda: fa._group_bwd_plain(
             q, k, v, mask, do), 2),
         bwd_library_ms=timed(torch, lambda: torch.autograd.grad(
@@ -5263,9 +5295,11 @@ def _f32_de_step(torch, np):
 def phase_f32_attention(torch, smi, records):
     """Phase 23: the f32 instances of K5-K8. K5/K6 at [64, 8, 160, d] and
     K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24, against f64, the plain
-    f32 version (TF32 off) and the bf16 instance; the times of the kernel,
-    the plain version and SDPA in f32 at d = 64; then an f32 DE's steps on
-    K7/K8 f32 against the plain pair."""
+    f32 version (TF32 off) and the bf16 instance, two backward calls
+    bitwise equal; the times of the kernel, the plain version and SDPA in
+    f32 at d = 64; the same checks of K7/K8 at [4, 8, 1024, 128] and K5/K6
+    at [16, 8, 255, 64]; then an f32 DE's steps on K7/K8 f32 against the
+    plain pair."""
     import numpy as np
 
     from simxns_tpu_torch import ops
@@ -5302,7 +5336,8 @@ def phase_f32_attention(torch, smi, records):
                       "max_abs_err is against the plain f32 version",
             **common)
         records[f"{bwd.__name__}_f32"].update(
-            ms=main["bwd_ms"], plain_ms=main["bwd_plain_ms"],
+            ms=main["bwd_ms"], device_ms=main["bwd_device_ms"],
+            plain_ms=main["bwd_plain_ms"],
             library_ms=main["bwd_library_ms"], bound_ms=main["bwd_bound_ms"],
             bound_by=main["bwd_bound_by"],
             impl_ops_ms=main["bwd_impl_ops_ms"],
@@ -5313,6 +5348,14 @@ def phase_f32_attention(torch, smi, records):
                       "version",
             **{**common, "err_vs_f64": max(max(r["bwd_err_of_largest_vs_f64"])
                                            for r in shapes)})
+    # the f32 backward's edges: S = 1024 at d = 128 (its most shared
+    # memory), and S = 255 on K6's route (the last key tile 31 of 32)
+    edges = {"K7/K8 S=1024 d=128": _check_f32_pair(
+                 torch, gen, fa.bh_attention_fwd, fa.bh_attention_bwd, 4,
+                 1024, 128, timing=False),
+             "K5/K6 S=255 d=64": _check_f32_pair(
+                 torch, gen, fa.group_attention_fwd, fa.group_attention_bwd,
+                 16, 255, 64, timing=False)}
     launched = ops.launches()
     for name, n in launched.items():
         totals[name] += n
@@ -5322,8 +5365,8 @@ def phase_f32_attention(torch, smi, records):
     for name in F32_KERNELS:
         emit("kernel", name=name, nvidia_smi=smi,
              **{k: v for k, v in records[name].items() if k != "shapes"})
-    emit("f32_attention", nvidia_smi=smi, pairs=by_pair, de_steps=step,
-         seconds=time.perf_counter() - t0)
+    emit("f32_attention", nvidia_smi=smi, pairs=by_pair, edges=edges,
+         de_steps=step, seconds=time.perf_counter() - t0)
     fresh_peak(torch)
     _launch_totals(records, "f32_attention", totals)
 
@@ -6172,16 +6215,17 @@ SOURCES = {
                    "simxns_tpu/ops/fused_ffn.py:222"),
     "int8_ffn": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
                  "simxns_tpu/ops/fused_ffn.py:160"),
-    # the f32 instances of K5-K8 (K6's is K8's two passes)
+    # the f32 instances of K5-K8 (K6's and K8's: one wgmma backward)
     "group_attention_fwd_f32": ("cuda",
                                 "simxns_tpu_torch/csrc/group_attention.cu",
                                 "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd_f32": ("cuda",
-                                "simxns_tpu_torch/csrc/bh_attention.cu",
+                                "simxns_tpu_torch/csrc/attention_bwd_f32.cu",
                                 "simxns_tpu/ops/flash_attention.py:125"),
     "bh_attention_fwd_f32": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
                              "simxns_tpu/ops/flash_attention.py:67"),
-    "bh_attention_bwd_f32": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+    "bh_attention_bwd_f32": ("cuda",
+                             "simxns_tpu_torch/csrc/attention_bwd_f32.cu",
                              "simxns_tpu/ops/flash_attention.py:80"),
 }
 

@@ -1,6 +1,7 @@
 // Device functions of the attention backward: K6 group_attention_bwd
 // (group_attention.cu) and K8 bh_attention_bwd (bh_attention.cu), on the
-// tile products of attention_ring.cuh.
+// tile products of attention_ring.cuh, and their f32 instance
+// (attention_bwd_f32.cu).
 //
 // The model's backward, in f32 (scale = 1/sqrt(d)):
 //   s  = where(mask[key] > 0, q k^T * scale, -1e9),  p = softmax(s)
@@ -18,8 +19,9 @@
 //   key walk (dkv_tile) gets p^T and dS^T from k q^T and v dO^T, already in
 //   the A layout of dV += p^T dO and dK += dS^T q.
 // p and dS enter their products as hi + lo bf16 halves (p_v_tile_split).
-// The *_split functions are the f32 instances' (attention_ring.cuh): every
-// operand split, A operands read from their shared tiles.
+// The f32 instance runs fold_stats, finish_stats, ds_rows and p_ds_cols on
+// its wgmma accumulators, whose layout is mma.sync's; REAL = true (every
+// key of the tile real: fill kRealKey) skips the fill's select.
 //
 // A key's fill says how its score is made: kRealKey = the scaled product,
 // else a constant: the mask's -1e9 (as -1e9 log2(e)) or -inf past S (the
@@ -66,16 +68,17 @@ __device__ __forceinline__ float key_fill(const int* mask, int b, int j,
   return mask[static_cast<long long>(b) * S + j] > 0 ? kRealKey : kMasked;
 }
 
+template <bool REAL = false>
 __device__ __forceinline__ float score(float prod, float fill,
                                        float scale2) {
-  return fill == kRealKey ? prod * scale2 : fill;
+  return REAL || fill == kRealKey ? prod * scale2 : fill;
 }
 
 // The statistics walk's fold of one key tile's scores sc (q k^T) and dP
 // (dO v^T) into the running max, sum and row dot; fill the tile's key
 // fills. mx is quad-reduced (every thread of a row holds the row's max);
 // sum and dotu are the thread's partial sums.
-template <int NT>
+template <bool REAL = false, int NT>
 __device__ __forceinline__ void fold_stats(float (&sc)[NT][4],
                                            const float (&dp)[NT][4],
                                            const float* fill, float scale2,
@@ -86,7 +89,8 @@ __device__ __forceinline__ void fold_stats(float (&sc)[NT][4],
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      sc[nt][e] = score(sc[nt][e], fill[nt * 8 + 2 * t + (e & 1)], scale2);
+      sc[nt][e] =
+          score<REAL>(sc[nt][e], fill[nt * 8 + 2 * t + (e & 1)], scale2);
   float cm[2];
   ring::tile_max(sc, cm);
 #pragma unroll
@@ -121,20 +125,6 @@ __device__ __forceinline__ void stats_tile(
   fold_stats(sc, dp, fill, scale2, mx, sum, dotu);
 }
 
-// stats_tile of an f32 instance: q, dO, k, v split (attention_ring.cuh),
-// q and dO the warp's rows of the shared tiles qs, dos
-template <int D, int NT>
-__device__ __forceinline__ void stats_tile_split(
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos,
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, int lo,
-    const float* fill, float scale2, float (&mx)[2], float (&sum)[2],
-    float (&dotu)[2]) {
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile_split<D>(sc, qs, ks, lo);
-  ring::q_k_tile_split<D>(dp, dos, vs, lo);
-  fold_stats(sc, dp, fill, scale2, mx, sum, dotu);
-}
-
 __device__ __forceinline__ void finish_stats(const float (&mx)[2],
                                              float (&sum)[2],
                                              float (&dotu)[2],
@@ -151,7 +141,7 @@ __device__ __forceinline__ void finish_stats(const float (&mx)[2],
 
 // dS = p (dP - rowsum(dP p)) of one key tile into sc, from its scores sc
 // and dP, with p = 2^(s - lse)
-template <int NT>
+template <bool REAL = false, int NT>
 __device__ __forceinline__ void ds_rows(float (&sc)[NT][4],
                                         const float (&dp)[NT][4],
                                         const float* fill, float scale2,
@@ -163,7 +153,7 @@ __device__ __forceinline__ void ds_rows(float (&sc)[NT][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float s =
-          score(sc[nt][e], fill[nt * 8 + 2 * t + (e & 1)], scale2);
+          score<REAL>(sc[nt][e], fill[nt * 8 + 2 * t + (e & 1)], scale2);
       const float p = ring::ex2(s - lse[e >> 1]);
       sc[nt][e] = p * (dp[nt][e] - dot[e >> 1]);
     }
@@ -183,24 +173,10 @@ __device__ __forceinline__ void dq_tile(
   ring::p_v_tile_split<D>(acc, sc, ks);
 }
 
-// dq_tile of an f32 instance (stats_tile_split's operands)
-template <int D, int NT>
-__device__ __forceinline__ void dq_tile_split(
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos,
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, int lo,
-    const float* fill, float scale2, const float (&lse)[2],
-    const float (&dot)[2], float (&acc)[D / 8][4]) {
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile_split<D>(sc, qs, ks, lo);
-  ring::q_k_tile_split<D>(dp, dos, vs, lo);
-  ds_rows(sc, dp, fill, scale2, lse, dot);
-  ring::p_v_tile_split3<D>(acc, sc, ks, lo);
-}
-
 // p^T and dS^T of one query tile for the warp's 16 keys, from k q^T (pt)
 // and v dO^T (dst): fill the two key rows' fills (rows g, g + 8); lse, dot
 // the tile's query statistics
-template <int NT>
+template <bool REAL = false, int NT>
 __device__ __forceinline__ void p_ds_cols(float (&pt)[NT][4],
                                           float (&dst)[NT][4],
                                           const float (&fill)[2],
@@ -213,7 +189,7 @@ __device__ __forceinline__ void p_ds_cols(float (&pt)[NT][4],
     for (int e = 0; e < 4; ++e) {
       const int i = nt * 8 + 2 * t + (e & 1);
       const float p =
-          ring::ex2(score(pt[nt][e], fill[e >> 1], scale2) - lse[i]);
+          ring::ex2(score<REAL>(pt[nt][e], fill[e >> 1], scale2) - lse[i]);
       pt[nt][e] = p;
       dst[nt][e] = p * (dst[nt][e] - dot[i]);
     }
@@ -234,22 +210,6 @@ __device__ __forceinline__ void dkv_tile(
   p_ds_cols(pt, dst, fill, lse, dot, scale2);
   ring::p_v_tile_split<D>(dva, pt, dos);
   ring::p_v_tile_split<D>(dka, dst, qs);
-}
-
-// dkv_tile of an f32 instance: k and v the warp's rows of the shared tiles
-// ks, vs; all four operands split
-template <int D, int NT>
-__device__ __forceinline__ void dkv_tile_split(
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float (&fill)[2],
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos, int lo,
-    const float* lse, const float* dot, float scale2,
-    float (&dka)[D / 8][4], float (&dva)[D / 8][4]) {
-  float pt[NT][4], dst[NT][4];
-  ring::q_k_tile_split<D>(pt, ks, qs, lo);
-  ring::q_k_tile_split<D>(dst, vs, dos, lo);
-  p_ds_cols(pt, dst, fill, lse, dot, scale2);
-  ring::p_v_tile_split3<D>(dva, pt, dos, lo);
-  ring::p_v_tile_split3<D>(dka, dst, qs, lo);
 }
 
 }  // namespace bwd

@@ -207,8 +207,7 @@ __device__ __forceinline__ void p_v_tile_split(float (&o)[D / 8][4],
 }
 
 // --- products of the f32 instances ------------------------------------------
-// The f32 instances of K5, K7 and K8 (K6's is K8's) take f32 q, k, v and
-// dO. Each enters the tensor cores as two bf16 halves, hi = bf16(x) and lo
+// The f32 instances of K5 and K7 take f32 q, k and v. Each enters the tensor cores as two bf16 halves, hi = bf16(x) and lo
 // = bf16(x - hi), written by the split pass (attention_tile.cuh): together
 // about 16 of x's 24 bits. A product of two split operands is hi hi^T +
 // hi lo^T + lo hi^T, three m16n8k16 products into one f32 accumulator; lo

@@ -2,7 +2,7 @@
 // stores (In, Out, load_rows, load_a, store_rows, zero, prepare) serve
 // K5-K8 (group_attention.cu, bh_attention.cu); K6 walks its resident tiles
 // in chunks of kChunk rows. The products are attention_ring.cuh's. The
-// split pass (split_halves) feeds the f32 instances of K5, K7 and K8.
+// split pass (split_halves) feeds the f32 instances of K5 and K7.
 #pragma once
 
 #include <type_traits>

@@ -48,19 +48,15 @@
 // and dO v^T twice, and each product with an f32 operand twice) against
 // the model's 5, and 3 ex2 a score.
 //
-// The f32 instances (template flag F32; sx_bh_attention_fwd_f32 and
-// sx_bh_attention_bwd_f32) take f32 q, k, v and dO, as the JAX kernels do.
-// A split pass (attention_tile.cuh) writes each operand as hi = bf16(x) and
-// lo = bf16(x - hi) into a bf16 scratch; the kernels then run every product
-// as three bf16 products, hi hi + hi lo + lo hi, into f32
-// (attention_ring.cuh), about 16 bits of each operand, and store their
-// results in f32. Every shared tile holds its hi and its lo rows, so K7's
-// 174 KB and each K8 pass's 204-208 KB at d = 128 take one block an SM; the
-// ring keeps its 64-row tiles (32-row tiles would fit two blocks but double
-// the walks' steps and barriers). Bound: the split's three products a model
-// product against the bf16 peak (K7 6, K8 15 products of 2 S^2 d per
-// head), or the f32 bytes. K6's f32 instance is sx_bh_attention_bwd_f32 at
-// S < 256 (group_attention.cu says why).
+// K7's f32 instance (template flag F32; sx_bh_attention_fwd_f32) takes f32
+// q, k, v, as the JAX kernel does. A split pass (attention_tile.cuh) writes
+// each operand as hi = bf16(x) and lo = bf16(x - hi) into a bf16 scratch;
+// the kernel then runs every product as three bf16 products, hi hi + hi lo
+// + lo hi, into f32 (attention_ring.cuh), about 16 bits of each operand,
+// and stores o in f32. Every shared tile holds its hi and its lo rows, so
+// its 174 KB at d = 128 take one block an SM. Bound: the f32 bytes. K8's
+// f32 instance, which K6's f32 instance is too, is the wgmma backward of
+// attention_bwd_f32.cu.
 #include "attention_bwd.cuh"
 #include "attention_tile.cuh"
 
@@ -80,33 +76,29 @@ constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
 }
 
 // Elements of the tiles of either K8 pass: two resident tiles (q and dO,
-// or k and v) and a ring of the other two. An f32 instance holds their lo
-// halves after them (attention_ring.cuh), so its tiles take twice the
-// bytes: 204 KB at d = 128, one block an SM.
+// or k and v) and a ring of the other two.
 template <int D>
 __host__ __device__ constexpr int pass_tiles() {
   return (2 + 2 * ring::kStages) * ring::Layout<D>::kTile;
 }
 
-template <int D, bool F32 = false>
+template <int D>
 constexpr int query_pass_smem() {    // K8: q, dO, the k and v ring, fills
-  return pass_tiles<D>() * 2 * (F32 ? 2 : 1) + kMaxS * 4;
+  return pass_tiles<D>() * 2 + kMaxS * 4;
 }
 
-template <int D, bool F32 = false>
+template <int D>
 constexpr int key_pass_smem() {      // k, v, the q and dO ring, statistics
-  return pass_tiles<D>() * 2 * (F32 ? 2 : 1) +
-         2 * ring::kStages * ring::kRows * 4;
+  return pass_tiles<D>() * 2 + 2 * ring::kStages * ring::kRows * 4;
 }
 
-// A warp of a bf16 instance holds its A fragments of q and dO (query pass)
-// or of k and v (key pass) across the walk when they fit beside the
-// accumulators; at d = 128 it takes them from shared memory again for
-// every tile. An f32 instance always reads them from shared memory.
+// A warp holds its A fragments of q and dO (query pass) or of k and v (key
+// pass) across the walk when they fit beside the accumulators; at d = 128
+// it takes them from shared memory again for every tile.
 __host__ __device__ constexpr bool hold_fragments(int D) { return D <= 64; }
 
-// The least blocks an SM of a bf16 instance at d <= 64 (registers); an
-// f32 instance's shared memory allows at most 2
+// The least blocks an SM of an instance at d <= 64 (registers); K7's f32
+// instance's shared memory allows at most 2
 __host__ __device__ constexpr int min_blocks(int D, bool F32, int small) {
   return D <= 64 && !F32 ? small : 2;
 }
@@ -134,21 +126,20 @@ __global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 4))
 // K8, launch 1: per query tile, the row statistics (lse, rowsum(dP p)) and
 // dQ; ring step s < n_tiles is walk 1 over key tile s, step n_tiles + j
 // walk 2 over key tile j
-template <int D, bool F32>
-__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 3))
+template <int D>
+__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, false, 3))
     bh_attention_bwd_query_kernel(In q, In k, In v, In dout,
-                                  const int* __restrict__ mask,
-                                  OutOf<F32> dq, float* stats, int S,
-                                  float scale, float scale2, long long lo) {
+                                  const int* __restrict__ mask, Out dq,
+                                  float* stats, int S, float scale,
+                                  float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kT = ring::Layout<D>::kTile;
   constexpr bool kHold = hold_fragments(D);
-  constexpr int kLo = pass_tiles<D>();      // hi tiles -> lo tiles (F32)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* dos = qs + kT;
   __nv_bfloat16* ks = dos + kT;                 // [kStages] tiles
   __nv_bfloat16* vs = ks + ring::kStages * kT;  // [kStages] tiles
-  float* fill = reinterpret_cast<float*>(qs + (F32 ? 2 : 1) * kLo);
+  float* fill = reinterpret_cast<float*>(qs + pass_tiles<D>());
   const int q0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -165,22 +156,9 @@ __global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 3))
     const int tile = step % n_tiles, st = step % ring::kStages;
     ring::copy_tile<D>(ks + st * kT, k_row, tile * ring::kKeys, S);
     ring::copy_tile<D>(vs + st * kT, v_row, tile * ring::kKeys, S);
-    if constexpr (F32) {
-      ring::copy_tile<D>(ks + st * kT + kLo,
-                         [&](int i) { return k_row(i) + lo; },
-                         tile * ring::kKeys, S);
-      ring::copy_tile<D>(vs + st * kT + kLo,
-                         [&](int i) { return v_row(i) + lo; },
-                         tile * ring::kKeys, S);
-    }
   };
   ring::copy_tile<D>(qs, q_row, q0, S);
   ring::copy_tile<D>(dos, do_row, q0, S);
-  if constexpr (F32) {
-    ring::copy_tile<D>(qs + kLo, [&](int i) { return q_row(i) + lo; }, q0, S);
-    ring::copy_tile<D>(dos + kLo, [&](int i) { return do_row(i) + lo; }, q0,
-                       S);
-  }
   issue(0);                                   // q and dO ride with it
   sx::cp_async_commit();
   // -> the ring stage of `step`, landed and visible to the block
@@ -199,20 +177,13 @@ __global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 3))
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int st = ring_step(tile);
     if (active) {
-      if constexpr (F32) {
-        bwd::stats_tile_split<D, ring::kNt>(qs, dos, ks + st * kT,
-                                            vs + st * kT, kLo,
-                                            fill + tile * ring::kKeys,
-                                            scale2, mx, sum, dotu);
-      } else {
-        if (tile == 0 || !kHold) {
-          ring::load_q<D>(qa, qs);
-          ring::load_q<D>(da, dos);
-        }
-        bwd::stats_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
-                                      fill + tile * ring::kKeys, scale2, mx,
-                                      sum, dotu);
+      if (tile == 0 || !kHold) {
+        ring::load_q<D>(qa, qs);
+        ring::load_q<D>(da, dos);
       }
+      bwd::stats_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
+                                    fill + tile * ring::kKeys, scale2, mx,
+                                    sum, dotu);
     }
     __syncthreads();
   }
@@ -223,19 +194,13 @@ __global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 3))
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int st = ring_step(n_tiles + tile);
     if (active) {
-      if constexpr (F32) {
-        bwd::dq_tile_split<D, ring::kNt>(qs, dos, ks + st * kT, vs + st * kT,
-                                         kLo, fill + tile * ring::kKeys,
-                                         scale2, lse, dot, acc);
-      } else {
-        if (!kHold) {
-          ring::load_q<D>(qa, qs);
-          ring::load_q<D>(da, dos);
-        }
-        bwd::dq_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
-                                   fill + tile * ring::kKeys, scale2, lse,
-                                   dot, acc);
+      if (!kHold) {
+        ring::load_q<D>(qa, qs);
+        ring::load_q<D>(da, dos);
       }
+      bwd::dq_tile<D, ring::kNt>(qa, da, ks + st * kT, vs + st * kT,
+                                 fill + tile * ring::kKeys, scale2, lse, dot,
+                                 acc);
     }
     __syncthreads();
   }
@@ -255,22 +220,20 @@ __global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 3))
 // over every query tile. Query rows past S are zero-filled, and so are
 // their statistics: their p is finite (1 or 0) and multiplies a zero dO
 // row, and their dS is 0, so they add exactly 0.
-template <int D, bool F32>
+template <int D>
 __global__ void __launch_bounds__(ring::kThreads, 2)
     bh_attention_bwd_key_kernel(In q, In k, In v, In dout,
-                                const int* __restrict__ mask, OutOf<F32> dk,
-                                OutOf<F32> dv,
+                                const int* __restrict__ mask, Out dk, Out dv,
                                 const float* __restrict__ stats, int S,
-                                float scale, float scale2, long long lo) {
+                                float scale, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kT = ring::Layout<D>::kTile;
   constexpr bool kHold = hold_fragments(D);
-  constexpr int kLo = pass_tiles<D>();      // hi tiles -> lo tiles (F32)
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* vs = ks + kT;
   __nv_bfloat16* qs = vs + kT;                   // [kStages] tiles
   __nv_bfloat16* dos = qs + ring::kStages * kT;  // [kStages] tiles
-  float* rl = reinterpret_cast<float*>(ks + (F32 ? 2 : 1) * kLo);
+  float* rl = reinterpret_cast<float*>(ks + pass_tiles<D>());
   float* rd = rl + ring::kStages * ring::kRows;  // [kStages][64] each
   const int j0 = blockIdx.x * ring::kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -291,12 +254,6 @@ __global__ void __launch_bounds__(ring::kThreads, 2)
     const int st = tile % ring::kStages, i0 = tile * ring::kRows;
     ring::copy_tile<D>(qs + st * kT, q_row, i0, S);
     ring::copy_tile<D>(dos + st * kT, do_row, i0, S);
-    if constexpr (F32) {
-      ring::copy_tile<D>(qs + st * kT + kLo,
-                         [&](int r) { return q_row(r) + lo; }, i0, S);
-      ring::copy_tile<D>(dos + st * kT + kLo,
-                         [&](int r) { return do_row(r) + lo; }, i0, S);
-    }
     const int i = threadIdx.x & (ring::kRows - 1);
     const bool second = threadIdx.x >= ring::kRows, ok = i0 + i < S;
     bwd::cp_async4((second ? rd : rl) + st * ring::kRows + i,
@@ -306,10 +263,6 @@ __global__ void __launch_bounds__(ring::kThreads, 2)
   auto v_row = [&](int i) { return v.row(b, h, i); };
   ring::copy_tile<D>(ks, k_row, j0, S);
   ring::copy_tile<D>(vs, v_row, j0, S);
-  if constexpr (F32) {
-    ring::copy_tile<D>(ks + kLo, [&](int i) { return k_row(i) + lo; }, j0, S);
-    ring::copy_tile<D>(vs + kLo, [&](int i) { return v_row(i) + lo; }, j0, S);
-  }
   issue(0);                                   // k and v ride with it
   sx::cp_async_commit();
 
@@ -325,21 +278,13 @@ __global__ void __launch_bounds__(ring::kThreads, 2)
     __syncthreads();
     if (active) {
       const int st = tile % ring::kStages;
-      if constexpr (F32) {
-        bwd::dkv_tile_split<D, ring::kNt>(ks, vs, fill, qs + st * kT,
-                                          dos + st * kT, kLo,
-                                          rl + st * ring::kRows,
-                                          rd + st * ring::kRows, scale2, dka,
-                                          dva);
-      } else {
-        if (tile == 0 || !kHold) {
-          ring::load_q<D>(ka, ks);
-          ring::load_q<D>(va, vs);
-        }
-        bwd::dkv_tile<D, ring::kNt>(ka, va, fill, qs + st * kT,
-                                    dos + st * kT, rl + st * ring::kRows,
-                                    rd + st * ring::kRows, scale2, dka, dva);
+      if (tile == 0 || !kHold) {
+        ring::load_q<D>(ka, ks);
+        ring::load_q<D>(va, vs);
       }
+      bwd::dkv_tile<D, ring::kNt>(ka, va, fill, qs + st * kT, dos + st * kT,
+                                  rl + st * ring::kRows,
+                                  rd + st * ring::kRows, scale2, dka, dva);
     }
     __syncthreads();
   }
@@ -383,31 +328,27 @@ int fwd(In qv, In kv, In vv, const int* mask, OutOf<F32> ov, int B,
 }
 
 // K8's two launches on views (fwd's)
-template <bool F32>
-int bwd_launch(In qv, In kv, In vv, In dov, const int* mask, OutOf<F32> dqv,
-               OutOf<F32> dkv, OutOf<F32> dvv, float* stats, int B,
-               int heads, int S, int d, float scale, long long lo,
-               cudaStream_t st) {
+int bwd_launch(In qv, In kv, In vv, In dov, const int* mask, Out dqv,
+               Out dkv, Out dvv, float* stats, int B, int heads, int S, int d,
+               float scale, cudaStream_t st) {
   const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
   const float scale2 = scale * ring::kLog2e;
   cudaError_t err;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    err = prepare(bh_attention_bwd_query_kernel<DD, F32>,                     \
-                  query_pass_smem<DD, F32>());                                \
+    err = prepare(bh_attention_bwd_query_kernel<DD>, query_pass_smem<DD>());   \
     if (err == cudaSuccess)                                                   \
-      err = prepare(bh_attention_bwd_key_kernel<DD, F32>,                     \
-                    key_pass_smem<DD, F32>());                                \
+      err = prepare(bh_attention_bwd_key_kernel<DD>, key_pass_smem<DD>());     \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    bh_attention_bwd_query_kernel<DD, F32>                                    \
-        <<<grid, ring::kThreads, query_pass_smem<DD, F32>(), st>>>(           \
-            qv, kv, vv, dov, mask, dqv, stats, S, scale, scale2, lo);         \
+    bh_attention_bwd_query_kernel<DD>                                         \
+        <<<grid, ring::kThreads, query_pass_smem<DD>(), st>>>(                \
+            qv, kv, vv, dov, mask, dqv, stats, S, scale, scale2);             \
     err = cudaGetLastError();                                                 \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    bh_attention_bwd_key_kernel<DD, F32>                                      \
-        <<<grid, ring::kThreads, key_pass_smem<DD, F32>(), st>>>(             \
-            qv, kv, vv, dov, mask, dkv, dvv, stats, S, scale, scale2, lo);    \
+    bh_attention_bwd_key_kernel<DD>                                           \
+        <<<grid, ring::kThreads, key_pass_smem<DD>(), st>>>(                  \
+            qv, kv, vv, dov, mask, dkv, dvv, stats, S, scale, scale2);        \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
     SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
@@ -421,10 +362,8 @@ int bwd_launch(In qv, In kv, In vv, In dov, const int* mask, OutOf<F32> dqv,
 static_assert(2 * key_pass_smem<128>() <= 232448 &&
                   2 * query_pass_smem<128>() <= 232448,
               "two K8 blocks fit an SM's shared memory at d = 128");
-static_assert(key_pass_smem<128, true>() <= 232448 &&
-                  query_pass_smem<128, true>() <= 232448 &&
-                  fwd_smem<128, true>() <= 232448,
-              "one f32 block of K7 and of each K8 pass fits an SM at d = 128");
+static_assert(fwd_smem<128, true>() <= 232448,
+              "one f32 block of K7 fits an SM at d = 128");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -454,19 +393,19 @@ extern "C" int sx_bh_attention_bwd(
     long long gs, float* stats, int B, int heads, int S, int d, float scale,
     void* stream) {
   if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
-  return bwd_launch<false>(
-      view(q, sb, sh, ss), view(k, sb, sh, ss), view(v, sb, sh, ss),
-      view(dout, db, dh, ds), mask, out_view<false>(dq, gb, gh, gs),
-      out_view<false>(dk, gb, gh, gs), out_view<false>(dv, gb, gh, gs), stats,
-      B, heads, S, d, scale, 0, static_cast<cudaStream_t>(stream));
+  return bwd_launch(view(q, sb, sh, ss), view(k, sb, sh, ss),
+                    view(v, sb, sh, ss), view(dout, db, dh, ds), mask,
+                    out_view<false>(dq, gb, gh, gs),
+                    out_view<false>(dk, gb, gh, gs),
+                    out_view<false>(dv, gb, gh, gs), stats, B, heads, S, d,
+                    scale, static_cast<cudaStream_t>(stream));
 }
 
-// The f32 instances: the arguments of the bf16 launchers with f32 tensors
-// (q, k, v and dout f32 views, rows 16-byte aligned; o, dq, dk, dv f32),
-// and `work`, a bf16 scratch of 2 * n values for each operand (n = B heads
-// S d: 3 for the forward, 4 for the backward), where the split pass writes
-// each operand's hi and lo halves before the attention kernels run. K6's
-// f32 instance is sx_bh_attention_bwd_f32 at S < 256 (group_attention.cu).
+// K7's f32 instance: the arguments of the bf16 launcher with f32 tensors
+// (q, k, v f32 views, rows 16-byte aligned; o f32), and `work`, a bf16
+// scratch of 2 * n values for each of q, k and v (n = B heads S d), where
+// the split pass writes each operand's hi and lo halves before the kernel
+// runs. K8's f32 instance is sx_attention_bwd_f32 (attention_bwd_f32.cu).
 extern "C" int sx_bh_attention_fwd_f32(
     const void* q, const void* k, const void* v, long long sb, long long sh,
     long long ss, const int* mask, void* o, long long ob, long long oh,
@@ -488,31 +427,4 @@ extern "C" int sx_bh_attention_fwd_f32(
                    split_view(w + 4 * n, heads, S, d), mask,
                    out_view<true>(o, ob, oh, os), B, heads, S, d, scale, n,
                    st);
-}
-
-extern "C" int sx_bh_attention_bwd_f32(
-    const void* q, const void* k, const void* v, long long sb, long long sh,
-    long long ss, const void* dout, long long db, long long dh, long long ds,
-    const int* mask, void* dq, void* dk, void* dv, long long gb, long long gh,
-    long long gs, float* stats, void* work, int B, int heads, int S, int d,
-    float scale, void* stream) {
-  if (S < 1 || S > kMaxS || d % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(work);
-  const long long n = static_cast<long long>(B) * heads * S * d;
-  const void* src[4] = {q, k, v, dout};
-  const long long strides[4][3] = {
-      {sb, sh, ss}, {sb, sh, ss}, {sb, sh, ss}, {db, dh, ds}};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err =
-        split_halves(src[i], strides[i][0], strides[i][1], strides[i][2],
-                     w + 2 * n * i, B, heads, S, d, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return bwd_launch<true>(
-      split_view(w, heads, S, d), split_view(w + 2 * n, heads, S, d),
-      split_view(w + 4 * n, heads, S, d), split_view(w + 6 * n, heads, S, d),
-      mask, out_view<true>(dq, gb, gh, gs), out_view<true>(dk, gb, gh, gs),
-      out_view<true>(dv, gb, gh, gs), stats, B, heads, S, d, scale, n, st);
 }

@@ -245,11 +245,11 @@ extern "C" int sx_group_attention_fwd(
 
 // K5's f32 instance: q, k, v f32 views (rows 16-byte aligned), o f32, and
 // `work`, a bf16 scratch of 6 n values (n = B heads S d) for the split
-// pass's hi and lo halves of q, k and v. K6's f32 instance is K8's
-// (bh_attention.cu: sx_bh_attention_bwd_f32): K6 keeps a whole head's k
-// and v, then q and dO, in shared memory, and as hi + lo halves those
-// tiles would take 2 x 2 x 256 x 136 x 2 bytes = 278 KB at d = 128, past
-// the 227 KB of a block; K8's two passes stream them at any S <= 1024.
+// pass's hi and lo halves of q, k and v. K6's f32 instance is K8's, the
+// wgmma backward of attention_bwd_f32.cu (sx_attention_bwd_f32): K6 keeps
+// a whole head's k and v, then q and dO, in shared memory, and as hi + lo
+// halves those tiles would take 2 x 2 x 256 x 136 x 2 bytes = 278 KB at
+// d = 128, past the 227 KB of a block; K8's two passes stream them.
 extern "C" int sx_group_attention_fwd_f32(
     const void* q, const void* k, const void* v, long long sb, long long sh,
     long long ss, const int* mask, void* o, long long ob, long long oh,

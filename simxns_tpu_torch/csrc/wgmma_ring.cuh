@@ -1,8 +1,9 @@
 // Hopper building blocks for a warp-specialised GEMM: TMA tiles landing in
 // a ring of shared-memory stages with full and empty mbarriers, and the
 // int8 and bf16 warpgroup MMA (wgmma) reading both operands from shared
-// memory. The persistent GEMM of wgmma_gemm.cuh (K1, K9-K14) is built on
-// them.
+// memory, or A from registers. The persistent GEMM of wgmma_gemm.cuh (K1,
+// K4, K9-K14) is built on them, and so is the f32 attention backward of
+// attention_bwd_f32.cu (its tiles split and stored by its own threads).
 //
 // The pieces, in the order a kernel uses them:
 // - tensor maps: encode_tiled() finds cuTensorMapEncodeTiled through the
@@ -28,7 +29,10 @@
 //   WgmmaBf16<N>::mma one m64nNk16 f32 += bf16 x bf16; the accumulator holds
 //   N / 2 registers a thread: register 4c + e is row 16 w + g (+ 8 for
 //   e >= 2), column 8c + 2t + (e & 1) of the 64 x N tile (w = warp of the
-//   warpgroup, g = lane / 4, t = lane % 4);
+//   warpgroup, g = lane / 4, t = lane % 4); WgmmaBf16Rs<N>::mma the same
+//   product with A from registers (mma.sync's A fragment, which is that
+//   accumulator layout in bf16 pairs); desc_sw<W>() the descriptor of a
+//   tile stored with the 32-, 64- or 128-byte swizzle, K- or MN-major;
 // - register moves between warpgroups (setmaxnreg) and named barriers.
 #pragma once
 
@@ -191,6 +195,18 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// order this thread's generic shared-memory writes before later reads of
+// the async proxy (wgmma operands written by st.shared; then a barrier)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // descriptor of a K-major, 128-byte-swizzled tile at `tile` (1024-byte
 // aligned): start address >> 4, leading offset 1 (unused when swizzled),
 // stride 1024 bytes between 8-row groups, layout 1 = 128-byte swizzle.
@@ -214,6 +230,23 @@ __device__ __forceinline__ uint64_t desc_mn128(const void* tile,
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t{atom_bytes >> 4} << 16) |
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+// descriptor of a bf16 tile stored with the W-byte swizzle (W = 32, 64 or
+// 128; the tile 1024-byte aligned): rows of W bytes, 16-byte chunks XORed
+// with the row's address bits 7 and up (the pattern TMA lands), 8-row
+// groups 8 W bytes apart (stride offset). K-major: `lead` unused (16);
+// start 32 bytes further along a row per k16 step. MN-major: atoms of W / 2
+// values along MN x rows of K, `lead` = the bytes between atoms along MN;
+// start 16 rows (16 W bytes) further per k16 step. desc_k128 and
+// desc_mn128 are the W = 128 cases.
+template <int W>
+__device__ __forceinline__ uint64_t desc_sw(const void* tile, uint32_t lead) {
+  static_assert(W == 32 || W == 64 || W == 128, "swizzle of 32, 64 or 128 B");
+  constexpr uint64_t kMode = W == 128 ? 1 : (W == 64 ? 2 : 3);
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{lead >> 4} << 16) |
+         (uint64_t{(8 * W) >> 4} << 32) | (kMode << 62);
 }
 
 template <int N>
@@ -419,6 +452,131 @@ struct WgmmaBf16<64, TA, TB> {
   }
 };
 
+template <bool TA, bool TB>
+struct WgmmaBf16<32, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(int{TA}), "n"(int{TB}));
+  }
+};
+
+template <int N, bool TB = false>
+struct WgmmaBf16Rs;   // d (N / 2 f32 a thread) += a[64 x 16] * b[N x 16]^T in
+                      // bf16 with A in registers: a thread's 4 b32 of A
+                      // are mma.sync's m16n8k16 A fragment of its warp's 16
+                      // rows (warp w of the warpgroup: rows 16 w ..);
+                      // B as WgmmaBf16's (TB: MN-major)
+
+template <bool TB>
+struct WgmmaBf16Rs<16, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(int{TB}));
+  }
+};
+
+template <bool TB>
+struct WgmmaBf16Rs<32, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(int{TB}));
+  }
+};
+
+template <bool TB>
+struct WgmmaBf16Rs<64, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(int{TB}));
+  }
+};
+
+template <bool TB>
+struct WgmmaBf16Rs<128, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(int{TB}));
+  }
+};
+
+
 // --- device: warp roles ------------------------------------------------------
 
 // change this warpgroup's registers a thread (every thread of the
@@ -436,6 +594,11 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // a barrier of `count` threads under id (1-15; 0 is __syncthreads)
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at barrier id without waiting (the other threads of `count` sync)
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace wg

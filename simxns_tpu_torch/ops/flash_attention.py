@@ -47,14 +47,16 @@ same function. d > 128 is refused (a warp's fragments of a 16-row tile
 would outgrow its registers).
 
 Each kernel has a bf16 and an f32 instance, chosen by the inputs' dtype
-before any launch. The f32 instance runs a split pass first (each f32
-operand as hi = bf16(x) and lo = bf16(x - hi), written to a bf16 scratch),
-then the kernel with every product as three bf16 tensor-core products
-(hi hi + hi lo + lo hi) into f32 accumulators, and stores its results in
-f32: an f32-class function (about 16 bits of each operand; not bitwise an
-f32 product). K6's f32 instance is K8's two passes (its resident tiles,
-doubled, overflow a block's shared memory past d = 96). Its launches count
-apart, in ``<wrapper>.f32.launches``. :func:`flash_attention` sends any
+before any launch. An f32 instance takes each f32 operand as hi = bf16(x)
+and lo = bf16(x - hi), runs every product as three bf16 tensor-core
+products (hi hi + hi lo + lo hi) into f32 accumulators, and stores its
+results in f32: an f32-class function (about 16 bits of each operand; not
+bitwise an f32 product). The forward instances (K5, K7) run a split pass
+into a bf16 scratch first, then the kernel on the halves. K6 and K8 share
+one f32 backward (``csrc/attention_bwd_f32.cu``): K8's two passes on
+``wgmma``, each tile split in shared memory as it lands, no scratch but
+the row statistics. Its launches count apart, in
+``<wrapper>.f32.launches``. :func:`flash_attention` sends any
 other dtype (f16: no recipe runs f16 attention) to the plain attention
 (``multi_head_attention``), which computes JAX's f32 function.
 """
@@ -89,9 +91,10 @@ _BWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + _VIEW + [ctypes.c_void_p] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 # K8 takes one more pointer, its f32 scratch of row statistics
 _BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
-# the f32 instances take one more, the split pass's bf16 scratch
+# the f32 forward instances take one more, the split pass's bf16 scratch;
+# the f32 backward (K6's and K8's) takes K8's arguments
 _FWD_F32_ARGS = _FWD_ARGS[:11] + [ctypes.c_void_p] + _FWD_ARGS[11:]
-_BWD_F32_ARGS = _BH_BWD_ARGS[:18] + [ctypes.c_void_p] + _BH_BWD_ARGS[18:]
+_BWD_F32_ARGS = _BH_BWD_ARGS
 
 
 class F32Instance:
@@ -272,6 +275,8 @@ def _fwd_launch(bf16, f32, wrapper):
         _native.check(lib, code, counter.__name__)
         counter.launches += 1
         return o
+    launch.instances = {"bf16": (*bf16, _FWD_ARGS),
+                        "f32": (*f32, _FWD_F32_ARGS)}
     return launch
 
 
@@ -279,8 +284,8 @@ def _bwd_launch(bf16, f32, wrapper):
     """The backward launcher of a kernel: ``bf16`` is the (library, C
     function, whether it takes K8's f32 scratch of row statistics [2, B,
     heads, S]) of its bf16 instance, ``f32`` the (library, C function) of
-    its f32 instance, which is K8's and takes the statistics and the split
-    pass's scratch."""
+    its f32 instance, K6's and K8's one f32 backward, which takes the
+    statistics."""
     def launch(q, k, v, mask, do, scale):
         q, k, v = _qkv(q, k, v)
         do = _kernel_view(do, "do")
@@ -292,18 +297,17 @@ def _bwd_launch(bf16, f32, wrapper):
         dq, dk, dv = _out(q), _out(q), _out(q)
         if q.dtype == torch.float32:
             (lib, symbol), args, stats = f32, _BWD_F32_ARGS, True
-            # the split pass's hi and lo halves of q, k, v and dO
-            work = torch.empty(4, 2, b, h, s, d, dtype=torch.bfloat16,
-                               device=q.device)
             counter = wrapper.f32
         else:
             lib, symbol, stats = bf16
             args = _BH_BWD_ARGS if stats else _BWD_ARGS
-            work, counter = None, wrapper
+            counter = wrapper
         # scratch, held until the launch is enqueued
-        scratch = (torch.empty(2, b, h, s, dtype=torch.float32,
-                               device=q.device) if stats else None)
-        extra = [_native.ptr(t) for t in (scratch, work) if t is not None]
+        extra = []
+        if stats:
+            scratch = torch.empty(2, b, h, s, dtype=torch.float32,
+                                  device=q.device)
+            extra = [_native.ptr(scratch)]
         fn = _native.function(lib, symbol, args)
         code = _native.launch(
                 fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
@@ -313,6 +317,9 @@ def _bwd_launch(bf16, f32, wrapper):
         _native.check(lib, code, counter.__name__)
         counter.launches += 1
         return dq, dk, dv
+    launch.instances = {
+        "bf16": (*bf16[:2], _BH_BWD_ARGS if bf16[2] else _BWD_ARGS),
+        "f32": (*f32, _BWD_F32_ARGS)}
     return launch
 
 
@@ -394,15 +401,16 @@ for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
 _K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"),
                   ("group_attention", "sx_group_attention_fwd_f32"),
                   group_attention_fwd)
+# K6's and K8's f32 instance: one backward on wgmma
+# (csrc/attention_bwd_f32.cu)
+_F32_BWD = ("attention_bwd_f32", "sx_attention_bwd_f32")
 _K6 = _bwd_launch(("group_attention", "sx_group_attention_bwd", False),
-                  ("bh_attention", "sx_bh_attention_bwd_f32"),
-                  group_attention_bwd)
+                  _F32_BWD, group_attention_bwd)
 _K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"),
                   ("bh_attention", "sx_bh_attention_fwd_f32"),
                   bh_attention_fwd)
 _K8 = _bwd_launch(("bh_attention", "sx_bh_attention_bwd", True),
-                  ("bh_attention", "sx_bh_attention_bwd_f32"),
-                  bh_attention_bwd)
+                  _F32_BWD, bh_attention_bwd)
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -934,6 +934,49 @@ def _check_f32_instances(dev, fwd, bwd, b, heads, s, d):
         assert e16 >= fa.F32_VS_BF16 * e32, (e16, e32)
 
 
+# The f32 backward (K6's and K8's, csrc/attention_bwd_f32.cu, on wgmma) at
+# its edges: S = 1024 at d = 128 (its most shared memory), S = 256 and
+# S = 255 on K6's route (tiles of 32 keys below 256, the last one 31 of
+# 32), widths off the 16 grid (24 and 80: padded to 32 and 96, run by the
+# 32 and 128 instances)
+F32_BWD_EDGES = [("bh", 2, 2, 1024, 128), ("bh", 2, 3, 256, 64),
+                 ("group", 2, 3, 255, 64), ("group", 3, 2, 255, 128),
+                 ("bh", 2, 2, 300, 24), ("bh", 2, 2, 512, 80),
+                 ("group", 3, 2, 160, 24), ("group", 2, 2, 160, 80)]
+
+
+@pytest.mark.parametrize("pair,b,heads,s,d", F32_BWD_EDGES)
+def test_f32_backward_edges_on_head_views(dev, pair, b, heads, s, d):
+    """K8's and K6's f32 backward on q, k, v as head views of [b, s, heads
+    d] projections (strided rows, as the models make them), batch row 0
+    with half its keys and the last with none: within fa.F32_BWD_TOL of
+    an f64 evaluation, fa.F32_VS_BF16 times closer than the bf16 instance,
+    two calls bitwise equal, each launch on the f32 counter."""
+    fwd, bwd = ((fa.bh_attention_fwd, fa.bh_attention_bwd) if pair == "bh"
+                else (fa.group_attention_fwd, fa.group_attention_bwd))
+    x = [_randn(dev, b, s, heads * d, seed=s + d + i) for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    do = _randn(dev, b, heads, s, d, seed=s + d + 3)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[0, s // 2 + 1:] = 0
+    mask[-1] = 0
+    _, g64 = fa.attention_f64(q, k, v, mask, do)
+    before = (bwd.launches, bwd.f32.launches)
+    grads = bwd(q, k, v, mask, do)
+    again = bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    assert (bwd.launches, bwd.f32.launches) == (before[0], before[1] + 2)
+    assert all(g.dtype == torch.float32 and g.shape == q.shape
+               for g in grads)
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
+    err = fa.errors_of_largest(grads, g64)
+    assert max(err) <= fa.F32_BWD_TOL, err
+    gb = bwd(*(t.to(torch.bfloat16) for t in (q, k, v)), mask,
+             do.to(torch.bfloat16))
+    for e32, e16 in zip(err, fa.errors_of_largest(gb, g64)):
+        assert e16 >= fa.F32_VS_BF16 * e32, (e16, e32)
+
+
 @pytest.mark.parametrize("s", [160, 512])
 def test_f32_attention_takes_the_kernels(dev, s):
     """f32 q, k, v on the card through the dispatch (small_s_impl="group"

@@ -8,6 +8,10 @@ f32 as the Pallas kernels do (``_fused_attention_group``); JAX's
 ``INTERPRET`` is set, so the fixture sets it.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -265,6 +269,22 @@ def test_backward_algorithm_matches_interpreted_kernel(kernel, s):
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
 
 
+@pytest.mark.parametrize("tile", [32, 64, 128])
+def test_f32_backward_tiles_match_interpreted_kernel(tile):
+    """The walks of the f32 backward (csrc/attention_bwd_f32.cu) at each of
+    its streamed tile widths (32 keys on K6's route, 64 and 128 from S =
+    256) against ``_fused_bwd`` in f32, to 1e-5 of the largest gradient:
+    the fold of the statistics does not depend on the width; S = 300 ends
+    in a partial tile, batch row 2 has every key masked."""
+    q, k, v, do, mask = _inputs(3, 2, 300, 16, seed=tile)
+    mask[2] = 0
+    want = _jax_bh(q, k, v, do, mask, jnp.float32)[1:]
+    got = _tiled_bwd_model(q, k, v, do, mask, tile=tile)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+
+
 # --- the algorithm of the one-pass forward kernels (K5, K7) ------------------
 
 # K5's key tiles (csrc/group_attention.cu kGroupKeys); K7's are 64 keys
@@ -469,3 +489,47 @@ def test_f32_split_products_are_f32_class(shape):
         assert np.abs(g - w).max() <= t * m
         err, err_bf16 = np.abs(g - r).max() / m, np.abs(b - r).max() / m
         assert err_bf16 >= fa.F32_VS_BF16 * err, (err_bf16, err)
+
+
+# --- the C prototypes behind the launchers -----------------------------------
+
+_CSRC = Path(fa.__file__).resolve().parents[1] / "csrc"
+_PROTOTYPE = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+_CTYPE_CLASS = {ctypes.c_void_p: "pointer", ctypes.c_longlong: "int64",
+                ctypes.c_int: "int", ctypes.c_float: "float"}
+
+
+def _c_class(param):
+    """The argument class of one C parameter declaration."""
+    if "*" in param:
+        return "pointer"
+    kind = " ".join(param.split()[:-1])
+    return {"long long": "int64", "int": "int", "float": "float"}[kind]
+
+
+def _prototypes():
+    """symbol -> (library, argument classes) of every ``extern "C"``
+    function of the port's CUDA sources."""
+    out = {}
+    for path in sorted(_CSRC.glob("*.cu")):
+        for name, params in _PROTOTYPE.findall(path.read_text()):
+            out[name] = (path.stem,
+                         [_c_class(p) for p in params.split(",") if p.strip()])
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("kernel", ["_K5", "_K6", "_K7", "_K8"])
+def test_attention_launchers_match_their_prototypes(kernel, dtype):
+    """The ctypes argument list each attention launcher gives its C
+    function (K5-K8, bf16 and f32 instances: ``_FWD_ARGS`` ..
+    ``_BWD_F32_ARGS``) has the count and the pointer, 64-bit, int and float
+    classes of the function's ``extern "C"`` prototype in ``csrc/``, and
+    names the library whose source defines it: a list that drifted from
+    its prototype would cut pointers or shift every later argument."""
+    lib, symbol, args = getattr(fa, kernel).instances[dtype]
+    protos = _prototypes()
+    assert symbol in protos, f"{symbol} is not in {_CSRC}/*.cu"
+    source, classes = protos[symbol]
+    assert source == lib
+    assert [_CTYPE_CLASS[a] for a in args] == classes
