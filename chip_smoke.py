@@ -214,10 +214,12 @@ non-zero and prints no result):
    at [64, 8, 160, d] and K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24,
    against an f64 evaluation (``F32_*`` limits), beside the plain f32
    version (TF32 off) and the bf16 instance on the inputs cast to bf16
-   (which they must beat 16-fold), two backward calls bitwise equal, with
-   the times of the kernels, the plain versions and SDPA in f32 at d = 64;
-   the same checks at S = 1024, d = 128 (K7/K8) and S = 255 (K5/K6; the
-   f32 backward of both is ``csrc/attention_bwd_f32.cu``, on ``wgmma``);
+   (which they must beat 16-fold), two forward and two backward calls
+   bitwise equal, with the times of the kernels (event and profiler
+   device ms), the plain versions and SDPA in f32 at d = 64; the same
+   checks at S = 1024, d = 128 and S = 256 (K7/K8) and S = 255 (K5/K6;
+   the f32 forward of both pairs is ``csrc/attention_fwd_f32.cu``, the f32
+   backward ``csrc/attention_bwd_f32.cu``, both on ``wgmma``);
    then 3 ``make_biencoder_step``
    steps of an f32 ``BertConfig.tiny`` DE on passages of 512 tokens (K7/K8
    f32), the first step against the same step on the plain pair;
@@ -5124,9 +5126,10 @@ F32_STEP_LOSS_REL, F32_STEP_GRAD = 1e-4, 1e-4
 def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     """One f32 instance pair (``fwd``, ``bwd``) on head views of [b, s, 8d]
     f32 projections (key lengths s/2..s, one row all masked): against f64,
-    the plain f32 version and the bf16 instance, two backward calls
-    bitwise equal; with ``timing`` the times of the kernels, the plain
-    versions and SDPA in f32 (additive -1e9 key bias) and the bounds."""
+    the plain f32 version and the bf16 instance, two forward and two
+    backward calls bitwise equal; with ``timing`` the times of the kernels
+    (CUDA events and the profiler's device time), the plain versions and
+    SDPA in f32 (additive -1e9 key bias) and the bounds."""
     from simxns_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -5144,6 +5147,7 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     o64, g64 = fa.attention_f64(q, k, v, mask, do)
     vmax = float(v.abs().max())
     o = fwd(q, k, v, mask)
+    o_again = fwd(q, k, v, mask)
     grads = bwd(q, k, v, mask, do)
     again = bwd(q, k, v, mask, do)
     plain_o = fa._group_fwd_plain(q, k, v, mask)
@@ -5160,6 +5164,8 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
     check(o.dtype == torch.float32 and all(g.dtype == torch.float32
                                            for g in grads),
           "f32 instances: results not f32")
+    check(torch.equal(o, o_again),
+          f"f32 {fwd.__name__} S={s} d={d}: two calls differ")
     check(all(torch.equal(g, a) for g, a in zip(grads, again)),
           f"f32 {bwd.__name__} S={s} d={d}: two calls differ")
     check(err_o <= fa.F32_FWD_TOL and max(err_g) <= fa.F32_BWD_TOL,
@@ -5178,7 +5184,7 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
                fwd_max_abs_err=float((o - plain_o).abs().max()),
                bwd_max_abs_err=max(float((g - r).abs().max())
                                    for g, r in zip(grads, plain_g)))
-    del ob, gb, qb, kb, vb, dob, plain_o, plain_g, o64, g64, again
+    del ob, gb, qb, kb, vb, dob, plain_o, plain_g, o64, g64, again, o_again
     if not timing:
         return rec
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -5195,13 +5201,14 @@ def _check_f32_pair(torch, gen, fwd, bwd, b, s, d, timing):
                         PEAK_TF32)
     rec.update(
         ms=timed(torch, lambda: fwd(q, k, v, mask), 5),
+        # the profiler's device ms a call (the event time of a small call
+        # holds the host's launch gaps)
+        device_ms=device_call_ms(torch, lambda: fwd(q, k, v, mask)),
         plain_ms=timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2),
         library_ms=timed(torch, lambda: sdpa(q, k, v, attn_mask=bias), 5),
         bound_ms=bms_f, bound_by=by_f,
         impl_ops_ms=3 * 2 * product / PEAK_BF16 * 1e3,
         bwd_ms=timed(torch, lambda: bwd(q, k, v, mask, do), 20),
-        # the profiler's device ms a call (the event time of a small call
-        # holds the host's launch gaps)
         bwd_device_ms=device_call_ms(torch, lambda: bwd(q, k, v, mask, do)),
         bwd_plain_ms=timed(torch, lambda: fa._group_bwd_plain(
             q, k, v, mask, do), 2),
@@ -5295,11 +5302,11 @@ def _f32_de_step(torch, np):
 def phase_f32_attention(torch, smi, records):
     """Phase 23: the f32 instances of K5-K8. K5/K6 at [64, 8, 160, d] and
     K7/K8 at [16, 8, 512, d], d = 64, 16, 128, 24, against f64, the plain
-    f32 version (TF32 off) and the bf16 instance, two backward calls
-    bitwise equal; the times of the kernel, the plain version and SDPA in
-    f32 at d = 64; the same checks of K7/K8 at [4, 8, 1024, 128] and K5/K6
-    at [16, 8, 255, 64]; then an f32 DE's steps on K7/K8 f32 against the
-    plain pair."""
+    f32 version (TF32 off) and the bf16 instance, two forward and two
+    backward calls bitwise equal; the times of the kernel, the plain
+    version and SDPA in f32 at d = 64; the same checks of K7/K8 at [4, 8,
+    1024, 128] and [16, 8, 256, 64] and K5/K6 at [16, 8, 255, 64]; then an
+    f32 DE's steps on K7/K8 f32 against the plain pair."""
     import numpy as np
 
     from simxns_tpu_torch import ops
@@ -5327,7 +5334,8 @@ def phase_f32_attention(torch, smi, records):
                       library="scaled_dot_product_attention in f32, additive "
                               "-1e9 key bias")
         records[f"{fwd.__name__}_f32"].update(
-            ms=main["ms"], plain_ms=main["plain_ms"],
+            ms=main["ms"], device_ms=main["device_ms"],
+            plain_ms=main["plain_ms"],
             library_ms=main["library_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], impl_ops_ms=main["impl_ops_ms"],
             max_abs_err=max(r["fwd_max_abs_err"] for r in shapes),
@@ -5348,14 +5356,18 @@ def phase_f32_attention(torch, smi, records):
                       "version",
             **{**common, "err_vs_f64": max(max(r["bwd_err_of_largest_vs_f64"])
                                            for r in shapes)})
-    # the f32 backward's edges: S = 1024 at d = 128 (its most shared
-    # memory), and S = 255 on K6's route (the last key tile 31 of 32)
+    # the edges of the f32 forward and backward: S = 1024 at d = 128 (their
+    # most shared memory), S = 255 on K5's and K6's route (the last key
+    # tile 31 of 32) and S = 256 on K7's and K8's (two warpgroups a block)
     edges = {"K7/K8 S=1024 d=128": _check_f32_pair(
                  torch, gen, fa.bh_attention_fwd, fa.bh_attention_bwd, 4,
                  1024, 128, timing=False),
              "K5/K6 S=255 d=64": _check_f32_pair(
                  torch, gen, fa.group_attention_fwd, fa.group_attention_bwd,
-                 16, 255, 64, timing=False)}
+                 16, 255, 64, timing=False),
+             "K7/K8 S=256 d=64": _check_f32_pair(
+                 torch, gen, fa.bh_attention_fwd, fa.bh_attention_bwd, 16,
+                 256, 64, timing=False)}
     launched = ops.launches()
     for name, n in launched.items():
         totals[name] += n
@@ -6215,14 +6227,16 @@ SOURCES = {
                    "simxns_tpu/ops/fused_ffn.py:222"),
     "int8_ffn": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
                  "simxns_tpu/ops/fused_ffn.py:160"),
-    # the f32 instances of K5-K8 (K6's and K8's: one wgmma backward)
+    # the f32 instances of K5-K8 (K5's and K7's: one wgmma forward; K6's
+    # and K8's: one wgmma backward)
     "group_attention_fwd_f32": ("cuda",
-                                "simxns_tpu_torch/csrc/group_attention.cu",
+                                "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
                                 "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd_f32": ("cuda",
                                 "simxns_tpu_torch/csrc/attention_bwd_f32.cu",
                                 "simxns_tpu/ops/flash_attention.py:125"),
-    "bh_attention_fwd_f32": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+    "bh_attention_fwd_f32": ("cuda",
+                             "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
                              "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd_f32": ("cuda",
                              "simxns_tpu_torch/csrc/attention_bwd_f32.cu",

@@ -36,9 +36,12 @@ one JSON line, with the card's name and power limit:
   and its autograd backward beside;
 - ``f32_attention:bh|group``: the f32 instances of K7/K8 at [16, 8, 512,
   d] and of K5/K6 at [64, 8, 160, d] (phase 23's shapes) through
-  ``_check_f32_pair``, each d of ``F32_WIDTHS`` timed: against f64, the
-  plain f32 version and the bf16 instance, two backward calls bitwise
-  equal, with SDPA in f32 beside;
+  ``_check_f32_pair``, each d of ``F32_WIDTHS`` timed, the forward and the
+  backward each by CUDA events (``ms``, ``bwd_ms``) and by the profiler's
+  device time (``device_ms``, ``bwd_device_ms``: a small call's event time
+  holds the host's launch gaps): against f64, the plain f32 version and
+  the bf16 instance, two forward and two backward calls bitwise equal,
+  with SDPA in f32 beside;
 - ``mips:int8_q8|int8_q1024|bf16_q8|bf16_q1024|mine``: K4 through
   ``_check_mips`` over the 8,847,360 x 768 index (int8 and bf16, at 8 and
   1,024 queries, k=10) and at the mine's 64 queries over 24,576 int8 rows
@@ -67,8 +70,8 @@ _MIPS_INDEX = {}    # (rows, kinds) -> the index the mips cases share
 
 
 def _f32_attention(pair, b, s):
-    """K8's or K6's f32 backward (with its forward beside it) at phase
-    23's shape, every width of ``F32_WIDTHS`` timed."""
+    """K7's and K8's or K5's and K6's f32 instances at phase 23's shape,
+    every width of ``F32_WIDTHS`` timed."""
     def run(torch, cs, randn, gen):
         from simxns_tpu_torch.ops import flash_attention as fa
 
@@ -78,7 +81,8 @@ def _f32_attention(pair, b, s):
         return {f"{bwd.__name__}_f32:d{d}": cs._check_f32_pair(
             torch, gen, fwd, bwd, b, s, d, timing=True)
             for d in cs.F32_WIDTHS}
-    return ["group_attention", "bh_attention", "attention_bwd_f32"], run
+    return ["group_attention", "bh_attention", "attention_fwd_f32",
+            "attention_bwd_f32"], run
 
 
 def _mips(kind, nq, rows, k, valid_n, kinds):

@@ -63,57 +63,11 @@
 // products of 4.29 GFLOP, 0.117 ms at the bf16 peak. The time goes to the
 // work beside the products: the split of every streamed tile, the softmax
 // algebra, the landing and the barriers.
-#include "attention_bwd.cuh"
-#include "wgmma_ring.cuh"
+#include "attention_f32.cuh"
 
 SX_DEFINE_ERROR_STRING
 
 namespace {
-
-namespace wg = sx::wg;
-namespace ring = sx::ring;
-namespace bwd = sx::bwd;
-
-constexpr int kMaxS = 1024;
-constexpr int kRows = 64;       // a warpgroup's resident rows: wgmma's M
-
-struct F32In {            // a [B, heads, S, d] f32 view, d contiguous
-  const float* p;
-  long long sb, sh, ss;   // element strides
-  __device__ const float* row(int b, int h, int i) const {
-    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
-  }
-};
-
-struct F32Out {
-  float* p;
-  long long sb, sh, ss;
-  __device__ float* row(int b, int h, int i) const {
-    return p + b * sb + h * sh + static_cast<long long>(i) * ss;
-  }
-};
-
-// R rows of DP bf16 values as wgmma reads them: rows of W bytes in column
-// blocks of R * W bytes, each 16-byte chunk XORed with its address bits 7
-// and up (the W-byte swizzle; tiles 1024-byte aligned)
-template <int DP, int R>
-struct Tile {
-  static constexpr int kW = DP * 2 < 128 ? DP * 2 : 128;
-  static constexpr int kBlock = R * kW;
-  static constexpr int kBytes = R * DP * 2;
-  __device__ static int offset(int r, int c) {     // byte of (r, c)
-    const int off = r * kW + (c * 2) % kW;
-    return (c * 2 / kW) * kBlock + (off ^ (((off >> 7) & (kW / 16 - 1)) << 4));
-  }
-  // the tile K-major (its rows M or N, its columns K): k16 step ks
-  __device__ static uint64_t k_desc(const uint8_t* t, int ks) {
-    return wg::desc_sw<kW>(t + (ks * 32 / kW) * kBlock + (ks * 32) % kW, 16);
-  }
-  // the tile MN-major (its rows K, its columns N): k16 step kk
-  __device__ static uint64_t mn_desc(const uint8_t* t, int kk) {
-    return wg::desc_sw<kW>(t + kk * 16 * kW, kBlock);
-  }
-};
 
 // A pass's shape: DP columns, N rows a streamed tile, WG warpgroups of 64
 // resident rows each (two share each streamed tile). Shared memory: WG x 4
@@ -135,210 +89,6 @@ struct Pass {
   static constexpr int kQuerySmem = smem(kMaxS * 4 + kMaxS / 32 * 4);
   static constexpr int kKeySmem = smem(2 * 2 * N * 4);
 };
-
-// rows r0 .. r0 + R - 1 of an f32 operand into dst [R][DP] by cp.async
-// from T threads, 16 bytes a copy; zeros at rows >= S and columns >= d
-// (nothing read)
-template <int DP, int R, int T, class Row>
-__device__ __forceinline__ void land(float* dst, Row row, int r0, int S,
-                                     int d, int tid) {
-  constexpr int kChunks = DP / 4, kIters = (R * kChunks + T - 1) / T;
-#pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int idx = tid + i * T;
-    if (kIters * T != R * kChunks && idx >= R * kChunks) break;
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    const bool ok = r0 + r < S && c < d;
-    wg::cp_async16(dst + r * DP + c, row(ok ? r0 + r : 0) + (ok ? c : 0),
-                   ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 4 f32 values as hi = bf16(x) and lo = bf16(x - hi) (x - hi exact)
-__device__ __forceinline__ void split4(const float4& x, uint2& hi, uint2& lo) {
-  const __nv_bfloat162 h0 = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x.z, x.w);
-  const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
-  hi = make_uint2(bits(h0), bits(h1));
-  lo = make_uint2(bits(__floats2bfloat162_rn(x.x - f0.x, x.y - f0.y)),
-                  bits(__floats2bfloat162_rn(x.z - f1.x, x.w - f1.y)));
-}
-
-// a landed [R][DP] f32 tile into its hi and lo tiles, by T threads
-template <int DP, int R, int T>
-__device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo,
-                                           const float* src, int tid) {
-  constexpr int kChunks = DP / 4, kIters = (R * kChunks + T - 1) / T;
-#pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int idx = tid + i * T;
-    if (kIters * T != R * kChunks && idx >= R * kChunks) break;
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    uint2 h, l;
-    split4(*reinterpret_cast<const float4*>(src + r * DP + c), h, l);
-    const int off = Tile<DP, R>::offset(r, c);
-    *reinterpret_cast<uint2*>(hi + off) = h;
-    *reinterpret_cast<uint2*>(lo + off) = l;
-  }
-}
-
-// rows r0 .. r0 + 63 of two f32 operands, read from device memory by the
-// 128 threads of one warpgroup (wtid its thread; every load in flight
-// before the first split), into that warpgroup's resident hi and lo tiles
-// (zeros past S and d)
-template <int DP, class RowA, class RowB>
-__device__ __forceinline__ void split_rows(uint8_t* ah, uint8_t* al,
-                                           RowA row_a, uint8_t* bh,
-                                           uint8_t* bl, RowB row_b, int r0,
-                                           int S, int d, int wtid) {
-  constexpr int kChunks = DP / 4, kN = kRows * kChunks / 128;
-  float4 x[2][kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const int idx = wtid + i * 128;
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    const bool ok = r0 + r < S && c < d;
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    x[0][i] = ok ? *reinterpret_cast<const float4*>(row_a(r0 + r) + c) : zero;
-    x[1][i] = ok ? *reinterpret_cast<const float4*>(row_b(r0 + r) + c) : zero;
-  }
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const int idx = wtid + i * 128;
-    const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    const int off = Tile<DP, kRows>::offset(r, c);
-    uint2 h, l;
-    split4(x[0][i], h, l);
-    *reinterpret_cast<uint2*>(ah + off) = h;
-    *reinterpret_cast<uint2*>(al + off) = l;
-    split4(x[1][i], h, l);
-    *reinterpret_cast<uint2*>(bh + off) = h;
-    *reinterpret_cast<uint2*>(bl + off) = l;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ float (&flat(float (&x)[N / 8][4]))[N / 2] {
-  return reinterpret_cast<float(&)[N / 2]>(x);
-}
-
-template <int K>
-__device__ __forceinline__ void fence_fragments(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) wg::fence_operands(a[i]);
-}
-
-// issue x = a b^T and y = c e^T over the DP columns of four split pairs
-// (a, c the warpgroup's resident 64-row tiles, b, e streamed N-row tiles,
-// all K-major) into x and y, zeroed first, in the accumulator layout
-// (attention_ring.cuh's [N / 8][4] of a warp's 16 rows); committed, not
-// waited for (wait_scores)
-template <int DP, int N>
-__device__ __forceinline__ void issue_scores(
-    float (&x)[N / 8][4], float (&y)[N / 8][4], const uint8_t* ah,
-    const uint8_t* al, const uint8_t* bh, const uint8_t* bl,
-    const uint8_t* ch, const uint8_t* cl, const uint8_t* eh,
-    const uint8_t* el) {
-  using A = Tile<DP, kRows>;
-  using B = Tile<DP, N>;
-  using Mma = wg::WgmmaBf16<N>;
-  float(&xf)[N / 2] = flat<N>(x);
-  float(&yf)[N / 2] = flat<N>(y);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) xf[i] = yf[i] = 0.0f;
-  wg::fence_operands(xf);
-  wg::fence_operands(yf);
-  wg::wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    Mma::mma(xf, A::k_desc(al, ks), B::k_desc(bh, ks), 1);
-    Mma::mma(xf, A::k_desc(ah, ks), B::k_desc(bl, ks), 1);
-    Mma::mma(xf, A::k_desc(ah, ks), B::k_desc(bh, ks), 1);
-  }
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    Mma::mma(yf, A::k_desc(cl, ks), B::k_desc(eh, ks), 1);
-    Mma::mma(yf, A::k_desc(ch, ks), B::k_desc(el, ks), 1);
-    Mma::mma(yf, A::k_desc(ch, ks), B::k_desc(eh, ks), 1);
-  }
-  wg::wgmma_commit();
-}
-
-// Ping-pong of two warpgroups: the second issues its score products only
-// once the first has issued its own, so the tensor cores take the first's
-// whole batch before the second's, and the first's softmax algebra runs
-// under the second's products (named barrier 1).
-template <int WG>
-__device__ __forceinline__ void before_scores() {
-  if (WG == 2 && threadIdx.x >= 128) wg::named_sync(1, 256);
-}
-
-template <int WG>
-__device__ __forceinline__ void after_scores() {
-  if (WG == 2 && threadIdx.x < 128) wg::named_arrive(1, 256);
-}
-
-template <int N>
-__device__ __forceinline__ void wait_scores(float (&x)[N / 8][4],
-                                            float (&y)[N / 8][4]) {
-  wg::wgmma_wait<0>();
-  wg::fence_operands(flat<N>(x));
-  wg::fence_operands(flat<N>(y));
-}
-
-// acc += x b over the N rows of the split tile b (read MN-major), x as
-// its hi and lo A fragments; issued, not waited for
-template <int DP, int N>
-__device__ __forceinline__ void issue_times(float (&acc)[DP / 2],
-                                            const uint32_t (&xh)[N / 16][4],
-                                            const uint32_t (&xl)[N / 16][4],
-                                            const uint8_t* bh,
-                                            const uint8_t* bl) {
-  using B = Tile<DP, N>;
-  using Mma = wg::WgmmaBf16Rs<DP, true>;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    Mma::mma(acc, xl[kk], B::mn_desc(bh, kk), 1);
-    Mma::mma(acc, xh[kk], B::mn_desc(bl, kk), 1);
-    Mma::mma(acc, xh[kk], B::mn_desc(bh, kk), 1);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void fragments(uint32_t (&hi)[N / 16][4],
-                                          uint32_t (&lo)[N / 16][4],
-                                          const float (&x)[N / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-    ring::a_fragments_split(hi[kk], lo[kk], x, kk);
-}
-
-// rows r0 + g and r0 + g + 8 of a [16][DP] accumulator, columns below d
-template <int DP>
-__device__ __forceinline__ void store_rows(const F32Out& o, int b, int h,
-                                           int r0, int S, int d,
-                                           const float (&acc)[DP / 8][4],
-                                           float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ra = r0 + g, rb = r0 + g + 8;
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (c >= d) continue;
-    if (ra < S)
-      sx::store2(o.row(b, h, ra) + c, acc[nd][0] * mul, acc[nd][1] * mul);
-    if (rb < S)
-      sx::store2(o.row(b, h, rb) + c, acc[nd][2] * mul, acc[nd][3] * mul);
-  }
-}
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
-}
 
 // the blocks an SM the launch bounds ask for: three of one warpgroup up
 // to DP = 64 (K6's route; the key pass fits 168 registers a thread, and
@@ -377,7 +127,7 @@ __global__ void __launch_bounds__(P::kThreads, min_blocks<P>())
   int* real = reinterpret_cast<int*>(fill + kMaxS);  // a key tile all real
   const int h = blockIdx.y, b = blockIdx.z;
   const int qw = blockIdx.x * T / 2 + (tid >> 7) * kRows;   // its rows
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int n_tiles = (S + N - 1) / N, steps = 2 * n_tiles;
   auto issue = [&](int step) {
     const int j0 = step % n_tiles * N;
@@ -401,16 +151,7 @@ __global__ void __launch_bounds__(P::kThreads, min_blocks<P>())
   issue(0);
   split_rows<DP>(qh, ql, [&](int i) { return q.row(b, h, i); }, dh, dl,
                  [&](int i) { return dout.row(b, h, i); }, qw, S, d, wtid);
-  const bool none_real = bwd::all_masked(mask, b, S);
-  for (int j = tid; j < n_tiles * N; j += T)
-    fill[j] = bwd::key_fill(mask, b, j, S, none_real);
-  __syncthreads();
-  for (int j = tid >> 5; j < n_tiles; j += T / 32) {
-    bool all = true;
-    for (int i = lane; i < N; i += 32) all &= fill[j * N + i] == bwd::kRealKey;
-    all = __all_sync(0xffffffffu, all);
-    if (lane == 0) real[j] = all;
-  }
+  key_fills<N, T>(fill, real, mask, b, S, n_tiles, tid);
   prepare(0);   // its fence and barriers publish the flags and the tiles
 
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
@@ -568,12 +309,6 @@ __global__ void __launch_bounds__(P::kThreads, min_blocks<P>())
   }
   store_rows<DP>(dk, b, h, jw, S, d, dka, scale);
   store_rows<DP>(dv, b, h, jw, S, d, dva, 1.0f);
-}
-
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 struct Args {

@@ -2,7 +2,9 @@
 // small_s_attention (small_s_attention.cu), K5 group_attention_fwd
 // (group_attention.cu) and K7 bh_attention_fwd (bh_attention.cu), and
 // through attention_bwd.cuh the backward kernels K6 group_attention_bwd
-// (group_attention.cu) and K8 bh_attention_bwd.
+// (group_attention.cu) and K8 bh_attention_bwd: their bf16 instances. The
+// f32 instances run on wgmma (attention_f32.cuh) and take ex2, quad,
+// tile_max and a_fragments_split from here.
 //
 // A block of 4 warps owns 64 query rows of one (sequence, head); each warp
 // owns 16 of them. The block lands its q tile in shared memory once
@@ -23,7 +25,8 @@
 //   [key][d] layout through ldmatrix...trans: no transposing stores.
 // Scores are kept in the log2 domain (log2(e) folded into the scale and
 // into the masks' constants), so each exponential is one ex2.
-// attend_one_pass is the whole one-pass forward of K5 and K7.
+// attend_one_pass is the whole one-pass forward of K5 and K7 in bf16 (the
+// f32 forward, attention_fwd_f32.cu, runs the same walk on wgmma).
 #pragma once
 
 #include "tile_gemm.cuh"
@@ -206,85 +209,6 @@ __device__ __forceinline__ void p_v_tile_split(float (&o)[D / 8][4],
   }
 }
 
-// --- products of the f32 instances ------------------------------------------
-// The f32 instances of K5 and K7 take f32 q, k and v. Each enters the tensor cores as two bf16 halves, hi = bf16(x) and lo
-// = bf16(x - hi), written by the split pass (attention_tile.cuh): together
-// about 16 of x's 24 bits. A product of two split operands is hi hi^T +
-// hi lo^T + lo hi^T, three m16n8k16 products into one f32 accumulator; lo
-// lo^T, under 2^-16 of the product, is dropped, so the result is f32-class
-// but not bitwise an f32 product. Shared memory holds each operand tile's
-// hi rows and, `lo` elements further on, its lo rows: the cp.async ring
-// and ldmatrix are the bf16 instances'. The A operand is read from its
-// shared tile 16 columns at a time (hi and lo) and not held in registers,
-// which two halves would double.
-
-// sc[nt][e] = a . b over the 8NT rows of the tile bs, a the warp's 16 rows
-// of the tile as (rows warp * 16 .. + 15); both split, layout as q_k_tile.
-template <int D, int NT>
-__device__ __forceinline__ void q_k_tile_split(float (&sc)[NT][4],
-                                               const __nv_bfloat16* as,
-                                               const __nv_bfloat16* bs,
-                                               int lo) {
-  constexpr int kLd = Layout<D>::kLd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, mi = lane >> 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
-  const __nv_bfloat16* pa =
-      as + (warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
-  const __nv_bfloat16* pb =
-      bs + ((mi >> 1) * 8 + (lane & 7)) * kLd + (mi & 1) * 8;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    uint32_t ah[4], al[4];
-    ldmatrix_x4(ah, pa + kd * 16);
-    ldmatrix_x4(al, pa + lo + kd * 16);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bh[4], bl[4];
-      ldmatrix_x4(bh, pb + np * 16 * kLd + kd * 16);
-      ldmatrix_x4(bl, pb + lo + np * 16 * kLd + kd * 16);
-      const uint32_t h0[2] = {bh[0], bh[1]}, h1[2] = {bh[2], bh[3]};
-      const uint32_t l0[2] = {bl[0], bl[1]}, l1[2] = {bl[2], bl[3]};
-      MmaBf16::mma(sc[2 * np], al, h0);
-      MmaBf16::mma(sc[2 * np], ah, l0);
-      MmaBf16::mma(sc[2 * np], ah, h0);
-      MmaBf16::mma(sc[2 * np + 1], al, h1);
-      MmaBf16::mma(sc[2 * np + 1], ah, l1);
-      MmaBf16::mma(sc[2 * np + 1], ah, h1);
-    }
-  }
-}
-
-// o[nd] += p v with an f32 p (split in registers) and a split value tile
-// vs: p_hi v_hi + p_lo v_hi + p_hi v_lo.
-template <int D, int NT>
-__device__ __forceinline__ void p_v_tile_split3(float (&o)[D / 8][4],
-                                                const float (&p)[NT][4],
-                                                const __nv_bfloat16* vs,
-                                                int lo) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t ph[4], pl[4];
-    a_fragments_split(ph, pl, p, kk);
-#pragma unroll
-    for (int ndp = 0; ndp < D / 16; ++ndp) {
-      uint32_t rh[4], rl[4];
-      v_fragments<D>(rh, vs, kk, ndp);
-      v_fragments<D>(rl, vs + lo, kk, ndp);
-      const uint32_t h0[2] = {rh[0], rh[1]}, h1[2] = {rh[2], rh[3]};
-      const uint32_t l0[2] = {rl[0], rl[1]}, l1[2] = {rl[2], rl[3]};
-      MmaBf16::mma(o[2 * ndp], pl, h0);
-      MmaBf16::mma(o[2 * ndp], ph, l0);
-      MmaBf16::mma(o[2 * ndp], ph, h0);
-      MmaBf16::mma(o[2 * ndp + 1], pl, h1);
-      MmaBf16::mma(o[2 * ndp + 1], ph, l1);
-      MmaBf16::mma(o[2 * ndp + 1], ph, h1);
-    }
-  }
-}
-
 // max (op = 0) or sum (op = 1) of a per-row value over the four threads
 // that share the row
 template <int kOp>
@@ -311,18 +235,17 @@ __device__ __forceinline__ void tile_max(const float (&sc)[NT][4],
 }
 
 // Elements of attend_one_pass's tiles: the q tile and the k and v ring of
-// KEYS-row tiles (an f32 instance's lo halves follow them).
+// KEYS-row tiles.
 template <int D, int KEYS>
 __host__ __device__ constexpr int one_pass_tiles() {
   return (kRows + 2 * kStages * KEYS) * Layout<D>::kLd;
 }
 
-// Shared memory of attend_one_pass: its tiles (twice for an f32 instance:
-// hi and lo halves) and a fill per key up to max_s rounded to KEYS.
-template <int D, int KEYS, bool F32 = false>
+// Shared memory of attend_one_pass: its tiles and a fill per key up to
+// max_s rounded to KEYS.
+template <int D, int KEYS>
 __host__ __device__ constexpr int one_pass_smem(int max_s) {
-  return one_pass_tiles<D, KEYS>() * 2 * (F32 ? 2 : 1) +
-         (max_s + KEYS - 1) / KEYS * KEYS * 4;
+  return one_pass_tiles<D, KEYS>() * 2 + (max_s + KEYS - 1) / KEYS * KEYS * 4;
 }
 
 // The one-pass softmax attention of query rows q0 .. q0 + 63 of one
@@ -339,22 +262,17 @@ __host__ __device__ constexpr int one_pass_smem(int max_s) {
 // exactly 0). A sequence with every key masked has all its scores equal,
 // so p = 1 for each before normalising: the uniform softmax over S keys.
 // Query rows past S are computed on zeros and not stored.
-// F32: the f32 instance (products above): the rows are the split pass's hi
-// halves, their lo halves `glo` elements on; o_row gives f32 rows.
-template <int D, int KEYS, bool F32 = false, class QRow, class KRow,
-          class VRow, class ORow>
+template <int D, int KEYS, class QRow, class KRow, class VRow, class ORow>
 __device__ __forceinline__ void attend_one_pass(
     unsigned char* smem, QRow q_row, KRow k_row, VRow v_row, ORow o_row,
-    const int* __restrict__ mask, int S, int q0, float scale2,
-    long long glo = 0) {
+    const int* __restrict__ mask, int S, int q0, float scale2) {
   constexpr int kLd = Layout<D>::kLd;
   constexpr int kKv = KEYS * kLd;   // elements of one k or v tile
   constexpr int kNtk = KEYS / 8;    // n8 score tiles of a warp per tile
-  constexpr int kLo = one_pass_tiles<D, KEYS>();   // hi tiles -> lo tiles
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ks = qs + kRows * kLd;       // [kStages] tiles
   __nv_bfloat16* vs = ks + kStages * kKv;     // [kStages] tiles
-  float* fill = reinterpret_cast<float*>(qs + (F32 ? 2 : 1) * kLo);
+  float* fill = reinterpret_cast<float*>(qs + one_pass_tiles<D, KEYS>());
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (S + KEYS - 1) / KEYS;
@@ -365,18 +283,8 @@ __device__ __forceinline__ void attend_one_pass(
     const int st = tile % kStages;
     copy_tile<D, KEYS>(ks + st * kKv, k_row, tile * KEYS, S);
     copy_tile<D, KEYS>(vs + st * kKv, v_row, tile * KEYS, S);
-    if constexpr (F32) {
-      copy_tile<D, KEYS>(ks + st * kKv + kLo,
-                         [&](int i) { return k_row(i) + glo; }, tile * KEYS,
-                         S);
-      copy_tile<D, KEYS>(vs + st * kKv + kLo,
-                         [&](int i) { return v_row(i) + glo; }, tile * KEYS,
-                         S);
-    }
   };
   copy_tile<D>(qs, q_row, q0, S);
-  if constexpr (F32)
-    copy_tile<D>(qs + kLo, [&](int i) { return q_row(i) + glo; }, q0, S);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {   // q rides with the first
     if (i < n_tiles) issue(i);
@@ -399,12 +307,8 @@ __device__ __forceinline__ void attend_one_pass(
     if (active) {
       const int st = tile % kStages;
       float sc[kNtk][4];
-      if constexpr (F32) {
-        q_k_tile_split<D>(sc, qs, ks + st * kKv, kLo);
-      } else {
-        if (tile == 0) load_q<D>(qa, qs);
-        q_k_tile<D>(sc, qa, ks + st * kKv);
-      }
+      if (tile == 0) load_q<D>(qa, qs);
+      q_k_tile<D>(sc, qa, ks + st * kKv);
       const float* f = fill + tile * KEYS + 2 * t;
 #pragma unroll
       for (int nt = 0; nt < kNtk; ++nt)
@@ -433,10 +337,7 @@ __device__ __forceinline__ void attend_one_pass(
           sc[nt][e] = ex2(sc[nt][e] - mx[e >> 1]);
           sum[e >> 1] += sc[nt][e];
         }
-      if constexpr (F32)
-        p_v_tile_split3<D>(acc, sc, vs + st * kKv, kLo);
-      else
-        p_v_tile_split<D>(acc, sc, vs + st * kKv);
+      p_v_tile_split<D>(acc, sc, vs + st * kKv);
     }
     __syncthreads();
   }

@@ -48,15 +48,10 @@
 // and dO v^T twice, and each product with an f32 operand twice) against
 // the model's 5, and 3 ex2 a score.
 //
-// K7's f32 instance (template flag F32; sx_bh_attention_fwd_f32) takes f32
-// q, k, v, as the JAX kernel does. A split pass (attention_tile.cuh) writes
-// each operand as hi = bf16(x) and lo = bf16(x - hi) into a bf16 scratch;
-// the kernel then runs every product as three bf16 products, hi hi + hi lo
-// + lo hi, into f32 (attention_ring.cuh), about 16 bits of each operand,
-// and stores o in f32. Every shared tile holds its hi and its lo rows, so
-// its 174 KB at d = 128 take one block an SM. Bound: the f32 bytes. K8's
-// f32 instance, which K6's f32 instance is too, is the wgmma backward of
-// attention_bwd_f32.cu.
+// These are the bf16 instances. The f32 instances, which take f32 q, k, v
+// as the JAX kernels do and split each operand into hi and lo bf16 halves
+// inside the kernel, run on wgmma: K7's, which K5's is too, in
+// attention_fwd_f32.cu; K8's, which K6's is too, in attention_bwd_f32.cu.
 #include "attention_bwd.cuh"
 #include "attention_tile.cuh"
 
@@ -70,9 +65,9 @@ namespace {
 
 constexpr int kMaxS = 1024;
 
-template <int D, bool F32 = false>
+template <int D>
 constexpr int fwd_smem() {           // K7: q tile, the k and v ring, keys
-  return ring::one_pass_smem<D, ring::kKeys, F32>(kMaxS);
+  return ring::one_pass_smem<D, ring::kKeys>(kMaxS);
 }
 
 // Elements of the tiles of either K8 pass: two resident tiles (q and dO,
@@ -97,37 +92,33 @@ constexpr int key_pass_smem() {      // k, v, the q and dO ring, statistics
 // it takes them from shared memory again for every tile.
 __host__ __device__ constexpr bool hold_fragments(int D) { return D <= 64; }
 
-// The least blocks an SM of an instance at d <= 64 (registers); K7's f32
-// instance's shared memory allows at most 2
-__host__ __device__ constexpr int min_blocks(int D, bool F32, int small) {
-  return D <= 64 && !F32 ? small : 2;
+// The least blocks an SM of an instance at d <= 64 (registers)
+__host__ __device__ constexpr int min_blocks(int D, int small) {
+  return D <= 64 ? small : 2;
 }
 
 // K7: one block per (query tile, head, batch), one pass over the keys
-// (attention_ring.cuh's attend_one_pass, 64-key tiles). F32: the f32
-// instance, q, k, v the split pass's hi halves (lo halves `lo` elements
-// on), o f32.
-template <int D, bool F32>
-__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, F32, 4))
+// (attention_ring.cuh's attend_one_pass, 64-key tiles).
+template <int D>
+__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, 4))
     bh_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
-                            OutOf<F32> o, int S, float scale2,
-                            long long lo) {
+                            Out o, int S, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
-  ring::attend_one_pass<D, ring::kKeys, F32>(
+  ring::attend_one_pass<D, ring::kKeys>(
       smem, [&](int i) { return q.row(b, h, i); },
       [&](int i) { return k.row(b, h, i); },
       [&](int i) { return v.row(b, h, i); },
       [&](int i) { return o.row(b, h, i); },
       mask + static_cast<long long>(b) * S, S, blockIdx.x * ring::kRows,
-      scale2, lo);
+      scale2);
 }
 
 // K8, launch 1: per query tile, the row statistics (lse, rowsum(dP p)) and
 // dQ; ring step s < n_tiles is walk 1 over key tile s, step n_tiles + j
 // walk 2 over key tile j
 template <int D>
-__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, false, 3))
+__global__ void __launch_bounds__(ring::kThreads, min_blocks(D, 3))
     bh_attention_bwd_query_kernel(In q, In k, In v, In dout,
                                   const int* __restrict__ mask, Out dq,
                                   float* stats, int S, float scale,
@@ -297,28 +288,23 @@ In view(const void* p, long long sb, long long sh, long long ss) {
   return In{static_cast<const __nv_bfloat16*>(p), sb, sh, ss};
 }
 
-template <bool F32>
-OutOf<F32> out_view(void* p, long long sb, long long sh, long long ss) {
-  using T = typename std::conditional<F32, float, __nv_bfloat16>::type;
-  return OutOf<F32>{static_cast<T*>(p), sb, sh, ss};
+Out out_view(void* p, long long sb, long long sh, long long ss) {
+  return Out{static_cast<__nv_bfloat16*>(p), sb, sh, ss};
 }
 
-// K7 on views: bf16 q, k, v, or (F32) the split pass's hi halves with the
-// lo halves `lo` elements on
-template <bool F32>
-int fwd(In qv, In kv, In vv, const int* mask, OutOf<F32> ov, int B,
-        int heads, int S, int d, float scale, long long lo,
-        cudaStream_t st) {
+// K7 on views
+int fwd(In qv, In kv, In vv, const int* mask, Out ov, int B, int heads,
+        int S, int d, float scale, cudaStream_t st) {
   const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
   cudaError_t err;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    err = prepare(bh_attention_fwd_kernel<DD, F32>, fwd_smem<DD, F32>());     \
+    err = prepare(bh_attention_fwd_kernel<DD>, fwd_smem<DD>());               \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    bh_attention_fwd_kernel<DD, F32>                                          \
-        <<<grid, ring::kThreads, fwd_smem<DD, F32>(), st>>>(                  \
-            qv, kv, vv, mask, ov, S, scale * ring::kLog2e, lo);               \
+    bh_attention_fwd_kernel<DD>                                               \
+        <<<grid, ring::kThreads, fwd_smem<DD>(), st>>>(                       \
+            qv, kv, vv, mask, ov, S, scale * ring::kLog2e);                   \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
     SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
@@ -362,8 +348,6 @@ int bwd_launch(In qv, In kv, In vv, In dov, const int* mask, Out dqv,
 static_assert(2 * key_pass_smem<128>() <= 232448 &&
                   2 * query_pass_smem<128>() <= 232448,
               "two K8 blocks fit an SM's shared memory at d = 128");
-static_assert(fwd_smem<128, true>() <= 232448,
-              "one f32 block of K7 fits an SM at d = 128");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -376,10 +360,9 @@ extern "C" int sx_bh_attention_fwd(
     long long ss, const int* mask, void* o, long long ob, long long oh,
     long long os, int B, int heads, int S, int d, float scale, void* stream) {
   if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
-  return fwd<false>(view(q, sb, sh, ss), view(k, sb, sh, ss),
-                    view(v, sb, sh, ss), mask, out_view<false>(o, ob, oh, os),
-                    B, heads, S, d, scale, 0,
-                    static_cast<cudaStream_t>(stream));
+  return fwd(view(q, sb, sh, ss), view(k, sb, sh, ss), view(v, sb, sh, ss),
+             mask, out_view(o, ob, oh, os), B, heads, S, d, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 // The backward: q, k, v as above; dout a view with strides (db, dh, ds);
@@ -395,36 +378,8 @@ extern "C" int sx_bh_attention_bwd(
   if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
   return bwd_launch(view(q, sb, sh, ss), view(k, sb, sh, ss),
                     view(v, sb, sh, ss), view(dout, db, dh, ds), mask,
-                    out_view<false>(dq, gb, gh, gs),
-                    out_view<false>(dk, gb, gh, gs),
-                    out_view<false>(dv, gb, gh, gs), stats, B, heads, S, d,
+                    out_view(dq, gb, gh, gs),
+                    out_view(dk, gb, gh, gs),
+                    out_view(dv, gb, gh, gs), stats, B, heads, S, d,
                     scale, static_cast<cudaStream_t>(stream));
-}
-
-// K7's f32 instance: the arguments of the bf16 launcher with f32 tensors
-// (q, k, v f32 views, rows 16-byte aligned; o f32), and `work`, a bf16
-// scratch of 2 * n values for each of q, k and v (n = B heads S d), where
-// the split pass writes each operand's hi and lo halves before the kernel
-// runs. K8's f32 instance is sx_attention_bwd_f32 (attention_bwd_f32.cu).
-extern "C" int sx_bh_attention_fwd_f32(
-    const void* q, const void* k, const void* v, long long sb, long long sh,
-    long long ss, const int* mask, void* o, long long ob, long long oh,
-    long long os, void* work, int B, int heads, int S, int d, float scale,
-    void* stream) {
-  if (S < 1 || S > kMaxS || d % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(work);
-  const long long n = static_cast<long long>(B) * heads * S * d;
-  const void* src[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err =
-        split_halves(src[i], sb, sh, ss, w + 2 * n * i, B, heads, S, d, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return fwd<true>(split_view(w, heads, S, d),
-                   split_view(w + 2 * n, heads, S, d),
-                   split_view(w + 4 * n, heads, S, d), mask,
-                   out_view<true>(o, ob, oh, os), B, heads, S, d, scale, n,
-                   st);
 }

@@ -43,10 +43,12 @@
 //   by ldmatrix (transposed on the way for p^T dO, dS k and dS^T q); 12
 //   products of 2 S^2 d per head against the model's 5, and 3 ex2 a score.
 // Keys past S (the pad to a tile or chunk) get -inf, so they add exactly 0.
-// K5's f32 instance (sx_group_attention_fwd_f32) is attend_one_pass over
-// the split pass's hi and lo halves, three bf16 products a product
-// (bh_attention.cu describes the f32 instances), 105 KB of shared memory
-// at d = 128: two blocks an SM.
+// These are the bf16 instances: K5's f32 instance is K7's, the wgmma
+// forward of attention_fwd_f32.cu, and K6's is K8's, the wgmma backward of
+// attention_bwd_f32.cu (K6 keeps a whole head's k and v, then q and dO, in
+// shared memory, and as hi + lo halves those tiles would take 2 x 2 x 256
+// x 136 x 2 bytes = 278 KB at d = 128, past the 227 KB of a block; K8's
+// two passes stream them).
 // Tensors are [B, heads, S, d] views with d contiguous and any strides that
 // keep 16-byte rows: the port passes q, k, v as head views of the [B, S, H]
 // projections and writes outputs in the same layout, so no transposes.
@@ -73,9 +75,9 @@ __host__ __device__ constexpr int padded_s(int S) {
   return (S + kChunk - 1) / kChunk * kChunk;
 }
 
-template <int D, bool F32 = false>
+template <int D>
 constexpr int fwd_smem() {   // K5: q tile, the k and v ring, keys
-  return ring::one_pass_smem<D, kGroupKeys, F32>(kMaxS);
+  return ring::one_pass_smem<D, kGroupKeys>(kMaxS);
 }
 
 template <int D>
@@ -87,23 +89,20 @@ constexpr int smem_bytes(int S) {
 
 // K5: one block per (query tile, head, batch), one pass over the keys
 // (attention_ring.cuh's attend_one_pass, kGroupKeys-key tiles): K7's kernel
-// at S < 256. F32: the f32 instance (q, k, v the split pass's hi halves,
-// their lo halves `lo` elements on; o f32), whose doubled tiles (105 KB at
-// d = 128) leave two blocks an SM
-template <int D, bool F32>
-__global__ void __launch_bounds__(ring::kThreads, D <= 64 && !F32 ? 4 : 2)
+// at S < 256
+template <int D>
+__global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
     group_attention_fwd_kernel(In q, In k, In v, const int* __restrict__ mask,
-                               OutOf<F32> o, int S, float scale2,
-                               long long lo) {
+                               Out o, int S, float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
-  ring::attend_one_pass<D, kGroupKeys, F32>(
+  ring::attend_one_pass<D, kGroupKeys>(
       smem, [&](int i) { return q.row(b, h, i); },
       [&](int i) { return k.row(b, h, i); },
       [&](int i) { return v.row(b, h, i); },
       [&](int i) { return o.row(b, h, i); },
       mask + static_cast<long long>(b) * S, S, blockIdx.x * ring::kRows,
-      scale2, lo);
+      scale2);
 }
 
 // K6: one block per (batch, head), the device functions of K8's two passes
@@ -194,22 +193,19 @@ static_assert(smem_bytes<128>(kMaxS) <= 232448, "K6 shared memory");
 
 namespace {
 
-// K5 on views: bf16 q, k, v, or (F32) the split pass's hi halves with the
-// lo halves `lo` elements on
-template <bool F32>
-int fwd(In qv, In kv, In vv, const int* mask, OutOf<F32> ov, int B,
-        int heads, int S, int d, float scale, long long lo,
-        cudaStream_t st) {
+// K5 on views
+int fwd(In qv, In kv, In vv, const int* mask, Out ov, int B, int heads,
+        int S, int d, float scale, cudaStream_t st) {
   const dim3 grid((S + ring::kRows - 1) / ring::kRows, heads, B);
   cudaError_t err = cudaErrorInvalidValue;
   switch (d) {
 #define SX_CASE(DD)                                                           \
   case DD:                                                                    \
-    err = prepare(group_attention_fwd_kernel<DD, F32>, fwd_smem<DD, F32>());  \
+    err = prepare(group_attention_fwd_kernel<DD>, fwd_smem<DD>());            \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    group_attention_fwd_kernel<DD, F32>                                       \
-        <<<grid, ring::kThreads, fwd_smem<DD, F32>(), st>>>(                  \
-            qv, kv, vv, mask, ov, S, scale * ring::kLog2e, lo);               \
+    group_attention_fwd_kernel<DD>                                            \
+        <<<grid, ring::kThreads, fwd_smem<DD>(), st>>>(                       \
+            qv, kv, vv, mask, ov, S, scale * ring::kLog2e);                   \
     return static_cast<int>(cudaGetLastError());
     SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
     SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
@@ -219,9 +215,6 @@ int fwd(In qv, In kv, In vv, const int* mask, OutOf<F32> ov, int B,
 }
 
 }  // namespace
-
-static_assert(fwd_smem<128, true>() <= 232448 / 2,
-              "two f32 K5 blocks fit an SM's shared memory at d = 128");
 
 // q, k, v: [B, heads, S, d] bf16 views sharing the element strides
 // (sb, sh, ss), d contiguous; mask [B, S] int32 (1 = real key); o a view
@@ -239,38 +232,8 @@ extern "C" int sx_group_attention_fwd(
   const In kv{static_cast<const bf*>(k), sb, sh, ss};
   const In vv{static_cast<const bf*>(v), sb, sh, ss};
   const Out ov{static_cast<bf*>(o), ob, oh, os};
-  return fwd<false>(qv, kv, vv, mask, ov, B, heads, S, d, scale, 0,
-                    static_cast<cudaStream_t>(stream));
-}
-
-// K5's f32 instance: q, k, v f32 views (rows 16-byte aligned), o f32, and
-// `work`, a bf16 scratch of 6 n values (n = B heads S d) for the split
-// pass's hi and lo halves of q, k and v. K6's f32 instance is K8's, the
-// wgmma backward of attention_bwd_f32.cu (sx_attention_bwd_f32): K6 keeps
-// a whole head's k and v, then q and dO, in shared memory, and as hi + lo
-// halves those tiles would take 2 x 2 x 256 x 136 x 2 bytes = 278 KB at
-// d = 128, past the 227 KB of a block; K8's two passes stream them.
-extern "C" int sx_group_attention_fwd_f32(
-    const void* q, const void* k, const void* v, long long sb, long long sh,
-    long long ss, const int* mask, void* o, long long ob, long long oh,
-    long long os, void* work, int B, int heads, int S, int d, float scale,
-    void* stream) {
-  if (S < 1 || S > kMaxS || d % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(work);
-  const long long n = static_cast<long long>(B) * heads * S * d;
-  const void* src[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err =
-        split_halves(src[i], sb, sh, ss, w + 2 * n * i, B, heads, S, d, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const OutOf<true> ov{static_cast<float*>(o), ob, oh, os};
-  return fwd<true>(split_view(w, heads, S, d),
-                   split_view(w + 2 * n, heads, S, d),
-                   split_view(w + 4 * n, heads, S, d), mask, ov, B, heads, S,
-                   d, scale, n, st);
+  return fwd(qv, kv, vv, mask, ov, B, heads, S, d, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 // The backward: q, k, v as above; dout a view with strides (db, dh, ds);

@@ -51,11 +51,12 @@ before any launch. An f32 instance takes each f32 operand as hi = bf16(x)
 and lo = bf16(x - hi), runs every product as three bf16 tensor-core
 products (hi hi + hi lo + lo hi) into f32 accumulators, and stores its
 results in f32: an f32-class function (about 16 bits of each operand; not
-bitwise an f32 product). The forward instances (K5, K7) run a split pass
-into a bf16 scratch first, then the kernel on the halves. K6 and K8 share
-one f32 backward (``csrc/attention_bwd_f32.cu``): K8's two passes on
-``wgmma``, each tile split in shared memory as it lands, no scratch but
-the row statistics. Its launches count apart, in
+bitwise an f32 product). The f32 instances run on ``wgmma`` and split
+each tile in shared memory as it lands, with no split scratch: K5 and K7
+share one f32 forward (``csrc/attention_fwd_f32.cu``, one launch a call:
+K7's one pass over the keys), K6 and K8 one f32 backward
+(``csrc/attention_bwd_f32.cu``: K8's two passes, whose only scratch is
+the row statistics). Their launches count apart, in
 ``<wrapper>.f32.launches``. :func:`flash_attention` sends any
 other dtype (f16: no recipe runs f16 attention) to the plain attention
 (``multi_head_attention``), which computes JAX's f32 function.
@@ -91,9 +92,8 @@ _BWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + _VIEW + [ctypes.c_void_p] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 # K8 takes one more pointer, its f32 scratch of row statistics
 _BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
-# the f32 forward instances take one more, the split pass's bf16 scratch;
-# the f32 backward (K6's and K8's) takes K8's arguments
-_FWD_F32_ARGS = _FWD_ARGS[:11] + [ctypes.c_void_p] + _FWD_ARGS[11:]
+# the f32 forward (K5's and K7's) takes the forward's arguments, the f32
+# backward (K6's and K8's) K8's
 _BWD_F32_ARGS = _BH_BWD_ARGS
 
 
@@ -258,25 +258,18 @@ def _fwd_launch(bf16, f32, wrapper):
         b, h, s, d = q.shape
         mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
         o = _out(q)
-        if q.dtype == torch.float32:
-            # the split pass's hi and lo halves of q, k, v
-            work = torch.empty(3, 2, b, h, s, d, dtype=torch.bfloat16,
-                               device=q.device)
-            (lib, symbol), args, extra = f32, _FWD_F32_ARGS, [_native.ptr(work)]
-            counter = wrapper.f32
-        else:
-            (lib, symbol), args, extra = bf16, _FWD_ARGS, []
-            counter = wrapper
-        fn = _native.function(lib, symbol, args)
+        (lib, symbol), counter = ((f32, wrapper.f32)
+                                  if q.dtype == torch.float32
+                                  else (bf16, wrapper))
+        fn = _native.function(lib, symbol, _FWD_ARGS)
         code = _native.launch(
                 fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
-                *q.stride()[:3], _native.ptr(mask32), *_view_args(o), *extra,
+                *q.stride()[:3], _native.ptr(mask32), *_view_args(o),
                 b, h, s, d, scale)
         _native.check(lib, code, counter.__name__)
         counter.launches += 1
         return o
-    launch.instances = {"bf16": (*bf16, _FWD_ARGS),
-                        "f32": (*f32, _FWD_F32_ARGS)}
+    launch.instances = {"bf16": (*bf16, _FWD_ARGS), "f32": (*f32, _FWD_ARGS)}
     return launch
 
 
@@ -398,16 +391,16 @@ for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
                  bh_attention_bwd):
     _wrapper.f32 = F32Instance(_wrapper)
 
-_K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"),
-                  ("group_attention", "sx_group_attention_fwd_f32"),
-                  group_attention_fwd)
-# K6's and K8's f32 instance: one backward on wgmma
+# K5's and K7's f32 instance: one forward on wgmma
+# (csrc/attention_fwd_f32.cu); K6's and K8's: one backward
 # (csrc/attention_bwd_f32.cu)
+_F32_FWD = ("attention_fwd_f32", "sx_attention_fwd_f32")
 _F32_BWD = ("attention_bwd_f32", "sx_attention_bwd_f32")
+_K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"), _F32_FWD,
+                  group_attention_fwd)
 _K6 = _bwd_launch(("group_attention", "sx_group_attention_bwd", False),
                   _F32_BWD, group_attention_bwd)
-_K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"),
-                  ("bh_attention", "sx_bh_attention_fwd_f32"),
+_K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"), _F32_FWD,
                   bh_attention_fwd)
 _K8 = _bwd_launch(("bh_attention", "sx_bh_attention_bwd", True),
                   _F32_BWD, bh_attention_bwd)

@@ -977,6 +977,46 @@ def test_f32_backward_edges_on_head_views(dev, pair, b, heads, s, d):
         assert e16 >= fa.F32_VS_BF16 * e32, (e16, e32)
 
 
+# The f32 forward (K5's and K7's, csrc/attention_fwd_f32.cu, on wgmma) at
+# its edges: S = 1, 255 (K5's route: one warpgroup, 32-key tiles, the last
+# one 31 of 32), 256 and 1024 (K7's: two warpgroups, its most shared
+# memory) at d = 128, widths off the 16 grid (24 and 80: padded to 32 and
+# 96, run by the 32 and 128 instances) on both routes
+F32_FWD_EDGES = [("group", 3, 2, 1, 128), ("group", 2, 3, 255, 128),
+                 ("bh", 2, 3, 256, 128), ("bh", 2, 2, 1024, 128),
+                 ("group", 3, 2, 160, 24), ("bh", 2, 2, 300, 24),
+                 ("group", 2, 2, 160, 80), ("bh", 2, 2, 512, 80)]
+
+
+@pytest.mark.parametrize("pair,b,heads,s,d", F32_FWD_EDGES)
+def test_f32_forward_edges_on_head_views(dev, pair, b, heads, s, d):
+    """K7's and K5's f32 forward on q, k, v as head views of [b, s, heads
+    d] projections, batch row 0 with half its keys and the last with none:
+    within fa.F32_FWD_TOL of max|v| of an f64 evaluation, fa.F32_VS_BF16
+    times closer than the bf16 instance, two calls bitwise equal, one
+    launch a call on the f32 counter."""
+    fwd = fa.bh_attention_fwd if pair == "bh" else fa.group_attention_fwd
+    x = [_randn(dev, b, s, heads * d, seed=s + d + i) for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[0, s // 2 + 1:] = 0
+    mask[-1] = 0
+    o64, _ = fa.attention_f64(q, k, v, mask, torch.zeros_like(q))
+    before = (fwd.launches, fwd.f32.launches)
+    o = fwd(q, k, v, mask)
+    again = fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.f32.launches) == (before[0], before[1] + 2)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert torch.equal(o, again)
+    vmax = float(v.abs().max())
+    err = float((o.double() - o64).abs().max()) / vmax
+    assert err <= fa.F32_FWD_TOL, err
+    ob = fwd(*(t.to(torch.bfloat16) for t in (q, k, v)), mask)
+    err_b = float((ob.double() - o64).abs().max()) / vmax
+    assert err_b >= fa.F32_VS_BF16 * err, (err_b, err)
+
+
 @pytest.mark.parametrize("s", [160, 512])
 def test_f32_attention_takes_the_kernels(dev, s):
     """f32 q, k, v on the card through the dispatch (small_s_impl="group"

@@ -465,6 +465,81 @@ def _split_attention(q, k, v, do, mask):
         _mm3(ds.transpose(-1, -2), q) * scale, _mm3(p.transpose(-1, -2), do))]
 
 
+def _tiled_f32_fwd_model(q, k, v, mask, tile, rows):
+    """The walk of the f32 forward (csrc/attention_fwd_f32.cu) in f32
+    PyTorch: blocks of ``rows`` query rows (64 a warpgroup; rows past S
+    zero-filled), key tiles of ``tile`` keys (k and v rows past S
+    zero-filled), each product through :func:`_mm3` (q k^T with q and the
+    tile split, p v with p split before the product); log2-domain scores
+    with the backward's key fills (``bwd::key_fill``: -1e9 log2(e) for a
+    masked key, -inf past S, 0 for every key of a batch row with none
+    real); a running max and sum a row, the sum and the output rescaled by
+    2^(max_old - max_new), one reciprocal of the sum a row at the end.
+    -> o as a numpy array."""
+    q, k, v = (torch.from_numpy(x).float() for x in (q, k, v))
+    b, h, s, d = q.shape
+    n = -(-s // tile)
+    sp, nq = n * tile, -(-s // rows) * rows
+    scale2 = torch.tensor(1.0 / np.sqrt(d) * _LOG2E, dtype=torch.float32)
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, sp - s)) for x in (k, v))
+    q = torch.nn.functional.pad(q, (0, 0, 0, nq - s))
+    real = torch.from_numpy(mask > 0)
+    fill = torch.where(real, torch.tensor(np.inf),
+                       torch.tensor(-1e9 * _LOG2E, dtype=torch.float32))
+    fill[~real.any(dim=1)] = 0.0
+    fill = torch.nn.functional.pad(fill, (0, sp - s), value=-np.inf)
+    fill = fill[:, None, None, :]    # [B, 1, 1, Sp]
+    o = torch.zeros(b, h, nq, d)
+    for r0 in range(0, nq, rows):
+        qb = q[:, :, r0:r0 + rows]
+        mx = torch.full((b, h, rows), -np.inf)
+        tot = torch.zeros(b, h, rows)
+        acc = torch.zeros(b, h, rows, d)
+        for j in range(n):
+            cols = slice(j * tile, (j + 1) * tile)
+            f = fill[..., cols]
+            sc = torch.where(f == np.inf,
+                             _mm3(qb, k[:, :, cols].transpose(-1, -2))
+                             * scale2, f.expand(-1, h, rows, -1))
+            m_new = torch.maximum(mx, sc.amax(dim=-1))
+            alpha = torch.where(mx == -np.inf, torch.zeros(()),
+                                torch.exp2(mx - m_new))
+            p = torch.exp2(sc - m_new[..., None])
+            tot = tot * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + _mm3(p, v[:, :, cols])
+            mx = m_new
+        o[:, :, r0:r0 + rows] = acc * (1.0 / tot)[..., None]
+    return o[:, :, :s].numpy()
+
+
+@pytest.mark.parametrize("tile,rows", [(32, 64), (64, 128), (128, 128)])
+@pytest.mark.parametrize("s", [1, 17, 160, 255, 256, 300])
+def test_f32_forward_tiles_match_interpreted_kernel(s, tile, rows):
+    """The walk of the f32 forward (csrc/attention_fwd_f32.cu) at each
+    streamed width (32 keys on K5's route, 64 on K7's, 128) and with 64 or
+    128 query rows a block, against ``_fwd_call_group`` (S < 256) or
+    ``_fwd_call`` in f32 within fa.F32_FWD_TOL of max|v|, and at least
+    fa.F32_VS_BF16 times closer to an f64 evaluation than the same JAX
+    function on the inputs cast to bf16; batch row 2 has every key masked
+    (the uniform softmax over its S keys)."""
+    q, k, v, _, mask = _inputs(3, 2, s, 16, seed=s + tile)
+    mask[2] = 0
+    call = jfa._fwd_call_group if s < 256 else jfa._fwd_call
+    want = np.asarray(call(*(jnp.asarray(x) for x in (q, k, v)),
+                           jnp.asarray(mask)), np.float32)
+    bf16 = np.asarray(call(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                           jnp.asarray(mask)), np.float32)
+    got = _tiled_f32_fwd_model(q, k, v, mask, tile, rows)
+    o64, _ = fa.attention_f64(*(torch.from_numpy(x) for x in
+                                (q, k, v, mask, np.zeros_like(q))))
+    vmax = np.abs(v).max()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= fa.F32_FWD_TOL * vmax
+    err = np.abs(got - o64.numpy()).max() / vmax
+    err_bf16 = np.abs(bf16 - o64.numpy()).max() / vmax
+    assert err_bf16 >= fa.F32_VS_BF16 * err, (err_bf16, err)
+
+
 @pytest.mark.parametrize("shape", [(3, 2, 160, 64), (2, 2, 300, 128),
                                    (2, 2, 64, 16)])
 def test_f32_split_products_are_f32_class(shape):
@@ -523,7 +598,7 @@ def _prototypes():
 def test_attention_launchers_match_their_prototypes(kernel, dtype):
     """The ctypes argument list each attention launcher gives its C
     function (K5-K8, bf16 and f32 instances: ``_FWD_ARGS`` ..
-    ``_BWD_F32_ARGS``) has the count and the pointer, 64-bit, int and float
+    ``_BWD_F32_ARGS``; the f32 forward ``sx_attention_fwd_f32``) has the count and the pointer, 64-bit, int and float
     classes of the function's ``extern "C"`` prototype in ``csrc/``, and
     names the library whose source defines it: a list that drifted from
     its prototype would cut pointers or shift every later argument."""
