@@ -55,8 +55,9 @@ non-zero and prints no result):
    the peak memory, and one traced step of each kind (device time by
    kernel and the device idle share);
 6. the msdoc kernels: K7/K8 (the per-(batch, head) attention pair, 128
-   joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512; and
-   S = 256, 288, 1024) against their plain versions, with SDPA's forward
+   joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512;
+   S = 256, 288, 1024; [4, 8, 1024, 128] and [16, 8, 256, 64], K8's
+   edges) against their plain versions, with SDPA's forward
    and backward as the yardstick, the profiler device time of each of
    K8's two launches (query pass, key pass), and two K8 calls held bitwise
    equal at every shape; K3 at S=512 (1024 x 512 tokens of
@@ -193,7 +194,14 @@ non-zero and prints no result):
    the f32 instances of K5/K6 and K7/K8 launch (read from the counts) and
    agree with an f64 evaluation within phase 23's limits; (d) a tiny
    ``run_ar2 --fast-encode --fast-teacher`` and a tiny ``run_lead
-   --freeze-teachers --fast-teacher`` run to their end;
+   --freeze-teachers --fast-teacher`` run to their end; (e) Queue 3 item
+   9, one call each against its plain version: d = 192 (H = 768 over 4
+   heads) through ``flash_attention`` (the plain attention, no launch of
+   K5-K8) and a fused-int8 layer (K1 and K2, no K3), a fused-int8
+   BERT-base layer at S = 1,100 (K3 launched once) with K3 alone at 64 x
+   1,100 timed, and the fused int8 search over an index of width 100 (K4
+   over rows padded to 112 bytes, its candidates bitwise the plain
+   version's);
 21. LEAD at full width: ``run_lead`` in ``lead_ms_distill`` (6-layer
    BERT-base student with shared towers, 12-layer BERT-base CE on K5/K6;
    32 / 128 / 160 tokens, 8 queries x 2 passages a step): 12 joint steps
@@ -219,7 +227,7 @@ non-zero and prints no result):
    device ms), the plain versions and SDPA in f32 at d = 64; the same
    checks at S = 1024, d = 128 and S = 256 (K7/K8) and S = 255 (K5/K6;
    the f32 forward of both pairs is ``csrc/attention_fwd_f32.cu``, the f32
-   backward ``csrc/attention_bwd_f32.cu``, both on ``wgmma``);
+   backward K8's ``csrc/attention_bwd_wgmma.cu``, both on ``wgmma``);
    then 3 ``make_biencoder_step``
    steps of an f32 ``BertConfig.tiny`` DE on passages of 512 tokens (K7/K8
    f32), the first step against the same step on the plain pair;
@@ -293,8 +301,15 @@ MINE_ROWS, MINE_Q, MINE_K = 24_576, 64, 100
 RERANK_LAYER_TOL, RERANK_GAP, RERANK_CORR = 2.0 ** -6, 2.0, 0.8
 
 
+_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase's record, with the seconds since the script
+    started (``t``: each phase's cost is the difference)."""
+    print(json.dumps({"phase": phase,
+                      "t": round(time.perf_counter() - _START, 1),
+                      **fields}), flush=True)
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -1496,15 +1511,16 @@ def _run_steps(torch, kinds, batches, de_state, ce_state, view):
     return step_ms, losses, peak_gb, resident_gb, de_state, ce_state
 
 
-def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
-    """K7/K8 on head views of [b, s, HEADS * d] projections with key
-    lengths min_len..s, against their plain versions; with ``timing`` also
-    their times, SDPA's (the yardstick: forward, backward, both) and the
-    bounds (the model's products: 2 in the forward, 5 in the backward)."""
+def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing,
+                        heads=HEADS):
+    """K7/K8 on head views of [b, s, heads * d] projections with key
+    lengths min_len..s, against their plain versions, two K8 calls bitwise
+    equal; with ``timing`` also their times, SDPA's (the yardstick:
+    forward, backward, both) and the bounds (the model's products: 2 in the
+    forward, 5 in the backward)."""
     from simxns_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    heads = HEADS
 
     def head_view(x):
         return x.view(b, s, heads, d).transpose(1, 2)
@@ -1584,8 +1600,8 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing):
 
 def phase_msdoc_kernels(torch, smi, records):
     """Phase 6: K7/K8 at the msdoc reranker step's attention shape (128
-    joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512) and
-    at S = 256, 288 and 1024; K3 at the msdoc encode's S=512 (1024 x 512
+    joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512), at
+    S = 256, 288 and 1024, and at [4, 8, 1024, 128] and [16, 8, 256, 64]; K3 at the msdoc encode's S=512 (1024 x 512
     tokens, BERT-base); K4 at the mine's shape (64 queries, k=100, over
     24,576 int8 rows)."""
     dev = torch.device("cuda")
@@ -1600,6 +1616,11 @@ def phase_msdoc_kernels(torch, smi, records):
     others = [_check_bh_attention(torch, randn, gen, 16, s, H // HEADS,
                                   s // 2, timing=False)
               for s in (256, 288, 1024)]
+    # K8's edges: the most shared memory (d = 128, S = 1,024) and the
+    # shortest S of its route, at 8 heads
+    others += [_check_bh_attention(torch, randn, gen, b, s, d, s // 2,
+                                   timing=False, heads=8)
+               for b, s, d in ((4, 1024, 128), (16, 256, 64))]
     shapes = [main] + others
     records["bh_attention_fwd"] = dict(
         ms=main["ms"], plain_ms=main["plain_ms"],
@@ -4644,13 +4665,134 @@ def _repair_attention(torch):
     return rec, f32, widths_launched
 
 
+def _repair_item9(torch):
+    """ROADMAP.md Queue 3 item 9, one call each against its plain version:
+    (a) d = 192 (H = 768 over 4 heads) through ``flash_attention`` at S =
+    256, forward and backward (the plain attention: no launch of K5-K8),
+    and a fused-int8 layer of H = 768 with 4 heads (K1 and K2 around the
+    plain attention: no K3); (b) a fused-int8 BERT-base layer at S = 1,100
+    (K1-K3, K3 once) and K3 alone at 64 x 1,100 with its times (phase 2's
+    check); (c) the fused int8 search over an index of 24,576 rows of width
+    100 (K4 over rows padded to 112 bytes), its candidates bitwise the
+    plain version's and its top-100 ids those of the plain candidates. ->
+    (record, launches)."""
+    from simxns_tpu_torch import ops
+    from simxns_tpu_torch.models import BertConfig
+    from simxns_tpu_torch.models.bert import BertLayer
+    from simxns_tpu_torch.ops import flash_attention as fa
+    from simxns_tpu_torch.ops import fused_layer as fl
+    from simxns_tpu_torch.ops import mips_kernel as mk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    totals = {name: 0 for name in ops.KERNELS}
+
+    def count():
+        for name, n in ops.launches().items():
+            totals[name] += n
+        return {name: n for name, n in ops.launches().items() if n}
+
+    rec = {}
+    # (a) flash_attention at d = 192
+    b, s, heads, d = 4, 256, 4, 192
+    x = [randn(b, s, heads * d).to(torch.bfloat16).requires_grad_()
+         for _ in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1:, s // 2:] = 0
+    ops.reset_launches()
+    out = fa.flash_attention(q, k, v, mask)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    launched = count()
+    refs = [t.detach().clone().requires_grad_() for t in x]
+    rq, rk, rv = (t.view(b, s, heads, d).transpose(1, 2) for t in refs)
+    want = fa._group_fwd_plain(rq, rk, rv, mask)
+    err_o = float((out.detach().float() - want.detach().float()).abs().max())
+    tol_o = 2.0 ** -7 * float(v.float().abs().max())
+    want.float().square().sum().backward()
+    err_g = max(float((g.grad.float() - r.grad.float()).abs().max()
+                      / r.grad.float().abs().max()) for g, r in zip(x, refs))
+    # the plain attention rounds p to bf16 before p v, the kernels' f32
+    # function does not
+    check(not launched and err_o <= tol_o and err_g <= 2.0 ** -6,
+          f"flash_attention d=192: launches {launched}, err {err_o} (limit "
+          f"{tol_o}), gradients {err_g} of the largest")
+    rec["flash_attention_d192"] = {
+        "shape": [b, heads, s, d], "route": fa.route(s, d, q.dtype, True),
+        "launches": launched, "fwd_max_abs_err": err_o,
+        "fwd_tolerance": tol_o, "bwd_max_err_of_largest": err_g}
+    del x, q, k, v, out, refs, want
+    # (a) and (b): fused-int8 layers
+    for name, h_, heads_, s_, b_, k3 in (("fused_int8_d192", H, 4, 128, 8, 0),
+                                         ("fused_int8_s1100", H, HEADS, 1100,
+                                          2, 1)):
+        layer = BertLayer(BertConfig(
+            vocab_size=64, hidden_size=h_, num_layers=1, num_heads=heads_,
+            intermediate_size=4 * h_, max_position_embeddings=2048,
+            dtype=torch.bfloat16, layer_impl="fused_int8")).to(dev)
+        _params_like(torch, layer, s_)
+        xl = randn(b_, s_, h_).to(torch.bfloat16)
+        ml = torch.ones(b_, s_, dtype=torch.int32, device=dev)
+        ml[1:, s_ // 3:] = 0
+        ops.reset_launches()
+        with torch.no_grad():
+            got, _ = layer(xl, ml)
+        torch.cuda.synchronize()
+        launched = count()
+        with torch.no_grad():
+            want = fl.layer_int8_plain(xl, ml, layer.quantized(),
+                                       num_heads=heads_)
+        dd = (got.float() - want.float()).abs()
+        expect = {"int8_linear": 4, "row_quant": 5}
+        if k3:
+            expect["small_s_attention"] = k3
+        check(fl.reaches_kernels(s_, h_, 4 * h_) and launched == expect
+              and float(dd.max()) <= 0.0625 and float(dd.mean()) <= 1e-3,
+              f"{name}: launches {launched} (want {expect}), max "
+              f"{float(dd.max())}, mean {float(dd.mean())}")
+        rec[name] = {"hidden": h_, "heads": heads_, "tokens": [b_, s_],
+                     "launches": launched, "max_abs_err": float(dd.max()),
+                     "mean_abs_err": float(dd.mean())}
+        del layer, xl, got, want
+    rec["small_s_attention_s1100"] = _check_small_s_attention(
+        torch, randn, gen, ((64, 1100, 550),), H, HEADS)
+    # (c) an int8 index of width 100
+    n, nq, width = MINE_ROWS, MINE_Q, 100
+    codes, scales = mk.quantize_rows(randn(n, width))
+    q8, qs = mk.quantize_rows(randn(nq, width))
+    ops.reset_launches()
+    cand = mk.mips_bucket_candidates(q8, codes, n, bucket=128, block_n=2048,
+                                     query_scales=qs, row_scales=scales)
+    torch.cuda.synchronize()
+    launched = count()
+    n_pad = -(-n // 2048) * 2048
+    plain = mk._candidates_plain(q8, codes, n, 128, n_pad, qs, scales)
+    top = mk._finalize(*cand, MINE_K, 0)
+    top_plain = mk._finalize(*plain, MINE_K, 0)
+    check(launched == {"mips_bucket_candidates": 1}
+          and torch.equal(cand[0], plain[0]) and torch.equal(cand[1], plain[1])
+          and torch.equal(top[1], top_plain[1]),
+          f"int8 index of width {width}: launches {launched}, candidates "
+          "or ids differ from the plain version's")
+    rec["int8_index_width100"] = {
+        "rows": n, "queries": nq, "width": width,
+        "kernel_width": mk.kernel_row_width(width, 1), "launches": launched,
+        "candidates_bitwise_equal": True, "top100_ids_equal": True}
+    return rec, totals
+
+
 def phase_repairs(torch, smi, records):
-    """Phase 20: ROADMAP.md Queue 3 items 7 and 8 on the card. (a) the
+    """Phase 20: ROADMAP.md Queue 3 items 7, 8 and 9 on the card. (a) the
     fused-int8 layer's JAX dispatch; (b) K5/K6 and K7/K8 at head widths
     16, 80, 96 and 24; (c) f32 attention on the f32 instances; (d) a tiny ``run_ar2
     --fast-encode --fast-teacher`` and a tiny ``run_lead --freeze-teachers
     --fast-teacher`` (H=64: their int8 views take layer_reference) run to
-    their end."""
+    their end; (e) item 9 (``_repair_item9``)."""
     import shutil
     import tempfile
 
@@ -4685,9 +4827,13 @@ def phase_repairs(torch, smi, records):
         shutil.rmtree(root, ignore_errors=True)
     for name in LAYER_KERNELS:
         totals[name] += layer["H128_heads8"]["launches"][name]
+    item9, launched = _repair_item9(torch)
+    for name, n in launched.items():
+        totals[name] += n
+    records["small_s_attention"]["s1100"] = item9["small_s_attention_s1100"]
     emit("repairs", nvidia_smi=smi, fused_int8_layer=layer,
          attention_widths=widths, f32_attention=f32, tiny_runs=tiny,
-         seconds=time.perf_counter() - t0)
+         item9=item9, seconds=time.perf_counter() - t0)
     fresh_peak(torch)
     _launch_totals(records, "repairs", totals)
 
@@ -6213,7 +6359,8 @@ SOURCES = {
                             "simxns_tpu/ops/flash_attention.py:125"),
     "bh_attention_fwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
                          "simxns_tpu/ops/flash_attention.py:67"),
-    "bh_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+    "bh_attention_bwd": ("cuda",
+                         "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
                          "simxns_tpu/ops/flash_attention.py:80"),
     "ffn_train_fwd": ("cuda", "simxns_tpu_torch/csrc/ffn_fwd.cu",
                       "simxns_tpu/ops/fused_ffn.py:324"),
@@ -6228,18 +6375,18 @@ SOURCES = {
     "int8_ffn": ("cuda", "simxns_tpu_torch/csrc/int8_ffn.cu",
                  "simxns_tpu/ops/fused_ffn.py:160"),
     # the f32 instances of K5-K8 (K5's and K7's: one wgmma forward; K6's
-    # and K8's: one wgmma backward)
+    # and K8's: K8's wgmma backward)
     "group_attention_fwd_f32": ("cuda",
                                 "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
                                 "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd_f32": ("cuda",
-                                "simxns_tpu_torch/csrc/attention_bwd_f32.cu",
+                                "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
                                 "simxns_tpu/ops/flash_attention.py:125"),
     "bh_attention_fwd_f32": ("cuda",
                              "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
                              "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd_f32": ("cuda",
-                             "simxns_tpu_torch/csrc/attention_bwd_f32.cu",
+                             "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
                              "simxns_tpu/ops/flash_attention.py:80"),
 }
 

@@ -17,6 +17,15 @@ one JSON line, with the card's name and power limit:
   two launches on K6's inputs;
 - ``bh_attention``: K7 and K8 at the msdoc reranker step's shape (128 x 12
   heads x S=512 x d=64);
+- ``bh_attention:edges``: K7 and K8 at [4, 8, 1024, 128] (the most shared
+  memory), [16, 8, 256, 64] (the shortest S of their route) and [16, 8,
+  512, d] at d = 16, 80, 96 and 24 (the widths off 32, 64 and 128: the
+  next instance, over zero pads at 24);
+- ``small_s_attention:chunk|msdoc|teacher|rerank|request``: K3 at the
+  BERT-base encode chunk (1,024 x 128 tokens), the msdoc encode (1,024 x
+  512), the CE-large teacher (128 x 160, 16 heads), the rerank (256 x 160)
+  and a request (8 x 32), through ``_check_small_s_attention`` (within
+  2^-7 max|v| of its plain version, SDPA beside it);
 - ``int8_ffn:chunk|request|ragged``: K14 at the encode chunk (131,072 x 768
   x 3072), a request (256 rows) and 4,000 rows, bitwise against its plain
   version, with the K2 -> K1 composition and the library chains beside;
@@ -82,7 +91,7 @@ def _f32_attention(pair, b, s):
             torch, gen, fwd, bwd, b, s, d, timing=True)
             for d in cs.F32_WIDTHS}
     return ["group_attention", "bh_attention", "attention_fwd_f32",
-            "attention_bwd_f32"], run
+            "attention_bwd_f32", "attention_bwd_wgmma"], run
 
 
 def _mips(kind, nq, rows, k, valid_n, kinds):
@@ -97,6 +106,25 @@ def _mips(kind, nq, rows, k, valid_n, kinds):
     return ["mips_candidates"], run
 
 
+def _bh_edges(torch, cs, randn, gen):
+    out = {}
+    for b, s, d in ((4, 1024, 128), (16, 256, 64), (16, 512, 16),
+                    (16, 512, 80), (16, 512, 96), (16, 512, 24)):
+        out[f"bh_attention:{b}x8x{s}x{d}"] = cs._check_bh_attention(
+            torch, randn, gen, b, s, d, s // 2, True, heads=8)
+    return out
+
+
+# K3's shapes: (sequences, S, shortest key length, hidden, heads)
+_K3_SHAPES = {"chunk": (1024, 128, 8, 768, 12),
+              "msdoc": (1024, 512, 300, 768, 12),
+              "teacher": (128, 160, 100, 1024, 16),
+              "rerank": (256, 160, 100, 1024, 16),
+              "request": (8, 32, 8, 768, 12)}
+
+# the libraries of K8 (the parent's, then this tree's)
+_BH = ["bh_attention", "attention_bwd_wgmma"]
+
 # case -> (libraries to build, the check: (torch, chip_smoke, randn, gen)
 # -> {kernel: record})
 CASES = {
@@ -107,14 +135,20 @@ CASES = {
                               ("teacher", 128 * 160, 1024, 4096),
                               ("query", 64 * 32, 768, 3072),
                               ("request", 256, 768, 3072))},
-    "group_attention": (["group_attention", "bh_attention"], (
+    "group_attention": (["group_attention", *_BH], (
         lambda torch, cs, randn, gen: dict(zip(
             ("group_attention_fwd", "group_attention_bwd"),
             cs._check_group_attention(torch, randn, gen))))),
-    "bh_attention": (["bh_attention"], (
+    "bh_attention": (_BH, (
         lambda torch, cs, randn, gen: {
             "bh_attention": cs._check_bh_attention(
                 torch, randn, gen, 128, cs.MS_S, 64, 300, True)})),
+    "bh_attention:edges": (_BH, _bh_edges),
+    **{f"small_s_attention:{label}": (["small_s_attention"], (
+        lambda torch, cs, randn, gen, b=b, s=s, lo=lo, h=h, heads=heads: {
+            "small_s_attention": cs._check_small_s_attention(
+                torch, randn, gen, ((b, s, lo),), h, heads)}))
+       for label, (b, s, lo, h, heads) in _K3_SHAPES.items()},
     **{f"int8_ffn:{label}": (["int8_ffn", "int8_linear"], (
         lambda torch, cs, randn, gen, label=label, m=m: {
             "int8_ffn": cs._check_int8_ffn_shape(torch, randn, label, m)}))

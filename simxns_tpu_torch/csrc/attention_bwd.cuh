@@ -1,7 +1,7 @@
 // Device functions of the attention backward: K6 group_attention_bwd
-// (group_attention.cu) and K8 bh_attention_bwd (bh_attention.cu), on the
-// tile products of attention_ring.cuh, and their f32 instance
-// (attention_bwd_f32.cu).
+// (group_attention.cu), on the tile products of attention_ring.cuh, and
+// the wgmma backward (attention_bwd_wgmma.cu: K8, and the f32 instance of
+// K6 and K8).
 //
 // The model's backward, in f32 (scale = 1/sqrt(d)):
 //   s  = where(mask[key] > 0, q k^T * scale, -1e9),  p = softmax(s)
@@ -19,9 +19,9 @@
 //   key walk (dkv_tile) gets p^T and dS^T from k q^T and v dO^T, already in
 //   the A layout of dV += p^T dO and dK += dS^T q.
 // p and dS enter their products as hi + lo bf16 halves (p_v_tile_split).
-// The f32 instance runs fold_stats, finish_stats, ds_rows and p_ds_cols on
-// its wgmma accumulators, whose layout is mma.sync's; REAL = true (every
-// key of the tile real: fill kRealKey) skips the fill's select.
+// The wgmma backward runs fold_stats, finish_stats, ds_rows and p_ds_cols
+// on its accumulators, whose layout is mma.sync's; REAL = true (every key
+// of the tile real: fill kRealKey) skips the fill's select.
 //
 // A key's fill says how its score is made: kRealKey = the scaled product,
 // else a constant: the mask's -1e9 (as -1e9 log2(e)) or -inf past S (the

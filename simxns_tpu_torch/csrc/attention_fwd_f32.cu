@@ -13,7 +13,7 @@
 // Every operand enters the tensor cores as hi = bf16(x) and lo = bf16(x -
 // hi), every product is hi hi + hi lo + lo hi (three bf16 wgmma products
 // into one f32 accumulator; lo lo dropped), and p is split the same way
-// before p v (attention_f32.cuh).
+// before p v (attention_wgmma.cuh).
 //
 // A block per (64 WG query rows, head, batch), in one pass over the keys:
 // each warpgroup splits its 64 q rows once, from device memory, into
@@ -43,7 +43,7 @@
 // 6 bf16 products, 25.8 GFLOP, 0.026 ms at the bf16 peak. The split of
 // every streamed tile (each block splits its head's k and v again), the
 // softmax algebra and the barriers run beside them.
-#include "attention_f32.cuh"
+#include "attention_wgmma.cuh"
 
 SX_DEFINE_ERROR_STRING
 

@@ -1,10 +1,10 @@
-// Device functions shared by the query-tiled attention kernels: K3
-// small_s_attention (small_s_attention.cu), K5 group_attention_fwd
-// (group_attention.cu) and K7 bh_attention_fwd (bh_attention.cu), and
-// through attention_bwd.cuh the backward kernels K6 group_attention_bwd
-// (group_attention.cu) and K8 bh_attention_bwd: their bf16 instances. The
-// f32 instances run on wgmma (attention_f32.cuh) and take ex2, quad,
-// tile_max and a_fragments_split from here.
+// Device functions shared by the query-tiled attention kernels on
+// mma.sync: K5 group_attention_fwd (group_attention.cu) and K7
+// bh_attention_fwd (bh_attention.cu), and through attention_bwd.cuh the
+// backward kernel K6 group_attention_bwd (group_attention.cu): their bf16
+// instances. The kernels on wgmma (attention_wgmma.cuh: K3, K8, the f32
+// instances) take ex2, quad, tile_max, a_fragment and a_fragments_split
+// from here.
 //
 // A block of 4 warps owns 64 query rows of one (sequence, head); each warp
 // owns 16 of them. The block lands its q tile in shared memory once
@@ -20,9 +20,10 @@
 // ring's tiles, 32 or 16 in K6's resident chunks):
 // - q_k_tile: the warp's 16 x 8NT scores, k fragments by ldmatrix; any
 //   "A rows x B rows^T" product (q k^T, dO v^T, k q^T, v dO^T);
-// - p_v_tile: a 16 x 8NT bf16 A operand (p in registers, in the score
-//   accumulator layout) times the 8NT x D value tile, read in its natural
-//   [key][d] layout through ldmatrix...trans: no transposing stores.
+// - p_v_tile_split: a 16 x 8NT f32 A operand (p in registers, in the
+//   score accumulator layout) as hi + lo bf16 halves times the 8NT x D
+//   value tile, read in its natural [key][d] layout through
+//   ldmatrix...trans: no transposing stores.
 // Scores are kept in the log2 domain (log2(e) folded into the scale and
 // into the masks' constants), so each exponential is one ex2.
 // attend_one_pass is the whole one-pass forward of K5 and K7 in bf16 (the
@@ -146,26 +147,6 @@ __device__ __forceinline__ void v_fragments(uint32_t (&r)[4],
   ldmatrix_x4_trans(r, vs + (kk * 16 + (mi & 1) * 8 + (lane & 7)) *
                                 Layout<D>::kLd +
                             ndp * 16 + (mi >> 1) * 8);
-}
-
-// o[nd] += p v over the 8NT keys of the tile `vs`, p rounded to bf16.
-template <int D, int NT>
-__device__ __forceinline__ void p_v_tile(float (&o)[D / 8][4],
-                                         const float (&p)[NT][4],
-                                         const __nv_bfloat16* vs) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t a[4];
-    a_fragment(a, p, kk);
-#pragma unroll
-    for (int ndp = 0; ndp < D / 16; ++ndp) {
-      uint32_t r[4];
-      v_fragments<D>(r, vs, kk, ndp);
-      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      MmaBf16::mma(o[2 * ndp], a, b0);
-      MmaBf16::mma(o[2 * ndp + 1], a, b1);
-    }
-  }
 }
 
 // The A fragments of keys kk * 16 .. + 15 of an f32 p (accumulator

@@ -1,18 +1,23 @@
-// Device functions of the f32 attention kernels on Hopper's warpgroup MMA
-// (wgmma): the forward (attention_fwd_f32.cu, the f32 instance of K5 and
-// K7) and the backward (attention_bwd_f32.cu, the f32 instance of K6 and
-// K8). Both take f32 q, k, v views and split each operand inside the
-// kernel into hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact in f32);
-// every product is hi hi + hi lo + lo hi, three bf16 wgmma products into
-// one f32 accumulator (lo lo, under 2^-16 of the product, is dropped).
+// Device functions of the attention kernels on Hopper's warpgroup MMA
+// (wgmma): K3 small_s_attention (small_s_attention.cu), the f32 forward
+// (attention_fwd_f32.cu, the f32 instance of K5 and K7) and the backward
+// (attention_bwd_wgmma.cu: K8, and the f32 instance of K6 and K8).
+//
+// bf16 operands land in their tiles as they are. f32 operands are split
+// inside the kernel into hi = bf16(x) and lo = bf16(x - hi) (x - hi is
+// exact in f32); every product of two f32 operands is hi hi + hi lo + lo
+// hi, three bf16 wgmma products into one f32 accumulator (lo lo, under
+// 2^-16 of the product, is dropped). SPLIT = true is the f32 case.
 //
 // The pieces, in the order a kernel uses them:
-// - F32In / F32Out: [B, heads, S, d] f32 views, d contiguous;
+// - HeadIn<T> / HeadOut<T>: [B, heads, S, d] views of T, d contiguous
+//   (F32In / F32Out for f32);
 // - Tile<DP, R>: R rows of DP bf16 values as wgmma reads them (the 32-, 64-
 //   or 128-byte swizzle), read K-major (k_desc) or MN-major (mn_desc);
-// - land: rows of an f32 operand into a [R][DP] f32 landing buffer by
-//   cp.async (zeros past S and d); split_tile: a landed tile into its hi
-//   and lo tiles by all the block's threads; split_rows: a warpgroup's 64
+// - land_tile: rows of a bf16 operand straight into a Tile by cp.async
+//   (zeros past S and d); land: rows of an f32 operand into a [R][DP] f32
+//   landing buffer by cp.async; split_tile: a landed tile into its hi and
+//   lo tiles by all the block's threads; split_rows: a warpgroup's 64
 //   resident rows, read from device memory and split once;
 // - issue_scores / issue_score: SS products a b^T of a resident 64-row
 //   tile and a streamed one, both K-major, into the accumulator layout
@@ -20,8 +25,9 @@
 // - fragments: an f32 accumulator as the hi and lo register A fragments of
 //   a product, which issue_times multiplies by a streamed tile read
 //   MN-major through the transpose bit (WgmmaBf16Rs): no transposed copy;
+//   bf16_fragments / issue_times_bf16: the same with one bf16 fragment;
 // - before_scores / after_scores: two warpgroups in ping-pong on one tile;
-// - store_rows: a warp's 16 rows of an accumulator to an f32 view;
+// - store_rows: a warp's 16 rows of an accumulator to a view;
 // - key_fills: each key's fill and each key tile's all-real flag; prepare:
 //   a kernel's shared memory limit (host).
 //
@@ -42,21 +48,26 @@ namespace bwd = sx::bwd;
 constexpr int kMaxS = 1024;
 constexpr int kRows = 64;       // a warpgroup's resident rows: wgmma's M
 
-struct F32In {            // a [B, heads, S, d] f32 view, d contiguous
-  const float* p;
+template <class T>
+struct HeadIn {           // a [B, heads, S, d] view of T, d contiguous
+  const T* p;
   long long sb, sh, ss;   // element strides
-  __device__ const float* row(int b, int h, int i) const {
+  __device__ const T* row(int b, int h, int i) const {
     return p + b * sb + h * sh + static_cast<long long>(i) * ss;
   }
 };
 
-struct F32Out {
-  float* p;
+template <class T>
+struct HeadOut {
+  T* p;
   long long sb, sh, ss;
-  __device__ float* row(int b, int h, int i) const {
+  __device__ T* row(int b, int h, int i) const {
     return p + b * sb + h * sh + static_cast<long long>(i) * ss;
   }
 };
+
+using F32In = HeadIn<float>;
+using F32Out = HeadOut<float>;
 
 // R rows of DP bf16 values as wgmma reads them: rows of W bytes in column
 // blocks of R * W bytes, each 16-byte chunk XORed with its address bits 7
@@ -79,6 +90,24 @@ struct Tile {
     return wg::desc_sw<kW>(t + kk * 16 * kW, kBlock);
   }
 };
+
+// rows r0 .. r0 + R - 1 of a bf16 operand into the tile dst by cp.async
+// from T threads, 16 bytes a copy; zeros at rows >= S and columns >= d
+// (nothing read; d on the 8 grid)
+template <int DP, int R, int T, class Row>
+__device__ __forceinline__ void land_tile(uint8_t* dst, Row row, int r0,
+                                          int S, int d, int tid) {
+  constexpr int kChunks = DP / 8, kIters = (R * kChunks + T - 1) / T;
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int idx = tid + i * T;
+    if (kIters * T != R * kChunks && idx >= R * kChunks) break;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const bool ok = r0 + r < S && c < d;
+    wg::cp_async16(dst + Tile<DP, R>::offset(r, c),
+                   row(ok ? r0 + r : 0) + (ok ? c : 0), ok ? 16 : 0);
+  }
+}
 
 // rows r0 .. r0 + R - 1 of an f32 operand into dst [R][DP] by cp.async
 // from T threads, 16 bytes a copy; zeros at rows >= S and columns >= d
@@ -202,9 +231,10 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&a)[K][4]) {
   for (int i = 0; i < K; ++i) wg::fence_operands(a[i]);
 }
 
-// xf += a b^T over the DP columns of two split pairs (a the warpgroup's
-// resident 64-row tile, b a streamed N-row tile, both K-major)
-template <int DP, int N>
+// xf += a b^T over the DP columns (a the warpgroup's resident 64-row
+// tile, b a streamed N-row tile, both K-major): of two split pairs
+// (SPLIT), else of the bf16 tiles ah and bh (al, bl unused)
+template <int DP, int N, bool SPLIT = true>
 __device__ __forceinline__ void mma_split(float (&xf)[N / 2],
                                           const uint8_t* ah,
                                           const uint8_t* al,
@@ -215,18 +245,20 @@ __device__ __forceinline__ void mma_split(float (&xf)[N / 2],
   using Mma = wg::WgmmaBf16<N>;
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks) {
-    Mma::mma(xf, A::k_desc(al, ks), B::k_desc(bh, ks), 1);
-    Mma::mma(xf, A::k_desc(ah, ks), B::k_desc(bl, ks), 1);
+    if constexpr (SPLIT) {
+      Mma::mma(xf, A::k_desc(al, ks), B::k_desc(bh, ks), 1);
+      Mma::mma(xf, A::k_desc(ah, ks), B::k_desc(bl, ks), 1);
+    }
     Mma::mma(xf, A::k_desc(ah, ks), B::k_desc(bh, ks), 1);
   }
 }
 
 // issue x = a b^T and y = c e^T over the DP columns of four split pairs
 // (a, c the warpgroup's resident 64-row tiles, b, e streamed N-row tiles,
-// all K-major) into x and y, zeroed first, in the accumulator layout
-// (attention_ring.cuh's [N / 8][4] of a warp's 16 rows); committed, not
-// waited for (wait_scores)
-template <int DP, int N>
+// all K-major; bf16 tiles a, b, c, e when !SPLIT) into x and y, zeroed
+// first, in the accumulator layout (attention_ring.cuh's [N / 8][4] of a
+// warp's 16 rows); committed, not waited for (wait_scores)
+template <int DP, int N, bool SPLIT = true>
 __device__ __forceinline__ void issue_scores(
     float (&x)[N / 8][4], float (&y)[N / 8][4], const uint8_t* ah,
     const uint8_t* al, const uint8_t* bh, const uint8_t* bl,
@@ -239,13 +271,13 @@ __device__ __forceinline__ void issue_scores(
   wg::fence_operands(xf);
   wg::fence_operands(yf);
   wg::wgmma_fence();
-  mma_split<DP, N>(xf, ah, al, bh, bl);
-  mma_split<DP, N>(yf, ch, cl, eh, el);
+  mma_split<DP, N, SPLIT>(xf, ah, al, bh, bl);
+  mma_split<DP, N, SPLIT>(yf, ch, cl, eh, el);
   wg::wgmma_commit();
 }
 
 // issue x = a b^T alone (as issue_scores)
-template <int DP, int N>
+template <int DP, int N, bool SPLIT = true>
 __device__ __forceinline__ void issue_score(float (&x)[N / 8][4],
                                             const uint8_t* ah,
                                             const uint8_t* al,
@@ -256,7 +288,7 @@ __device__ __forceinline__ void issue_score(float (&x)[N / 8][4],
   for (int i = 0; i < N / 2; ++i) xf[i] = 0.0f;
   wg::fence_operands(xf);
   wg::wgmma_fence();
-  mma_split<DP, N>(xf, ah, al, bh, bl);
+  mma_split<DP, N, SPLIT>(xf, ah, al, bh, bl);
   wg::wgmma_commit();
 }
 
@@ -289,8 +321,9 @@ __device__ __forceinline__ void wait_score(float (&x)[N / 8][4]) {
 }
 
 // acc += x b over the N rows of the split tile b (read MN-major), x as
-// its hi and lo A fragments; issued, not waited for
-template <int DP, int N>
+// its hi and lo A fragments (of the bf16 tile bh alone when !SPLIT: two
+// products); issued, not waited for
+template <int DP, int N, bool SPLIT = true>
 __device__ __forceinline__ void issue_times(float (&acc)[DP / 2],
                                             const uint32_t (&xh)[N / 16][4],
                                             const uint32_t (&xl)[N / 16][4],
@@ -301,9 +334,21 @@ __device__ __forceinline__ void issue_times(float (&acc)[DP / 2],
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     Mma::mma(acc, xl[kk], B::mn_desc(bh, kk), 1);
-    Mma::mma(acc, xh[kk], B::mn_desc(bl, kk), 1);
+    if constexpr (SPLIT) Mma::mma(acc, xh[kk], B::mn_desc(bl, kk), 1);
     Mma::mma(acc, xh[kk], B::mn_desc(bh, kk), 1);
   }
+}
+
+// acc += x b with x one bf16 A fragment a k16 step (x already rounded to
+// bf16): one product a step; issued, not waited for
+template <int DP, int N>
+__device__ __forceinline__ void issue_times_bf16(
+    float (&acc)[DP / 2], const uint32_t (&x)[N / 16][4], const uint8_t* b) {
+  using B = Tile<DP, N>;
+  using Mma = wg::WgmmaBf16Rs<DP, true>;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    Mma::mma(acc, x[kk], B::mn_desc(b, kk), 1);
 }
 
 template <int N>
@@ -315,9 +360,18 @@ __device__ __forceinline__ void fragments(uint32_t (&hi)[N / 16][4],
     ring::a_fragments_split(hi[kk], lo[kk], x, kk);
 }
 
-// rows r0 + g and r0 + g + 8 of a [16][DP] accumulator, columns below d
-template <int DP>
-__device__ __forceinline__ void store_rows(const F32Out& o, int b, int h,
+// x rounded to bf16 as the register A fragments of a product
+template <int N>
+__device__ __forceinline__ void bf16_fragments(uint32_t (&a)[N / 16][4],
+                                               const float (&x)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) ring::a_fragment(a[kk], x, kk);
+}
+
+// rows r0 + g and r0 + g + 8 of a [16][DP] accumulator, columns below d,
+// stored as the view's type (bf16 rounded)
+template <int DP, class Out>
+__device__ __forceinline__ void store_rows(const Out& o, int b, int h,
                                            int r0, int S, int d,
                                            const float (&acc)[DP / 8][4],
                                            float mul) {

@@ -31,7 +31,7 @@
 //   row with rescaling, one reciprocal a row at the end; v read by
 //   ldmatrix...trans. 3 products of 2 S^2 d per head (q k^T, p v as hi and
 //   lo) over the keys padded to the tile.
-// - K6 (attention_bwd.cuh, K8's device functions), one block per (batch,
+// - K6 (attention_bwd.cuh's device functions), one block per (batch,
 //   head) with the head's tiles resident, each warp owning 16 rows and
 //   walking the other side in chunks of 32: phase A (rows = queries; k, v
 //   in shared memory) folds each row's max, sum and rowsum(dP p) in one
@@ -45,7 +45,7 @@
 // Keys past S (the pad to a tile or chunk) get -inf, so they add exactly 0.
 // These are the bf16 instances: K5's f32 instance is K7's, the wgmma
 // forward of attention_fwd_f32.cu, and K6's is K8's, the wgmma backward of
-// attention_bwd_f32.cu (K6 keeps a whole head's k and v, then q and dO, in
+// attention_bwd_wgmma.cu (K6 keeps a whole head's k and v, then q and dO, in
 // shared memory, and as hi + lo halves those tiles would take 2 x 2 x 256
 // x 136 x 2 bytes = 278 KB at d = 128, past the 227 KB of a block; K8's
 // two passes stream them).
@@ -105,13 +105,13 @@ __global__ void __launch_bounds__(ring::kThreads, D <= 64 ? 4 : 2)
       scale2);
 }
 
-// K6: one block per (batch, head), the device functions of K8's two passes
-// (attention_bwd.cuh) over resident tiles in chunks of kChunk = 32 rows.
+// K6: one block per (batch, head), the device functions of the backward
+// walks (attention_bwd.cuh) over resident tiles in chunks of kChunk = 32 rows.
 // Phase A (16 query rows a warp; k and v resident): walk 1 folds each row's
 // lse and rowsum(dP p), walk 2 accumulates dQ; the statistics go to shared
 // memory. Phase B (16 key rows a warp; q and dO resident in k's and v's
 // place): dV and dK over every query. Query rows past S are zero-filled and
-// keep statistics of 0: they add exactly 0 (see K8's key pass).
+// keep statistics of 0: they add exactly 0.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2)
     group_attention_bwd_kernel(In q, In k, In v, In dout,

@@ -1,5 +1,5 @@
 // K3 small_s_attention: softmax(q k^T / sqrt(d) + bias) v for every
-// (sequence, head), S <= 1024, one block per 64 query rows.
+// (sequence, head), any S, on Hopper's warpgroup MMA (wgmma).
 //
 // Replaces the attention core of the TPU whole-layer kernel
 // (simxns_tpu/ops/fused_layer.py:_layer_kernel :115-138): q, k, v bf16;
@@ -8,196 +8,308 @@
 // cast to bf16 AFTER the normalisation (the TPU kernel's rounding of p);
 // p v accumulated in f32. The context is written f32 into [M, H] at column
 // head * d, so the next kernel (row_quant) quantizes whole rows across all
-// heads, as the TPU kernel does.
+// heads, as the TPU kernel does. Keys past S weigh exactly 0.
 //
-// Bound on the card: bytes at S=128 (4 S^2 d of products per head against
-// 3 S d * 2 bytes read and S d * 4 written), the tensor cores' rate past
-// S ~ 300. The design (attention_ring.cuh): the grid is (query tiles of 64,
-// heads, sequences), so a block's shared memory does not grow with S (49
-// KB at d=64: four blocks an SM at every S) and the S/64 blocks of one head
-// run side by side, reading its k and v from L2. A block lands its q tile
-// once and streams 64-key tiles of k, then of k and v, through a two-stage
-// cp.async ring: pass 1 folds each row's max and sum of exp(s - max) over
-// the k tiles (the sum rescaled when the max grows), pass 2 recomputes the
-// scores, forms p = bf16(exp(s - max) / sum) in registers -- the
-// score accumulators are the A fragments of p v -- and accumulates p v on
-// the tensor cores, v read through ldmatrix...trans. Scores are scaled by
-// log2(e) / sqrt(d) and the bias by log2(e), so each exponential is one
-// ex2; each row takes one reciprocal of its sum, and the quotient is
-// corrected to the true division's rounding by two FMAs (a product with the
-// reciprocal alone moved enough bf16 roundings of p to reorder near-ties
-// of a 12-layer encode's top-10). Keys past S (the pad to a tile) get a
-// -inf bias, so they add exactly 0.
-#include "attention_ring.cuh"
+// Bound on the card: bytes at S = 128 (4 S^2 d of products per head
+// against 3 S d * 2 bytes read and S d * 4 written), the tensor cores'
+// rate past S ~ 300. The design (attention_wgmma.cuh): a block per (64 WG
+// query rows, head, sequence); each warpgroup lands its q rows once, by
+// cp.async, as they are, into a resident swizzled tile. Tiles of N keys of
+// k (and v) land the same way, with the tile's N key-mask values, into two
+// stages, the next tile's copy in flight under this one's work. q k^T is
+// one SS bf16 wgmma product a k16 step (k K-major). The softmax has to use
+// the final row max and sum before p is rounded, so there are two passes
+// over the keys: pass 1 folds each row's max and sum of 2^(s - max) (the
+// sum rescaled when the max grows); pass 2 recomputes the scores, forms p
+// = bf16(2^(s - max) / sum) in registers, which are the register A
+// fragments of p v (one bf16 product a k16 step: p is already rounded), v
+// read MN-major from its tile through the transpose bit. Where the keys
+// fit one tile (S <= 192) the scores of pass 1 stay in registers: one q
+// k^T and one landing of k and v, v's under q k^T and the softmax. Scores
+// are scaled by log2(e) / sqrt(d) and the bias by log2(e), so each
+// exponential is one ex2; in a tile of real keys only (flagged once a
+// block from the mask) the scale rides in the FMA that subtracts the row
+// max, and the bias is not formed. Each row takes one reciprocal of its
+// sum, and the quotient is corrected to the true
+// division's rounding by two FMAs (a product with the reciprocal alone
+// moved enough bf16 roundings of p to reorder near-ties of a 12-layer
+// encode's top-10). Keys past S get a -inf bias, so they add exactly 0.
+// Each key tile brings its own mask values, so nothing in shared memory
+// grows with S: every S the layer's dispatch admits runs.
+//
+// Tiles are rows of DP bf16 values: d (on the 16 grid; the wrapper pads
+// other widths with zero columns) rounded up to 16, 32, 64 or 128, so d =
+// 48 runs at 64 and d = 80, 96, 112 at 128; columns past d land as zeros,
+// which add exact zeros to every score, and are not stored.
+#include "attention_wgmma.cuh"
 
 SX_DEFINE_ERROR_STRING
 
-using namespace sx::ring;
-
 namespace {
 
-constexpr int kMaxS = 1024;   // the key bias row in shared memory
+constexpr float kMasked = -1e9f * ring::kLog2e;   // the mask's bias, log2
 
-template <int D>
-constexpr int smem_bytes() {
-  // q tile, kStages k tiles, kStages v tiles (bf16), biases (f32)
-  return (1 + 2 * kStages) * Layout<D>::kTile * 2 + kMaxS * 4;
-}
+// K3's shape: DP columns, N keys a streamed tile, WG warpgroups of 64
+// query rows each (two share each streamed tile, in ping-pong), at least
+// MIN blocks an SM (launch bounds); ONE: every key in one tile (S <= N),
+// landed once with v, its scores kept from pass 1 to pass 2. Shared
+// memory: WG resident q tiles, the streamed k and v tiles (two stages,
+// one when ONE), each stage's N key-mask values, and a bit a key tile
+// (the first 64) for a tile that is not all real keys.
+template <int DP_, int N_, int WG_, int MIN_, bool ONE_>
+struct Shape {
+  static constexpr int DP = DP_, N = N_, WG = WG_, kMinBlocks = MIN_;
+  static constexpr bool kOne = ONE_;
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int kStages = ONE_ ? 1 : 2;
+  using Res = Tile<DP, kRows>;
+  using Str = Tile<DP, N>;
+  static constexpr int kResident = WG * Res::kBytes;
+  static constexpr int kStreamed = kStages * 2 * Str::kBytes;
+  static constexpr int kSmem =
+      1024 + kResident + kStreamed + kStages * N * 4 + 8;
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2)
+template <class P>
+__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
     small_s_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
                              const int* __restrict__ mask,
-                             float* __restrict__ ctx, int S, int H,
+                             float* __restrict__ ctx, int S, int H, int d,
                              float scale2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kTile = Layout<D>::kTile;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kTile;                 // [kStages] tiles
-  __nv_bfloat16* vs = ks + kStages * kTile;       // [kStages] tiles
-  float* bias = reinterpret_cast<float*>(vs + kStages * kTile);  // [kMaxS]
-
-  const int q0 = blockIdx.x * kRows, head = blockIdx.y, seq = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long row0 = static_cast<long>(seq) * S;
-  const long ld = 3L * H;
-  const __nv_bfloat16* base = qkv + row0 * ld + head * D;
-  auto q_row = [&](int i) { return base + i * ld; };
-  auto k_row = [&](int i) { return base + i * ld + H; };
-  auto v_row = [&](int i) { return base + i * ld + 2 * H; };
-  const int n_tiles = (S + kKeys - 1) / kKeys;
-
-  for (int j = threadIdx.x; j < n_tiles * kKeys; j += kThreads)
-    bias[j] = j >= S ? -INFINITY
-                     : (mask[row0 + j] > 0 ? 0.0f : -1e9f * kLog2e);
-  // step s < n_tiles streams k tile s (pass 1), step n_tiles + j streams k
-  // and v tile j (pass 2); the copies of the next kStages - 1 steps
-  // overlap step s
-  auto issue = [&](int s) {
-    const int tile = s % n_tiles, st = s % kStages;
-    copy_tile<D>(ks + st * kTile, k_row, tile * kKeys, S);
-    if (s >= n_tiles) copy_tile<D>(vs + st * kTile, v_row, tile * kKeys, S);
+  constexpr int DP = P::DP, N = P::N, T = P::kThreads;
+  using Str = typename P::Str;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = aligned_smem(smem_raw);
+  const int tid = threadIdx.x, wtid = tid & 127;
+  uint8_t* qt = base + (tid >> 7) * P::Res::kBytes;   // this warpgroup's q
+  uint8_t* t0 = base + P::kResident;        // [stage][k, v] tiles
+  int* keys = reinterpret_cast<int*>(t0 + P::kStreamed);  // [stage][N]
+  auto* masked = reinterpret_cast<unsigned long long*>(keys + P::kStages * N);
+  const int head = blockIdx.y, seq = blockIdx.z;
+  const int qw = blockIdx.x * P::WG * kRows + (tid >> 7) * kRows;
+  const int t = tid & 3;
+  const long long ld = 3LL * H;
+  const __nv_bfloat16* rows =
+      qkv + static_cast<long long>(seq) * S * ld + head * d;
+  const int* m = mask + static_cast<long long>(seq) * S;
+  const int n = (S + N - 1) / N;
+  // step s < n walks key tile s for pass 1, step n + j key tile j for
+  // pass 2 (ONE: step 0 is both)
+  const int steps = P::kOne ? 1 : 2 * n;
+  auto land_v = [&](int step) {
+    land_tile<DP, N, T>(t0 + (step % P::kStages * 2 + 1) * Str::kBytes,
+                        [&](int i) { return rows + i * ld + 2 * H; },
+                        step % n * N, S, d, tid);
   };
-  copy_tile<D>(qs, q_row, q0, S);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {   // q rides with the first group
-    if (s < 2 * n_tiles) issue(s);
-    sx::cp_async_commit();
+  auto issue = [&](int step) {   // k, the mask values (and v in pass 2)
+    const int j0 = step % n * N, st = step % P::kStages;
+    land_tile<DP, N, T>(t0 + st * 2 * Str::kBytes,
+                        [&](int i) { return rows + i * ld + H; }, j0, S, d,
+                        tid);
+    if (!P::kOne && step >= n) land_v(step);
+    for (int i = tid; i < N; i += T) {
+      const bool ok = j0 + i < S;
+      sx::bwd::cp_async4(keys + st * N + i, m + (ok ? j0 + i : 0), ok);
+    }
+    wg::cp_async_commit();
+  };
+  if (tid == 0) *masked = 0;
+  __syncthreads();
+  issue(0);
+  land_tile<DP, kRows, 128>(qt, [&](int i) { return rows + i * ld; }, qw, S,
+                            d, wtid);
+  wg::cp_async_commit();
+  {   // the key tiles (of the first 64) with a masked key or one past S
+    unsigned long long bits = 0;
+    for (int j = tid; j < (n < 64 ? n : 64) * N; j += T)
+      if (j >= S || m[j] <= 0) bits |= 1ull << (j / N);
+    if (bits) atomicOr(masked, bits);
   }
-
-  const bool active = q0 + warp * 16 < S;   // warp-uniform; idle warps sync
-  uint32_t qa[D / 16][4];
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, inv[2];
-  float o[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.0f;
-
-  for (int s = 0; s < 2 * n_tiles; ++s) {
-    if (s + kStages - 1 < 2 * n_tiles) issue(s + kStages - 1);
-    sx::cp_async_commit();
-    sx::cp_async_wait<kStages - 1>();
+  auto publish = [&] {   // the copies landed and visible to wgmma
+    wg::cp_async_wait_all();
+    wg::fence_proxy_async();
     __syncthreads();
-    if (active) {
-      if (s == 0) load_q<D>(qa, qs);
-      const int tile = s % n_tiles, st = s % kStages;
-      float sc[kNt][4];
-      q_k_tile<D>(sc, qa, ks + st * kTile);
-      const float* b = bias + tile * kKeys + 2 * t;
+  };
+  if constexpr (P::kOne) {   // v lands under q k^T and the softmax
+    land_v(0);
+    wg::cp_async_commit();
+    sx::cp_async_wait<1>();
+    wg::fence_proxy_async();
+    __syncthreads();
+  } else {
+    publish();
+  }
+  const unsigned long long not_real = *masked;
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, inv[2];
+  float acc[DP / 8][4];
+  float(&accf)[DP / 2] = flat<DP>(acc);
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt)
+  for (int i = 0; i < DP / 2; ++i) accf[i] = 0.0f;
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);   // behind this step's work
+    const int tile = step % n, st = step % P::kStages;
+    const uint8_t* kt = t0 + st * 2 * Str::kBytes;
+    const int* key = keys + st * N;
+    float sc[N / 8][4];
+    before_scores<P::WG>();
+    issue_score<DP, N, false>(sc, qt, qt, kt, kt);
+    after_scores<P::WG>();
+    wait_score<N>(sc);
+    // f32 scores in the log2 domain: dot * scale2 + bias. A tile of real
+    // keys keeps the products (its scores are dot * scale2, folded into
+    // the exponent's FMA below); another gets its bias here
+    const bool real = tile < 64 && !((not_real >> tile) & 1);
+    if (!real) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[nt][e] = __fmaf_rn(sc[nt][e], scale2, b[nt * 8 + (e & 1)]);
-      if (s < n_tiles) {
-        float cm[2];
-        tile_max(sc, cm);
+      for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + 2 * t + (e & 1);
+          const float bias = tile * N + col >= S ? -INFINITY
+                             : key[col] > 0      ? 0.0f
+                                                 : kMasked;
+          sc[nt][e] = __fmaf_rn(sc[nt][e], scale2, bias);
+        }
+    }
+    // 2^(s - mx) of element (nt, e): s = sc * mul, one rounding with the
+    // subtraction (s itself where the bias is in: mul = 1)
+    const float mul = real ? scale2 : 1.0f;
+    auto exp_of = [&](int nt, int e) {
+      return ring::ex2(__fmaf_rn(sc[nt][e], mul, -mx[e >> 1]));
+    };
+    if (step < n) {   // pass 1: the running max and sum
+      float cm[2];
+      ring::tile_max(sc, cm);
+      cm[0] *= mul, cm[1] *= mul;   // mul > 0: the max of the scores
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(mx[r], cm[r]);
+        sum[r] = mx[r] == -INFINITY ? 0.0f : sum[r] * ring::ex2(mx[r] - m_new);
+        mx[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[e >> 1] += exp_of(nt, e);
+    }
+    if (P::kOne || step >= n) {   // pass 2: p, then acc += p v
+      if (step == (P::kOne ? 0 : n)) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const float m_new = fmaxf(mx[r], cm[r]);
-          sum[r] = mx[r] == -INFINITY ? 0.0f : sum[r] * ex2(mx[r] - m_new);
-          mx[r] = m_new;
+          sum[r] = ring::quad<1>(sum[r]);
+          inv[r] = 1.0f / sum[r];
         }
-#pragma unroll
-        for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sum[e >> 1] += ex2(sc[nt][e] - mx[e >> 1]);
-      } else {
-        if (s == n_tiles) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            sum[r] = quad<1>(sum[r]);
-            inv[r] = 1.0f / sum[r];
-          }
-        }
-        // p = e / sum rounded as a true division: the product with the
-        // rounded reciprocal, corrected once by its residual (exact by
-        // FMA), is the correctly rounded quotient (Markstein)
-#pragma unroll
-        for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float x = ex2(sc[nt][e] - mx[e >> 1]);
-            const float q = x * inv[e >> 1];
-            const float res = __fmaf_rn(-q, sum[e >> 1], x);
-            sc[nt][e] = __fmaf_rn(res, inv[e >> 1], q);
-          }
-        p_v_tile<D>(o, sc, vs + st * kTile);
       }
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+      // p = e / sum rounded as a true division: the product with the
+      // rounded reciprocal, corrected once by its residual (exact by
+      // FMA), is the correctly rounded quotient (Markstein)
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = head * D + nd * 8 + 2 * t;
+      for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = exp_of(nt, e);
+          const float q = x * inv[e >> 1];
+          const float res = __fmaf_rn(-q, sum[e >> 1], x);
+          sc[nt][e] = __fmaf_rn(res, inv[e >> 1], q);
+        }
+      uint32_t pa[N / 16][4];
+      bf16_fragments<N>(pa, sc);
+      if (P::kOne) publish();   // v
+      wg::fence_operands(accf);
+      wg::wgmma_fence();
+      issue_times_bf16<DP, N>(accf, pa, kt + Str::kBytes);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_operands(accf);
+      fence_fragments(pa);
+    }
+    if (step + 1 < steps) publish();
+  }
+
+  const int g = (tid & 31) >> 2;
+  const int ra = qw + ((tid >> 5) & 3) * 16 + g, rb = ra + 8;
+  float* out = ctx + static_cast<long long>(seq) * S * H + head * d;
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) {
+    const int c = nd * 8 + 2 * t;
+    if (c >= d) continue;
     if (ra < S)
-      *reinterpret_cast<float2*>(ctx + (row0 + ra) * H + c) =
-          make_float2(o[nd][0], o[nd][1]);
+      sx::store2(out + static_cast<long long>(ra) * H + c, acc[nd][0],
+                 acc[nd][1]);
     if (rb < S)
-      *reinterpret_cast<float2*>(ctx + (row0 + rb) * H + c) =
-          make_float2(o[nd][2], o[nd][3]);
+      sx::store2(out + static_cast<long long>(rb) * H + c, acc[nd][2],
+                 acc[nd][3]);
   }
 }
 
-template <int D>
-cudaError_t launch(const void* qkv, const int* mask, float* ctx, int B, int S,
-                   int H, float scale, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      small_s_attention_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+struct Args {
+  const __nv_bfloat16* qkv;
+  const int* mask;
+  float* ctx;
+  int B, S, H, d;
+  float scale;
+  cudaStream_t st;
+};
+
+template <class P>
+cudaError_t launch(const Args& a) {
+  const cudaError_t err = prepare(small_s_attention_kernel<P>, P::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kRows - 1) / kRows, H / D, B);
-  small_s_attention_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), mask, ctx, S, H,
-      scale * kLog2e);
+  const int rows = kRows * P::WG;
+  small_s_attention_kernel<P>
+      <<<dim3((a.S + rows - 1) / rows, a.H / a.d, a.B), P::kThreads,
+         P::kSmem, a.st>>>(a.qkv, a.mask, a.ctx, a.S, a.H, a.d,
+                           a.scale * ring::kLog2e);
   return cudaGetLastError();
 }
+
+// The shapes by length: up to S = 192 (the encode chunk and a request at
+// 128 and 32, the teacher and the rerank at 160) every key in one tile of
+// 128 or 192, one warpgroup a block, the scores kept from pass 1 to pass
+// 2; below 256 one warpgroup a block and 64-key tiles; from 256 (msdoc, S
+// = 512) two warpgroups a block share each streamed tile in ping-pong.
+// Chosen on an H100 with scripts/torch_attention_shapes.py.
+template <int DP>
+cudaError_t by_length(const Args& a) {
+  if (a.S <= 128) return launch<Shape<DP, 128, 1, DP <= 64 ? 3 : 2, true>>(a);
+  if (a.S <= 192) return launch<Shape<DP, 192, 1, DP <= 64 ? 2 : 1, true>>(a);
+  if (a.S < 256) return launch<Shape<DP, 64, 1, DP <= 64 ? 4 : 2, false>>(a);
+  return launch<Shape<DP, 64, 2, DP <= 64 ? 2 : 1, false>>(a);
+}
+
+static_assert(2 * Shape<128, 128, 1, 2, true>::kSmem <= 233472 &&
+                  3 * Shape<64, 128, 1, 3, true>::kSmem <= 233472 &&
+                  2 * Shape<64, 192, 1, 2, true>::kSmem <= 233472 &&
+                  Shape<128, 192, 1, 1, true>::kSmem <= 232448 &&
+                  4 * Shape<64, 64, 1, 4, false>::kSmem <= 233472 &&
+                  2 * Shape<64, 64, 2, 2, false>::kSmem <= 233472,
+              "the blocks an SM the launch bounds ask for fit its shared "
+              "memory");
 
 }  // namespace
 
 // qkv [B*S, 3H] bf16 (q | k | v), mask [B, S] int32 (1 = real key),
 // ctx [B*S, H] f32. d = H / heads on the 16 grid up to 128 (the wrapper
-// pads other widths); S <= 1024; B <= 65535.
-// Rows of qkv and the head offsets must be 16-byte aligned (H % 8 == 0,
-// checked by the wrapper). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported d or S).
+// pads other widths); any S >= 1; B <= 65535. Rows of qkv and the head
+// offsets must be 16-byte aligned (H % 8 == 0, checked by the wrapper).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// an unsupported d or S).
 extern "C" int sx_small_s_attention(const void* qkv, const int* mask,
                                     float* ctx, int B, int S, int H, int d,
                                     float scale, void* stream) {
-  if (S < 1 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-#define SX_CASE(DD) \
-    case DD: return launch<DD>(qkv, mask, ctx, B, S, H, scale, s);
-    SX_CASE(16) SX_CASE(32) SX_CASE(48) SX_CASE(64)
-    SX_CASE(80) SX_CASE(96) SX_CASE(112) SX_CASE(128)
-#undef SX_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || d < 16 || d > 128 || d % 16 || H % d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const __nv_bfloat16*>(qkv), mask, ctx, B, S, H, d,
+               scale, static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (d <= 16)
+    err = by_length<16>(a);
+  else if (d <= 32)
+    err = by_length<32>(a);
+  else if (d <= 64)
+    err = by_length<64>(a);
+  else
+    err = by_length<128>(a);
+  return static_cast<int>(err);
 }

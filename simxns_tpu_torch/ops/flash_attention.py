@@ -4,7 +4,9 @@
 a ones mask is synthesized when none is given; 256 <= S <= 1024 takes the
 per-(batch, head) Pallas pair; S < 256 takes the grouped pair when
 ``small_s_impl`` (else :data:`SMALL_S_IMPL`) is ``"group"``; everything else
-the XLA composition (``multi_head_attention(impl="xla")``).
+the XLA composition (``multi_head_attention(impl="xla")``). :func:`route`
+is that decision, with the card's own: on the card a dtype or a head width
+the kernels do not take goes to the plain attention.
 
 The grouped pair is ported as two hand-written CUDA kernels
 (``csrc/group_attention.cu``):
@@ -23,17 +25,16 @@ plain PyTorch version (``_group_fwd_plain`` / ``_group_bwd_plain``) only for
 a CPU tensor; it counts its launches in ``<wrapper>.launches``.
 
 The per-(batch, head) pair (256 <= S <= 1024) computes the same function
-and is ported as two more CUDA kernels (``csrc/bh_attention.cu``), which
-stream key and query tiles through shared memory instead of holding a
-whole head:
+and is ported as two more CUDA kernels, which stream key and query tiles
+through shared memory instead of holding a whole head:
 
-- K7 :func:`bh_attention_fwd` replaces ``_fwd_call`` (kernel
-  ``_fwd_kernel``, ``flash_attention.py:67``);
-- K8 :func:`bh_attention_bwd` replaces ``_fused_bwd`` (kernel
-  ``_bwd_kernel``, ``:80``).
+- K7 :func:`bh_attention_fwd` (``csrc/bh_attention.cu``) replaces
+  ``_fwd_call`` (kernel ``_fwd_kernel``, ``flash_attention.py:67``);
+- K8 :func:`bh_attention_bwd` (``csrc/attention_bwd_wgmma.cu``, on
+  ``wgmma``) replaces ``_fused_bwd`` (kernel ``_bwd_kernel``, ``:80``).
 
 Their plain versions are the grouped pair's (the same function). K6 and
-K8 share one backward design (``csrc/attention_bwd.cuh``): one walk over
+K8 share one backward algorithm (``csrc/attention_bwd.cuh``): one walk over
 the keys folds each query row's log-sum-exp and rowsum(dP p), and every
 later walk gets p = 2^(s log2(e) - lse) with one ``ex2`` a score.
 
@@ -43,8 +44,9 @@ for every head width on the 16 grid up to 128 (:func:`kernel_head_width`);
 a d off that grid runs the next instance over q, k, v (and dO) zero-padded
 along d, with the scale 1/sqrt(d) of the true width, and the results are
 sliced back: zero columns add exact zeros to every product, so it is the
-same function. d > 128 is refused (a warp's fragments of a 16-row tile
-would outgrow its registers).
+same function. The wrappers refuse d > 128 (a warp's fragments of a
+16-row tile would outgrow its registers), and :func:`route` sends such
+heads to the plain attention, which computes the same f32 function.
 
 Each kernel has a bf16 and an f32 instance, chosen by the inputs' dtype
 before any launch. An f32 instance takes each f32 operand as hi = bf16(x)
@@ -54,10 +56,10 @@ results in f32: an f32-class function (about 16 bits of each operand; not
 bitwise an f32 product). The f32 instances run on ``wgmma`` and split
 each tile in shared memory as it lands, with no split scratch: K5 and K7
 share one f32 forward (``csrc/attention_fwd_f32.cu``, one launch a call:
-K7's one pass over the keys), K6 and K8 one f32 backward
-(``csrc/attention_bwd_f32.cu``: K8's two passes, whose only scratch is
-the row statistics). Their launches count apart, in
-``<wrapper>.f32.launches``. :func:`flash_attention` sends any
+K7's one pass over the keys); K6 and K8 share K8's backward source
+(``csrc/attention_bwd_wgmma.cu``: two passes, whose only scratch is the
+row statistics), whose bf16 instance is K8's. The f32 launches count
+apart, in ``<wrapper>.f32.launches``. :func:`flash_attention` sends any
 other dtype (f16: no recipe runs f16 attention) to the plain attention
 (``multi_head_attention``), which computes JAX's f32 function.
 """
@@ -167,11 +169,17 @@ def errors_of_largest(got, want):
 
 # --- head widths -------------------------------------------------------------
 
+def kernels_take_width(d: int) -> bool:
+    """Whether the attention kernels (K3, K5-K8) have an instance for heads
+    of width ``d`` (:func:`kernel_head_width`)."""
+    return 1 <= d <= _MAX_KERNEL_D
+
+
 def kernel_head_width(d: int, what: str = "attention") -> int:
     """The head width of the kernel instance that takes heads of width
     ``d``: d rounded up to the 16 grid (one m16n8k16 k-step a 16 columns),
     for 1 <= d <= 128."""
-    if not 1 <= d <= _MAX_KERNEL_D:
+    if not kernels_take_width(d):
         raise ValueError(
             f"{what} takes head widths 1 .. {_MAX_KERNEL_D} (got d={d}): a "
             f"warp holds its 16 rows' q fragments and d/8 accumulator tiles "
@@ -196,6 +204,23 @@ def _at_kernel_width(fn, q, k, v, mask, *rest):
     if isinstance(out, tuple):
         return tuple(o[..., :d] for o in out)
     return out[..., :d]
+
+
+def route(s: int, d: int, dtype: torch.dtype, is_cuda: bool,
+          small_s_impl: Optional[str] = None) -> str:
+    """Where :func:`flash_attention` sends [B, heads, S, d] of ``dtype``:
+    ``"bh"`` (K7/K8), ``"group"`` (K5/K6) or ``"plain"``
+    (``multi_head_attention``). JAX's dispatch, and on the card (``is_cuda``)
+    the plain attention for a dtype or a head width the kernels do not
+    take (the same f32 function)."""
+    if s > _MAX_FUSED_SEQ or (is_cuda and (dtype not in _KERNEL_DTYPES
+                                           or not kernels_take_width(d))):
+        return "plain"
+    if s >= _MIN_FUSED_SEQ:
+        return "bh"
+    if (small_s_impl or SMALL_S_IMPL) == "group":
+        return "group"
+    return "plain"
 
 
 # --- K5 / K6 -----------------------------------------------------------------
@@ -392,17 +417,17 @@ for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
     _wrapper.f32 = F32Instance(_wrapper)
 
 # K5's and K7's f32 instance: one forward on wgmma
-# (csrc/attention_fwd_f32.cu); K6's and K8's: one backward
-# (csrc/attention_bwd_f32.cu)
+# (csrc/attention_fwd_f32.cu); K6's and K8's: K8's backward on wgmma
+# (csrc/attention_bwd_wgmma.cu), whose bf16 instance is K8's
 _F32_FWD = ("attention_fwd_f32", "sx_attention_fwd_f32")
-_F32_BWD = ("attention_bwd_f32", "sx_attention_bwd_f32")
+_F32_BWD = ("attention_bwd_wgmma", "sx_attention_bwd_f32")
 _K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"), _F32_FWD,
                   group_attention_fwd)
 _K6 = _bwd_launch(("group_attention", "sx_group_attention_bwd", False),
                   _F32_BWD, group_attention_bwd)
 _K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"), _F32_FWD,
                   bh_attention_fwd)
-_K8 = _bwd_launch(("bh_attention", "sx_bh_attention_bwd", True),
+_K8 = _bwd_launch(("attention_bwd_wgmma", "sx_bh_attention_bwd", True),
                   _F32_BWD, bh_attention_bwd)
 
 
@@ -429,17 +454,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None,
                     small_s_impl: Optional[str] = None) -> torch.Tensor:
     """Fused attention over [B, heads, S, d]; BERT [B, S] 1/0 key mask.
-    On the card bf16 and f32 take the kernels (each its own instance); any
-    other dtype takes the plain attention, which computes JAX's f32
-    function."""
+    On the card bf16 and f32 at d <= 128 take the kernels (each dtype its
+    own instance); any other dtype or width takes the plain attention,
+    which computes JAX's f32 function (:func:`route`)."""
     b, h, s, d = q.shape
-    if s > _MAX_FUSED_SEQ or (q.is_cuda and q.dtype not in _KERNEL_DTYPES):
+    where = route(s, d, q.dtype, q.is_cuda, small_s_impl)
+    if where == "plain":
         return multi_head_attention(q, k, v, attention_mask)[0]
     if attention_mask is None:
         attention_mask = torch.ones(b, s, dtype=torch.int32, device=q.device)
     mask = attention_mask.to(torch.int32)
-    if s >= _MIN_FUSED_SEQ:
-        return _FusedAttention.apply(q, k, v, mask, True)
-    if (small_s_impl or SMALL_S_IMPL) == "group":
-        return _FusedAttention.apply(q, k, v, mask, False)
-    return multi_head_attention(q, k, v, attention_mask)[0]
+    return _FusedAttention.apply(q, k, v, mask, where == "bh")

@@ -17,13 +17,16 @@ three hand-written kernels:
   below two waves of 128 x 256 ones (a request, the mine's queries);
 - K2 :func:`row_quant` (Triton, below): optional residual add and f32
   LayerNorm, then per-token int8 quantization of the row;
-- K3 :func:`small_s_attention` (CUDA, ``csrc/small_s_attention.cu``): the
-  per-(sequence, head) softmax attention.
+- K3 :func:`small_s_attention` (CUDA, ``csrc/small_s_attention.cu``, on
+  ``wgmma``): the per-(sequence, head) softmax attention, at any S.
 
 Order: K2 -> K1(qkv) -> K3 -> K2 -> K1(o) -> K2(+res, LN) -> K1(w1, GELU)
 -> K2 -> K1(w2) -> K2(+res, LN). Each wrapper launches its kernel for a
 CUDA tensor and runs its plain PyTorch version only for a CPU tensor; it
-counts its launches in ``<wrapper>.launches``. :func:`layer_int8_plain` is
+counts its launches in ``<wrapper>.launches``. On the card a head width K3
+has no instance for (d > 128) takes the plain attention inside the layer,
+by shape (:func:`layer_attention`), so the layer stays the quantized
+function around it, as JAX's kernel takes any d. :func:`layer_int8_plain` is
 the same composition over the plain versions (the card checks hold the
 kernels against it), and :func:`layer_reference` the unquantized f32 layer.
 
@@ -48,7 +51,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from simxns_tpu_torch.ops import _native
-from simxns_tpu_torch.ops.flash_attention import kernel_head_width
+from simxns_tpu_torch.ops.flash_attention import (kernel_head_width,
+                                                  kernels_take_width)
 from simxns_tpu_torch.ops.fused_ffn import (gelu_exact, int8_matmul,
                                             quant_rows, quantize_weight)
 
@@ -255,7 +259,6 @@ row_quant.launches = 0
 
 # --- K3: small_s_attention ---------------------------------------------------
 
-_MAX_SMALL_S = 1024          # csrc/small_s_attention.cu kMaxS
 _ATTN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
@@ -277,14 +280,15 @@ def _small_s_attention_plain(qkv, mask, num_heads):
 
 def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
                       num_heads: int) -> torch.Tensor:
-    """Softmax attention of each (sequence, head), S <= 1024.
+    """Softmax attention of each (sequence, head), any S.
 
     qkv [B*S, 3H] bf16 holds q | k | v (head ``i`` at columns ``i*d``);
     mask [B, S] is the 1/0 key mask. -> context [B*S, H] f32. The kernel
     has an instance for every head width d on the 16 grid up to 128; a d
     off it runs the next instance over heads zero-padded to that width
     (zero columns add exact zeros to every score), the scale staying
-    1/sqrt(d), and the context is sliced back.
+    1/sqrt(d), and the context is sliced back. d > 128 raises
+    (:func:`layer_attention` routes it to the plain version).
     """
     if not qkv.is_cuda:
         return _small_s_attention_plain(qkv, mask, num_heads)
@@ -297,10 +301,9 @@ def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"small_s_attention: H={h} does not split into "
                          f"{num_heads} heads")
     dp = kernel_head_width(d, "small_s_attention")
-    if not 1 <= s <= _MAX_SMALL_S or b > 65535:
+    if s < 1 or b > 65535:
         raise ValueError(
-            f"small_s_attention takes 1 <= S <= {_MAX_SMALL_S} (its key "
-            f"bias row lives in shared memory) and at most 65535 sequences "
+            f"small_s_attention takes S >= 1 and at most 65535 sequences "
             f"per call (got S={s}, B={b})")
     if dp != d:
         qkv = torch.nn.functional.pad(
@@ -323,6 +326,17 @@ def small_s_attention(qkv: torch.Tensor, mask: torch.Tensor,
 
 
 small_s_attention.launches = 0
+
+
+def layer_attention(d: int, is_cuda: bool) -> Callable:
+    """The attention of a fused-int8 layer with heads of width ``d``:
+    :func:`small_s_attention` (K3; its plain version on the CPU), or on the
+    card (``is_cuda``) for a width K3 has no instance for (d > 128) the
+    plain version on the card's tensors. A dispatch by shape, as JAX's: a
+    K3 launch that fails still raises."""
+    if is_cuda and not kernels_take_width(d):
+        return _small_s_attention_plain
+    return small_s_attention
 
 
 # --- the layer ---------------------------------------------------------------
@@ -408,8 +422,9 @@ def fused_encoder_layer_int8(x: torch.Tensor,
     [B, S] 1/0 or None. Pass raw ``params`` or a cached ``quantized``.
     """
     ql = quantized if quantized is not None else quantize_layer(params)
+    attend = layer_attention(x.shape[-1] // num_heads, x.is_cuda)
     return _compose(x, attention_mask, ql, num_heads, layer_norm_eps,
-                    int8_linear, row_quant, small_s_attention)
+                    int8_linear, row_quant, attend)
 
 
 def layer_int8_plain(x: torch.Tensor, attention_mask: Optional[torch.Tensor],

@@ -115,6 +115,14 @@ def _finalize(flat_s: torch.Tensor, flat_i: torch.Tensor, k: int,
     return top_s, top_i.to(torch.int32)
 
 
+def kernel_row_width(h: int, itemsize: int) -> int:
+    """The row width K4 takes for rows of ``h`` values of ``itemsize``
+    bytes: h padded up to a multiple of 16 bytes (its TMA maps need 16-byte
+    row strides), as many values as that is."""
+    per_16 = 16 // itemsize
+    return -(-h // per_16) * per_16
+
+
 def _candidates_plain(queries, corpus, valid_n, bucket, n_pad, qs, cs):
     nq = queries.shape[0]
     out_s, out_i = [], []
@@ -180,7 +188,11 @@ def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
     then reduced to its (max, first id reaching it) here, exactly; the
     kernel then writes ``bucket / g`` times more candidates (``bucket=100``:
     25 times). The kernel takes rows of a multiple of 16 bytes (its TMA
-    maps need 16-byte row strides: H a multiple of 16 int8 or 8 bf16 values).
+    maps need 16-byte row strides: H a multiple of 16 int8 or 8 bf16
+    values); rows off that grid are copied with zero columns up to it
+    (:func:`kernel_row_width`), queries and corpus both: zero columns add
+    exact zeros to every score, so the scores and ids are the unpadded
+    ones.
     """
     n, h = corpus.shape
     if bucket < 1 or block_n % bucket:
@@ -199,11 +211,14 @@ def mips_bucket_candidates(queries: torch.Tensor, corpus: torch.Tensor,
         _native.check_tensor(query_scales, torch.float32, (nq,),
                              "query_scales")
         _native.check_tensor(row_scales, torch.float32, (n,), "row_scales")
-    if (h * corpus.element_size()) % 16 or n == 0:
-        raise ValueError(
-            f"mips_bucket_candidates: the kernel takes rows of a multiple of "
-            f"16 bytes (its TMA maps need 16-byte row strides) and at least "
-            f"one corpus row (H={h}, {corpus.dtype}, N={n})")
+    if n == 0:
+        raise ValueError(f"mips_bucket_candidates: the kernel takes at least "
+                         f"one corpus row (H={h}, {corpus.dtype}, N=0)")
+    hp = kernel_row_width(h, corpus.element_size())
+    if hp != h:
+        queries, corpus = (torch.nn.functional.pad(t, (0, hp - h))
+                           for t in (queries, corpus))
+        h = hp
     g = math.gcd(bucket, _KERNEL_BUCKETS)
     out_s = torch.empty(nq, n_pad // g, dtype=torch.float32,
                         device=corpus.device)

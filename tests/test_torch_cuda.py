@@ -95,28 +95,32 @@ def test_int8_linear_and_row_quant_match_plain(dev, m, n, k):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128, 24])
-@pytest.mark.parametrize("s", [1, 32, 128, 160, 300, 512, 1024])
+@pytest.mark.parametrize("s", [1, 32, 128, 160, 300, 512, 1024, 1100])
 def test_small_s_attention_matches_plain(dev, s, d):
-    """Every query-tile count K3 meets (S = 1 .. 1024: one to sixteen tiles
-    of 64 rows, ragged last tiles), head widths on the 16 grid and one off
-    it (24: the 32 instance over zero-padded heads), one sequence fully
-    masked and one cut short. p is rounded to bf16 on both sides; the
-    context may move by one bf16 step of p times |v| (<= 2^-7 max|v|)."""
-    b, heads = 3, 2
+    """Every key-tile count K3 meets (S = 1 .. 1,100: one tile of 128 keys
+    up to S = 128, 64-key tiles past it, ragged last tiles, past the 1,024
+    it once refused), head widths on the 16 grid and one off it (24: the 32
+    instance over zero-padded heads), one sequence fully masked, one cut
+    short, one with every key and one with its first key alone (the
+    shortest and longest key lengths). p is rounded to bf16 on both sides;
+    the context may move by one bf16 step of p times |v| (<= 2^-7
+    max|v|). Heads wider than 128 raise: the layer routes them to the plain
+    version (``layer_attention``)."""
+    b, heads = 4, 2
     h = heads * d
     qkv = _randn(dev, b * s, 3 * h, seed=s + d).to(torch.bfloat16)
     mask = torch.ones(b, s, dtype=torch.int32, device=dev)
     mask[0] = 0
     mask[1, (s + 1) // 2:] = 0
+    mask[3, 1:] = 0
     before = fl.small_s_attention.launches
     got = fl.small_s_attention(qkv, mask, heads)
     want = fl._small_s_attention_plain(qkv, mask, heads)
     tol = 2.0 ** -7 * float(qkv[:, 2 * h:].float().abs().max())
     assert float((got - want).abs().max()) <= tol
     assert fl.small_s_attention.launches == before + 1
-    with pytest.raises(ValueError, match="S <= 1024"):
-        fl.small_s_attention(qkv.new_zeros(1100, 3 * h),
-                             mask.new_ones(1, 1100), heads)
+    with pytest.raises(ValueError, match="head widths 1 .. 128"):
+        fl.small_s_attention(qkv.new_zeros(s, 3 * 192), mask[:1], 1)
 
 
 def test_stable_finalize_on_duplicate_rows(dev):
@@ -291,22 +295,32 @@ def test_fused_search_at_block_size_2000(dev, int8):
 
 
 def test_mips_candidates_refuse_rows_off_16_bytes(dev):
-    """A TMA map needs 16-byte row strides: bf16 rows of 100 values (200
-    bytes) and int8 rows of 24 raise ValueError on the card, no launch."""
+    """Rows off K4's 16-byte grid (its TMA maps need 16-byte row strides),
+    once refused, now take zero columns up to it (ROADMAP Queue 3 item 9
+    (c)): an int8 index of width 100 (100 bytes a row, padded to 112) and
+    bf16 rows of 100 (200 bytes, padded to 104) launch K4, the int8
+    candidates bitwise the unpadded plain version's, the bf16 ones to f32
+    summation order; and the fused int8 search over that index returns
+    the plain search's ids."""
+    qf = _randn(dev, 9, 100, seed=1)
+    c = _randn(dev, 3001, 100, seed=2)
+    q8, qs = mk.quantize_rows(qf)
+    c8, cs = mk.quantize_rows(c)
     before = mk.mips_bucket_candidates.launches
-    with pytest.raises(ValueError, match="16 bytes"):
-        mk.mips_bucket_candidates(
-            torch.zeros(4, 100, dtype=torch.bfloat16, device=dev),
-            torch.zeros(300, 100, dtype=torch.bfloat16, device=dev), 300,
-            bucket=128, block_n=2048)
-    c8 = torch.zeros(300, 24, dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="16 bytes"):
-        mk.mips_bucket_candidates(
-            torch.zeros(4, 24, dtype=torch.int8, device=dev), c8, 300,
-            bucket=128, block_n=2048,
-            query_scales=torch.ones(4, device=dev),
-            row_scales=torch.ones(300, device=dev))
-    assert mk.mips_bucket_candidates.launches == before
+    kw = dict(bucket=128, block_n=2048)
+    got = mk.mips_bucket_candidates(q8, c8, 2990, query_scales=qs,
+                                    row_scales=cs, **kw)
+    want = mk._candidates_plain(q8, c8, 2990, 128, 4096, qs, cs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    q16, c16 = qf.to(torch.bfloat16), c.to(torch.bfloat16)
+    got = mk.mips_bucket_candidates(q16, c16, 2990, **kw)
+    want = mk._candidates_plain(q16, c16, 2990, 128, 4096, None, None)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    assert mk.mips_bucket_candidates.launches == before + 2
+    top = mk.fused_mips_topk_int8(qf, c8, cs, 10)
+    plain = mk.fused_mips_topk_int8(qf.cpu(), c8.cpu(), cs.cpu(), 10)
+    assert torch.equal(top[1].cpu(), plain[1])
+    assert mk.mips_bucket_candidates.launches == before + 3
 
 
 def _int8_weights(dev, o, i, seed):
@@ -816,10 +830,16 @@ BH_EDGES = [(2, 2, s, d) for s in (257, 320, 1023) for d in (32, 64, 128)]
 BH_WIDTHS = [(2, 3, 512, d) for d in (16, 48, 80, 96, 112, 8, 24, 72)]
 
 
+# the shapes K8's A/B times (scripts/torch_kernel_bench.py): the msdoc
+# reranker's, the most shared memory (d = 128, S = 1,024) and the
+# shortest S of its route
+BH_BENCH = [(128, 12, 512, 64), (4, 8, 1024, 128), (16, 8, 256, 64)]
+
+
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 256, 64), (2, 2, 288, 32),
                                          (2, 3, 512, 128), (1, 2, 1024, 64),
                                          (3, 2, 300, 128), (2, 2, 17, 32)]
-                         + BH_EDGES + BH_WIDTHS)
+                         + BH_EDGES + BH_WIDTHS + BH_BENCH)
 def test_bh_attention_matches_plain(dev, b, heads, s, d):
     """K7/K8 against their plain versions, with the tolerances of K5/K6;
     batch row 0 has every key masked (the uniform softmax over S keys)."""
@@ -855,6 +875,18 @@ def test_attention_backward_is_deterministic(dev, per_head, s):
     second = bwd(q, k, v, mask, do)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,heads,s,d", BH_BENCH + [(2, 3, 512, 80)])
+def test_k8_two_calls_are_bitwise_equal(dev, b, heads, s, d):
+    """K8's two launches (no atomics, no partial sums) at the bench shapes
+    and a padded width: two calls give bitwise equal dq, dk and dv."""
+    q, k, v, do, mask = _attention_inputs(dev, b, heads, s, d, seed=s + 1)
+    mask[0] = 0
+    first = fa.bh_attention_bwd(q, k, v, mask, do)
+    second = fa.bh_attention_bwd(q, k, v, mask, do)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 def test_bh_attention_autograd_on_head_views(dev):
@@ -1101,3 +1133,74 @@ def test_fused_int8_layer_follows_the_jax_dispatch(dev):
             want = fl.layer_reference(x, mask, layer.kernel_params(),
                                       num_heads=heads)
             assert torch.equal(got, want)
+
+
+def _fused_int8_layer(dev, h, heads, seed):
+    from simxns_tpu_torch.models import BertConfig
+    from simxns_tpu_torch.models.bert import BertLayer
+
+    cfg = BertConfig(vocab_size=64, hidden_size=h, num_layers=1,
+                     num_heads=heads, intermediate_size=2 * h,
+                     max_position_embeddings=2048, dtype=torch.bfloat16,
+                     layer_impl="fused_int8")
+    layer = BertLayer(cfg).to(dev)
+    with torch.no_grad():
+        for i, (name, p) in enumerate(layer.named_parameters()):
+            p.copy_(_randn(dev, *p.shape, scale=0.05, seed=seed + i))
+            if "layer_norm.weight" in name:
+                p.add_(1.0)
+    return layer
+
+
+@pytest.mark.parametrize("h,heads,s,k3", [(768, 4, 40, 0), (128, 2, 1100, 1)])
+def test_fused_int8_layer_where_k3_once_refused(dev, h, heads, s, k3):
+    """ROADMAP Queue 3 item 9 (a) and (b) under ``layer_impl="fused_int8"``:
+    d = 192 (H = 768 over 4 heads) runs K1 and K2 with the plain attention
+    on the card (no K3 launch); S = 1,100 runs K1-K3 (K3 takes it whole).
+    Both against the plain int8 composition with the dispatch test's
+    limits (a flipped int8 code moves an output by about one step)."""
+    layer = _fused_int8_layer(dev, h, heads, seed=h + s)
+    x = _randn(dev, 2, s, h, seed=s).to(torch.bfloat16)
+    mask = torch.ones(2, s, dtype=torch.int32, device=dev)
+    mask[1, s // 3:] = 0
+    assert fl.reaches_kernels(s, h, 2 * h)
+    counts = [fl.int8_linear.launches, fl.row_quant.launches,
+              fl.small_s_attention.launches]
+    with torch.no_grad():
+        got, _ = layer(x, mask)
+        want = fl.layer_int8_plain(x, mask, layer.quantized(),
+                                   num_heads=heads)
+    after = [fl.int8_linear.launches, fl.row_quant.launches,
+             fl.small_s_attention.launches]
+    assert [a - b for a, b in zip(after, counts)] == [4, 5, k3]
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= 0.0625 and float(d.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("s,small_s_impl", [(256, None), (160, "group")])
+def test_wide_heads_take_the_plain_attention(dev, s, small_s_impl):
+    """ROADMAP Queue 3 item 9 (a) through ``flash_attention``: d = 192 (H =
+    768 over 4 heads) on head views launches none of K5-K8 and computes
+    the kernels' f32 function (``_group_fwd_plain``, its gradients under
+    autograd) within the bf16 pair's limits: the plain attention rounds p
+    to bf16 before p v."""
+    b, heads, d = 2, 4, 192
+    x = [_randn(dev, b, s, heads * d, seed=i).to(torch.bfloat16)
+         .requires_grad_() for i in range(3)]
+    q, k, v = (t.view(b, s, heads, d).transpose(1, 2) for t in x)
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    mask[1, s // 2:] = 0
+    ops.reset_launches()
+    out = fa.flash_attention(q, k, v, mask, small_s_impl=small_s_impl)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert not any(ops.launches().values())
+    refs = [t.detach().clone().requires_grad_() for t in x]
+    rq, rk, rv = (t.view(b, s, heads, d).transpose(1, 2) for t in refs)
+    want = fa._group_fwd_plain(rq, rk, rv, mask)
+    tol = 2.0 ** -7 * float(rv.detach().float().abs().max())
+    assert float((out.detach().float() - want.float()).abs().max()) <= tol
+    want.float().square().sum().backward()
+    for got, ref in zip(x, refs):
+        err = float((got.grad.float() - ref.grad.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(ref.grad.float().abs().max()), err

@@ -167,6 +167,56 @@ def test_dispatch(monkeypatch):
                                            torch.ones(2, 24, dtype=torch.int32)))
 
 
+def test_route():
+    """The dispatch as a pure function of shape, dtype and device: JAX's
+    (256 <= S <= 1024 the per-(b, h) pair, S < 256 the grouped pair under
+    "group", else the plain attention), and on the card (``is_cuda``) the
+    plain attention for heads wider than the kernels' 128 and for dtypes
+    they do not take (f16); on the CPU those take the kernels' plain
+    versions, the function of JAX's interpreted kernels."""
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for cuda in (True, False):
+        assert fa.route(256, 64, bf16, cuda) == "bh"
+        assert fa.route(1024, 128, f32, cuda) == "bh"
+        assert fa.route(160, 128, bf16, cuda, "group") == "group"
+        assert fa.route(160, 64, bf16, cuda) == "plain"
+        assert fa.route(1025, 64, bf16, cuda) == "plain"
+        assert fa.route(17, 24, f32, cuda, "group") == "group"
+    for s, impl, cpu in ((256, None, "bh"), (160, "group", "group")):
+        for d in (129, 192, 256):
+            assert fa.route(s, d, bf16, True, impl) == "plain"
+            assert fa.route(s, d, bf16, False, impl) == cpu
+        assert fa.route(s, 64, f16, True, impl) == "plain"
+        assert fa.route(s, 64, f16, False, impl) == cpu
+    assert fa.kernels_take_width(128) and not fa.kernels_take_width(129)
+
+
+@pytest.mark.parametrize("small_s_impl,s", [(None, 256), ("group", 40)])
+def test_wide_heads_match_interpreted_kernel(small_s_impl, s):
+    """d = 192 (H = 768 over 4 heads), past the card kernels' widths: the
+    plain attention the card routes it to (``multi_head_attention``, f32)
+    and the CPU route (the fused pair's plain versions) against JAX's
+    ``flash_attention`` with its Pallas kernels interpreted (which take any
+    d), forward and gradients under autograd: 1e-5 absolute forward, 1e-5
+    of the largest gradient (the f32 function, summed in another order)."""
+    q, k, v, do, mask = _inputs(2, 4, s, 192, seed=s + 192)
+    mask[-1] = 0
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, jnp.asarray(mask), small_s_impl=small_s_impl), *jargs)
+    want = [np.asarray(x, np.float32)
+            for x in (out, *vjp(jnp.asarray(do)))]
+    routes = (lambda *t: fa.flash_attention(*t, small_s_impl=small_s_impl),
+              lambda *t: multi_head_attention(*t)[0])
+    for attend in routes:
+        ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        got = attend(*ts, torch.from_numpy(mask))
+        got.backward(torch.from_numpy(do))
+        assert np.abs(got.detach().numpy() - want[0]).max() <= 1e-5
+        for t, w in zip(ts, want[1:]):
+            assert np.abs(t.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
 # --- the algorithm of the backward kernels (K6, K8) --------------------------
 
 _LOG2E = 1.4426950408889634

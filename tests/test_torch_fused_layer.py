@@ -166,6 +166,54 @@ def test_int8_layer_dispatch_follows_jax(h):
                 assert tfl.reaches_kernels(s, h, f) is want, (b, s, h, f)
 
 
+def test_layer_attention_follows_the_head_width():
+    """The attention a fused-int8 layer takes, a pure function of the head
+    width and the device: on the card (``is_cuda=True``) K3 for every width
+    it has an instance for (1 .. 128) at any S the dispatch admits (BERT-base
+    reaches the kernels up to S ~ 1,900, past K3's old 1,024), the plain
+    attention on the card's tensors for wider heads (d = 192: H = 768 over
+    4 heads); on the CPU the wrapper, whose plain version runs there."""
+    for d in (1, 16, 24, 64, 128):
+        assert tfl.layer_attention(d, True) is tfl.small_s_attention
+        assert tfl.layer_attention(d, False) is tfl.small_s_attention
+    for d in (129, 192, 256):
+        assert tfl.layer_attention(d, True) is tfl._small_s_attention_plain
+        assert tfl.layer_attention(d, False) is tfl.small_s_attention
+    for s in (1024, 1100, 1900):
+        assert tfl.reaches_kernels(s, 768, 3072)
+        want = jfl._pick_seqs_per_tile(1, s, 768, 3072, 8) > 0
+        assert want
+
+
+@pytest.mark.parametrize("h,heads,s", [(768, 4, 16), (128, 2, 1100)])
+def test_layer_matches_jax_kernel_where_the_card_refused(h, heads, s):
+    """The two layer shapes the card once refused (ROADMAP Queue 3 item 9):
+    d = 192 (H = 768 over 4 heads; on the card K1 and K2 with the plain
+    attention) and S = 1,100 (K3 now takes it whole). The quantized
+    composition (the plain versions on the CPU) against JAX's interpreted
+    kernel in bf16. As in ``test_layer_matches_jax_kernel``, a sum taken in
+    another order can flip an int8 code, which moves the outputs after it
+    by a rounding: max |diff| <= 2^-6, and a mean |diff| 100x below the
+    int8 step of the largest output. Wider rows (H = 768) and longer
+    attention sums (S = 1,100) flip more codes: up to 10% of the outputs
+    may differ (measured 7.6% at H = 768, with 4 heads as with 12, so it is
+    the width and not the attention route; 2.6% at S = 1,100)."""
+    p = _params(h=h, f=256, seed=h + s)
+    x, mask = _inputs("bf16", seed=s, b=4, s=s, h=h)
+    want = np.asarray(jfl.fused_encoder_layer_int8(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(mask),
+        {k: jnp.asarray(v) for k, v in p.items()}, num_heads=heads),
+        np.float32)
+    got = tfl.fused_encoder_layer_int8(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask),
+        _port_params(p), num_heads=heads)
+    assert got.dtype == torch.bfloat16 and got.shape == (4, s, h)
+    diff = np.abs(got.float().numpy() - want)
+    assert diff.max() <= 2.0 ** -6, diff.max()
+    assert diff.mean() <= np.abs(want).max() / 127 / 100, diff.mean()
+    assert (diff > 0).mean() <= 0.1, (diff > 0).mean()
+
+
 def test_int8_layer_on_cpu_runs_the_quantized_composition():
     """On the CPU the dispatch is not consulted: a tiny layer (H=64, off
     the 128 grid) under ``layer_impl="fused_int8"`` computes the quantized

@@ -35,11 +35,13 @@ def _data(h, n=4096, nq=12, seed=0):
             rng.standard_normal((n, h), dtype=np.float32))
 
 
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [64, 128, 100])
 def test_fused_int8_matches_jax(h):
-    """N=4096, k=10, valid_n < N, an id offset. The int32 accumulators are
-    exact on both sides and the f32 scaling is the same two products, so
-    the ids are equal and the scores agree to 1e-6 relative."""
+    """N=4096, k=10, valid_n < N, an id offset; h = 100 is off K4's 16-byte
+    grid (the card pads it, ``test_rows_off_16_bytes_pad_exactly``). The
+    int32 accumulators are exact on both sides and the f32 scaling is the
+    same two products, so the ids are equal and the scores agree to 1e-6
+    relative."""
     q, c = _data(h)
     codes, scales = jmk.quantize_rows(jnp.asarray(c))
     want_s, want_i = jmk.fused_mips_topk_int8(
@@ -54,10 +56,11 @@ def test_fused_int8_matches_jax(h):
     assert got_i.numpy().max() < 1000 + 3900
 
 
-@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("h", [64, 128, 100])
 def test_fused_bf16_matches_jax(h):
-    """bf16 queries and corpus, f32 accumulation on both sides (only the
-    order of the sums differs): ids equal, scores to 1e-5 relative."""
+    """bf16 queries and corpus (h = 100: 200-byte rows, off K4's 16-byte
+    grid), f32 accumulation on both sides (only the order of the sums
+    differs): ids equal, scores to 1e-5 relative."""
     q, c = _data(h, seed=1)
     qb = jnp.asarray(q, jnp.bfloat16)
     cb = jnp.asarray(c, jnp.bfloat16)
@@ -283,6 +286,40 @@ def test_merging_kernel_buckets_is_exact(bucket, g, n_pad):
     # more than one of its sub-buckets
     runs = sub[0].view(sub[0].shape[0], -1, bucket // g)
     assert bool(((runs == want[0][..., None]).sum(dim=-1) > 1).any())
+
+
+def test_kernel_row_width():
+    """K4's row width: the values of a row padded up to 16 bytes."""
+    for h, itemsize, want in ((100, 1, 112), (100, 2, 104), (64, 1, 64),
+                              (768, 2, 768), (24, 1, 32), (1, 2, 8),
+                              (16, 1, 16), (17, 1, 32)):
+        assert tmk.kernel_row_width(h, itemsize) == want
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_rows_off_16_bytes_pad_exactly(int8):
+    """The card's route for rows off the 16-byte grid (width 100): queries
+    and corpus take zero columns up to ``kernel_row_width`` before K4.
+    Zero columns add exact zeros to every score: over the plain version
+    the padded candidates are the unpadded ones, bitwise in int8 (integer
+    sums), and in bf16 the same ids with scores to f32 rounding."""
+    q, c = _data(100, n=3000, nq=9, seed=12)
+    if int8:
+        qv, qs = tmk.quantize_rows(torch.from_numpy(q))
+        cv, cs = tmk.quantize_rows(torch.from_numpy(c))
+    else:
+        qv, cv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, c))
+        qs = cs = None
+    hp = tmk.kernel_row_width(100, cv.element_size())
+    assert hp == (112 if int8 else 104)
+    pad = [torch.nn.functional.pad(t, (0, hp - 100)) for t in (qv, cv)]
+    want = tmk._candidates_plain(qv, cv, 2990, 128, 4096, qs, cs)
+    got = tmk._candidates_plain(*pad, 2990, 128, 4096, qs, cs)
+    assert torch.equal(got[1], want[1])
+    if int8:
+        assert torch.equal(got[0], want[0])
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=0)
 
 
 def test_plain_candidates_cut_whole_buckets():
