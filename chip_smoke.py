@@ -39,8 +39,9 @@ non-zero and prints no result):
 4. the training kernels: K5/K6 (the grouped attention pair of the CE-large
    reranker, 128 joint rows x 16 heads x S=160, bf16) against their plain
    versions, with SDPA's forward and backward as the yardstick, K5's and
-   K6's profiler device time, K8's two launches timed on K6's inputs beside it,
-   and two K6 calls held bitwise equal; K1-K3 again
+   K6's profiler device time (K6: its one-launch ``wgmma`` kernel), K8's
+   two launches timed on K6's inputs beside it, and two K6 calls held
+   bitwise equal; K1-K3 again
    at the int8 teacher's shapes (20,480 tokens, H=1024, F=4096, 16 heads);
 5. training at full width: a BERT-base DE and an ERNIE-large-shaped CE
    (24 layers, H=1024, small_s_attn="group"; random weights from seed 0)
@@ -58,9 +59,9 @@ non-zero and prints no result):
    joint rows x 12 heads x S=512 x d=64, bf16, key lengths 300..512;
    S = 256, 288, 1024; [4, 8, 1024, 128] and [16, 8, 256, 64], K8's
    edges) against their plain versions, with SDPA's forward
-   and backward as the yardstick, the profiler device time of each of
-   K8's two launches (query pass, key pass), and two K8 calls held bitwise
-   equal at every shape; K3 at S=512 (1024 x 512 tokens of
+   and backward as the yardstick, the profiler device time of K7 and of
+   each of K8's two launches (query pass, key pass), and two K8 calls held
+   bitwise equal at every shape; K3 at S=512 (1024 x 512 tokens of
    BERT-base); K4 at the mine's shape (64 queries, k=100, 24,576 int8
    rows), with its profiler device time (the event time is the host's);
 7. co-training end to end: ``simxns_tpu_torch.run.run_ar2`` at full width
@@ -226,7 +227,7 @@ non-zero and prints no result):
    bitwise equal, with the times of the kernels (event and profiler
    device ms), the plain versions and SDPA in f32 at d = 64; the same
    checks at S = 1024, d = 128 and S = 256 (K7/K8) and S = 255 (K5/K6;
-   the f32 forward of both pairs is ``csrc/attention_fwd_f32.cu``, the f32
+   the f32 forward of both pairs is ``csrc/attention_fwd_wgmma.cu``, the f32
    backward K8's ``csrc/attention_bwd_wgmma.cu``, both on ``wgmma``);
    then 3 ``make_biencoder_step``
    steps of an f32 ``BertConfig.tiny`` DE on passages of 512 tokens (K7/K8
@@ -1561,8 +1562,10 @@ def _check_bh_attention(torch, randn, gen, b, s, d, min_len, timing,
     if not timing:
         return rec
     ms7 = timed(torch, lambda: fa.bh_attention_fwd(q, k, v, mask), 10)
+    # the kernel's name, and that of the mma.sync kernel it replaced (an
+    # A/B against an older checkout with scripts/torch_kernel_bench.py)
     dev7, dev7_n = device_ms(torch, lambda: fa.bh_attention_fwd(
-        q, k, v, mask), "bh_attention_fwd_kernel")
+        q, k, v, mask), ("attention_fwd<", "bh_attention_fwd_kernel"))
     plain7 = timed(torch, lambda: fa._group_fwd_plain(q, k, v, mask), 2)
     ms8 = timed(torch, lambda: fa.bh_attention_bwd(q, k, v, mask, do), 10)
     dev8 = {f"device_ms_{p}_pass": device_ms(
@@ -1623,7 +1626,9 @@ def phase_msdoc_kernels(torch, smi, records):
                for b, s, d in ((4, 1024, 128), (16, 256, 64))]
     shapes = [main] + others
     records["bh_attention_fwd"] = dict(
-        ms=main["ms"], plain_ms=main["plain_ms"],
+        ms=main["ms"], device_ms=main["device_ms"],
+        device_launches_recorded=main["device_launches_recorded"],
+        plain_ms=main["plain_ms"],
         library_ms=main["library_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"],
         max_abs_err=max(r["fwd_max_abs_err"] for r in shapes),
@@ -6355,9 +6360,11 @@ SOURCES = {
                                "simxns_tpu/ops/mips_kernel.py:181"),
     "group_attention_fwd": ("cuda", "simxns_tpu_torch/csrc/group_attention.cu",
                             "simxns_tpu/ops/flash_attention.py:113"),
-    "group_attention_bwd": ("cuda", "simxns_tpu_torch/csrc/group_attention.cu",
+    "group_attention_bwd": ("cuda",
+                            "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
                             "simxns_tpu/ops/flash_attention.py:125"),
-    "bh_attention_fwd": ("cuda", "simxns_tpu_torch/csrc/bh_attention.cu",
+    "bh_attention_fwd": ("cuda",
+                         "simxns_tpu_torch/csrc/attention_fwd_wgmma.cu",
                          "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd": ("cuda",
                          "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
@@ -6377,13 +6384,13 @@ SOURCES = {
     # the f32 instances of K5-K8 (K5's and K7's: one wgmma forward; K6's
     # and K8's: K8's wgmma backward)
     "group_attention_fwd_f32": ("cuda",
-                                "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
+                                "simxns_tpu_torch/csrc/attention_fwd_wgmma.cu",
                                 "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd_f32": ("cuda",
                                 "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",
                                 "simxns_tpu/ops/flash_attention.py:125"),
     "bh_attention_fwd_f32": ("cuda",
-                             "simxns_tpu_torch/csrc/attention_fwd_f32.cu",
+                             "simxns_tpu_torch/csrc/attention_fwd_wgmma.cu",
                              "simxns_tpu/ops/flash_attention.py:67"),
     "bh_attention_bwd_f32": ("cuda",
                              "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",

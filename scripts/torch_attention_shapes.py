@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Time variants of K3's and K8's shape rules on one CUDA card.
+"""Time variants of K3's, K6's, K7's and K8's shape rules on one CUDA card.
 
-    python3 scripts/torch_attention_shapes.py [--kernel k3|k8]
+    python3 scripts/torch_attention_shapes.py [--kernel k3|k6|k7|k8]
         [--variants NAME,...]
 
-Each kernel picks its block shape in ``by_length``: K3
-(``csrc/small_s_attention.cu``) the keys a streamed tile (N), the
-warpgroups a block (WG), the blocks an SM its launch bounds ask for (MIN)
-and whether every key fits one tile whose scores stay in registers from
-pass 1 to pass 2 (ONE), by ranges of S; K8 (``csrc/attention_bwd_wgmma.cu``)
-the query pass's and the key pass's Pass<DP, N, WG, E> from S = 256. Each
-variant below rewrites that rule in a copy of the source (the
-shared-memory asserts dropped), builds it with the package's nvcc flags
-into ``simxns_tpu_torch/_build/shapes_<kernel>/`` and calls its C entry
-point on ``chip_smoke.py``'s inputs at the shapes the port runs (K3: random
-bf16 q | k | v rows, key lengths from the shortest given to S; K8: bf16
+(every variant of the kernel's rule by default; the ablations of K6 and
+K7 below, which take a part of the kernel out, only when named)
+
+Each kernel picks its block shape in a rule: K3
+(``csrc/small_s_attention.cu``, ``by_length``) the keys a streamed tile
+(N), the warpgroups a block (WG), the blocks an SM its launch bounds ask
+for (MIN) and whether every key fits one tile whose scores stay in
+registers from pass 1 to pass 2 (ONE), by ranges of S; K7 bf16
+(``csrc/attention_fwd_wgmma.cu``, ``by_length_bf16``) its Fwd<DP, N, WG,
+MIN, bf16, STAGES>; K6 bf16 (``csrc/attention_bwd_wgmma.cu``,
+``group_by_length``) up to which S its one-launch kernel runs, and K8's
+two passes past that; K8 (the same source, ``by_length``) the query
+pass's and the key pass's Pass<DP, N, WG, E> from S = 256. Each variant
+below rewrites that rule in a copy of the source (the shared-memory
+asserts dropped), builds it with the package's nvcc flags into
+``simxns_tpu_torch/_build/shapes_<kernel>/`` and calls its C entry point
+on ``chip_smoke.py``'s inputs at the shapes the port runs (K3: random bf16
+q | k | v rows, key lengths from the shortest given to S; K6-K8: bf16
 head views, key lengths S/2..S, the first batch row all masked). It prints
-one JSON line per variant (ptxas registers and spills) and per shape: each
-variant's CUDA-event ms over 10 calls, the profiler's device ms of a call
-and its largest error against the plain version (K3: of max|v|, limit
-2^-7; K8: of each gradient's largest, limit 2^-7), with the card's name
-and power limit.
+one JSON line per variant (ptxas registers, spills and warnings) and per
+shape: each variant's CUDA-event ms over 10 calls, the profiler's device
+ms of a call and its largest error against the plain version (K3 and K7:
+of max|v|, limits 2^-7 and 2^-8; K6 and K8: of each gradient's largest,
+limit 2^-7), with the card's name and power limit.
 """
 
 import argparse
@@ -66,6 +73,24 @@ K8_VARIANTS = {
     "query64": ("64, 2", "64, 2"),
     "key32": ("128, 2", "32, 2"),
 }
+# K7: name -> the bf16 Fwd's "N, WG, MIN, bf16, STAGES" at DP <= 64 (DP =
+# 128 keeps the source's)
+K7_VARIANTS = {
+    "chosen": "64, 2, 2, bf16, 2",
+    "stages3": "64, 2, 2, bf16, 3",
+    "keys128": "128, 2, 1, bf16, 2",
+    "wg1": "64, 1, 4, bf16, 2",
+    "wg1_min5": "64, 1, 5, bf16, 2",
+    "wg4": "64, 4, 1, bf16, 2",
+}
+# K6: name -> the longest S of its one-launch kernel at DP <= 64 (0: K8's
+# two passes at every S), and K8's pass shape past it ("N, WG")
+K6_VARIANTS = {
+    "chosen": (192, "32, 1"),
+    "k8_passes": (0, "32, 1"),
+    "k8_passes64": (0, "64, 1"),
+    "one_launch_to_128": (128, "32, 1"),
+}
 # K3: (sequences, S, shortest key length, hidden, heads): the encode chunk,
 # the CE-large teacher and rerank, the msdoc encode, a request, S = 1,100;
 # K8: (batch, heads, S, d): the msdoc reranker's, the two edges, and d = 32
@@ -74,10 +99,19 @@ K3_SHAPES = [(1024, 128, 8, 768, 12), (128, 160, 100, 1024, 16),
              (8, 32, 8, 768, 12), (64, 1100, 550, 768, 12)]
 K8_SHAPES = [(128, 12, 512, 64), (4, 8, 1024, 128), (16, 8, 256, 64),
              (16, 8, 512, 32)]
+# K7: K8's; K6: the reranker step's (128 joint rows x 16 heads x S = 160),
+# S = 128 and 255, and the widths 128 (d = 80 runs it) and 32
+K7_SHAPES = K8_SHAPES
+K6_SHAPES = [(128, 16, 160, 64), (128, 16, 128, 64), (16, 8, 255, 64),
+             (64, 8, 160, 128), (64, 8, 160, 80), (64, 8, 160, 32)]
 _K3_RULE = re.compile(r"template <int DP>\ncudaError_t by_length\(const Args& "
                       r"a\) \{.*?\n\}\n", re.S)
 _K8_RULE = re.compile(r"template <int DP, class E>\ncudaError_t by_length\("
                       r"const Args<E>& a\) \{.*?\n\}\n", re.S)
+_K7_RULE = re.compile(r"template <int DP>\ncudaError_t by_length_bf16\("
+                      r"const Args<bf16>& a\) \{.*?\n\}\n", re.S)
+_K6_RULE = re.compile(r"template <int DP>\ncudaError_t group_by_length\("
+                      r"const Args<bf16>& a\) \{.*?\n\}\n", re.S)
 
 
 def _k3_rule(variant):
@@ -106,23 +140,86 @@ def _k8_rule(variant):
             "}\n")
 
 
+def _k7_rule(variant):
+    return ("template <int DP>\n"
+            "cudaError_t by_length_bf16(const Args<bf16>& a) {\n"
+            "  if constexpr (DP == 128)\n"
+            "    return launch<Fwd<DP, 64, 2, 1, bf16, 2>>(a);\n"
+            "  else\n"
+            f"    return launch<Fwd<DP, {variant}>>(a);\n}}\n")
+
+
+def _k6_rule(variant):
+    upto, passes = variant
+    return ("template <int DP>\n"
+            "cudaError_t group_by_length(const Args<bf16>& a) {\n"
+            "  if constexpr (DP <= 64) {\n"
+            f"    if (a.S <= 64 && a.S <= {upto})\n"
+            "      return launch_group<Group<DP, 1>>(a);\n"
+            f"    if (a.S <= 128 && a.S <= {upto})\n"
+            "      return launch_group<Group<DP, 2>>(a);\n"
+            f"    if (a.S <= 192 && a.S <= {upto})\n"
+            "      return launch_group<Group<DP, 3>>(a);\n"
+            "  }\n"
+            f"  return launch<Pass<DP, {passes}, bf16>, "
+            f"Pass<DP, {passes}, bf16>>(a);\n}}\n")
+
+
+# Ablations: name -> (the variant whose rule they keep, [(pattern,
+# replacement)] applied to the source after it). Their results are wrong:
+# they time what is left when a part of the kernel is taken out.
+_K6_PRODUCTS = (r"    for \(int kk = 0; kk < kRows / 16; \+\+kk\) \{\n"
+                r"      Mt::mma\(dvf.*?\n    \}\n")
+_K6_SCORES = (r"    issue_scores<DP, kRows, false>\(sc, dp, qt, qt, kt, kt, dt, "
+              r"dt, vt, vt\);\n")
+ABLATIONS = {
+    "k6": {
+        # without dV's, dK's and dQ's products
+        "no_big_products": ("chosen", [(_K6_PRODUCTS, "")]),
+        # only the landing of the operands (and the key fills)
+        "loads_only": ("chosen", [(r"    const uint8_t\* qt = op\(0, r\);\n",
+                                   "    if (r >= 0) break;\n"
+                                   "    const uint8_t* qt = op(0, r);\n")]),
+        # and without the score products (zero scores)
+        "no_products": ("chosen", [
+            (_K6_PRODUCTS, ""),
+            (_K6_SCORES, "    for (int x = 0; x < kRows / 8; ++x)\n"
+                         "      for (int e = 0; e < 4; ++e)\n"
+                         "        sc[x][e] = dp[x][e] = 0.0f;\n")]),
+    },
+    # without the ping-pong of K7's two warpgroups
+    "k7": {"no_pingpong": ("chosen", [(r"(before|after)_scores<P::WG>\(\);",
+                                       "")])},
+}
+
+
 KERNELS = {
     "k3": ("small_s_attention", "sx_small_s_attention", _K3_RULE, _k3_rule,
            K3_VARIANTS),
     "k8": ("attention_bwd_wgmma", "sx_bh_attention_bwd", _K8_RULE, _k8_rule,
            K8_VARIANTS),
+    "k7": ("attention_fwd_wgmma", "sx_bh_attention_fwd", _K7_RULE, _k7_rule,
+           K7_VARIANTS),
+    "k6": ("attention_bwd_wgmma", "sx_group_attention_bwd", _K6_RULE,
+           _k6_rule, K6_VARIANTS),
 }
 
 
 def build(native, kernel, names):
     """name -> the typed C entry point of each variant's library."""
     source, symbol, pattern, rule, variants = KERNELS[kernel]
+    ablations = ABLATIONS.get(kernel, {})
     src = (native.CSRC / f"{source}.cu").read_text()
     out = native.BUILD_DIR / f"shapes_{kernel}"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        text, n = pattern.subn(lambda _: rule(variants[name]), src)
+        keep, cuts = ablations.get(name, (name, []))
+        text, n = pattern.subn(lambda _: rule(variants[keep]), src)
+        for cut, repl in cuts:
+            text, m = re.subn(cut, repl, text, flags=re.S)
+            if not m:
+                raise RuntimeError(f"{name}: {cut!r} not in {source}.cu")
         if n != 1:
             raise RuntimeError(f"by_length not found in {source}.cu")
         text = re.sub(r"static_assert\(.*?\);\n", "", text, flags=re.S)
@@ -137,12 +234,16 @@ def build(native, kernel, names):
         stdout, stderr = proc.communicate()
         log = (stdout + stderr).splitlines()
         print(json.dumps({
-            "kernel": kernel, "variant": name, "rules": variants[name],
+            "kernel": kernel, "variant": name,
+            "rules": variants[ablations.get(name, (name,))[0]],
+            "ablation": [cut for cut, _ in ablations.get(name, ("", []))[1]],
             "nvcc_rc": proc.returncode,
             "registers": [ln.split("Used")[1].split(",")[0].strip()
                           for ln in log if "Used" in ln],
             "spills": [ln.strip() for ln in log if "spill" in ln
                        and " 0 bytes spill stores" not in ln],
+            "warnings": [ln.strip() for ln in log
+                         if "warning" in ln.lower()][:8],
             "error": stderr[-2000:] if proc.returncode else ""}), flush=True)
         if proc.returncode == 0:
             fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
@@ -186,23 +287,63 @@ def time_k3(torch, cs, native, fns, smi):
         print(json.dumps(row), flush=True)
 
 
-def time_k8(torch, cs, native, fns, smi):
+def _head_inputs(torch, b, heads, s, d):
+    """chip_smoke.py's K7/K8 inputs: bf16 head views of [b, s, heads d]
+    projections, key lengths s/2..s, the first batch row all masked."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(b, s, heads * d, device=dev, generator=gen)
+                   .to(torch.bfloat16).view(b, s, heads, d)
+                   .transpose(1, 2) for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen)
+    mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
+    mask[0] = 0
+    return q, k, v, do, mask
+
+
+def time_k7(torch, cs, native, fns, smi):
     from simxns_tpu_torch.ops import flash_attention as fa
 
     for fn in fns.values():
-        fn.argtypes = fa._BH_BWD_ARGS
+        fn.argtypes = fa._FWD_ARGS
     dev = torch.device("cuda")
-    for b, heads, s, d in K8_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        q, k, v, do = (torch.randn(b, s, heads * d, device=dev, generator=gen)
-                       .to(torch.bfloat16).view(b, s, heads, d)
-                       .transpose(1, 2) for _ in range(4))
-        mask = torch.ones(b, s, dtype=torch.int32, device=dev)
-        lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen)
-        mask[torch.arange(s, device=dev)[None, :] >= lens[:, None]] = 0
-        mask[0] = 0
+    for b, heads, s, d in K7_SHAPES:
+        q, k, v, _, mask = _head_inputs(torch, b, heads, s, d)
+        want = fa._group_fwd_plain(q, k, v, mask)
+        vmax = float(v.float().abs().max())
+        row = {"kernel": "k7", "shape": [b, heads, s, d], "nvidia_smi": smi}
+        for name, fn in fns.items():
+            o = fa._out(q)
+
+            def call(fn=fn, o=o):
+                code = native.launch(
+                    fn, dev, native.ptr(q), native.ptr(k), native.ptr(v),
+                    *q.stride()[:3], native.ptr(mask), *fa._view_args(o),
+                    b, heads, s, d, 1.0 / math.sqrt(d))
+                native.check("attention_fwd_wgmma", code, name)
+
+            call()
+            torch.cuda.synchronize()
+            row[name] = {
+                "ms": cs.timed(torch, call, 10),
+                "device_ms": cs.device_call_ms(torch, call),
+                "err_of_max_v": float((o.float() - want.float()).abs().max())
+                / vmax}
+        print(json.dumps(row), flush=True)
+
+
+def time_k8(torch, cs, native, fns, smi, kernel="k8"):
+    from simxns_tpu_torch.ops import flash_attention as fa
+
+    for fn in fns.values():
+        fn.argtypes = fa._BWD_ARGS
+    dev = torch.device("cuda")
+    for b, heads, s, d in K8_SHAPES if kernel == "k8" else K6_SHAPES:
+        q, k, v, do, mask = _head_inputs(torch, b, heads, s, d)
         refs = fa._group_bwd_plain(q, k, v, mask, do)
-        row = {"kernel": "k8", "shape": [b, heads, s, d], "nvidia_smi": smi}
+        row = {"kernel": kernel, "shape": [b, heads, s, d],
+               "nvidia_smi": smi}
         for name, fn in fns.items():
             grads = (fa._out(q), fa._out(q), fa._out(q))
             stats = torch.empty(2, b, heads, s, dtype=torch.float32,
@@ -230,8 +371,8 @@ def main():
     ap.add_argument("--kernel", default="k3", choices=sorted(KERNELS))
     ap.add_argument("--variants", default=None)
     args = ap.parse_args()
-    variants = KERNELS[args.kernel][4]
-    names = (args.variants or ",".join(variants)).split(",")
+    variants = {**KERNELS[args.kernel][4], **ABLATIONS.get(args.kernel, {})}
+    names = (args.variants or ",".join(KERNELS[args.kernel][4])).split(",")
     unknown = set(names) - set(variants)
     if unknown:
         ap.error(f"unknown variants {sorted(unknown)}; known: {list(variants)}")
@@ -246,8 +387,12 @@ def main():
 
     smi = cs.nvidia_smi()
     fns = build(_native, args.kernel, names)
-    (time_k3 if args.kernel == "k3" else time_k8)(torch, cs, _native, fns,
-                                                   smi)
+    if args.kernel == "k3":
+        time_k3(torch, cs, _native, fns, smi)
+    elif args.kernel == "k7":
+        time_k7(torch, cs, _native, fns, smi)
+    else:
+        time_k8(torch, cs, _native, fns, smi, args.kernel)
     return 0
 
 

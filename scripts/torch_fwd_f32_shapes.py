@@ -3,7 +3,8 @@
 
     python3 scripts/torch_fwd_f32_shapes.py [--variants NAME,...]
 
-``csrc/attention_fwd_f32.cu`` picks its block shape in ``by_length``: the
+``csrc/attention_fwd_wgmma.cu`` picks its f32 instance's block shape in
+``by_length``: the
 keys a streamed tile (N), the warpgroups a block (WG) and the blocks an SM
 its launch bounds ask for (MIN), one rule below S = 256 (K5's route) and
 one from 256 (K7's). Each variant below rewrites that rule in a copy of the
@@ -41,26 +42,27 @@ VARIANTS = {
 SHAPES = [(16, 512, 64), (64, 160, 64), (16, 512, 128), (64, 160, 128),
           (16, 512, 16), (64, 160, 16), (16, 512, 32), (64, 160, 32),
           (4, 1024, 128), (16, 255, 64), (16, 256, 64)]
-_RULE = re.compile(r"template <int DP>\ncudaError_t by_length\(const Args& a\) "
-                   r"\{.*?\n\}\n", re.S)
+_RULE = re.compile(r"template <int DP>\ncudaError_t by_length\("
+                   r"const Args<float>& a\) \{.*?\n\}\n", re.S)
 
 
 def build(native, names):
     """name -> the typed sx_attention_fwd_f32 of each variant's library."""
-    src = (native.CSRC / "attention_fwd_f32.cu").read_text()
+    src = (native.CSRC / "attention_fwd_wgmma.cu").read_text()
     out = native.BUILD_DIR / "shapes"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         bh, group = VARIANTS[name]
-        text = src.replace("kMaxKeys = WG == 1 ? 256 : kMaxS",
+        text = src.replace("kMaxKeys = kSplit && WG == 1 ? 256 : kMaxS",
                            "kMaxKeys = kMaxS")
-        rule = ("template <int DP>\ncudaError_t by_length(const Args& a) {\n"
+        rule = ("template <int DP>\n"
+                "cudaError_t by_length(const Args<float>& a) {\n"
                 f"  if (a.S < 256) return launch<Fwd<DP, {group}>>(a);\n"
                 f"  return launch<Fwd<DP, {bh}>>(a);\n}}\n")
         text, n = _RULE.subn(lambda _: rule, text)
         if n != 1:
-            raise RuntimeError("by_length not found in attention_fwd_f32.cu")
+            raise RuntimeError("by_length not found in attention_fwd_wgmma.cu")
         text = re.sub(r"static_assert\(.*?\);\n", "", text, flags=re.S)
         cu = out / f"{name}.cu"
         cu.write_text(text)
@@ -129,7 +131,7 @@ def main():
                     fn, dev, _native.ptr(q), _native.ptr(k), _native.ptr(v),
                     *q.stride()[:3], _native.ptr(mask), *fa._view_args(o),
                     b, 8, s, d, 1.0 / d ** 0.5)
-                _native.check("attention_fwd_f32", code, name)
+                _native.check("attention_fwd_wgmma", code, name)
 
             call()
             torch.cuda.synchronize()

@@ -15,6 +15,9 @@ one JSON line, with the card's name and power limit:
 - ``group_attention``: K5 and K6 at the nq reranker step's shape (128 joint
   rows x 16 heads x S=160 x d=64), SDPA's forward and backward, and K8's
   two launches on K6's inputs;
+- ``group_attention:edges``: K5 and K6 at [64, 8, 160, d] for d = 16, 24,
+  80, 96 and 128 and at [16, 8, 192, 64] and [16, 8, 255, 64]: the widths
+  and the lengths past K6's one-launch kernel;
 - ``bh_attention``: K7 and K8 at the msdoc reranker step's shape (128 x 12
   heads x S=512 x d=64);
 - ``bh_attention:edges``: K7 and K8 at [4, 8, 1024, 128] (the most shared
@@ -78,6 +81,12 @@ ROOT = Path(__file__).resolve().parents[1]
 _MIPS_INDEX = {}    # (rows, kinds) -> the index the mips cases share
 
 
+# the libraries of K7 and K8 and the f32 instances (the parent's names,
+# then this tree's; each checkout builds those it has)
+_BH = ["bh_attention", "attention_fwd_f32", "attention_fwd_wgmma",
+       "attention_bwd_wgmma"]
+
+
 def _f32_attention(pair, b, s):
     """K7's and K8's or K5's and K6's f32 instances at phase 23's shape,
     every width of ``F32_WIDTHS`` timed."""
@@ -90,8 +99,7 @@ def _f32_attention(pair, b, s):
         return {f"{bwd.__name__}_f32:d{d}": cs._check_f32_pair(
             torch, gen, fwd, bwd, b, s, d, timing=True)
             for d in cs.F32_WIDTHS}
-    return ["group_attention", "bh_attention", "attention_fwd_f32",
-            "attention_bwd_f32", "attention_bwd_wgmma"], run
+    return ["group_attention", *_BH], run
 
 
 def _mips(kind, nq, rows, k, valid_n, kinds):
@@ -115,15 +123,50 @@ def _bh_edges(torch, cs, randn, gen):
     return out
 
 
+def _group_edges(torch, cs, randn, gen):
+    """K5 and K6 (bf16) at [b, 8, s, d] head views of [b, s, 8d]
+    projections, key lengths s/2..s: the widths past K6's one-launch
+    kernel (d = 80, 96, 128 run K8's two passes, as d = 16 and 24 run the
+    16 and 32 instances) and its longest S (192) and S = 255 (K8's passes):
+    K6's gradients against the plain version (2^-7 of the largest, cosine
+    >= 0.9999), CUDA-event ms and the profiler's device ms of a call."""
+    from simxns_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for b, s, d in ((64, 160, 16), (64, 160, 24), (64, 160, 80),
+                    (64, 160, 96), (64, 160, 128), (16, 192, 64),
+                    (16, 255, 64)):
+        q, k, v, do = (randn(b, s, 8 * d).to(torch.bfloat16)
+                       .view(b, s, 8, d).transpose(1, 2) for _ in range(4))
+        mask = torch.ones(b, s, dtype=torch.int32, device=q.device)
+        lens = torch.randint(s // 2, s + 1, (b,), device=q.device,
+                             generator=gen)
+        mask[torch.arange(s, device=q.device)[None, :] >= lens[:, None]] = 0
+        grads = fa.group_attention_bwd(q, k, v, mask, do)
+        refs = fa._group_bwd_plain(q, k, v, mask, do)
+        err = max(fa.errors_of_largest(grads, refs))
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0))
+            for g, r in zip(grads, refs))
+        cs.check(err <= 2.0 ** -7 and cos >= 0.9999,
+                 f"group_attention_bwd {b}x8x{s}x{d}: err {err}, cos {cos}")
+        out[f"group_attention:{b}x8x{s}x{d}"] = dict(
+            shape=[b, 8, s, d], err_of_largest=err, min_cosine=cos,
+            fwd_ms=cs.timed(torch, lambda: fa.group_attention_fwd(
+                q, k, v, mask), 10),
+            bwd_ms=cs.timed(torch, lambda: fa.group_attention_bwd(
+                q, k, v, mask, do), 10),
+            bwd_device_ms=cs.device_call_ms(
+                torch, lambda: fa.group_attention_bwd(q, k, v, mask, do)))
+    return out
+
+
 # K3's shapes: (sequences, S, shortest key length, hidden, heads)
 _K3_SHAPES = {"chunk": (1024, 128, 8, 768, 12),
               "msdoc": (1024, 512, 300, 768, 12),
               "teacher": (128, 160, 100, 1024, 16),
               "rerank": (256, 160, 100, 1024, 16),
               "request": (8, 32, 8, 768, 12)}
-
-# the libraries of K8 (the parent's, then this tree's)
-_BH = ["bh_attention", "attention_bwd_wgmma"]
 
 # case -> (libraries to build, the check: (torch, chip_smoke, randn, gen)
 # -> {kernel: record})
@@ -144,6 +187,7 @@ CASES = {
             "bh_attention": cs._check_bh_attention(
                 torch, randn, gen, 128, cs.MS_S, 64, 300, True)})),
     "bh_attention:edges": (_BH, _bh_edges),
+    "group_attention:edges": (["group_attention", *_BH], _group_edges),
     **{f"small_s_attention:{label}": (["small_s_attention"], (
         lambda torch, cs, randn, gen, b=b, s=s, lo=lo, h=h, heads=heads: {
             "small_s_attention": cs._check_small_s_attention(

@@ -1,7 +1,6 @@
-// Device functions of the attention backward: K6 group_attention_bwd
-// (group_attention.cu), on the tile products of attention_ring.cuh, and
-// the wgmma backward (attention_bwd_wgmma.cu: K8, and the f32 instance of
-// K6 and K8).
+// Device functions of the attention backward on wgmma
+// (attention_bwd_wgmma.cu: K6, K8, and the f32 instance of both) and the
+// key fills of the forward (attention_fwd_wgmma.cu).
 //
 // The model's backward, in f32 (scale = 1/sqrt(d)):
 //   s  = where(mask[key] > 0, q k^T * scale, -1e9),  p = softmax(s)
@@ -9,19 +8,17 @@
 //   dQ = dS k * scale, dK = dS^T q * scale.
 // Scores are kept in the log2 domain: s2 = log2(e) s, so p = 2^(s2 - lse)
 // with lse = log2(rowsum(2^s2)), one ex2 and no division a score. Two f32
-// statistics a query row carry everything the later walks need:
-// - one walk over the keys (stats_tile, then finish_stats) folds the
-//   running max m, the sum of 2^(s2 - m) and the unnormalised row dot
-//   sum 2^(s2 - m) dP; both sums are rescaled by 2^(m_old - m_new) when the
-//   max grows. At the end lse = m + log2(sum) and dot = dot_u / sum, which
-//   is rowsum(dP p), taken from dP and p in f32;
-// - a query walk (dq_tile) then gets dS = p (dP - dot) and dQ += dS k; a
-//   key walk (dkv_tile) gets p^T and dS^T from k q^T and v dO^T, already in
-//   the A layout of dV += p^T dO and dK += dS^T q.
-// p and dS enter their products as hi + lo bf16 halves (p_v_tile_split).
-// The wgmma backward runs fold_stats, finish_stats, ds_rows and p_ds_cols
-// on its accumulators, whose layout is mma.sync's; REAL = true (every key
-// of the tile real: fill kRealKey) skips the fill's select.
+// statistics a query row carry everything K8's later walks need: one walk
+// over the keys (fold_stats, then finish_stats) folds the running max m,
+// the sum of 2^(s2 - m) and the unnormalised row dot sum 2^(s2 - m) dP;
+// both sums are rescaled by 2^(m_old - m_new) when the max grows. At the
+// end lse = m + log2(sum) and dot = dot_u / sum, which is rowsum(dP p),
+// taken from dP and p in f32. A query walk then gets dS = p (dP - dot)
+// (ds_rows) and dQ += dS k; a key walk gets p^T and dS^T from k q^T and v
+// dO^T (p_ds_cols), already in the A layout of dV += p^T dO and dK += dS^T
+// q. The accumulators' layout is mma.sync's (attention_ring.cuh's); REAL =
+// true (every key of the tile real: fill kRealKey) skips the fill's
+// select.
 //
 // A key's fill says how its score is made: kRealKey = the scaled product,
 // else a constant: the mask's -1e9 (as -1e9 log2(e)) or -inf past S (the
@@ -111,20 +108,6 @@ __device__ __forceinline__ void fold_stats(float (&sc)[NT][4],
     }
 }
 
-// One key tile of the statistics walk for the warp's 16 query rows:
-// qa, da the A fragments of q and dO; ks, vs the tile's k and v rows;
-// fill the tile's key fills (fold_stats).
-template <int D, int NT>
-__device__ __forceinline__ void stats_tile(
-    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
-    float scale2, float (&mx)[2], float (&sum)[2], float (&dotu)[2]) {
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile<D>(sc, qa, ks);
-  ring::q_k_tile<D>(dp, da, vs);
-  fold_stats(sc, dp, fill, scale2, mx, sum, dotu);
-}
-
 __device__ __forceinline__ void finish_stats(const float (&mx)[2],
                                              float (&sum)[2],
                                              float (&dotu)[2],
@@ -159,20 +142,6 @@ __device__ __forceinline__ void ds_rows(float (&sc)[NT][4],
     }
 }
 
-// One key tile of the dQ walk: acc += dS k over the tile's keys.
-template <int D, int NT>
-__device__ __forceinline__ void dq_tile(
-    const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, const float* fill,
-    float scale2, const float (&lse)[2], const float (&dot)[2],
-    float (&acc)[D / 8][4]) {
-  float sc[NT][4], dp[NT][4];
-  ring::q_k_tile<D>(sc, qa, ks);
-  ring::q_k_tile<D>(dp, da, vs);
-  ds_rows(sc, dp, fill, scale2, lse, dot);
-  ring::p_v_tile_split<D>(acc, sc, ks);
-}
-
 // p^T and dS^T of one query tile for the warp's 16 keys, from k q^T (pt)
 // and v dO^T (dst): fill the two key rows' fills (rows g, g + 8); lse, dot
 // the tile's query statistics
@@ -193,23 +162,6 @@ __device__ __forceinline__ void p_ds_cols(float (&pt)[NT][4],
       pt[nt][e] = p;
       dst[nt][e] = p * (dst[nt][e] - dot[i]);
     }
-}
-
-// One query tile of the key walk for the warp's 16 keys: ka, va the A
-// fragments of k and v; qs, dos the tile's q and dO rows (p_ds_cols).
-// dva += p^T dO, dka += dS^T q.
-template <int D, int NT>
-__device__ __forceinline__ void dkv_tile(
-    const uint32_t (&ka)[D / 16][4], const uint32_t (&va)[D / 16][4],
-    const float (&fill)[2], const __nv_bfloat16* qs,
-    const __nv_bfloat16* dos, const float* lse, const float* dot,
-    float scale2, float (&dka)[D / 8][4], float (&dva)[D / 8][4]) {
-  float pt[NT][4], dst[NT][4];
-  ring::q_k_tile<D>(pt, ka, qs);    // k_j . q_i
-  ring::q_k_tile<D>(dst, va, dos);  // v_j . dO_i = dP[i][j]
-  p_ds_cols(pt, dst, fill, lse, dot, scale2);
-  ring::p_v_tile_split<D>(dva, pt, dos);
-  ring::p_v_tile_split<D>(dka, dst, qs);
 }
 
 }  // namespace bwd

@@ -84,6 +84,8 @@ SX_DEFINE_ERROR_STRING
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 // A pass's shape: DP columns, N rows a streamed tile, WG warpgroups of 64
 // resident rows each (two share each streamed tile), inputs of type E.
 // Shared memory: WG x 2 resident operands (hi and lo tiles each when
@@ -387,6 +389,233 @@ __global__ void __launch_bounds__(P::kThreads, min_blocks<P>())
   store_rows<DP>(dv, b, h, jw, S, d, dva, 1.0f);
 }
 
+// K6's shape: DP columns, R warpgroups, R 64-row tiles of each of q, k,
+// v and dO, all resident. Shared memory: the operands' tiles, then each
+// warpgroup's four 64 x 64 tiles of p and dS (hi and lo; its dQ partial
+// after its products have read them), two rounds of row statistics and the
+// key fills.
+template <int DP_, int R_>
+struct Group {
+  static constexpr int DP = DP_, R = R_;
+  static constexpr int kThreads = 128 * R;
+  using Op = Tile<DP, kRows>;      // 64 rows of q, k, v or dO
+  using Sq = Tile<kRows, kRows>;   // p or dS (hi or lo): 64 queries x 64 keys
+  static constexpr int kOperands = 4 * R * Op::kBytes;
+  static constexpr int kPrivate = 4 * Sq::kBytes;
+  static_assert(kRows * DP * 4 <= kPrivate,
+                "a warpgroup's dQ partial fits its p and dS tiles");
+  static constexpr int kSmem =
+      1024 + kOperands + R * kPrivate + 2 * R * kRows * 16 + R * kRows * 4;
+};
+
+// K6 (bf16, S <= 64 R): one block per (head, batch) of R warpgroups;
+// warpgroup w owns key rows 64 w .. 64 w + 63 (its dK and dV accumulators)
+// and walks the query tiles r = 0 .. R - 1, the block in step:
+// - s = q_r k_w^T and dP = dO_r v_w^T (SS); each row's max m over the
+//   warpgroup's 64 keys, l = sum 2^(s - m) and u = sum 2^(s - m) dP go to
+//   shared memory; one block barrier; every warpgroup folds the R partials
+//   of its rows in a fixed order: M = max m, L = sum l 2^(m - M), lse =
+//   M + log2(L), rowsum(dP p) = (sum u 2^(m - M)) / L, and p = 2^(s - m)
+//   2^(m - M) / L (one ex2 a score);
+// - dS = p (dP - rowsum(dP p)); p and dS go to the warpgroup's own tiles
+//   as bf16 hi and lo (f32 as hi + lo; stmatrix from the accumulators),
+//   read back MN-major as p^T and dS^T: dV_w += p^T dO_r and dK_w += dS^T
+//   q_r, and K-major for dQ_r's partial dS k_w (SS, k_w MN-major);
+// - the last warpgroup sums the other partials (each staged in its owner's
+//   tiles) and its own in warpgroup order and stores dQ_r: no atomics, so
+//   two calls agree bit for bit.
+// 8 score-sized products (4 with p or dS, two each) against K8's 12, and
+// no statistics through device memory. Query rows past S are zero, so
+// their dP and dS are 0 and they add nothing; keys past S take -inf.
+template <class P>
+__global__ void __launch_bounds__(P::kThreads, 1)
+    group_attention_bwd_kernel(HeadIn<bf16> q, HeadIn<bf16> k,
+                               HeadIn<bf16> v, HeadIn<bf16> dout,
+                               const int* __restrict__ mask,
+                               HeadOut<bf16> dq, HeadOut<bf16> dk,
+                               HeadOut<bf16> dv, int S, int d, float scale,
+                               float scale2) {
+  constexpr int DP = P::DP, R = P::R, T = P::kThreads;
+  using Op = typename P::Op;
+  using Sq = typename P::Sq;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = aligned_smem(smem_raw);
+  const int tid = threadIdx.x, wtid = tid & 127, w = tid >> 7;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int t = tid & 3, row = ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+  // the row and column of this lane's stmatrix address in a 64 x 64 tile
+  const int mrow = ((tid >> 5) & 3) * 16 + ((tid >> 3) & 1) * 8 + (tid & 7);
+  const int mcol = ((tid >> 4) & 1) * 8;
+  // tile i of operand `which` (0 q, 1 k, 2 v, 3 dO)
+  auto op = [&](int which, int i) {
+    return base + (which * R + i) * Op::kBytes;
+  };
+  uint8_t* own = base + P::kOperands + w * P::kPrivate;
+  uint8_t *ph = own, *pl = ph + Sq::kBytes;
+  uint8_t *sh = pl + Sq::kBytes, *sl = sh + Sq::kBytes;
+  float4* stats =
+      reinterpret_cast<float4*>(base + P::kOperands + R * P::kPrivate);
+  float* fill = reinterpret_cast<float*>(stats + 2 * R * kRows);
+  auto land_rows = [&](int which, const HeadIn<bf16>& x, int i) {
+    land_tile<DP, kRows, T>(op(which, i),
+                            [&](int j) { return x.row(b, h, j); }, i * kRows,
+                            S, d, tid);
+  };
+  // k, v and the first query tile, then the other query tiles
+  for (int i = 0; i < R; ++i) land_rows(1, k, i), land_rows(2, v, i);
+  land_rows(0, q, 0);
+  land_rows(3, dout, 0);
+  wg::cp_async_commit();
+  for (int i = 1; i < R; ++i) land_rows(0, q, i), land_rows(3, dout, i);
+  wg::cp_async_commit();
+  const bool none_real = bwd::all_masked(mask, b, S);
+  for (int j = tid; j < R * kRows; j += T)
+    fill[j] = bwd::key_fill(mask, b, j, S, none_real);
+
+  const uint8_t* kt = op(1, w);
+  const uint8_t* vt = op(2, w);
+  const float* f = fill + w * kRows;
+  float dka[DP / 8][4], dva[DP / 8][4];
+  float(&dkf)[DP / 2] = flat<DP>(dka);
+  float(&dvf)[DP / 2] = flat<DP>(dva);
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dkf[i] = dvf[i] = 0.0f;
+  for (int r = 0; r < R; ++r) {
+    if (r < 2) {   // query tile r landed (at r = 0 also k, v, the fills)
+      if (r == 0)
+        wg::cp_async_wait<1>();
+      else
+        wg::cp_async_wait_all();
+      wg::fence_proxy_async();
+      __syncthreads();
+    }
+    const uint8_t* qt = op(0, r);
+    const uint8_t* dt = op(3, r);
+    float sc[kRows / 8][4], dp[kRows / 8][4];
+    issue_scores<DP, kRows, false>(sc, dp, qt, qt, kt, kt, dt, dt, vt, vt);
+    wait_scores<kRows>(sc, dp);
+    // this warpgroup's part of each row: m, l, u
+    float cm[2], l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < kRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[nt][e] = bwd::score(sc[nt][e], f[nt * 8 + 2 * t + (e & 1)], scale2);
+    ring::tile_max(sc, cm);
+#pragma unroll
+    for (int nt = 0; nt < kRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = ring::ex2(sc[nt][e] - cm[e >> 1]);
+        sc[nt][e] = x;
+        l[e >> 1] += x;
+        u[e >> 1] += x * dp[nt][e];
+      }
+    float4* st = stats + (r & 1) * R * kRows;   // two rounds: no overwrite
+#pragma unroll                                  // before every read
+    for (int i = 0; i < 2; ++i) {
+      l[i] = ring::quad<1>(l[i]);
+      u[i] = ring::quad<1>(u[i]);
+      if (t == 0)
+        st[w * kRows + row + 8 * i] = make_float4(cm[i], l[i], u[i], 0.0f);
+    }
+    __syncthreads();
+    float c[2], dot[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4* x = st + row + 8 * i;   // [j * kRows]: warpgroup j's
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < R; ++j) mx = fmaxf(mx, x[j * kRows].x);
+      float sum = 0.0f, dotu = 0.0f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float4 y = x[j * kRows];
+        const float a = ring::ex2(y.x - mx);
+        sum += y.y * a;
+        dotu += y.z * a;
+      }
+      c[i] = ring::ex2(cm[i] - mx) / sum;
+      dot[i] = dotu / sum;
+    }
+    // p and dS to this warpgroup's tiles as hi and lo, by stmatrix (the
+    // accumulators' layout is the A fragments')
+#pragma unroll
+    for (int nt = 0; nt < kRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[nt][e] *= c[e >> 1];
+        dp[nt][e] = sc[nt][e] * (dp[nt][e] - dot[e >> 1]);
+      }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      const int off = Sq::offset(mrow, kk * 16 + mcol);
+      ring::a_fragments_split(hi, lo, sc, kk);
+      stmatrix_x4(ph + off, hi);
+      stmatrix_x4(pl + off, lo);
+      ring::a_fragments_split(hi, lo, dp, kk);
+      stmatrix_x4(sh + off, hi);
+      stmatrix_x4(sl + off, lo);
+    }
+    wg::fence_proxy_async();
+    wg::named_sync(2 + w, 128);
+    float dqa[DP / 8][4];
+    float(&dqf)[DP / 2] = flat<DP>(dqa);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dqf[i] = 0.0f;
+    using Mt = wg::WgmmaBf16<DP, true, true>;    // p^T, dS^T; dO, q
+    using Mk = wg::WgmmaBf16<DP, false, true>;   // dS; k
+    wg::fence_operands(dvf);
+    wg::fence_operands(dkf);
+    wg::fence_operands(dqf);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      Mt::mma(dvf, Sq::mn_desc(pl, kk), Op::mn_desc(dt, kk), 1);
+      Mt::mma(dvf, Sq::mn_desc(ph, kk), Op::mn_desc(dt, kk), 1);
+      Mt::mma(dkf, Sq::mn_desc(sl, kk), Op::mn_desc(qt, kk), 1);
+      Mt::mma(dkf, Sq::mn_desc(sh, kk), Op::mn_desc(qt, kk), 1);
+      Mk::mma(dqf, Sq::k_desc(sl, kk), Op::mn_desc(kt, kk), 1);
+      Mk::mma(dqf, Sq::k_desc(sh, kk), Op::mn_desc(kt, kk), 1);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_operands(dvf);
+    wg::fence_operands(dkf);
+    wg::fence_operands(dqf);
+    // dQ_r: the partials staged in their owners' tiles (read before the
+    // next round's barrier), summed by the last warpgroup in warpgroup
+    // order
+    if (w != R - 1) {
+      float4* part = reinterpret_cast<float4*>(own);
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i)
+        part[i * 128 + wtid] = make_float4(dqf[4 * i], dqf[4 * i + 1],
+                                           dqf[4 * i + 2], dqf[4 * i + 3]);
+      wg::named_arrive(1, T);
+    } else {
+      wg::named_sync(1, T);
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int j = 0; j < R - 1; ++j) {
+          const float4 y = reinterpret_cast<const float4*>(
+              base + P::kOperands + j * P::kPrivate)[i * 128 + wtid];
+          x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+        }
+        dqf[4 * i] += x.x, dqf[4 * i + 1] += x.y;
+        dqf[4 * i + 2] += x.z, dqf[4 * i + 3] += x.w;
+      }
+      store_rows<DP>(dq, b, h, r * kRows + row - row % 16, S, d, dqa, scale);
+    }
+  }
+  const int jw = w * kRows + row - row % 16;
+  store_rows<DP>(dk, b, h, jw, S, d, dka, scale);
+  store_rows<DP>(dv, b, h, jw, S, d, dva, 1.0f);
+}
+
 template <class E>
 struct Args {
   HeadIn<E> q, k, v, dout;
@@ -444,6 +673,32 @@ cudaError_t by_length(const Args<E>& a) {
     return launch<Pass<DP, 64, 1, E>, Pass<DP, 64, 1, E>>(a);
 }
 
+template <class P>
+cudaError_t launch_group(const Args<bf16>& a) {
+  const cudaError_t err = prepare(group_attention_bwd_kernel<P>, P::kSmem);
+  if (err != cudaSuccess) return err;
+  group_attention_bwd_kernel<P><<<dim3(a.heads, a.B), P::kThreads, P::kSmem,
+                                  a.st>>>(
+      a.q, a.k, a.v, a.dout, a.mask, a.dq, a.dk, a.dv, a.S, a.d, a.scale,
+      a.scale * ring::kLog2e);
+  return cudaGetLastError();
+}
+
+// K6's shapes by length and width: one warpgroup a 64 rows of S up to S =
+// 192 at DP <= 64 (three warpgroups, 168 registers a thread); longer heads
+// and DP = 128 take K8's two passes at its S < 256 shape (the statistics
+// through the scratch)
+template <int DP>
+cudaError_t group_by_length(const Args<bf16>& a) {
+  if constexpr (DP <= 64) {
+    if (a.S <= 64) return launch_group<Group<DP, 1>>(a);
+    if (a.S <= 128) return launch_group<Group<DP, 2>>(a);
+    if (a.S <= 192) return launch_group<Group<DP, 3>>(a);
+  }
+  return launch<Pass<DP, 32, 1, bf16>, Pass<DP, 32, 1, bf16>>(a);
+}
+
+static_assert(Group<64, 3>::kSmem <= 232448, "K6's block fits an SM");
 static_assert(Pass<128, 32, 2, float>::kQuerySmem <= 232448 &&
                   Pass<128, 32, 2, float>::kKeySmem <= 232448 &&
                   Pass<64, 128, 2, float>::kQuerySmem <= 232448,
@@ -454,8 +709,9 @@ static_assert(3 * Pass<64, 32, 1, float>::kQuerySmem <= 233472,
 // q, k, v: [B, heads, S, d] views of E sharing the element strides (sb,
 // sh, ss), d contiguous; dout a view with strides (db, dh, ds); dq, dk, dv
 // views of E sharing the strides (gb, gh, gs); stats an f32 scratch of 2 *
-// B * heads * S values
-template <class E>
+// B * heads * S values (unused by K6 at the shapes it runs in one launch);
+// GROUP: K6's rule (bf16), else K8's
+template <class E, bool GROUP = false>
 int run(const void* q, const void* k, const void* v, long long sb,
         long long sh, long long ss, const void* dout, long long db,
         long long dh, long long ds, const int* mask, void* dq, void* dk,
@@ -474,21 +730,28 @@ int run(const void* q, const void* k, const void* v, long long sb,
                   in(dout, db, dh, ds), mask, out(dq), out(dk), out(dv),
                   stats, B, heads, S, d, scale,
                   static_cast<cudaStream_t>(stream)};
+  const auto rule = [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    if constexpr (GROUP)
+      return group_by_length<DP>(a);
+    else
+      return by_length<DP>(a);
+  };
   cudaError_t err;
   if (d <= 16)
-    err = by_length<16>(a);
+    err = rule(std::integral_constant<int, 16>());
   else if (d <= 32)
-    err = by_length<32>(a);
+    err = rule(std::integral_constant<int, 32>());
   else if (d <= 64)
-    err = by_length<64>(a);
+    err = rule(std::integral_constant<int, 64>());
   else
-    err = by_length<128>(a);
+    err = rule(std::integral_constant<int, 128>());
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// The arguments of both instances: q, k, v, dout as in run(); mask [B, S]
+// The arguments of all three: q, k, v, dout as in run(); mask [B, S]
 // int32 (1 = real key); stats written by the first launch, read by the
 // second (lse, then rowsum(dP p)). Every row start 16-byte aligned (the
 // wrapper checks); d on the 16 grid up to 128, 1 <= S <= 1024, heads and B
@@ -499,9 +762,20 @@ extern "C" int sx_bh_attention_bwd(
     const int* mask, void* dq, void* dk, void* dv, long long gb, long long gh,
     long long gs, float* stats, int B, int heads, int S, int d, float scale,
     void* stream) {
-  return run<__nv_bfloat16>(q, k, v, sb, sh, ss, dout, db, dh, ds, mask, dq,
-                            dk, dv, gb, gh, gs, stats, B, heads, S, d, scale,
-                            stream);
+  return run<bf16>(q, k, v, sb, sh, ss, dout, db, dh, ds, mask, dq, dk, dv,
+                   gb, gh, gs, stats, B, heads, S, d, scale, stream);
+}
+
+// K6 (bf16): S <= 255
+extern "C" int sx_group_attention_bwd(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long ss, const void* dout, long long db, long long dh, long long ds,
+    const int* mask, void* dq, void* dk, void* dv, long long gb, long long gh,
+    long long gs, float* stats, int B, int heads, int S, int d, float scale,
+    void* stream) {
+  if (S > 255) return static_cast<int>(cudaErrorInvalidValue);
+  return run<bf16, true>(q, k, v, sb, sh, ss, dout, db, dh, ds, mask, dq, dk,
+                         dv, gb, gh, gs, stats, B, heads, S, d, scale, stream);
 }
 
 extern "C" int sx_attention_bwd_f32(

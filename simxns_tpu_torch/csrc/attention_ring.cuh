@@ -1,33 +1,29 @@
-// Device functions shared by the query-tiled attention kernels on
-// mma.sync: K5 group_attention_fwd (group_attention.cu) and K7
-// bh_attention_fwd (bh_attention.cu), and through attention_bwd.cuh the
-// backward kernel K6 group_attention_bwd (group_attention.cu): their bf16
-// instances. The kernels on wgmma (attention_wgmma.cuh: K3, K8, the f32
-// instances) take ex2, quad, tile_max, a_fragment and a_fragments_split
-// from here.
+// Device functions of the query-tiled attention kernel on mma.sync: K5
+// group_attention_fwd (group_attention.cu), its bf16 instance. The
+// kernels on wgmma (attention_wgmma.cuh: K3, K6-K8, the f32 instances)
+// take ex2, quad, tile_max, a_fragment and a_fragments_split from here.
 //
 // A block of 4 warps owns 64 query rows of one (sequence, head); each warp
 // owns 16 of them. The block lands its q tile in shared memory once
 // (cp.async, 16 bytes a thread) and each warp takes its A fragments from
 // there with ldmatrix. Keys and values stream through a ring of kStages
-// tiles of 64 (or 32) rows filled by cp.async: the copy of the next tile is
+// tiles of 32 rows filled by cp.async: the copy of the next tile is
 // in flight while the tensor cores work on the current one. Shared rows are
 // padded to D + 8 elements (an odd number of 16-byte chunks), so the eight
 // row addresses of an ldmatrix hit eight distinct bank groups.
 //
 // Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate), over NT n8 tiles of columns (8 * NT keys: 64 or 32 in the
-// ring's tiles, 32 or 16 in K6's resident chunks):
-// - q_k_tile: the warp's 16 x 8NT scores, k fragments by ldmatrix; any
-//   "A rows x B rows^T" product (q k^T, dO v^T, k q^T, v dO^T);
+// accumulate), over NT n8 tiles of columns (8 * NT keys of a tile):
+// - q_k_tile: the warp's 16 x 8NT scores, k fragments by ldmatrix;
 // - p_v_tile_split: a 16 x 8NT f32 A operand (p in registers, in the
 //   score accumulator layout) as hi + lo bf16 halves times the 8NT x D
 //   value tile, read in its natural [key][d] layout through
 //   ldmatrix...trans: no transposing stores.
 // Scores are kept in the log2 domain (log2(e) folded into the scale and
 // into the masks' constants), so each exponential is one ex2.
-// attend_one_pass is the whole one-pass forward of K5 and K7 in bf16 (the
-// f32 forward, attention_fwd_f32.cu, runs the same walk on wgmma).
+// attend_one_pass is the whole one-pass forward of K5 in bf16 (the wgmma
+// forward, attention_fwd_wgmma.cu, runs the same walk for K7 and the f32
+// instances).
 #pragma once
 
 #include "tile_gemm.cuh"
@@ -38,9 +34,7 @@ namespace ring {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;       // query rows of a block
-constexpr int kKeys = 64;       // keys of a streamed tile
 constexpr int kStages = 2;      // tiles in the ring
-constexpr int kNt = kKeys / 8;  // n8 score tiles of a warp per key tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>

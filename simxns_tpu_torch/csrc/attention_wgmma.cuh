@@ -1,7 +1,7 @@
 // Device functions of the attention kernels on Hopper's warpgroup MMA
-// (wgmma): K3 small_s_attention (small_s_attention.cu), the f32 forward
-// (attention_fwd_f32.cu, the f32 instance of K5 and K7) and the backward
-// (attention_bwd_wgmma.cu: K8, and the f32 instance of K6 and K8).
+// (wgmma): K3 small_s_attention (small_s_attention.cu), the forward
+// (attention_fwd_wgmma.cu: K7, and the f32 instance of K5 and K7) and the
+// backward (attention_bwd_wgmma.cu: K6, K8, and the f32 instance of both).
 //
 // bf16 operands land in their tiles as they are. f32 operands are split
 // inside the kernel into hi = bf16(x) and lo = bf16(x - hi) (x - hi is
@@ -25,6 +25,7 @@
 // - fragments: an f32 accumulator as the hi and lo register A fragments of
 //   a product, which issue_times multiplies by a streamed tile read
 //   MN-major through the transpose bit (WgmmaBf16Rs): no transposed copy;
+//   stmatrix_x4 stores such fragments to a tile;
 //   bf16_fragments / issue_times_bf16: the same with one bf16 fragment;
 // - before_scores / after_scores: two warpgroups in ping-pong on one tile;
 // - store_rows: a warp's 16 rows of an accumulator to a view;
@@ -322,20 +323,24 @@ __device__ __forceinline__ void wait_score(float (&x)[N / 8][4]) {
 
 // acc += x b over the N rows of the split tile b (read MN-major), x as
 // its hi and lo A fragments (of the bf16 tile bh alone when !SPLIT: two
-// products); issued, not waited for
-template <int DP, int N, bool SPLIT = true>
+// products); issued, not waited for. HI_FIRST (bf16 only): each k16
+// step's hi product before its lo one, the order of the mma.sync forward
+// (attention_ring.cuh's p_v_tile_split)
+template <int DP, int N, bool SPLIT = true, bool HI_FIRST = false>
 __device__ __forceinline__ void issue_times(float (&acc)[DP / 2],
                                             const uint32_t (&xh)[N / 16][4],
                                             const uint32_t (&xl)[N / 16][4],
                                             const uint8_t* bh,
                                             const uint8_t* bl) {
+  static_assert(!(SPLIT && HI_FIRST), "the split products keep one order");
   using B = Tile<DP, N>;
   using Mma = wg::WgmmaBf16Rs<DP, true>;
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
+    if constexpr (HI_FIRST) Mma::mma(acc, xh[kk], B::mn_desc(bh, kk), 1);
     Mma::mma(acc, xl[kk], B::mn_desc(bh, kk), 1);
     if constexpr (SPLIT) Mma::mma(acc, xh[kk], B::mn_desc(bl, kk), 1);
-    Mma::mma(acc, xh[kk], B::mn_desc(bh, kk), 1);
+    if constexpr (!HI_FIRST) Mma::mma(acc, xh[kk], B::mn_desc(bh, kk), 1);
   }
 }
 
@@ -366,6 +371,19 @@ __device__ __forceinline__ void bf16_fragments(uint32_t (&a)[N / 16][4],
                                                const float (&x)[N / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) ring::a_fragment(a[kk], x, kk);
+}
+
+// four 8 x 8 matrices of bf16 pairs to shared memory: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes); register i of a thread
+// holds row g, columns 2t and 2t + 1 of matrix i, which is the A fragment
+// layout (a_fragment: rows g and g + 8, then columns 8 further)
+__device__ __forceinline__ void stmatrix_x4(uint8_t* row,
+                                            const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(wg::smem_u32(row)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // rows r0 + g and r0 + g + 8 of a [16][DP] accumulator, columns below d,

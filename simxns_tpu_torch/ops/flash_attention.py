@@ -8,13 +8,14 @@ the XLA composition (``multi_head_attention(impl="xla")``). :func:`route`
 is that decision, with the card's own: on the card a dtype or a head width
 the kernels do not take goes to the plain attention.
 
-The grouped pair is ported as two hand-written CUDA kernels
-(``csrc/group_attention.cu``):
+The grouped pair is ported as two hand-written CUDA kernels:
 
-- K5 :func:`group_attention_fwd` replaces ``_fwd_call_group`` (kernel
-  ``_fwd_kernel_group``, ``flash_attention.py:113``);
-- K6 :func:`group_attention_bwd` replaces ``_fused_group_bwd`` (kernel
-  ``_bwd_kernel_group``, ``:125``).
+- K5 :func:`group_attention_fwd` (``csrc/group_attention.cu``) replaces
+  ``_fwd_call_group`` (kernel ``_fwd_kernel_group``,
+  ``flash_attention.py:113``);
+- K6 :func:`group_attention_bwd` (``csrc/attention_bwd_wgmma.cu``, on
+  ``wgmma``) replaces ``_fused_group_bwd`` (kernel ``_bwd_kernel_group``,
+  ``:125``).
 
 Both compute in f32: ``s = q k^T / sqrt(d)``, ``where(mask > 0, s, -1e9)``,
 ``p = softmax(s)`` kept in f32 (unlike the XLA composition, which rounds p
@@ -28,15 +29,20 @@ The per-(batch, head) pair (256 <= S <= 1024) computes the same function
 and is ported as two more CUDA kernels, which stream key and query tiles
 through shared memory instead of holding a whole head:
 
-- K7 :func:`bh_attention_fwd` (``csrc/bh_attention.cu``) replaces
-  ``_fwd_call`` (kernel ``_fwd_kernel``, ``flash_attention.py:67``);
+- K7 :func:`bh_attention_fwd` (``csrc/attention_fwd_wgmma.cu``, on
+  ``wgmma``) replaces ``_fwd_call`` (kernel ``_fwd_kernel``,
+  ``flash_attention.py:67``);
 - K8 :func:`bh_attention_bwd` (``csrc/attention_bwd_wgmma.cu``, on
   ``wgmma``) replaces ``_fused_bwd`` (kernel ``_bwd_kernel``, ``:80``).
 
-Their plain versions are the grouped pair's (the same function). K6 and
-K8 share one backward algorithm (``csrc/attention_bwd.cuh``): one walk over
-the keys folds each query row's log-sum-exp and rowsum(dP p), and every
-later walk gets p = 2^(s log2(e) - lse) with one ``ex2`` a score.
+Their plain versions are the grouped pair's (the same function). K8 folds
+each query row's log-sum-exp and rowsum(dP p) in one walk over the keys
+(``csrc/attention_bwd.cuh``), and every later walk gets
+p = 2^(s log2(e) - lse) with one ``ex2`` a score. K6, one block a head,
+folds them from each warpgroup's 64 keys in shared memory and keeps p and
+dS there for dV and dK, so nothing is computed twice (at S <= 192 and d <=
+64; longer heads and wider ones take K8's two passes, whose row
+statistics pass through an f32 scratch [2, B, heads, S]).
 
 The JAX kernels cast to f32 inside and block whole (S, d) heads, so they
 take any dtype and any d. On the card the four kernels have an instance
@@ -55,10 +61,10 @@ products (hi hi + hi lo + lo hi) into f32 accumulators, and stores its
 results in f32: an f32-class function (about 16 bits of each operand; not
 bitwise an f32 product). The f32 instances run on ``wgmma`` and split
 each tile in shared memory as it lands, with no split scratch: K5 and K7
-share one f32 forward (``csrc/attention_fwd_f32.cu``, one launch a call:
-K7's one pass over the keys); K6 and K8 share K8's backward source
-(``csrc/attention_bwd_wgmma.cu``: two passes, whose only scratch is the
-row statistics), whose bf16 instance is K8's. The f32 launches count
+share one f32 forward, K7's source (``csrc/attention_fwd_wgmma.cu``, one
+launch a call: one pass over the keys); K6 and K8 share K8's two passes
+(``csrc/attention_bwd_wgmma.cu``, whose only scratch is the row
+statistics). The f32 launches count
 apart, in ``<wrapper>.f32.launches``. :func:`flash_attention` sends any
 other dtype (f16: no recipe runs f16 attention) to the plain attention
 (``multi_head_attention``), which computes JAX's f32 function.
@@ -80,7 +86,7 @@ _MIN_FUSED_SEQ = 256          # :42
 _NEG = -1e9
 SMALL_S_IMPL = "xla"          # :49
 _MAX_GROUP_S = 255            # csrc/group_attention.cu kMaxS
-_MAX_BH_S = 1024              # csrc/bh_attention.cu kMaxS
+_MAX_BH_S = 1024              # csrc/attention_wgmma.cuh kMaxS
 _MAX_KERNEL_D = 128           # the widest template instance of the kernels
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -89,14 +95,11 @@ _VIEW = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong]
 _FWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + [ctypes.c_void_p] + _VIEW
              + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+# every backward takes the f32 scratch of row statistics (the pointer
+# after dq, dk, dv's strides)
 _BWD_ARGS = ([ctypes.c_void_p] * 3 + _VIEW[1:] + _VIEW + [ctypes.c_void_p] * 4
-             + _VIEW[1:] + [ctypes.c_int] * 4
+             + _VIEW[1:] + [ctypes.c_void_p] + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
-# K8 takes one more pointer, its f32 scratch of row statistics
-_BH_BWD_ARGS = _BWD_ARGS[:17] + [ctypes.c_void_p] + _BWD_ARGS[17:]
-# the f32 forward (K5's and K7's) takes the forward's arguments, the f32
-# backward (K6's and K8's) K8's
-_BWD_F32_ARGS = _BH_BWD_ARGS
 
 
 class F32Instance:
@@ -299,11 +302,10 @@ def _fwd_launch(bf16, f32, wrapper):
 
 
 def _bwd_launch(bf16, f32, wrapper):
-    """The backward launcher of a kernel: ``bf16`` is the (library, C
-    function, whether it takes K8's f32 scratch of row statistics [2, B,
-    heads, S]) of its bf16 instance, ``f32`` the (library, C function) of
-    its f32 instance, K6's and K8's one f32 backward, which takes the
-    statistics."""
+    """The backward launcher of a kernel: ``bf16`` and ``f32`` are the
+    (library, C function) of its two instances; each takes an f32 scratch
+    of row statistics [2, B, heads, S] (K8's two passes pass them through
+    it; K6 uses it only where it runs them)."""
     def launch(q, k, v, mask, do, scale):
         q, k, v = _qkv(q, k, v)
         do = _kernel_view(do, "do")
@@ -313,31 +315,22 @@ def _bwd_launch(bf16, f32, wrapper):
         b, h, s, d = q.shape
         mask32 = mask.to(device=q.device, dtype=torch.int32).contiguous()
         dq, dk, dv = _out(q), _out(q), _out(q)
-        if q.dtype == torch.float32:
-            (lib, symbol), args, stats = f32, _BWD_F32_ARGS, True
-            counter = wrapper.f32
-        else:
-            lib, symbol, stats = bf16
-            args = _BH_BWD_ARGS if stats else _BWD_ARGS
-            counter = wrapper
-        # scratch, held until the launch is enqueued
-        extra = []
-        if stats:
-            scratch = torch.empty(2, b, h, s, dtype=torch.float32,
-                                  device=q.device)
-            extra = [_native.ptr(scratch)]
-        fn = _native.function(lib, symbol, args)
+        (lib, symbol), counter = ((f32, wrapper.f32)
+                                  if q.dtype == torch.float32
+                                  else (bf16, wrapper))
+        # held until the launch is enqueued
+        scratch = torch.empty(2, b, h, s, dtype=torch.float32,
+                              device=q.device)
+        fn = _native.function(lib, symbol, _BWD_ARGS)
         code = _native.launch(
                 fn, q.device, _native.ptr(q), _native.ptr(k), _native.ptr(v),
                 *q.stride()[:3], *_view_args(do), _native.ptr(mask32),
                 _native.ptr(dq), _native.ptr(dk), _native.ptr(dv),
-                *dq.stride()[:3], *extra, b, h, s, d, scale)
+                *dq.stride()[:3], _native.ptr(scratch), b, h, s, d, scale)
         _native.check(lib, code, counter.__name__)
         counter.launches += 1
         return dq, dk, dv
-    launch.instances = {
-        "bf16": (*bf16[:2], _BH_BWD_ARGS if bf16[2] else _BWD_ARGS),
-        "f32": (*f32, _BWD_F32_ARGS)}
+    launch.instances = {"bf16": (*bf16, _BWD_ARGS), "f32": (*f32, _BWD_ARGS)}
     return launch
 
 
@@ -416,18 +409,18 @@ for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
                  bh_attention_bwd):
     _wrapper.f32 = F32Instance(_wrapper)
 
-# K5's and K7's f32 instance: one forward on wgmma
-# (csrc/attention_fwd_f32.cu); K6's and K8's: K8's backward on wgmma
-# (csrc/attention_bwd_wgmma.cu), whose bf16 instance is K8's
-_F32_FWD = ("attention_fwd_f32", "sx_attention_fwd_f32")
+# K5's and K7's f32 instance: K7's forward on wgmma
+# (csrc/attention_fwd_wgmma.cu); K6's and K8's: K8's backward on wgmma
+# (csrc/attention_bwd_wgmma.cu, K6's bf16 kernel's source too)
+_F32_FWD = ("attention_fwd_wgmma", "sx_attention_fwd_f32")
 _F32_BWD = ("attention_bwd_wgmma", "sx_attention_bwd_f32")
 _K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"), _F32_FWD,
                   group_attention_fwd)
-_K6 = _bwd_launch(("group_attention", "sx_group_attention_bwd", False),
+_K6 = _bwd_launch(("attention_bwd_wgmma", "sx_group_attention_bwd"),
                   _F32_BWD, group_attention_bwd)
-_K7 = _fwd_launch(("bh_attention", "sx_bh_attention_fwd"), _F32_FWD,
+_K7 = _fwd_launch(("attention_fwd_wgmma", "sx_bh_attention_fwd"), _F32_FWD,
                   bh_attention_fwd)
-_K8 = _bwd_launch(("attention_bwd_wgmma", "sx_bh_attention_bwd", True),
+_K8 = _bwd_launch(("attention_bwd_wgmma", "sx_bh_attention_bwd"),
                   _F32_BWD, bh_attention_bwd)
 
 

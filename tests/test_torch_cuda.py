@@ -889,6 +889,87 @@ def test_k8_two_calls_are_bitwise_equal(dev, b, heads, s, d):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("b,heads,s,d", BH_BENCH + [(2, 3, 512, 80),
+                                                    (2, 2, 17, 32)])
+def test_k7_two_calls_are_bitwise_equal(dev, b, heads, s, d):
+    """K7's bf16 instance (csrc/attention_fwd_wgmma.cu: every row of o from
+    one block, no atomics) at the bench shapes, a padded width and a short
+    S: two calls give bitwise equal o, one launch each."""
+    q, k, v, _, mask = _attention_inputs(dev, b, heads, s, d, seed=s + 2)
+    mask[0] = 0
+    before = fa.bh_attention_fwd.launches
+    first = fa.bh_attention_fwd(q, k, v, mask)
+    second = fa.bh_attention_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.bh_attention_fwd.launches == before + 2
+    assert torch.equal(first, second)
+
+
+# K6's route by S and width: its one-launch kernel up to S = 192 at d <=
+# 64, K8's two passes beyond and past d = 64 (csrc/attention_bwd_wgmma.cu,
+# group_by_length)
+K6_ROUTES = ([(3, 2, s, d) for s in (31, 32, 33, 255) for d in (32, 64, 128)]
+             + GROUP_WIDTHS)
+
+
+@pytest.mark.parametrize("b,heads,s,d", K6_ROUTES)
+def test_k6_runs_its_wgmma_kernel(dev, b, heads, s, d):
+    """K6 at its tile edges and every width of GROUP_WIDTHS: the wrapper's
+    launch counter rises once a call, the profiler sees the kernel its rule
+    names (``group_attention_bwd_kernel``, else K8's two passes), the
+    gradients are within K6's limits of the plain version (2^-7 of the
+    largest, cosine >= 0.9999) and two calls are bitwise equal; the last
+    batch row has every key masked."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do, mask = _attention_inputs(dev, b, heads, s, d, seed=s * d)
+    mask[-1] = 0
+    before = fa.group_attention_bwd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grads = fa.group_attention_bwd(q, k, v, mask, do)
+        torch.cuda.synchronize()
+    again = fa.group_attention_bwd(q, k, v, mask, do)
+    torch.cuda.synchronize()
+    assert fa.group_attention_bwd.launches == before + 2
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    one_launch = s <= 192 and fa.kernel_head_width(d) <= 64
+    want = ("group_attention_bwd_kernel" if one_launch
+            else "bh_attention_bwd_query_kernel")
+    assert any(want in n for n in names), names
+    refs = fa._group_bwd_plain(q, k, v, mask, do)
+    for g, a, r in zip(grads, again, refs):
+        assert torch.equal(g, a)
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(r.float().abs().max()), err
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0))
+        assert cos >= 0.9999, cos
+
+
+@pytest.mark.parametrize("name", ["attention_fwd_wgmma",
+                                  "attention_bwd_wgmma"])
+def test_k6_k7_libraries_run_on_wgmma(dev, name):
+    """The libraries of K7 and K6 (and K8, the f32 instances) as built:
+    their SASS holds HGMMA (wgmma) and no HMMA (mma.sync), and ptxas
+    reports no spills for any of their kernels."""
+    import shutil
+    import subprocess
+
+    from simxns_tpu_torch.ops import _native
+
+    _native.build([name])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_native.lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    assert sass.count("HGMMA") > 0
+    assert "HMMA" not in sass
+    log = (_native.BUILD_DIR / f"{name}.log").read_text()
+    spills = [ln for ln in log.splitlines() if "spill stores" in ln]
+    assert spills and all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), spills
+
+
 def test_bh_attention_autograd_on_head_views(dev):
     """The dispatch runs K7/K8 at S >= 256 under autograd on head views of
     [B, S, H] projections, and the gradients land in that layout."""
@@ -1009,7 +1090,7 @@ def test_f32_backward_edges_on_head_views(dev, pair, b, heads, s, d):
         assert e16 >= fa.F32_VS_BF16 * e32, (e16, e32)
 
 
-# The f32 forward (K5's and K7's, csrc/attention_fwd_f32.cu, on wgmma) at
+# The f32 forward (K5's and K7's, csrc/attention_fwd_wgmma.cu, on wgmma) at
 # its edges: S = 1, 255 (K5's route: one warpgroup, 32-key tiles, the last
 # one 31 of 32), 256 and 1024 (K7's: two warpgroups, its most shared
 # memory) at d = 128, widths off the 16 grid (24 and 80: padded to 32 and

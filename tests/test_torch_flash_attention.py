@@ -516,7 +516,7 @@ def _split_attention(q, k, v, do, mask):
 
 
 def _tiled_f32_fwd_model(q, k, v, mask, tile, rows):
-    """The walk of the f32 forward (csrc/attention_fwd_f32.cu) in f32
+    """The walk of the f32 forward (csrc/attention_fwd_wgmma.cu) in f32
     PyTorch: blocks of ``rows`` query rows (64 a warpgroup; rows past S
     zero-filled), key tiles of ``tile`` keys (k and v rows past S
     zero-filled), each product through :func:`_mm3` (q k^T with q and the
@@ -565,7 +565,7 @@ def _tiled_f32_fwd_model(q, k, v, mask, tile, rows):
 @pytest.mark.parametrize("tile,rows", [(32, 64), (64, 128), (128, 128)])
 @pytest.mark.parametrize("s", [1, 17, 160, 255, 256, 300])
 def test_f32_forward_tiles_match_interpreted_kernel(s, tile, rows):
-    """The walk of the f32 forward (csrc/attention_fwd_f32.cu) at each
+    """The walk of the f32 forward (csrc/attention_fwd_wgmma.cu) at each
     streamed width (32 keys on K5's route, 64 on K7's, 128) and with 64 or
     128 query rows a block, against ``_fwd_call_group`` (S < 256) or
     ``_fwd_call`` in f32 within fa.F32_FWD_TOL of max|v|, and at least
@@ -616,6 +616,130 @@ def test_f32_split_products_are_f32_class(shape):
         assert err_bf16 >= fa.F32_VS_BF16 * err, (err_bf16, err)
 
 
+# --- the bf16 kernels on wgmma: K7's walk and K6's ---------------------------
+
+def _bf16_values(*xs):
+    """numpy arrays rounded to bf16 (held in f32): the values both sides
+    start from."""
+    return [np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32) for x in xs]
+
+
+def _bf16_round(x):
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("s", [256, 300, 1024])
+def test_k7_bf16_walk_matches_interpreted_kernel(s):
+    """K7's bf16 walk (csrc/attention_fwd_wgmma.cu, bf16 instance) is the
+    f32 forward's walk (:func:`_tiled_f32_fwd_model`) on bf16 values: their
+    lo halves are 0, so q k^T is one product and p v two (p as hi + lo),
+    over key tiles of 64 and blocks of 128 query rows. In f32, against
+    ``_fwd_call`` on the same values in f32, within 2^-16 of max|v| (p
+    keeps ~16 bits as hi + lo; the walk reads ~2^-21 here, and ~2^-12 with
+    p's lo half dropped); rounded to bf16 once, against ``_fwd_call`` on
+    bf16 inputs, within one bf16 step (2^-8 max|v|). Batch row 2 has every
+    key masked (the uniform softmax over its S keys)."""
+    q, k, v, _, mask = _inputs(3, 2, s, 16, seed=s + 5)
+    mask[2] = 0
+    q, k, v = _bf16_values(q, k, v)
+    got = _tiled_f32_fwd_model(q, k, v, mask, tile=64, rows=128)
+    vmax = np.abs(v).max()
+    want = np.asarray(jfa._fwd_call(*(jnp.asarray(x) for x in (q, k, v)),
+                                    jnp.asarray(mask)), np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2.0 ** -16 * vmax
+    want16 = np.asarray(jfa._fwd_call(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(mask)), np.float32)
+    assert np.abs(_bf16_round(got) - want16).max() <= 2.0 ** -8 * vmax
+    uniform = v[2].mean(axis=1)                      # [heads, d]
+    assert np.abs(got[2] - uniform[:, None, :]).max() <= 2.0 ** -16 * vmax
+
+
+def _group_bwd_walk(q, k, v, do, mask):
+    """K6's one-launch walk (csrc/attention_bwd_wgmma.cu,
+    ``group_attention_bwd_kernel``) in f32 PyTorch on bf16 values: R =
+    ceil(S / 64) warpgroups, each owning 64 keys (rows past S zero, keys
+    past S -inf, the backward's key fills); for each query tile r: each
+    warpgroup's s = q_r k_j^T (log2 domain) and dP = dO_r v_j^T, its max m,
+    l = sum 2^(s - m), u = sum 2^(s - m) dP; folded in warpgroup order: M =
+    max m, L = sum l 2^(m - M), rowsum(dP p) = (sum u 2^(m - M)) / L, p =
+    2^(s - m) 2^(m - M) / L; dS = p (dP - rowsum(dP p)); p and dS as bf16
+    hi + lo: dV_j += p^T dO_r, dK_j += dS^T q_r, dQ_r += dS k_j (the
+    partials summed in warpgroup order). -> (dq, dk, dv) in f32 as numpy
+    arrays."""
+    q, k, v, do = (torch.from_numpy(x).float() for x in (q, k, v, do))
+    b, h, s, d = q.shape
+    n = -(-s // 64)
+    sp = 64 * n
+    scale = 1.0 / np.sqrt(d)
+    scale2 = torch.tensor(scale * _LOG2E, dtype=torch.float32)
+    q, k, v, do = (torch.nn.functional.pad(x, (0, 0, 0, sp - s))
+                   for x in (q, k, v, do))
+    real = torch.from_numpy(mask > 0)
+    fill = torch.where(real, torch.tensor(np.inf),
+                       torch.tensor(-1e9 * _LOG2E, dtype=torch.float32))
+    fill[~real.any(dim=1)] = 0.0
+    fill = torch.nn.functional.pad(fill, (0, sp - s), value=-np.inf)
+    fill = fill[:, None, None, :]    # [B, 1, 1, Sp]
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+
+    def tile(j):
+        return slice(64 * j, 64 * j + 64)
+
+    for r in range(n):
+        qr, dor = q[:, :, tile(r)], do[:, :, tile(r)]
+        parts = []
+        for j in range(n):
+            f = fill[..., tile(j)]
+            sc = torch.where(f == np.inf,
+                             (qr @ k[:, :, tile(j)].transpose(-1, -2))
+                             * scale2, f.expand(-1, h, 64, -1))
+            dp = dor @ v[:, :, tile(j)].transpose(-1, -2)
+            m = sc.amax(dim=-1)
+            e = torch.exp2(sc - m[..., None])
+            parts.append((m, e.sum(dim=-1), (e * dp).sum(dim=-1), e, dp))
+        mx = torch.stack([x[0] for x in parts]).amax(dim=0)
+        tot = sum(x[1] * torch.exp2(x[0] - mx) for x in parts)
+        dot = sum(x[2] * torch.exp2(x[0] - mx) for x in parts) / tot
+        dqr = []
+        for j, (m, _, _, e, dp) in enumerate(parts):
+            p = e * (torch.exp2(m - mx) / tot)[..., None]
+            ds = p * (dp - dot[..., None])
+            ph, pl = _split(p)
+            sh, sl = _split(ds)
+            dv[:, :, tile(j)] += (pl.transpose(-1, -2) @ dor
+                                  + ph.transpose(-1, -2) @ dor)
+            dk[:, :, tile(j)] += (sl.transpose(-1, -2) @ qr
+                                  + sh.transpose(-1, -2) @ qr)
+            dqr.append(sl @ k[:, :, tile(j)] + sh @ k[:, :, tile(j)])
+        dq[:, :, tile(r)] = sum(dqr[1:], dqr[0])
+    return [(x[:, :, :s] * m).numpy()
+            for x, m in ((dq, scale), (dk, scale), (dv, 1.0))]
+
+
+@pytest.mark.parametrize("s", [1, 17, 160, 192, 255])
+def test_k6_walk_matches_interpreted_kernel(s):
+    """K6's one-launch walk (:func:`_group_bwd_walk`; on the card up to S =
+    192 at d <= 64, K8's two passes beyond and past d = 64) on bf16 values
+    against ``_fused_group_bwd`` (``_bwd_kernel_group``): in f32 on the same
+    values within fa.F32_BWD_TOL of each gradient's largest (p and dS as hi
+    + lo), and rounded to bf16 against the kernel on bf16 inputs within one
+    bf16 step (2^-7 of the largest). Batch row 2 has every key masked (the
+    uniform softmax over S keys); at S = 1, p = 1 and dq, dk are exactly 0."""
+    q, k, v, do, mask = _inputs(3, 2, s, 16, seed=s + 9)
+    mask[2] = 0
+    q, k, v, do = _bf16_values(q, k, v, do)
+    got = _group_bwd_walk(q, k, v, do, mask)
+    want = _jax_group(q, k, v, do, mask, jnp.float32)[1:]
+    want16 = _jax_group(q, k, v, do, mask, jnp.bfloat16)[1:]
+    for g, w, w16 in zip(got, want, want16):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= fa.F32_BWD_TOL * np.abs(w).max()
+        assert np.abs(_bf16_round(g) - w16).max() <= (
+            2.0 ** -7 * np.abs(w16).max())
+
+
 # --- the C prototypes behind the launchers -----------------------------------
 
 _CSRC = Path(fa.__file__).resolve().parents[1] / "csrc"
@@ -647,8 +771,8 @@ def _prototypes():
 @pytest.mark.parametrize("kernel", ["_K5", "_K6", "_K7", "_K8"])
 def test_attention_launchers_match_their_prototypes(kernel, dtype):
     """The ctypes argument list each attention launcher gives its C
-    function (K5-K8, bf16 and f32 instances: ``_FWD_ARGS`` ..
-    ``_BWD_F32_ARGS``; the f32 forward ``sx_attention_fwd_f32``) has the count and the pointer, 64-bit, int and float
+    function (K5-K8, bf16 and f32 instances: ``_FWD_ARGS`` and
+    ``_BWD_ARGS``) has the count and the pointer, 64-bit, int and float
     classes of the function's ``extern "C"`` prototype in ``csrc/``, and
     names the library whose source defines it: a list that drifted from
     its prototype would cut pointers or shift every later argument."""
