@@ -1730,16 +1730,17 @@ def _co_training_losses(out_dir):
     return losses
 
 
-def _co_training_run(run, recipe, argv):
-    """One ``run.run_ar2`` of ``recipe`` with windows of 4 steps (1 + 1
-    reranker steps, then 2 retriever steps); -> its output."""
+def _co_training_run(run, recipe, argv, window=4):
+    """One ``run.run_ar2`` of ``recipe`` with windows of ``window`` steps
+    (half reranker steps, then half retriever steps: 1 + 1 and 2 at 4);
+    -> its output."""
     import dataclasses
 
     from simxns_tpu_torch.config import RECIPES
 
     args = run.build_parser().parse_args(["--recipe", recipe, *argv])
-    cfg = dataclasses.replace(RECIPES[recipe], iteration_step=4,
-                              iteration_reranker_step=1)
+    cfg = dataclasses.replace(RECIPES[recipe], iteration_step=window,
+                              iteration_reranker_step=window // 2 - 1)
     return run.run_ar2(recipe, cfg, args)
 
 
@@ -3278,6 +3279,11 @@ DP_PATH = ("int8_linear", "row_quant", "small_s_attention",
            "group_attention_fwd", "group_attention_bwd")
 DP_MINE = ("int8_linear", "row_quant", "small_s_attention",
            "mips_bucket_candidates")
+# (c)'s depth, cut from phase 7's to keep the script inside its time limit:
+# two windows of DP_CO_WINDOW steps (one reranker step, then one retriever
+# step), DP_CO_STEPS in all, over DP_CO_Q queries (phase 7: two windows of
+# 4 steps over MINE_Q); its corpus and other flags are phase 7's
+DP_CO_STEPS, DP_CO_WINDOW, DP_CO_Q = 4, 2, 32
 
 
 def _free_port():
@@ -3529,7 +3535,8 @@ def _dp_rank_steps(torch, root):
 
 def _dp_rank_co_training(torch, root, resume):
     """(c), one rank of ``run_ar2`` under torchrun: phase 7's nq run (its
-    flags and cuts) with the gloo group on the card, each step timed."""
+    flags and cuts, with DP_CO_STEPS steps in windows of DP_CO_WINDOW and
+    DP_CO_Q queries) with the gloo group on the card, each step timed."""
     import torch.distributed as dist
 
     from simxns_tpu_torch import ops, run
@@ -3541,8 +3548,10 @@ def _dp_rank_co_training(torch, root, resume):
     ops.reset_launches()
     t0 = time.perf_counter()
     out = _co_training_run(run, "nq_ar2_simans", CO_TRAINING_FLAGS + [
+        "--steps", str(DP_CO_STEPS), "--num-queries", str(DP_CO_Q),
         "--output-dir", f"{root}/co_training", "--dist-backend", "gloo",
-        "--device", "cuda:0"] + (["--resume", "auto"] if resume else []))
+        "--device", "cuda:0"] + (["--resume", "auto"] if resume else []),
+        window=DP_CO_WINDOW)
     torch.cuda.synchronize()
     rank = dist.get_rank()
     rec = {"rank": rank, "wall_s": time.perf_counter() - t0,
@@ -3595,7 +3604,8 @@ def phase_data_parallel(torch, smi, records, co_training):
     world 1 in this process; (b) two gloo ranks on the card (torchrun):
     the three step kinds at phase 5's width against the world-1 steps, the
     split 8.8M-row index against the world-1 search; (c) ``run_ar2`` under
-    torchrun at world 2 in phase 7's nq configuration, and a resume. Two
+    torchrun at world 2 in phase 7's nq configuration (two windows of
+    DP_CO_WINDOW steps, DP_CO_Q queries), and a resume. Two
     ranks on one card check correctness, not scaling: the gloo collectives
     cross the host."""
     import shutil
@@ -3666,18 +3676,20 @@ def phase_data_parallel(torch, smi, records, co_training):
             co[name] = {"torchrun_wall_s": wall, "ranks": ranks}
         out_dir = f"{root}/co_training"
         losses = _co_training_losses(out_dir)
-        check(len(losses) == 8 and all(math.isfinite(x[2]) for x in losses),
+        check(len(losses) == DP_CO_STEPS
+              and all(math.isfinite(x[2]) for x in losses),
               f"world-2 co-training losses {losses}")
         names = set(os.listdir(out_dir))
-        for step in (4, 8):
+        for step in range(DP_CO_WINDOW, DP_CO_STEPS + 1, DP_CO_WINDOW):
             for state in ("retriever_state", "reranker_state"):
                 check(f"{state}-{step}" in names,
                       f"world 2: no {state}-{step} checkpoint")
         with open(f"{out_dir}/metrics.jsonl", encoding="utf-8") as f:
             resumed = [json.loads(line) for line in f
                        if '"resume_eval"' in line]
-        check(len(resumed) == 1 and resumed[0]["step"] == 8,
-              f"world-2 resume did not restore step 8: {resumed}")
+        check(len(resumed) == 1 and resumed[0]["step"] == DP_CO_STEPS,
+              f"world-2 resume did not restore step {DP_CO_STEPS}: "
+              f"{resumed}")
         nq = co_training["nq_ar2_simans"]
         emit("data_parallel_co_training", nvidia_smi=smi, world=DP_WORLD,
              backend="gloo", losses=losses, world1_losses=nq["losses"],
@@ -6358,7 +6370,8 @@ SOURCES = {
     "mips_bucket_candidates": ("cuda",
                                "simxns_tpu_torch/csrc/mips_candidates.cu",
                                "simxns_tpu/ops/mips_kernel.py:181"),
-    "group_attention_fwd": ("cuda", "simxns_tpu_torch/csrc/group_attention.cu",
+    "group_attention_fwd": ("cuda",
+                            "simxns_tpu_torch/csrc/attention_fwd_wgmma.cu",
                             "simxns_tpu/ops/flash_attention.py:113"),
     "group_attention_bwd": ("cuda",
                             "simxns_tpu_torch/csrc/attention_bwd_wgmma.cu",

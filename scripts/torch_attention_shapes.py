@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of K3's, K6's, K7's and K8's shape rules on one CUDA card.
+"""Time variants of K3's and K5-K8's shape rules on one CUDA card.
 
-    python3 scripts/torch_attention_shapes.py [--kernel k3|k6|k7|k8]
+    python3 scripts/torch_attention_shapes.py [--kernel k3|k5|k6|k7|k8]
         [--variants NAME,...]
 
 (every variant of the kernel's rule by default; the ablations of K6 and
@@ -11,9 +11,12 @@ Each kernel picks its block shape in a rule: K3
 (``csrc/small_s_attention.cu``, ``by_length``) the keys a streamed tile
 (N), the warpgroups a block (WG), the blocks an SM its launch bounds ask
 for (MIN) and whether every key fits one tile whose scores stay in
-registers from pass 1 to pass 2 (ONE), by ranges of S; K7 bf16
-(``csrc/attention_fwd_wgmma.cu``, ``by_length_bf16``) its Fwd<DP, N, WG,
-MIN, bf16, STAGES>; K6 bf16 (``csrc/attention_bwd_wgmma.cu``,
+registers from pass 1 to pass 2 (ONE), by ranges of S; K5 and K7 bf16
+(``csrc/attention_fwd_wgmma.cu``, ``by_length_bf16``: K5 below S = 256,
+K7 from 256) their Fwd<DP, N, WG, MIN, bf16, STAGES> (STAGES = 1, in the
+K5 variants ``one_tile*`` only: every key in one tile of N, S <= N, a path
+the source does not carry, which ``ONE_TILE`` patches into the copy); K6
+bf16 (``csrc/attention_bwd_wgmma.cu``,
 ``group_by_length``) up to which S its one-launch kernel runs, and K8's
 two passes past that; K8 (the same source, ``by_length``) the query
 pass's and the key pass's Pass<DP, N, WG, E> from S = 256. Each variant
@@ -21,13 +24,15 @@ below rewrites that rule in a copy of the source (the shared-memory
 asserts dropped), builds it with the package's nvcc flags into
 ``simxns_tpu_torch/_build/shapes_<kernel>/`` and calls its C entry point
 on ``chip_smoke.py``'s inputs at the shapes the port runs (K3: random bf16
-q | k | v rows, key lengths from the shortest given to S; K6-K8: bf16
+q | k | v rows, key lengths from the shortest given to S; K5-K8: bf16
 head views, key lengths S/2..S, the first batch row all masked). It prints
 one JSON line per variant (ptxas registers, spills and warnings) and per
 shape: each variant's CUDA-event ms over 10 calls, the profiler's device
-ms of a call and its largest error against the plain version (K3 and K7:
-of max|v|, limits 2^-7 and 2^-8; K6 and K8: of each gradient's largest,
-limit 2^-7), with the card's name and power limit.
+ms of a call and its largest error against the plain version (K3, K5 and
+K7: of max|v|, limits 2^-7 and 2^-8; K6 and K8: of each gradient's
+largest, limit 2^-7), with the card's name and power limit; K5 and K7
+also the largest difference of each variant's o from the first
+variant's.
 """
 
 import argparse
@@ -83,6 +88,29 @@ K7_VARIANTS = {
     "wg1_min5": "64, 1, 5, bf16, 2",
     "wg4": "64, 4, 1, bf16, 2",
 }
+# K5: name -> the bf16 Fwd below S = 256 at DP <= 64 (DP = 128 keeps the
+# source's) as [(longest S, "N, WG, MIN, bf16, STAGES")], first match
+# taken; STAGES = 1: every key in one tile of N (S <= N; ONE_TILE below)
+_K5_TAIL = (255, "32, 1, 6, bf16, 2")
+K5_VARIANTS = {
+    "chosen": [_K5_TAIL],
+    "min4": [(255, "32, 1, 4, bf16, 2")],
+    "min7": [(255, "32, 1, 7, bf16, 2")],
+    "stages3": [(255, "32, 1, 6, bf16, 3")],
+    "keys64": [(255, "64, 1, 4, bf16, 2")],
+    "rows128": [(255, "32, 2, 2, bf16, 2")],
+    "one_tile": [(64, "64, 1, 4, bf16, 1"), (128, "128, 1, 3, bf16, 1"),
+                 (192, "192, 1, 2, bf16, 1"), _K5_TAIL],
+    "one_tile_160": [(64, "64, 1, 4, bf16, 1"), (128, "128, 1, 3, bf16, 1"),
+                     (160, "160, 1, 3, bf16, 1"), (192, "192, 1, 2, bf16, 1"),
+                     _K5_TAIL],
+    "one_tile_rows128": [(128, "128, 2, 1, bf16, 1"),
+                         (192, "192, 2, 1, bf16, 1"), _K5_TAIL],
+    # one block a head: a warpgroup a 64 query rows, every landed key tile
+    # shared (no ping-pong past two)
+    "block_a_head": [(64, "32, 1, 4, bf16, 2"), (128, "32, 2, 2, bf16, 2"),
+                     (192, "32, 3, 2, bf16, 2"), _K5_TAIL],
+}
 # K6: name -> the longest S of its one-launch kernel at DP <= 64 (0: K8's
 # two passes at every S), and K8's pass shape past it ("N, WG")
 K6_VARIANTS = {
@@ -102,6 +130,11 @@ K8_SHAPES = [(128, 12, 512, 64), (4, 8, 1024, 128), (16, 8, 256, 64),
 # K7: K8's; K6: the reranker step's (128 joint rows x 16 heads x S = 160),
 # S = 128 and 255, and the widths 128 (d = 80 runs it) and 32
 K7_SHAPES = K8_SHAPES
+# K5: the reranker step's (128 joint rows x 16 heads x S = 160), S = 128
+# (K3's teacher length), the longest S of a one tile (192) and of the
+# route (255), and the widths 32 and 128
+K5_SHAPES = [(128, 16, 160, 64), (128, 16, 128, 64), (64, 8, 192, 64),
+             (64, 8, 255, 64), (64, 8, 160, 32), (64, 8, 160, 128)]
 K6_SHAPES = [(128, 16, 160, 64), (128, 16, 128, 64), (16, 8, 255, 64),
              (64, 8, 160, 128), (64, 8, 160, 80), (64, 8, 160, 32)]
 _K3_RULE = re.compile(r"template <int DP>\ncudaError_t by_length\(const Args& "
@@ -149,6 +182,18 @@ def _k7_rule(variant):
             f"    return launch<Fwd<DP, {variant}>>(a);\n}}\n")
 
 
+def _k5_rule(variant):
+    shapes = "".join(f"    if (a.S <= {s}) return launch<Fwd<DP, {shape}>, "
+                     f"true>(a);\n" for s, shape in variant)
+    return ("template <int DP>\n"
+            "cudaError_t by_length_bf16(const Args<bf16>& a) {\n"
+            "  if constexpr (DP <= 64) {\n" + shapes + "  }\n"
+            "  if (a.S < 256)\n"
+            "    return launch<Fwd<DP, 32, 1, 2, bf16, 2>, true>(a);\n"
+            "  return launch<Fwd<DP, 64, 2, DP <= 64 ? 2 : 1, bf16, 2>>(a);\n"
+            "}\n")
+
+
 def _k6_rule(variant):
     upto, passes = variant
     return ("template <int DP>\n"
@@ -193,11 +238,85 @@ ABLATIONS = {
 }
 
 
+def _wgmma_bf16(n):
+    """C++ of the m64n{n}k16 bf16 product that wgmma_ring.cuh leaves out."""
+    regs = n // 2
+    outs = ", ".join(f"%{i}" for i in range(regs))
+    binds = ", ".join(f'"+f"(d[{i}])' for i in range(regs))
+    return (
+        "namespace sx {\nnamespace wg {\n"
+        "template <bool TA, bool TB>\n"
+        f"struct WgmmaBf16<{n}, TA, TB> {{\n"
+        "  __device__ __forceinline__ static void mma(\n"
+        f"      float (&d)[{regs}], uint64_t a, uint64_t b, int scale_d) {{\n"
+        "    asm volatile(\n"
+        f'        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 2}, 0;\\n"\n'
+        f'        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "\n'
+        f'        "{{{outs}}}, %{regs}, %{regs + 1}, p, 1, 1, %{regs + 3}, '
+        f'%{regs + 4};\\n}}\\n"\n'
+        f"        : {binds}\n"
+        '        : "l"(a), "l"(b), "r"(scale_d), "n"(int{TA}), '
+        '"n"(int{TB}));\n'
+        "  }\n};\n}  // namespace wg\n}  // namespace sx\n")
+
+
+# K5's one-tile path (STAGES = 1, S <= N), which lost to the chosen rule
+# and is not in the source: [(pattern, replacement)] applied to the copy
+# of every K5 variant named one_tile*. k lands, then v in a group behind
+# it, under q k^T and the softmax; the loop runs one tile.
+ONE_TILE = [
+    (r'#include "attention_wgmma.cuh"\n',
+     '#include "attention_wgmma.cuh"\n' + _wgmma_bf16(160)),
+    (r"  static constexpr int kThreads = 128 \* WG;\n",
+     "  static constexpr bool kOne = !kSplit && kStages == 1;\n"
+     "  static constexpr int kThreads = 128 * WG;\n"),
+    (r"#pragma unroll\n    for \(int i = 0; i < P::kStages - 1; \+\+i\) "
+     r"\{\n.*?\n    \}\n",
+     "    if constexpr (P::kOne) {\n"
+     "      land_tile<DP, N, T>(t0, [&](int i) { return k.row(b, h, i); }, "
+     "0, S, d, tid);\n"
+     "      wg::cp_async_commit();\n"
+     "      land_tile<DP, N, T>(t0 + Str::kBytes, [&](int i) { "
+     "return v.row(b, h, i); }, 0, S, d, tid);\n"
+     "      wg::cp_async_commit();\n"
+     "    } else {\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < P::kStages - 1; ++i) {\n"
+     "        if (i < n_tiles) issue(i);\n"
+     "        wg::cp_async_commit();\n"
+     "      }\n"
+     "    }\n"),
+    (r"    if constexpr \(!kSplit\) \{   // this tile landed",
+     "    if constexpr (P::kOne) {   // q and k landed (v may be in flight)\n"
+     "      wg::cp_async_wait<1>();\n"
+     "      wg::fence_proxy_async();\n"
+     "      __syncthreads();\n"
+     "    } else if constexpr (!kSplit) {   // this tile landed"),
+    (r"    uint32_t ph\[N / 16\]\[4\], pl\[N / 16\]\[4\];\n",
+     "    if constexpr (P::kOne) {   // v landed\n"
+     "      wg::cp_async_wait_all();\n"
+     "      wg::fence_proxy_async();\n"
+     "      __syncthreads();\n"
+     "    }\n"
+     "    uint32_t ph[N / 16][4], pl[N / 16][4];\n"),
+]
+# K7's one-warpgroup variants run from S = 256: key fills for every S
+_ONE_WG_KEYS = [(r"kMaxKeys = WG == 1 \? 256 : kMaxS", "kMaxKeys = kMaxS")]
+
+
+def _patches(kernel, name):
+    if kernel == "k5" and name.startswith("one_tile"):
+        return ONE_TILE
+    return _ONE_WG_KEYS if kernel == "k7" else []
+
+
 KERNELS = {
     "k3": ("small_s_attention", "sx_small_s_attention", _K3_RULE, _k3_rule,
            K3_VARIANTS),
     "k8": ("attention_bwd_wgmma", "sx_bh_attention_bwd", _K8_RULE, _k8_rule,
            K8_VARIANTS),
+    "k5": ("attention_fwd_wgmma", "sx_group_attention_fwd", _K7_RULE,
+           _k5_rule, K5_VARIANTS),
     "k7": ("attention_fwd_wgmma", "sx_bh_attention_fwd", _K7_RULE, _k7_rule,
            K7_VARIANTS),
     "k6": ("attention_bwd_wgmma", "sx_group_attention_bwd", _K6_RULE,
@@ -216,8 +335,8 @@ def build(native, kernel, names):
     for name in names:
         keep, cuts = ablations.get(name, (name, []))
         text, n = pattern.subn(lambda _: rule(variants[keep]), src)
-        for cut, repl in cuts:
-            text, m = re.subn(cut, repl, text, flags=re.S)
+        for cut, repl in cuts + _patches(kernel, name):
+            text, m = re.subn(cut, lambda _, r=repl: r, text, flags=re.S)
             if not m:
                 raise RuntimeError(f"{name}: {cut!r} not in {source}.cu")
         if n != 1:
@@ -302,17 +421,19 @@ def _head_inputs(torch, b, heads, s, d):
     return q, k, v, do, mask
 
 
-def time_k7(torch, cs, native, fns, smi):
+def time_fwd(torch, cs, native, fns, smi, kernel):
     from simxns_tpu_torch.ops import flash_attention as fa
 
     for fn in fns.values():
         fn.argtypes = fa._FWD_ARGS
     dev = torch.device("cuda")
-    for b, heads, s, d in K7_SHAPES:
+    for b, heads, s, d in K7_SHAPES if kernel == "k7" else K5_SHAPES:
         q, k, v, _, mask = _head_inputs(torch, b, heads, s, d)
         want = fa._group_fwd_plain(q, k, v, mask)
         vmax = float(v.float().abs().max())
-        row = {"kernel": "k7", "shape": [b, heads, s, d], "nvidia_smi": smi}
+        row = {"kernel": kernel, "shape": [b, heads, s, d],
+               "nvidia_smi": smi}
+        first = None
         for name, fn in fns.items():
             o = fa._out(q)
 
@@ -325,11 +446,14 @@ def time_k7(torch, cs, native, fns, smi):
 
             call()
             torch.cuda.synchronize()
+            first = o if first is None else first
             row[name] = {
                 "ms": cs.timed(torch, call, 10),
                 "device_ms": cs.device_call_ms(torch, call),
                 "err_of_max_v": float((o.float() - want.float()).abs().max())
-                / vmax}
+                / vmax,
+                "max_abs_diff_vs_first": float(
+                    (o.float() - first.float()).abs().max())}
         print(json.dumps(row), flush=True)
 
 
@@ -389,8 +513,8 @@ def main():
     fns = build(_native, args.kernel, names)
     if args.kernel == "k3":
         time_k3(torch, cs, _native, fns, smi)
-    elif args.kernel == "k7":
-        time_k7(torch, cs, _native, fns, smi)
+    elif args.kernel in ("k5", "k7"):
+        time_fwd(torch, cs, _native, fns, smi, args.kernel)
     else:
         time_k8(torch, cs, _native, fns, smi, args.kernel)
     return 0

@@ -54,8 +54,11 @@ def build(native, names):
     procs = {}
     for name in names:
         bh, group = VARIANTS[name]
-        text = src.replace("kMaxKeys = kSplit && WG == 1 ? 256 : kMaxS",
+        # one_warpgroup runs one warpgroup from S = 256: fills for every S
+        text = src.replace("kMaxKeys = WG == 1 ? 256 : kMaxS",
                            "kMaxKeys = kMaxS")
+        if text == src:
+            raise RuntimeError("kMaxKeys not found in attention_fwd_wgmma.cu")
         rule = ("template <int DP>\n"
                 "cudaError_t by_length(const Args<float>& a) {\n"
                 f"  if (a.S < 256) return launch<Fwd<DP, {group}>>(a);\n"

@@ -81,10 +81,10 @@ ROOT = Path(__file__).resolve().parents[1]
 _MIPS_INDEX = {}    # (rows, kinds) -> the index the mips cases share
 
 
-# the libraries of K7 and K8 and the f32 instances (the parent's names,
-# then this tree's; each checkout builds those it has)
-_BH = ["bh_attention", "attention_fwd_f32", "attention_fwd_wgmma",
-       "attention_bwd_wgmma"]
+# the libraries of K5-K8 and the f32 instances (the parents' names, then
+# this tree's; each checkout builds those it has)
+_ATTN = ["group_attention", "bh_attention", "attention_fwd_f32",
+         "attention_fwd_wgmma", "attention_bwd_wgmma"]
 
 
 def _f32_attention(pair, b, s):
@@ -99,7 +99,7 @@ def _f32_attention(pair, b, s):
         return {f"{bwd.__name__}_f32:d{d}": cs._check_f32_pair(
             torch, gen, fwd, bwd, b, s, d, timing=True)
             for d in cs.F32_WIDTHS}
-    return ["group_attention", *_BH], run
+    return _ATTN, run
 
 
 def _mips(kind, nq, rows, k, valid_n, kinds):
@@ -128,8 +128,9 @@ def _group_edges(torch, cs, randn, gen):
     projections, key lengths s/2..s: the widths past K6's one-launch
     kernel (d = 80, 96, 128 run K8's two passes, as d = 16 and 24 run the
     16 and 32 instances) and its longest S (192) and S = 255 (K8's passes):
-    K6's gradients against the plain version (2^-7 of the largest, cosine
-    >= 0.9999), CUDA-event ms and the profiler's device ms of a call."""
+    K5's o against the plain version (one bf16 step, 2^-8 max|v|), K6's
+    gradients (2^-7 of the largest, cosine >= 0.9999), CUDA-event ms and
+    the profiler's device ms of a call of each."""
     from simxns_tpu_torch.ops import flash_attention as fa
 
     out = {}
@@ -142,6 +143,11 @@ def _group_edges(torch, cs, randn, gen):
         lens = torch.randint(s // 2, s + 1, (b,), device=q.device,
                              generator=gen)
         mask[torch.arange(s, device=q.device)[None, :] >= lens[:, None]] = 0
+        o = fa.group_attention_fwd(q, k, v, mask)
+        err5 = float((o.float() - fa._group_fwd_plain(q, k, v, mask).float())
+                     .abs().max()) / float(v.float().abs().max())
+        cs.check(err5 <= 2.0 ** -8,
+                 f"group_attention_fwd {b}x8x{s}x{d}: err {err5}")
         grads = fa.group_attention_bwd(q, k, v, mask, do)
         refs = fa._group_bwd_plain(q, k, v, mask, do)
         err = max(fa.errors_of_largest(grads, refs))
@@ -151,9 +157,12 @@ def _group_edges(torch, cs, randn, gen):
         cs.check(err <= 2.0 ** -7 and cos >= 0.9999,
                  f"group_attention_bwd {b}x8x{s}x{d}: err {err}, cos {cos}")
         out[f"group_attention:{b}x8x{s}x{d}"] = dict(
-            shape=[b, 8, s, d], err_of_largest=err, min_cosine=cos,
+            shape=[b, 8, s, d], fwd_err_of_max_v=err5, err_of_largest=err,
+            min_cosine=cos,
             fwd_ms=cs.timed(torch, lambda: fa.group_attention_fwd(
                 q, k, v, mask), 10),
+            fwd_device_ms=cs.device_call_ms(
+                torch, lambda: fa.group_attention_fwd(q, k, v, mask)),
             bwd_ms=cs.timed(torch, lambda: fa.group_attention_bwd(
                 q, k, v, mask, do), 10),
             bwd_device_ms=cs.device_call_ms(
@@ -178,16 +187,16 @@ CASES = {
                               ("teacher", 128 * 160, 1024, 4096),
                               ("query", 64 * 32, 768, 3072),
                               ("request", 256, 768, 3072))},
-    "group_attention": (["group_attention", *_BH], (
+    "group_attention": (_ATTN, (
         lambda torch, cs, randn, gen: dict(zip(
             ("group_attention_fwd", "group_attention_bwd"),
             cs._check_group_attention(torch, randn, gen))))),
-    "bh_attention": (_BH, (
+    "bh_attention": (_ATTN, (
         lambda torch, cs, randn, gen: {
             "bh_attention": cs._check_bh_attention(
                 torch, randn, gen, 128, cs.MS_S, 64, 300, True)})),
-    "bh_attention:edges": (_BH, _bh_edges),
-    "group_attention:edges": (["group_attention", *_BH], _group_edges),
+    "bh_attention:edges": (_ATTN, _bh_edges),
+    "group_attention:edges": (_ATTN, _group_edges),
     **{f"small_s_attention:{label}": (["small_s_attention"], (
         lambda torch, cs, randn, gen, b=b, s=s, lo=lo, h=h, heads=heads: {
             "small_s_attention": cs._check_small_s_attention(

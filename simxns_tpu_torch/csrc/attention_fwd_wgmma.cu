@@ -1,14 +1,14 @@
-// K7 bh_attention_fwd and the f32 instance of K5 group_attention_fwd and
-// K7 (sx_bh_attention_fwd, sx_attention_fwd_f32): the attention forward on
-// Hopper's warpgroup MMA (wgmma), one source with two instances by the
-// input type E: bf16 (K7) and f32 (K5's and K7's f32 instance). One launch
-// a call.
+// K5 group_attention_fwd and K7 bh_attention_fwd, both instances
+// (sx_group_attention_fwd, sx_bh_attention_fwd, sx_attention_fwd_f32): the
+// attention forward on Hopper's warpgroup MMA (wgmma), one source with two
+// instances by the input type E: bf16 and f32 (K5's and K7's f32 instance
+// is one entry point). One launch a call.
 //
 // Replaces the forward Pallas kernels of the JAX package:
-// simxns_tpu/ops/flash_attention.py:_fwd_call (kernel _fwd_kernel, :67;
-// 256 <= S <= 1024) and, for f32 inputs, _fwd_call_group (kernel
-// _fwd_kernel_group, :113; S < 256). Both cast q, k, v to f32 inside, so
-// the function is theirs:
+// simxns_tpu/ops/flash_attention.py:_fwd_call_group (kernel
+// _fwd_kernel_group, :113; S < 256) and _fwd_call (kernel _fwd_kernel,
+// :67; 256 <= S <= 1024). Both cast q, k, v to f32 inside, so the function
+// is theirs:
 //   s = where(mask[key] > 0, q k^T / sqrt(d), -1e9),  o = softmax(s) v,
 // a batch row with every key masked getting the uniform softmax over its S
 // keys, keys past S in the last tile weight exactly 0, o stored in E
@@ -17,7 +17,8 @@
 // bf16(x - hi), and their every product is hi hi + hi lo + lo hi (three
 // bf16 wgmma products into one f32 accumulator; lo lo dropped). p is f32
 // in both: it enters p v as hi and lo register fragments (two products
-// with a bf16 tile, three with a split one).
+// with a bf16 tile, hi before lo in each k16 step; three with a split
+// one).
 //
 // A block per (64 WG query rows, head, batch), in one pass over the keys.
 // bf16: each warpgroup lands its 64 q rows once by cp.async straight into
@@ -27,35 +28,38 @@
 // splits its q rows once, from device memory, into resident hi and lo
 // tiles; k and v tiles land as f32 by cp.async and each landed tile is
 // split once, by all the block's threads, into the hi and lo tiles the
-// products read. q k^T is an SS product (k K-major); the log2-domain
-// online softmax of attend_one_pass (attention_ring.cuh) runs on the
+// products read. q k^T is an SS product (k K-major); a log2-domain online
+// softmax runs on the
 // accumulators: the masked fill -1e9 log2(e) and -inf past S, a running
 // max and sum a row, the o accumulator rescaled when the max grows and
 // one reciprocal a row at the end; p, split from the score accumulators
 // into hi and lo register fragments, times v is register-A products, v
 // read MN-major from its tile through the transpose bit (no transposed
-// copy). The kernel writes nothing to device memory but o.
+// copy). The kernel writes nothing to device memory but o. K5's route
+// (S < 256) launches the kernel under its own name,
+// group_attention_fwd_kernel, so that a profile tells it from K7's.
 //
-// Shapes (by_length, measured on an H100 with
-// scripts/torch_attention_shapes.py --kernel k7 and, for f32,
-// scripts/torch_fwd_f32_shapes.py): from S = 256 (K7's route) two
-// warpgroups a block share every landed tile, which halves the bytes
-// streamed a row (and the split, in f32), and run in ping-pong (the
+// Shapes (by_length and by_length_bf16, measured on an H100 with
+// scripts/torch_attention_shapes.py --kernel k5 and --kernel k7 and, for
+// f32, scripts/torch_fwd_f32_shapes.py): below S = 256 (K5's route) one
+// warpgroup a block and tiles of 32 keys (S = 160 is five of them), six
+// blocks an SM in bf16 and four in f32 up to DP = 64; from S = 256 (K7's
+// route) two warpgroups a block share every landed tile, which halves the
+// bytes streamed a row (and the split, in f32), and run in ping-pong (the
 // second issues its score products after the first, whose softmax
-// algebra then runs under them), two blocks an SM up to DP = 64. The f32
-// instance below 256 (K5's route): one warpgroup a block and tiles of 32
-// keys (S = 160 is five of them).
+// algebra then runs under them), two blocks an SM up to DP = 64.
 //
-// Bound on the card: bytes. At the msdoc reranker's shape ([128, 12, 512,
-// 64] bf16) q, k, v and o are 403 MB, 0.120 ms at 3.35 TB/s; the model's 2
-// products of 2 S^2 d a head are 103 GFLOP (0.104 ms at the bf16 peak),
-// which this design runs as 3 (q k^T, and p v as hi and lo), 155 GFLOP,
-// 0.156 ms; and 403 M ex2, one a score, 0.109 ms at 16 a clock an SM. At
-// [16, 8, 512, 64] f32, q, k, v and o are 67 MB, 0.020 ms; the model's
-// 8.6 GFLOP take 0.017 ms at TF32's 495 TFLOP/s, and this design runs them
-// as 6 bf16 products, 25.8 GFLOP, 0.026 ms at the bf16 peak. The softmax
-// algebra, the landing (and the split, in f32) and the barriers run beside
-// the products.
+// Bound on the card: bytes. At the nq reranker's shape ([128, 16, 160,
+// 64] bf16) q, k, v and o are 168 MB, 0.050 ms at 3.35 TB/s; the model's
+// 2 products of 2 S^2 d a head are 13 GFLOP, which this design runs as 3
+// (q k^T, and p v as hi and lo), 20 GFLOP, 0.020 ms at the bf16 peak, and
+// 52 M ex2, 0.014 ms at 16 a clock an SM. At the msdoc reranker's shape
+// ([128, 12, 512, 64] bf16) 403 MB, 0.120 ms; 155 GFLOP as 3 products,
+// 0.156 ms; 403 M ex2, 0.109 ms. At [16, 8, 512, 64] f32, q, k, v and o
+// are 67 MB, 0.020 ms; the model's 8.6 GFLOP take 0.017 ms at TF32's 495
+// TFLOP/s, and this design runs them as 6 bf16 products, 25.8 GFLOP, 0.026
+// ms at the bf16 peak. The softmax algebra, the landing (and the split, in
+// f32) and the barriers run beside the products.
 #include <type_traits>
 
 #include "attention_wgmma.cuh"
@@ -66,14 +70,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kMaxGroupS = 255;   // K5's route: S < 256
+
 // The forward's shape: DP columns, N keys a streamed tile, WG warpgroups
 // of 64 query rows each (two share each streamed tile), at least MIN
 // blocks an SM (launch bounds), inputs of type E, STAGES stages of bf16
 // key tiles. Shared memory: WG resident q tiles (hi and lo each when
 // split), the streamed tiles (f32: hi and lo of k and v; bf16: k and v in
 // STAGES stages), the f32 landing of k and v (f32 only), then the key
-// fills and the key tiles' flags up to kMaxKeys (255 keys for the f32
-// instance's one warpgroup, by_length's rule, else kMaxS).
+// fills and the key tiles' flags up to kMaxKeys (255 keys for one
+// warpgroup, which both rules run only below S = 256, else kMaxS).
 template <int DP_, int N_, int WG_, int MIN_, class E_ = float,
           int STAGES_ = 2>
 struct Fwd {
@@ -82,7 +88,7 @@ struct Fwd {
   using E = E_;
   static constexpr bool kSplit = std::is_same<E, float>::value;
   static constexpr int kThreads = 128 * WG;
-  static constexpr int kMaxKeys = kSplit && WG == 1 ? 256 : kMaxS;
+  static constexpr int kMaxKeys = WG == 1 ? 256 : kMaxS;
   using Res = Tile<DP, kRows>;
   using Str = Tile<DP, N>;
   static constexpr int kResident = WG * (kSplit ? 2 : 1) * Res::kBytes;
@@ -131,11 +137,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NT][4],
     }
 }
 
+// the kernel body of both names below
 template <class P>
-__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
-    attention_fwd(HeadIn<typename P::E> q, HeadIn<typename P::E> k,
-                  HeadIn<typename P::E> v, const int* __restrict__ mask,
-                  HeadOut<typename P::E> o, int S, int d, float scale2) {
+__device__ __forceinline__ void attend(
+    HeadIn<typename P::E> q, HeadIn<typename P::E> k, HeadIn<typename P::E> v,
+    const int* __restrict__ mask, HeadOut<typename P::E> o, int S, int d,
+    float scale2) {
   constexpr int DP = P::DP, N = P::N, T = P::kThreads;
   constexpr bool kSplit = P::kSplit;
   using R = typename P::Res;
@@ -221,9 +228,9 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) accf[i] = 0.0f;
   for (int tile = 0; tile < n_tiles; ++tile) {
-    if constexpr (!kSplit) {   // this tile landed; the stage read before
-      wg::cp_async_wait<P::kStages - 2>();   // it free for a later one
-      wg::fence_proxy_async();
+    if constexpr (!kSplit) {   // this tile landed; the stage read
+      wg::cp_async_wait<P::kStages - 2>();   // before it free for a later
+      wg::fence_proxy_async();               // one
       __syncthreads();
       if (tile + P::kStages - 1 < n_tiles) issue(tile + P::kStages - 1);
       wg::cp_async_commit();
@@ -262,6 +269,26 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
   store_rows<DP>(o, b, h, qw + ((tid >> 5) & 3) * 16, S, d, acc, 1.0f);
 }
 
+template <class P>
+__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
+    attention_fwd(HeadIn<typename P::E> q, HeadIn<typename P::E> k,
+                  HeadIn<typename P::E> v, const int* __restrict__ mask,
+                  HeadOut<typename P::E> o, int S, int d, float scale2) {
+  attend<P>(q, k, v, mask, o, S, d, scale2);
+}
+
+// the same kernel under a name of its own for K5's route (S < 256)
+template <class P>
+__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
+    group_attention_fwd_kernel(HeadIn<typename P::E> q,
+                               HeadIn<typename P::E> k,
+                               HeadIn<typename P::E> v,
+                               const int* __restrict__ mask,
+                               HeadOut<typename P::E> o, int S, int d,
+                               float scale2) {
+  attend<P>(q, k, v, mask, o, S, d, scale2);
+}
+
 template <class E>
 struct Args {
   HeadIn<E> q, k, v;
@@ -272,14 +299,21 @@ struct Args {
   cudaStream_t st;
 };
 
-template <class P>
+// GROUP: launched as group_attention_fwd_kernel (K5's route)
+template <class P, bool GROUP = false>
 cudaError_t launch(const Args<typename P::E>& a) {
-  const cudaError_t err = prepare(attention_fwd<P>, P::kSmem);
+  const auto kernel = [] {
+    if constexpr (GROUP)
+      return group_attention_fwd_kernel<P>;
+    else
+      return attention_fwd<P>;
+  }();
+  const cudaError_t err = prepare(kernel, P::kSmem);
   if (err != cudaSuccess) return err;
   const int rows = 64 * P::WG;
-  attention_fwd<P><<<dim3((a.S + rows - 1) / rows, a.heads, a.B),
-                     P::kThreads, P::kSmem, a.st>>>(
-      a.q, a.k, a.v, a.mask, a.o, a.S, a.d, a.scale * ring::kLog2e);
+  kernel<<<dim3((a.S + rows - 1) / rows, a.heads, a.B), P::kThreads,
+           P::kSmem, a.st>>>(a.q, a.k, a.v, a.mask, a.o, a.S, a.d,
+                             a.scale * ring::kLog2e);
   return cudaGetLastError();
 }
 
@@ -301,12 +335,21 @@ cudaError_t by_length(const Args<float>& a) {
   return launch<Fwd<DP, 64, 2, DP <= 64 ? 2 : 1>>(a);
 }
 
-// The bf16 instance's shape, every S (K7's route is 256 <= S <= 1024):
+// The bf16 instance's shapes by length. Below S = 256 (K5's route): one
+// warpgroup a block, 32-key tiles in two stages (its o is then the
+// mma.sync kernel's that it replaced, bit for bit), six blocks an SM up to
+// DP = 64 (no spills; 3-5% faster than four or five, and seven spill and
+// take twice the time). 64-key tiles lost at S = 160 (it
+// pads to 192 keys), three stages, 128 query rows a block (S = 160 pads to
+// 256), one block a head and every key in one tile (S <= 192, exact row
+// max) did not win (chosen on an H100 with
+// scripts/torch_attention_shapes.py --kernel k5). From 256 (K7's route):
 // two warpgroups a block in ping-pong on 64-key tiles in two stages, two
-// blocks an SM up to DP = 64 (chosen on an H100 with
-// scripts/torch_attention_shapes.py --kernel k7)
+// blocks an SM up to DP = 64 (--kernel k7).
 template <int DP>
 cudaError_t by_length_bf16(const Args<bf16>& a) {
+  if (a.S < 256)
+    return launch<Fwd<DP, 32, 1, DP <= 64 ? 6 : 2, bf16, 2>, true>(a);
   return launch<Fwd<DP, 64, 2, DP <= 64 ? 2 : 1, bf16, 2>>(a);
 }
 
@@ -315,7 +358,9 @@ static_assert(Fwd<128, 64, 2, 1>::kSmem <= 232448,
 static_assert(2 * Fwd<64, 64, 2, 2>::kSmem <= 233472 &&
                   4 * Fwd<64, 32, 1, 4>::kSmem <= 233472 &&
                   2 * Fwd<128, 32, 1, 2>::kSmem <= 233472 &&
-                  2 * Fwd<64, 64, 2, 2, bf16, 2>::kSmem <= 233472,
+                  2 * Fwd<64, 64, 2, 2, bf16, 2>::kSmem <= 233472 &&
+                  6 * Fwd<64, 32, 1, 6, bf16, 2>::kSmem <= 233472 &&
+                  2 * Fwd<128, 32, 1, 2, bf16, 2>::kSmem <= 233472,
               "the blocks an SM the launch bounds ask for fit its shared "
               "memory");
 
@@ -355,11 +400,21 @@ int run(const void* q, const void* k, const void* v, long long sb,
 
 }  // namespace
 
-// The arguments of both instances: q, k, v, o as in run(); mask [B, S]
+// The arguments of every entry point: q, k, v, o as in run(); mask [B, S]
 // int32 (1 = real key). Every row start 16-byte aligned (the wrapper
 // checks); d on the 16 grid up to 128 (the wrapper pads other widths), 1
-// <= S <= 1024, heads and B at most 65535. Return cudaGetLastError()
-// after the launch.
+// <= S <= 1024 (K5: S < 256), heads and B at most 65535. Return
+// cudaGetLastError() after the launch.
+extern "C" int sx_group_attention_fwd(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long ss, const int* mask, void* o, long long ob, long long oh,
+    long long os, int B, int heads, int S, int d, float scale,
+    void* stream) {
+  if (S > kMaxGroupS) return static_cast<int>(cudaErrorInvalidValue);
+  return run<bf16>(q, k, v, sb, sh, ss, mask, o, ob, oh, os, B, heads, S, d,
+                   scale, stream);
+}
+
 extern "C" int sx_bh_attention_fwd(
     const void* q, const void* k, const void* v, long long sb, long long sh,
     long long ss, const int* mask, void* o, long long ob, long long oh,

@@ -1,6 +1,6 @@
 // Device functions of the attention kernels on Hopper's warpgroup MMA
 // (wgmma): K3 small_s_attention (small_s_attention.cu), the forward
-// (attention_fwd_wgmma.cu: K7, and the f32 instance of K5 and K7) and the
+// (attention_fwd_wgmma.cu: K5, K7, and the f32 instance of both) and the
 // backward (attention_bwd_wgmma.cu: K6, K8, and the f32 instance of both).
 //
 // bf16 operands land in their tiles as they are. f32 operands are split
@@ -324,8 +324,8 @@ __device__ __forceinline__ void wait_score(float (&x)[N / 8][4]) {
 // acc += x b over the N rows of the split tile b (read MN-major), x as
 // its hi and lo A fragments (of the bf16 tile bh alone when !SPLIT: two
 // products); issued, not waited for. HI_FIRST (bf16 only): each k16
-// step's hi product before its lo one, the order of the mma.sync forward
-// (attention_ring.cuh's p_v_tile_split)
+// step's hi product before its lo one, the order of the mma.sync
+// forward that K5 and K7 replaced (their o is that kernel's bit for bit)
 template <int DP, int N, bool SPLIT = true, bool HI_FIRST = false>
 __device__ __forceinline__ void issue_times(float (&acc)[DP / 2],
                                             const uint32_t (&xh)[N / 16][4],

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
   if constexpr (P::kOne) {   // v lands under q k^T and the softmax
     land_v(0);
     wg::cp_async_commit();
-    sx::cp_async_wait<1>();
+    wg::cp_async_wait<1>();
     wg::fence_proxy_async();
     __syncthreads();
   } else {

@@ -28,8 +28,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("int8_linear", "small_s_attention", "mips_candidates",
-           "group_attention", "attention_fwd_wgmma", "attention_bwd_wgmma",
-           "fused_ffn", "int8_ffn", "ffn_fwd")
+           "attention_fwd_wgmma", "attention_bwd_wgmma", "fused_ffn",
+           "int8_ffn", "ffn_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

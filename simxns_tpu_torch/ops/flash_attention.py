@@ -10,8 +10,9 @@ the kernels do not take goes to the plain attention.
 
 The grouped pair is ported as two hand-written CUDA kernels:
 
-- K5 :func:`group_attention_fwd` (``csrc/group_attention.cu``) replaces
-  ``_fwd_call_group`` (kernel ``_fwd_kernel_group``,
+- K5 :func:`group_attention_fwd` (``csrc/attention_fwd_wgmma.cu``, on
+  ``wgmma``, K7's source: ``group_attention_fwd_kernel``, its route below
+  S = 256) replaces ``_fwd_call_group`` (kernel ``_fwd_kernel_group``,
   ``flash_attention.py:113``);
 - K6 :func:`group_attention_bwd` (``csrc/attention_bwd_wgmma.cu``, on
   ``wgmma``) replaces ``_fused_group_bwd`` (kernel ``_bwd_kernel_group``,
@@ -85,7 +86,7 @@ _MAX_FUSED_SEQ = 1024         # simxns_tpu/ops/flash_attention.py:38
 _MIN_FUSED_SEQ = 256          # :42
 _NEG = -1e9
 SMALL_S_IMPL = "xla"          # :49
-_MAX_GROUP_S = 255            # csrc/group_attention.cu kMaxS
+_MAX_GROUP_S = 255            # csrc/attention_fwd_wgmma.cu kMaxGroupS
 _MAX_BH_S = 1024              # csrc/attention_wgmma.cuh kMaxS
 _MAX_KERNEL_D = 128           # the widest template instance of the kernels
 
@@ -409,13 +410,14 @@ for _wrapper in (group_attention_fwd, group_attention_bwd, bh_attention_fwd,
                  bh_attention_bwd):
     _wrapper.f32 = F32Instance(_wrapper)
 
-# K5's and K7's f32 instance: K7's forward on wgmma
-# (csrc/attention_fwd_wgmma.cu); K6's and K8's: K8's backward on wgmma
-# (csrc/attention_bwd_wgmma.cu, K6's bf16 kernel's source too)
+# K5's and K7's f32 instance: the forward on wgmma
+# (csrc/attention_fwd_wgmma.cu, both bf16 kernels' source too); K6's and
+# K8's: K8's backward on wgmma (csrc/attention_bwd_wgmma.cu, K6's bf16
+# kernel's source too)
 _F32_FWD = ("attention_fwd_wgmma", "sx_attention_fwd_f32")
 _F32_BWD = ("attention_bwd_wgmma", "sx_attention_bwd_f32")
-_K5 = _fwd_launch(("group_attention", "sx_group_attention_fwd"), _F32_FWD,
-                  group_attention_fwd)
+_K5 = _fwd_launch(("attention_fwd_wgmma", "sx_group_attention_fwd"),
+                  _F32_FWD, group_attention_fwd)
 _K6 = _bwd_launch(("attention_bwd_wgmma", "sx_group_attention_bwd"),
                   _F32_BWD, group_attention_bwd)
 _K7 = _fwd_launch(("attention_fwd_wgmma", "sx_bh_attention_fwd"), _F32_FWD,

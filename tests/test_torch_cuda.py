@@ -765,11 +765,16 @@ GROUP_EDGES = [(3, 2, s, d)
 # instances on the 16 grid and, off it, the next instance over zero pads
 GROUP_WIDTHS = [(2, 3, 160, d) for d in (16, 48, 80, 96, 112, 8, 24, 72)]
 
+# those widths at K5's edges: one key, around its 32-key tiles and its
+# 64-row query tiles, the longest S of the route
+GROUP_WIDTH_EDGES = [(2, 3, s, d) for s in (1, 31, 32, 33, 192, 193, 255)
+                     for _, _, _, d in GROUP_WIDTHS]
+
 
 @pytest.mark.parametrize("b,heads,s,d", [(3, 2, 1, 64), (3, 2, 17, 32),
                                          (2, 4, 160, 64), (1, 2, 255, 128),
                                          (5, 3, 40, 128)] + GROUP_EDGES
-                         + GROUP_WIDTHS)
+                         + GROUP_WIDTHS + GROUP_WIDTH_EDGES)
 def test_group_attention_matches_plain(dev, b, heads, s, d):
     """K5 against its plain version: the f32 results round to bf16 on both
     sides (one bf16 step, <= 2^-8 max|v| at |o| <= max|v| / 2); K6's
@@ -905,6 +910,29 @@ def test_k7_two_calls_are_bitwise_equal(dev, b, heads, s, d):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("b,heads,s,d", [(128, 16, 160, 64), (2, 3, 255, 80),
+                                         (3, 2, 192, 64), (3, 2, 17, 32)])
+def test_k5_two_calls_are_bitwise_equal(dev, b, heads, s, d):
+    """K5's bf16 kernel (``group_attention_fwd_kernel`` in
+    csrc/attention_fwd_wgmma.cu, no atomics) at the reranker's shape, a
+    padded width and short S: two calls give bitwise equal o, and the
+    profiler sees K5's kernel, not K7's ``attention_fwd``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, _, mask = _attention_inputs(dev, b, heads, s, d, seed=s + 3)
+    mask[0] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first = fa.group_attention_fwd(q, k, v, mask)
+        torch.cuda.synchronize()
+    second = fa.group_attention_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("group_attention_fwd_kernel" in n for n in names), names
+    assert not any("attention_fwd<" in n for n in names), names
+
+
 # K6's route by S and width: its one-launch kernel up to S = 192 at d <=
 # 64, K8's two passes beyond and past d = 64 (csrc/attention_bwd_wgmma.cu,
 # group_by_length)
@@ -947,12 +975,12 @@ def test_k6_runs_its_wgmma_kernel(dev, b, heads, s, d):
         assert cos >= 0.9999, cos
 
 
-@pytest.mark.parametrize("name", ["attention_fwd_wgmma",
+@pytest.mark.parametrize("name", ["small_s_attention", "attention_fwd_wgmma",
                                   "attention_bwd_wgmma"])
-def test_k6_k7_libraries_run_on_wgmma(dev, name):
-    """The libraries of K7 and K6 (and K8, the f32 instances) as built:
-    their SASS holds HGMMA (wgmma) and no HMMA (mma.sync), and ptxas
-    reports no spills for any of their kernels."""
+def test_attention_libraries_run_on_wgmma(dev, name):
+    """Every attention library as built (K3; K5 and K7; K6 and K8; the f32
+    instances): its SASS holds HGMMA (wgmma) and no HMMA (mma.sync), and
+    ptxas reports no spills for any of its kernels."""
     import shutil
     import subprocess
 

@@ -337,18 +337,21 @@ def test_f32_backward_tiles_match_interpreted_kernel(tile):
 
 # --- the algorithm of the one-pass forward kernels (K5, K7) ------------------
 
-# K5's key tiles (csrc/group_attention.cu kGroupKeys); K7's are 64 keys
+# K5's key tiles (csrc/attention_fwd_wgmma.cu, by_length_bf16 below S =
+# 256); K7's are 64 keys
 GROUP_KEYS = 32
 
 
 def _tiled_fwd_model(q, k, v, mask, tile):
-    """The one-pass walk of K5 and K7 (attention_ring.cuh's
-    attend_one_pass) over key tiles of ``tile`` rows, in f32 PyTorch:
-    scores in the log2 domain (scale * log2(e)), -1e9 log2(e) for a masked
-    key and -inf past S in the last tile; each row keeps a running max and
-    a sum of 2^(s - max), both the sum and the output accumulator rescaled
-    by 2^(max_old - max_new) when the max grows; one reciprocal of the sum
-    a row at the end. -> o as a numpy array."""
+    """The one-pass walk of K5 and K7 (csrc/attention_fwd_wgmma.cu,
+    ``attend``) over key tiles of ``tile`` rows, in f32 PyTorch: scores in
+    the log2 domain (scale * log2(e)), -1e9 log2(e) for a masked key and
+    -inf past S in the last tile; each row keeps a running max and a sum
+    of 2^(s - max), both the sum and the output accumulator rescaled by
+    2^(max_old - max_new) when the max grows; one reciprocal of the sum a
+    row at the end. (The kernel gives every key of a batch row with none
+    real the score 0 instead of -1e9 log2(e): the same uniform softmax.)
+    -> o as a numpy array."""
     q, k, v = (torch.from_numpy(x).float() for x in (q, k, v))
     b, h, s, d = q.shape
     n = -(-s // tile)
@@ -626,6 +629,33 @@ def _bf16_values(*xs):
 
 def _bf16_round(x):
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("s", [1, 17, 63, 64, 65, 160, 192, 255])
+def test_k5_bf16_walk_matches_interpreted_kernel(s):
+    """K5's bf16 walk (csrc/attention_fwd_wgmma.cu, by_length_bf16 below S
+    = 256) is the f32 forward's walk (:func:`_tiled_f32_fwd_model`) on
+    bf16 values over key tiles of GROUP_KEYS and blocks of 64 query rows.
+    In f32, against ``_fwd_call_group`` on the same values in f32, within
+    2^-16 of max|v| (p keeps ~16 bits as hi + lo); rounded to bf16 once,
+    against ``_fwd_call_group`` on bf16 inputs, within one bf16 step
+    (2^-8 max|v|). Batch row 2 has every key masked (the uniform softmax
+    over its S keys)."""
+    q, k, v, _, mask = _inputs(3, 2, s, 16, seed=s + 9)
+    mask[2] = 0
+    q, k, v = _bf16_values(q, k, v)
+    got = _tiled_f32_fwd_model(q, k, v, mask, tile=GROUP_KEYS, rows=64)
+    vmax = np.abs(v).max()
+    want = np.asarray(jfa._fwd_call_group(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask)), np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 2.0 ** -16 * vmax
+    want16 = np.asarray(jfa._fwd_call_group(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(mask)), np.float32)
+    assert np.abs(_bf16_round(got) - want16).max() <= 2.0 ** -8 * vmax
+    uniform = v[2].mean(axis=1)                      # [heads, d]
+    assert np.abs(got[2] - uniform[:, None, :]).max() <= 2.0 ** -16 * vmax
 
 
 @pytest.mark.parametrize("s", [256, 300, 1024])
