@@ -1,0 +1,7 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+card: the window's wall time less the union of the device's intervals.
+Moves ``encode_passages_per_s``."""
+
+
+def read(view):
+    return view.idle_percent()
